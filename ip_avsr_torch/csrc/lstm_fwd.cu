@@ -1,0 +1,176 @@
+// Masked LSTM recurrence (inference, no peepholes) for Hopper, f32.
+//
+// Replaces the TPU kernel ip_avsr_tpu/ops/pallas/lstm_kernel.py::_lstm_fwd_kernel
+// as launched by lstm_pallas (emit_residuals=False).  Per step t:
+//     gates = x_proj[:, t] + h_{t-1} @ W_hid          (gate order i, f, c, o)
+//     c'    = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(c)
+//     h'    = sigmoid(o) * tanh(c')
+//     (c_t, h_t) = m * (c', h') + (1 - m) * (c_{t-1}, h_{t-1})   (mask carry)
+// The hoisted input projection x @ W_in + b stays a cuBLAS product outside
+// (as XLA computed it outside the Pallas kernel); h @ W_hid is computed here.
+//
+// Bound: the serial chain of T steps, each of which must read all of W_hid
+// (H x 4H f32, 4 MB at H = 500) and exchange h across the whole card.  The TPU
+// kept W_hid resident in one core's VMEM; on Hopper it does not fit one SM's
+// shared memory, so this design partitions by hidden unit instead: a block
+// owns kUnits hidden units j, hence gate columns {j, H+j, 2H+j, 3H+j}, so the
+// gate math and the cell state stay local to the block.  W_hid is read from
+// global memory every step and stays in the 50 MB L2 across steps.  Only h
+// crosses blocks, through global memory between launches: the C entry point
+// issues one launch per time step on the caller's stream (T launches per
+// call), so the launch boundary is the step barrier.  A persistent kernel
+// with a grid or cluster barrier, bf16 W_hid and wgmma are later work.
+//
+// Layouts are batch-major, the port's public layout, so no transpose is
+// needed: x_proj (B, T, 4H), mask (B, T), out (B, T, H).  Step t reads
+// h_{t-1} from out[:, t-1] (or hid0 at t = 0) and writes out[:, t]; the cell
+// state (B, H) is updated in place, each element by exactly one thread.
+#include <cuda_runtime.h>
+
+namespace {
+
+// 4 units per block gives H / 4 = 125 blocks at H = 500, about one per SM of
+// the 132; 8 units (63 blocks) measured slower.
+constexpr int kUnits = 4;   // hidden units per block -> 4 * kUnits gate columns
+constexpr int kSplit = 16;  // slices of the length-H dot product per column
+constexpr int kRowsB = 8;   // batch rows per block
+constexpr int kCols = 4 * kUnits;
+constexpr int kThreads = kCols * kSplit;  // 256
+constexpr int kStage = 2;   // h elements per row and thread staged per round
+
+__device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// A step is a short chain of memory round trips (h_{t-1}, then W_hid, then
+// the gate inputs), so the kernel keeps as many loads in flight as it can:
+// the gate inputs are fetched first, h_{t-1} is staged through registers in
+// whole rounds (a store to shared memory between two loads would serialise
+// them), and the dot-product loop is unrolled by 8 (16 measured the same,
+// 32 slower).
+__global__ void __launch_bounds__(kThreads)
+lstm_step_kernel(const float* __restrict__ x_proj, const float* __restrict__ w_hid,
+                 const float* __restrict__ mask, const float* h_prev,
+                 long long h_stride, float* __restrict__ cell, float* out,
+                 int B, int T, int H, int t) {
+  extern __shared__ float smem[];
+  float* hs = smem;                   // (kRowsB, H): h_{t-1} of this block's rows
+  float* part = smem + kRowsB * H;    // (kSplit, kRowsB, kCols): partial dots
+  const int j0 = blockIdx.x * kUnits;
+  const int b0 = blockIdx.y * kRowsB;
+  const int nb = min(kRowsB, B - b0);
+  const int tid = threadIdx.x;
+
+  // gate-stage thread (gr, gu): batch row b0 + gr, hidden unit j0 + gu
+  const int gr = tid / kUnits;
+  const int gu = tid % kUnits;
+  const bool gate_live = tid < kRowsB * kUnits && gr < nb && j0 + gu < H;
+  const size_t gb = b0 + gr;
+  const size_t gj = j0 + gu;
+  float xin[4] = {0.f, 0.f, 0.f, 0.f};
+  float c_prev = 0.f, m = 0.f;
+  if (gate_live) {
+    const float* xp = x_proj + (gb * T + t) * 4 * static_cast<size_t>(H) + gj;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) xin[q] = __ldg(xp + static_cast<size_t>(q) * H);
+    m = __ldg(mask + gb * T + t);
+    c_prev = cell[gb * H + gj];
+  }
+
+  for (int k0 = 0; k0 < H; k0 += kStage * kThreads) {
+    float v[kRowsB][kStage];
+#pragma unroll
+    for (int r = 0; r < kRowsB; ++r) {
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int k = k0 + u * kThreads + tid;
+        v[r][u] = (r < nb && k < H)
+                      ? __ldg(h_prev + static_cast<size_t>(b0 + r) * h_stride + k) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsB; ++r) {
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int k = k0 + u * kThreads + tid;
+        if (k < H) hs[r * H + k] = v[r][u];
+      }
+    }
+  }
+  __syncthreads();
+
+  // Thread (col, ks): column col = g * kUnits + u of gate g for unit j0 + u,
+  // summing k = ks, ks + kSplit, ...  A warp is two ks across all 16
+  // columns, so each hs[r * H + k] read is a broadcast.
+  const int col = tid % kCols;
+  const int ks = tid / kCols;
+  const int g = col / kUnits;
+  const int j = j0 + col % kUnits;
+  float acc[kRowsB];
+#pragma unroll
+  for (int r = 0; r < kRowsB; ++r) acc[r] = 0.f;
+  if (j < H) {
+    const float* wcol = w_hid + static_cast<size_t>(g) * H + j;
+    const size_t ld = static_cast<size_t>(4) * H;
+#pragma unroll 8
+    for (int k = ks; k < H; k += kSplit) {
+      const float w = __ldg(wcol + k * ld);
+#pragma unroll
+      for (int r = 0; r < kRowsB; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsB; ++r) part[(ks * kRowsB + r) * kCols + col] = acc[r];
+  __syncthreads();
+
+  if (gate_live) {
+    float gate[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float s = 0.f;
+#pragma unroll
+      for (int p = 0; p < kSplit; ++p) s += part[(p * kRowsB + gr) * kCols + q * kUnits + gu];
+      gate[q] = xin[q] + s;
+    }
+    const float h_prev_v = hs[gr * H + gj];
+    const float c_new = sigm(gate[1]) * c_prev + sigm(gate[0]) * tanhf(gate[2]);
+    const float h_new = sigm(gate[3]) * tanhf(c_new);
+    cell[gb * H + gj] = m * c_new + (1.0f - m) * c_prev;
+    out[(gb * T + t) * H + gj] = m * h_new + (1.0f - m) * h_prev_v;
+  }
+}
+
+}  // namespace
+
+extern "C" size_t lstm_fwd_smem_bytes(int H) {
+  return (static_cast<size_t>(kRowsB) * H + kSplit * kRowsB * kCols) * sizeof(float);
+}
+
+// Runs all T steps on `stream`.  `cell` (B, H) holds cell0 on entry and the
+// final cell state on return; `hid0` (B, H) is read at t = 0.  Returns the
+// first CUDA error (0 on success).
+extern "C" int lstm_fwd_forward(const void* x_proj, const void* w_hid, const void* mask,
+                                const void* hid0, void* cell, void* out,
+                                int B, int T, int H, void* stream) {
+  const size_t smem = lstm_fwd_smem_bytes(H);
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((H + kUnits - 1) / kUnits, (B + kRowsB - 1) / kRowsB);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x_proj);
+  const float* w = static_cast<const float*>(w_hid);
+  const float* m = static_cast<const float*>(mask);
+  float* c = static_cast<float*>(cell);
+  float* o = static_cast<float*>(out);
+  for (int t = 0; t < T; ++t) {
+    const float* h = t == 0 ? static_cast<const float*>(hid0) : o + static_cast<size_t>(t - 1) * H;
+    const long long stride = t == 0 ? H : static_cast<long long>(T) * H;
+    lstm_step_kernel<<<grid, kThreads, smem, s>>>(xp, w, m, h, stride, c, o, B, T, H, t);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+extern "C" const char* lstm_fwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

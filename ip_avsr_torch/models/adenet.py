@@ -1,0 +1,208 @@
+"""The AdeNet composer, inference path.
+
+Mirrors ip_avsr_tpu/models/adenet.py: per stream, (B, T, D) -> optional dense
+encoder on (B*T, D) frames -> optional DeltaLayer (dim x3) -> optional stream
+LSTM; then fusion {sum | adasum | concat}; then an aggregator of
+(bi)directional LSTM layers whose halves are summed; then a per-timestep
+softmax ("per_step") or a last-timestep classifier ("last_step").
+
+``StreamSpec`` and ``AdeNetConfig`` carry the JAX dataclasses' fields, field
+for field.  Values this slice does not cover raise ``NotImplementedError``
+naming the ROADMAP item that brings them.  Dropout rates are train-time only
+and ``lstm_impl``, ``lstm_remat`` and ``lstm_residual_dtype`` select TPU
+backends or training levers; at inference none of them changes the result,
+and the recurrence runs the CUDA kernel whenever its tensors are on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+
+from ip_avsr_torch.device import resolve_device, tree_to
+from ip_avsr_torch.models import encoder as encoder_mod
+from ip_avsr_torch.ops import fusion as fusion_ops
+from ip_avsr_torch.ops import initializers as inits
+from ip_avsr_torch.ops import lstm as lstm_ops
+from ip_avsr_torch.ops.delta import delta_layer
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamSpec:
+    """Configuration of one input stream."""
+
+    input_dim: int
+    name: str = "stream"
+    encoder_shapes: Optional[Sequence[int]] = None
+    encoder_nonlinearities: Optional[Sequence] = None
+    use_batchnorm: bool = False
+    use_delta: bool = True
+    dropout: float = 0.0
+    use_lstm: bool = True
+    lstm_size: Optional[int] = None
+
+    def encoded_dim(self) -> int:
+        d = self.encoder_shapes[-1] if self.encoder_shapes else self.input_dim
+        return int(d)
+
+    def feature_dim(self) -> int:
+        return self.encoded_dim() * (3 if self.use_delta else 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdeNetConfig:
+    streams: Sequence[StreamSpec]
+    output_classes: int
+    lstm_size: int = 250
+    window: int = 9
+    fusiontype: str = "sum"
+    agg_layers: int = 1
+    agg_bidirectional: bool = True
+    agg_size: Optional[int] = None
+    agg_sizes: Optional[Sequence[int]] = None
+    agg_dropout: float = 0.0
+    output_mode: str = "per_step"
+    use_peepholes: bool = False
+    w_init: str = "glorot"
+    matmul_dtype: Optional[str] = None
+    fuse_scans: bool = False
+    lstm_impl: str = "xla"
+    lstm_remat: bool = False
+    lstm_residual_dtype: Optional[str] = None
+
+    def stream_lstm_size(self, spec: StreamSpec) -> int:
+        return int(spec.lstm_size or self.lstm_size)
+
+    def stream_out_dim(self, spec: StreamSpec) -> int:
+        return self.stream_lstm_size(spec) if spec.use_lstm else spec.feature_dim()
+
+    def fused_dim(self) -> int:
+        return fusion_ops.fused_dim(
+            [self.stream_out_dim(s) for s in self.streams], self.fusiontype)
+
+    def aggregator_sizes(self) -> list:
+        if self.agg_sizes is not None:
+            if len(self.agg_sizes) != self.agg_layers:
+                raise ValueError(f"agg_sizes {self.agg_sizes} must have "
+                                 f"agg_layers={self.agg_layers} entries")
+            return [int(s) for s in self.agg_sizes]
+        return [int(self.agg_size or self.lstm_size)] * self.agg_layers
+
+    def classifier_in_dim(self) -> int:
+        sizes = self.aggregator_sizes()
+        return sizes[-1] if sizes else self.fused_dim()
+
+
+def check_supported(config: AdeNetConfig, train: bool = False) -> None:
+    """Raise ``NotImplementedError`` for the config values this slice does
+    not cover, naming the ROADMAP item that brings each."""
+    todo = []
+    if train:
+        todo.append("train=True (Queue 1 item 3: flagship training step)")
+    if config.use_peepholes:
+        todo.append("use_peepholes=True (Queue 1 item 6 and Queue 2 item 5: "
+                    "peephole LSTM)")
+    if config.fuse_scans:
+        todo.append("fuse_scans=True (Queue 1 item 6: lstm_forward_grouped)")
+    if config.matmul_dtype is not None:
+        todo.append(f"matmul_dtype={config.matmul_dtype!r} (this slice serves "
+                    "f32 only; bf16 W_hid comes with the faster LSTM kernel)")
+    if any(s.use_batchnorm for s in config.streams):
+        todo.append("use_batchnorm (Queue 1 item 6: ops/normalization)")
+    if todo:
+        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+
+
+def init_adenet_params(generator: torch.Generator, config: AdeNetConfig,
+                       device=None) -> dict:
+    """Build the parameter tree with the JAX package's keys and layouts,
+    drawn from ``generator`` on the CPU and moved to ``device`` (default
+    ``cuda``)."""
+    check_supported(config)
+    device = resolve_device(device)
+    w_init = inits.select_weight_init(config.w_init)
+    params: dict = {"streams": {}}
+    for spec in config.streams:
+        sp: dict = {}
+        if spec.encoder_shapes:
+            sp["encoder"] = encoder_mod.init_encoder_params(
+                generator, spec.input_dim, spec.encoder_shapes, w_init)
+        if spec.use_lstm:
+            sp["lstm"] = lstm_ops.init_lstm_params(
+                generator, spec.feature_dim(), config.stream_lstm_size(spec), w_init)
+        params["streams"][spec.name] = sp
+    if config.fusiontype == "adasum":
+        params["adasum"] = fusion_ops.init_adasum_params(len(config.streams))
+    in_dim = config.fused_dim()
+    params["aggregator"] = []
+    for agg in config.aggregator_sizes():
+        layer = {"fwd": lstm_ops.init_lstm_params(generator, in_dim, agg, w_init)}
+        if config.agg_bidirectional:
+            layer["bwd"] = lstm_ops.init_lstm_params(generator, in_dim, agg, w_init)
+        params["aggregator"].append(layer)
+        in_dim = agg
+    params["output"] = {
+        "w": w_init(generator, (config.classifier_in_dim(), config.output_classes)),
+        "b": torch.zeros(config.output_classes),
+    }
+    return tree_to(params, device)
+
+
+def adenet_forward(params: dict, config: AdeNetConfig, inputs, mask: torch.Tensor,
+                   window: Optional[int] = None, train: bool = False) -> torch.Tensor:
+    """Run the model.  ``inputs[i]`` is (B, T, D_i); ``mask`` is (B, T).
+
+    Returns (B, T, C) per-timestep probabilities ("per_step") or (B, C)
+    probabilities ("last_step")."""
+    check_supported(config, train)
+    stream_feats = stream_prefix(params, config, inputs, window)
+    return head_forward(params, config, stream_feats, mask)
+
+
+def stream_prefix(params, config: AdeNetConfig, inputs, window=None) -> list:
+    """The frame-parallel part: per stream, encoder -> delta."""
+    window = config.window if window is None else window
+    B, T = inputs[0].shape[0], inputs[0].shape[1]
+    stream_feats = []
+    for i, spec in enumerate(config.streams):
+        sp = params["streams"][spec.name]
+        x = inputs[i]
+        if spec.encoder_shapes:
+            enc = encoder_mod.encoder_forward(
+                sp["encoder"], x.reshape(B * T, spec.input_dim),
+                spec.encoder_nonlinearities)
+            x = enc.reshape(B, T, -1)
+        if spec.use_delta:
+            x = delta_layer(x.contiguous(), window)
+        stream_feats.append(x)
+    return stream_feats
+
+
+def head_forward(params, config: AdeNetConfig, stream_feats, mask) -> torch.Tensor:
+    """The recurrent part: per-stream LSTMs -> fusion -> aggregator
+    (B)LSTM stack -> classifier head."""
+    B, T = stream_feats[0].shape[0], stream_feats[0].shape[1]
+    stream_outs = list(stream_feats)
+    for i, spec in enumerate(config.streams):
+        if spec.use_lstm:
+            stream_outs[i] = lstm_ops.lstm_forward(
+                params["streams"][spec.name]["lstm"], stream_feats[i], mask)
+
+    agg = fusion_ops.fuse(stream_outs, config.fusiontype, params.get("adasum"))
+    for layer in range(config.agg_layers):
+        lp = params["aggregator"][layer]
+        if config.agg_bidirectional:
+            agg = lstm_ops.blstm_forward(lp["fwd"], lp["bwd"], agg, mask)
+        else:
+            agg = lstm_ops.lstm_forward(lp["fwd"], agg, mask)
+
+    w, b = params["output"]["w"], params["output"]["b"]
+    if config.output_mode == "per_step":
+        probs = torch.softmax(agg.reshape(B * T, -1) @ w + b, dim=-1)
+        return probs.reshape(B, T, config.output_classes)
+    if config.output_mode == "last_step":
+        last = lstm_ops.last_valid_step(agg, mask)
+        return torch.softmax(last @ w + b, dim=-1)
+    raise ValueError(f"unknown output_mode: {config.output_mode}")

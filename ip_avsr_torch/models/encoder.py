@@ -1,0 +1,58 @@
+"""Dense "DBNF" encoder stacks.
+
+Mirrors ip_avsr_tpu/models/encoder.py: a chain of dense layers named
+fc1, fc2, fc3, bottleneck (then fc5, fc6, ...) with per-layer
+nonlinearities, applied to (B*T, D) flattened frames.  The dense products are
+``torch.matmul``: the JAX package has no Pallas kernel for them either.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ip_avsr_torch.ops import initializers as inits
+from ip_avsr_torch.ops.nonlinearities import select_nonlinearity
+
+DEFAULT_NAMES = ("fc1", "fc2", "fc3", "bottleneck")
+
+
+def init_encoder_params(generator, input_dim: int, shapes: Sequence[int],
+                        w_init=inits.glorot_uniform, dtype=torch.float32) -> dict:
+    """Fresh dense stack on the CPU."""
+    params = {}
+    fan_in = input_dim
+    for i, units in enumerate(shapes):
+        name = DEFAULT_NAMES[i] if i < len(DEFAULT_NAMES) else f"fc{i + 1}"
+        params[name] = {
+            "w": w_init(generator, (fan_in, int(units)), dtype),
+            "b": torch.zeros(int(units), dtype=dtype),
+        }
+        fan_in = int(units)
+    return params
+
+
+def encoder_forward(params: dict, x: torch.Tensor, nonlinearities: Sequence,
+                    names=None) -> torch.Tensor:
+    """Apply the dense stack to (..., D) inputs."""
+    names = names or sorted(params.keys(), key=_layer_sort_key)
+    if len(nonlinearities) != len(names):
+        raise ValueError(
+            f"encoder has {len(names)} layers {list(names)} but "
+            f"{len(nonlinearities)} nonlinearities {list(nonlinearities)}")
+    out = x
+    for name, nl in zip(names, nonlinearities):
+        out = select_nonlinearity(nl)(
+            torch.matmul(out, params[name]["w"]) + params[name]["b"])
+    return out
+
+
+def _layer_sort_key(name: str):
+    """fc1 < fc2 < fc3 < bottleneck < fc5 < ... < fc10: the overflow names
+    sort numerically, so deep stacks keep their order."""
+    order = {n: i for i, n in enumerate(DEFAULT_NAMES)}
+    if name in order:
+        return (order[name], 0)
+    digits = "".join(c for c in name if c.isdigit())
+    return (99, int(digits) if digits else 0)
