@@ -6,8 +6,9 @@ on ``cuda`` unless the caller passes ``device="cpu"``; every hand-written
 kernel (``ops/kernels/``, sources in ``csrc/``) has a plain PyTorch version
 beside it that runs only for tensors on the CPU.
 
-This slice covers the flagship trimodal AdeNet-v3 inference path, from raw
-uint8 ROI frames to class scores (``serve.make_trimodal_server``).
+The port covers the flagship trimodal AdeNet-v3: its inference path, from
+raw uint8 ROI frames to class scores (``serve.make_trimodal_server``), and
+its training step (``train.trainer.make_train_step``).
 """
 
 from ip_avsr_torch.device import resolve_device

@@ -1,7 +1,12 @@
-// Masked LSTM recurrence (inference, no peepholes) for Hopper, f32.
+// Masked LSTM recurrence (no peepholes) for Hopper, f32.
 //
 // Replaces the TPU kernel ip_avsr_tpu/ops/pallas/lstm_kernel.py::_lstm_fwd_kernel
-// as launched by lstm_pallas (emit_residuals=False).  Per step t:
+// in both of its launches: lstm_pallas (emit_residuals=False, inference) and
+// lstm_pallas_train (emit_residuals=True, the training forward, which also
+// writes the post-mask cells and the pre-activation gates for the backward
+// chain in lstm_bwd.cu).  As on the TPU, one body serves both, so inference
+// and training share one set of numerics; the inference instantiation makes
+// no residual stores.  Per step t:
 //     gates = x_proj[:, t] + h_{t-1} @ W_hid          (gate order i, f, c, o)
 //     c'    = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(c)
 //     h'    = sigmoid(o) * tanh(c')
@@ -22,9 +27,10 @@
 // with a grid or cluster barrier, bf16 W_hid and wgmma are later work.
 //
 // Layouts are batch-major, the port's public layout, so no transpose is
-// needed: x_proj (B, T, 4H), mask (B, T), out (B, T, H).  Step t reads
-// h_{t-1} from out[:, t-1] (or hid0 at t = 0) and writes out[:, t]; the cell
-// state (B, H) is updated in place, each element by exactly one thread.
+// needed: x_proj (B, T, 4H), mask (B, T), out (B, T, H), and the residuals
+// cells (B, T, H) and gates (B, T, 4H).  Step t reads h_{t-1} from
+// out[:, t-1] (or hid0 at t = 0) and writes out[:, t]; the cell state (B, H)
+// is updated in place, each element by exactly one thread.
 #include <cuda_runtime.h>
 
 namespace {
@@ -45,11 +51,15 @@ __device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v))
 // the gate inputs are fetched first, h_{t-1} is staged through registers in
 // whole rounds (a store to shared memory between two loads would serialise
 // them), and the dot-product loop is unrolled by 8 (16 measured the same,
-// 32 slower).
+// 32 slower).  With EmitResiduals the gate-stage threads also store the
+// post-mask cell to cells[:, t] and the four pre-activation gates to
+// gates[:, t]; otherwise those pointers are unused.
+template <bool EmitResiduals>
 __global__ void __launch_bounds__(kThreads)
 lstm_step_kernel(const float* __restrict__ x_proj, const float* __restrict__ w_hid,
                  const float* __restrict__ mask, const float* h_prev,
                  long long h_stride, float* __restrict__ cell, float* out,
+                 float* __restrict__ cells, float* __restrict__ gates,
                  int B, int T, int H, int t) {
   extern __shared__ float smem[];
   float* hs = smem;                   // (kRowsB, H): h_{t-1} of this block's rows
@@ -133,9 +143,44 @@ lstm_step_kernel(const float* __restrict__ x_proj, const float* __restrict__ w_h
     const float h_prev_v = hs[gr * H + gj];
     const float c_new = sigm(gate[1]) * c_prev + sigm(gate[0]) * tanhf(gate[2]);
     const float h_new = sigm(gate[3]) * tanhf(c_new);
-    cell[gb * H + gj] = m * c_new + (1.0f - m) * c_prev;
+    const float c_out = m * c_new + (1.0f - m) * c_prev;
+    cell[gb * H + gj] = c_out;
     out[(gb * T + t) * H + gj] = m * h_new + (1.0f - m) * h_prev_v;
+    if constexpr (EmitResiduals) {
+      cells[(gb * T + t) * H + gj] = c_out;
+      float* gp = gates + (gb * T + t) * 4 * static_cast<size_t>(H) + gj;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) gp[static_cast<size_t>(q) * H] = gate[q];
+    }
   }
+}
+
+// Runs all T steps of one instantiation on `stream`; see the entry points.
+template <bool EmitResiduals>
+int run_steps(const void* x_proj, const void* w_hid, const void* mask, const void* hid0,
+              void* cell, void* out, void* cells, void* gates, int B, int T, int H,
+              size_t smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(lstm_step_kernel<EmitResiduals>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((H + kUnits - 1) / kUnits, (B + kRowsB - 1) / kRowsB);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x_proj);
+  const float* w = static_cast<const float*>(w_hid);
+  const float* m = static_cast<const float*>(mask);
+  float* c = static_cast<float*>(cell);
+  float* o = static_cast<float*>(out);
+  for (int t = 0; t < T; ++t) {
+    const float* h = t == 0 ? static_cast<const float*>(hid0) : o + static_cast<size_t>(t - 1) * H;
+    const long long stride = t == 0 ? H : static_cast<long long>(T) * H;
+    lstm_step_kernel<EmitResiduals><<<grid, kThreads, smem, s>>>(
+        xp, w, m, h, stride, c, o, static_cast<float*>(cells), static_cast<float*>(gates),
+        B, T, H, t);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -150,25 +195,17 @@ extern "C" size_t lstm_fwd_smem_bytes(int H) {
 extern "C" int lstm_fwd_forward(const void* x_proj, const void* w_hid, const void* mask,
                                 const void* hid0, void* cell, void* out,
                                 int B, int T, int H, void* stream) {
-  const size_t smem = lstm_fwd_smem_bytes(H);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((H + kUnits - 1) / kUnits, (B + kRowsB - 1) / kRowsB);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xp = static_cast<const float*>(x_proj);
-  const float* w = static_cast<const float*>(w_hid);
-  const float* m = static_cast<const float*>(mask);
-  float* c = static_cast<float*>(cell);
-  float* o = static_cast<float*>(out);
-  for (int t = 0; t < T; ++t) {
-    const float* h = t == 0 ? static_cast<const float*>(hid0) : o + static_cast<size_t>(t - 1) * H;
-    const long long stride = t == 0 ? H : static_cast<long long>(T) * H;
-    lstm_step_kernel<<<grid, kThreads, smem, s>>>(xp, w, m, h, stride, c, o, B, T, H, t);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  return run_steps<false>(x_proj, w_hid, mask, hid0, cell, out, nullptr, nullptr, B, T, H,
+                          lstm_fwd_smem_bytes(H), stream);
+}
+
+// The training forward: as lstm_fwd_forward, and also writes the residuals
+// cells (B, T, H) and gates (B, T, 4H).
+extern "C" int lstm_fwd_train_forward(const void* x_proj, const void* w_hid, const void* mask,
+                                      const void* hid0, void* cell, void* out, void* cells,
+                                      void* gates, int B, int T, int H, void* stream) {
+  return run_steps<true>(x_proj, w_hid, mask, hid0, cell, out, cells, gates, B, T, H,
+                         lstm_fwd_smem_bytes(H), stream);
 }
 
 extern "C" const char* lstm_fwd_error_string(int code) {

@@ -23,6 +23,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf to a nested dict/list/tuple tree and the
+    trees of the same structure in ``rest``; the structure is kept.  Leaves
+    are visited in a fixed order: dict keys as inserted, sequences in
+    order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
 def tree_to(tree, device: torch.device):
     """Move every tensor of a nested dict/list/tuple parameter tree to
     ``device`` (structure and keys unchanged)."""

@@ -1,4 +1,4 @@
-"""The AdeNet composer, inference path.
+"""The AdeNet composer.
 
 Mirrors ip_avsr_tpu/models/adenet.py: per stream, (B, T, D) -> optional dense
 encoder on (B*T, D) frames -> optional DeltaLayer (dim x3) -> optional stream
@@ -8,10 +8,12 @@ softmax ("per_step") or a last-timestep classifier ("last_step").
 
 ``StreamSpec`` and ``AdeNetConfig`` carry the JAX dataclasses' fields, field
 for field.  Values this slice does not cover raise ``NotImplementedError``
-naming the ROADMAP item that brings them.  Dropout rates are train-time only
-and ``lstm_impl``, ``lstm_remat`` and ``lstm_residual_dtype`` select TPU
-backends or training levers; at inference none of them changes the result,
-and the recurrence runs the CUDA kernel whenever its tensors are on the card.
+naming the ROADMAP item that brings them.  Dropout (``train=True``) follows
+Lasagne's DropoutLayer with its 1/(1-p) rescale, drawing from an explicit
+``torch.Generator``; its bits differ from JAX's.  ``lstm_impl``,
+``lstm_remat`` and ``lstm_residual_dtype`` select TPU backends or TPU memory
+levers and change no result here: the recurrences run the CUDA kernels
+whenever their tensors are on the card.
 """
 
 from __future__ import annotations
@@ -95,12 +97,10 @@ class AdeNetConfig:
         return sizes[-1] if sizes else self.fused_dim()
 
 
-def check_supported(config: AdeNetConfig, train: bool = False) -> None:
-    """Raise ``NotImplementedError`` for the config values this slice does
-    not cover, naming the ROADMAP item that brings each."""
+def check_supported(config: AdeNetConfig) -> None:
+    """Raise ``NotImplementedError`` for the config values the port does
+    not cover yet, naming the ROADMAP item that brings each."""
     todo = []
-    if train:
-        todo.append("train=True (Queue 1 item 3: flagship training step)")
     if config.use_peepholes:
         todo.append("use_peepholes=True (Queue 1 item 6 and Queue 2 item 5: "
                     "peephole LSTM)")
@@ -150,19 +150,35 @@ def init_adenet_params(generator: torch.Generator, config: AdeNetConfig,
     return tree_to(params, device)
 
 
+def _dropout(x: torch.Tensor, rate: float, generator, train: bool) -> torch.Tensor:
+    """Lasagne DropoutLayer semantics: a train-time keep mask drawn from
+    ``generator`` (on ``x``'s device), kept values rescaled by 1/(1-p)."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    draw = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    return torch.where(draw < keep, x / keep, torch.zeros_like(x))
+
+
 def adenet_forward(params: dict, config: AdeNetConfig, inputs, mask: torch.Tensor,
-                   window: Optional[int] = None, train: bool = False) -> torch.Tensor:
+                   window: Optional[int] = None, train: bool = False,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Run the model.  ``inputs[i]`` is (B, T, D_i); ``mask`` is (B, T).
 
     Returns (B, T, C) per-timestep probabilities ("per_step") or (B, C)
-    probabilities ("last_step")."""
-    check_supported(config, train)
-    stream_feats = stream_prefix(params, config, inputs, window)
-    return head_forward(params, config, stream_feats, mask)
+    probabilities ("last_step").  ``train=True`` applies dropout with draws
+    from ``generator`` (default: a generator on the inputs' device seeded
+    with 0, as the JAX package defaults to ``PRNGKey(0)``)."""
+    check_supported(config)
+    if train and generator is None:
+        generator = torch.Generator(device=inputs[0].device).manual_seed(0)
+    stream_feats = stream_prefix(params, config, inputs, window, train, generator)
+    return head_forward(params, config, stream_feats, mask, train, generator)
 
 
-def stream_prefix(params, config: AdeNetConfig, inputs, window=None) -> list:
-    """The frame-parallel part: per stream, encoder -> delta."""
+def stream_prefix(params, config: AdeNetConfig, inputs, window=None, train=False,
+                  generator=None) -> list:
+    """The frame-parallel part: per stream, encoder -> delta -> dropout."""
     window = config.window if window is None else window
     B, T = inputs[0].shape[0], inputs[0].shape[1]
     stream_feats = []
@@ -176,13 +192,15 @@ def stream_prefix(params, config: AdeNetConfig, inputs, window=None) -> list:
             x = enc.reshape(B, T, -1)
         if spec.use_delta:
             x = delta_layer(x.contiguous(), window)
+        x = _dropout(x, spec.dropout, generator, train)
         stream_feats.append(x)
     return stream_feats
 
 
-def head_forward(params, config: AdeNetConfig, stream_feats, mask) -> torch.Tensor:
+def head_forward(params, config: AdeNetConfig, stream_feats, mask, train=False,
+                 generator=None) -> torch.Tensor:
     """The recurrent part: per-stream LSTMs -> fusion -> aggregator
-    (B)LSTM stack -> classifier head."""
+    (B)LSTM stack (dropout before each layer) -> classifier head."""
     B, T = stream_feats[0].shape[0], stream_feats[0].shape[1]
     stream_outs = list(stream_feats)
     for i, spec in enumerate(config.streams):
@@ -192,6 +210,7 @@ def head_forward(params, config: AdeNetConfig, stream_feats, mask) -> torch.Tens
 
     agg = fusion_ops.fuse(stream_outs, config.fusiontype, params.get("adasum"))
     for layer in range(config.agg_layers):
+        agg = _dropout(agg, config.agg_dropout, generator, train)
         lp = params["aggregator"][layer]
         if config.agg_bidirectional:
             agg = lstm_ops.blstm_forward(lp["fwd"], lp["bwd"], agg, mask)

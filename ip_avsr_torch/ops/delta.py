@@ -11,7 +11,11 @@ own edge padding; the output is [x, delta, accel] on the feature axis.
 :func:`append_delta_coeff` is the plain version.  :func:`delta_layer` is what
 the model calls: it goes through the kernel wrapper
 (``ops/kernels/delta.append_delta``), which runs the CUDA kernel for a CUDA
-tensor and this plain version for a CPU tensor.
+tensor and this plain version for a CPU tensor.  Its gradient is the FIR's
+fixed transpose (ip_avsr_tpu/ops/pallas/delta_kernel.py::_append_delta_bwd),
+which the JAX package leaves to XLA outside any kernel: here it is the
+explicit (T, T) edge-clamped FIR matrix of :func:`fir_matrix`, applied on the
+time axis by ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -47,8 +51,42 @@ def append_delta_coeff(x: torch.Tensor, window: int) -> torch.Tensor:
     return torch.cat([x, d, a], dim=-1)
 
 
-def delta_layer(x: torch.Tensor, window: int) -> torch.Tensor:
-    """DeltaLayer forward (B, T, D) -> (B, T, 3D) through the kernel wrapper."""
-    from ip_avsr_torch.ops.kernels import delta as delta_kernel
+def fir_matrix(T: int, window: int, device=None, dtype=torch.float32) -> torch.Tensor:
+    """The (T, T) matrix F with ``delta_coeff(x, window) == F @ x`` on the
+    time axis: row t holds +1/(2*theta) at column min(t + theta, T - 1) and
+    -1/(2*theta) at max(t - theta, 0), summed over theta = 1..window (the
+    edge repeat clamps the column).  All zeros for ``window <= 0``."""
+    F = torch.zeros((T, T), dtype=dtype, device=device)
+    if window <= 0:
+        return F
+    t = torch.arange(T, device=device)[:, None]
+    theta = torch.arange(1, window + 1, device=device)[None, :]
+    coeff = (0.5 / theta.to(dtype)).expand(T, window)
+    F.scatter_add_(1, torch.clamp(t + theta, max=T - 1), coeff)
+    F.scatter_add_(1, torch.clamp(t - theta, min=0), -coeff)
+    return F
 
-    return delta_kernel.append_delta(x, window)
+
+class _DeltaLayer(torch.autograd.Function):
+    """[x, delta, accel] through the kernel wrapper, with the FIR's transpose
+    as its backward: out = [x, F x, F F x], so dx = g_x + F^T (g_d + F^T g_a)."""
+
+    @staticmethod
+    def forward(ctx, x, window):
+        from ip_avsr_torch.ops.kernels import delta as delta_kernel
+
+        ctx.window = window
+        return delta_kernel.append_delta(x, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        D = g.shape[-1] // 3
+        g_x, g_d, g_a = g[..., :D], g[..., D: 2 * D], g[..., 2 * D:]
+        Ft = fir_matrix(g.shape[-2], ctx.window, g.device, g.dtype).T
+        return g_x + torch.matmul(Ft, g_d + torch.matmul(Ft, g_a)), None
+
+
+def delta_layer(x: torch.Tensor, window: int) -> torch.Tensor:
+    """DeltaLayer forward (B, T, D) -> (B, T, 3D) through the kernel wrapper,
+    differentiable."""
+    return _DeltaLayer.apply(x, int(window))

@@ -1,0 +1,37 @@
+"""Objectives of the training step.
+
+Mirrors ip_avsr_tpu/ops/losses.py:
+
+* ``temporal_softmax_loss``: masked per-step cross entropy of a per-step
+  head.  The reference feeds it the network's softmax *probabilities* and
+  applies a second (max-subtracted) softmax inside; that double softmax is
+  kept, because training dynamics depend on it.
+* ``categorical_crossentropy_masked``: the weighted mean -log p[y] of a
+  last-step head, with batch-pad rows weighted 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def temporal_softmax_loss(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """x (N, T, V) scores (in practice probabilities), y (N, T) int labels,
+    mask (N, T) 1 on valid frames -> the NLL averaged over valid frames."""
+    N, T, V = x.shape
+    mask_flat = mask.reshape(N * T).to(x.dtype)
+    log_probs = torch.log_softmax(x.reshape(N * T, V), dim=1)
+    nll = -log_probs.gather(1, y.reshape(N * T, 1).long())[:, 0]
+    return (mask_flat * nll).sum() / mask_flat.sum()
+
+
+def categorical_crossentropy_masked(probs: torch.Tensor, y: torch.Tensor,
+                                    sample_weight: torch.Tensor) -> torch.Tensor:
+    """Weighted mean -log(probs[y]) over the batch; ``sample_weight`` zeroes
+    batch-pad rows.  Where the weight is 0 the picked probability is clamped
+    to 1, so a pad row whose probability underflows to 0 gives no 0 * log 0
+    NaN in the loss or its gradient."""
+    p = probs.gather(1, y[:, None].long())[:, 0]
+    w = sample_weight.to(probs.dtype)
+    p = torch.where(w > 0, p, torch.ones_like(p))
+    return -(w * torch.log(p)).sum() / torch.clamp(w.sum(), min=1.0)

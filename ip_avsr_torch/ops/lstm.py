@@ -1,8 +1,8 @@
-"""Masked LSTM / BLSTM inference with Lasagne-compatible semantics.
+"""Masked LSTM / BLSTM with Lasagne-compatible semantics.
 
-Mirrors the inference path of ip_avsr_tpu/ops/lstm.py (``lstm_forward``,
-``_lstm_prep``, ``_lstm_core_primal_impl``, ``blstm_forward``,
-``last_valid_step``):
+Mirrors ip_avsr_tpu/ops/lstm.py (``lstm_forward``, ``_lstm_prep``, the
+custom-VJP core ``_lstm_core`` with its primal, forward and backward,
+``blstm_forward``, ``last_valid_step``):
 
   * gate stacking order (ingate, forgetgate, cell, outgate) in ``w_in (D, 4H)``,
     ``w_hid (H, 4H)``, ``b (4H,)``; sigmoid gates, tanh cell input and output;
@@ -11,12 +11,20 @@ Mirrors the inference path of ip_avsr_tpu/ops/lstm.py (``lstm_forward``,
   * masked steps carry the previous hidden AND cell state unchanged;
   * backwards layers flip input and mask along time, run, and flip the output
     back, so the padded tail of a backwards layer holds its learned initial
-    state.
+    state;
+  * Lasagne ``grad_clipping``: the gradients of the stacked gate
+    pre-activations are clipped elementwise to +-5 in the backward pass
+    (forward values untouched).
 
 The input projection for all gates and timesteps is one (B*T, D) x (D, 4H)
-``torch.matmul`` hoisted out of the recurrence; the recurrence itself goes
-through ``ops/kernels/lstm.lstm_recurrence`` (the CUDA kernel on the card, the
-plain loop on the CPU).
+``torch.matmul`` hoisted out of the recurrence.  Without a gradient to take,
+the recurrence goes through ``ops/kernels/lstm.lstm_recurrence`` and stores
+no residuals.  With one, :class:`_LSTMCore` runs
+``lstm_recurrence_train`` (which also returns the cells and pre-activation
+gates) and, in its backward, the reverse-time chain ``lstm_bwd_chain``
+followed by the batched weight and input gradients as ``torch.matmul`` over
+all (B, T) rows.  Each kernel wrapper runs its CUDA kernel on the card and its
+plain loop on the CPU, so the CPU takes the same Function.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ from typing import Optional
 import torch
 
 from ip_avsr_torch.ops import initializers as inits
-from ip_avsr_torch.ops.kernels.lstm import lstm_recurrence
+from ip_avsr_torch.ops.kernels.lstm import (lstm_bwd_chain, lstm_recurrence,
+                                            lstm_recurrence_train)
 
 _PEEPHOLE_KEYS = ("w_cell_to_ingate", "w_cell_to_forgetgate", "w_cell_to_outgate")
 _PEEPHOLE_TODO = ("peephole LSTMs are not ported yet (ROADMAP Queue 1 item 6 "
@@ -51,29 +60,94 @@ def init_lstm_params(generator, input_dim: int, hidden: int,
     }
 
 
-def lstm_forward(params: dict, x: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None,
-                 backwards: bool = False) -> torch.Tensor:
-    """Run a masked LSTM over ``x`` (B, T, D); returns hidden states (B, T, H)."""
-    if any(k in params for k in _PEEPHOLE_KEYS):
-        raise NotImplementedError(_PEEPHOLE_TODO)
+def _prep(w_in, b, cell_init, hid_init, x, mask, backwards):
+    """The prologue of ip_avsr_tpu/ops/lstm.py::_lstm_prep: time flip, the
+    hoisted input projection plus bias, broadcast initial states.  Returns
+    (x, mask, x_proj, cell0, hid0) with x and mask flipped when
+    ``backwards``."""
     B, T, D = x.shape
-    H = params["w_hid"].shape[0]
-    if mask is None:
-        mask = torch.ones((B, T), dtype=torch.float32, device=x.device)
-    mask = mask.to(torch.float32)
+    H = cell_init.shape[-1]
     if backwards:
         x = torch.flip(x, dims=(1,))
         mask = torch.flip(mask, dims=(1,))
-    x_proj = (torch.matmul(x.reshape(B * T, D), params["w_in"])
-              .reshape(B, T, 4 * H) + params["b"])
-    cell0 = params["cell_init"].expand(B, H).contiguous()
-    hid0 = params["hid_init"].expand(B, H).contiguous()
-    out = lstm_recurrence(x_proj, params["w_hid"].contiguous(),
-                          mask.contiguous(), cell0, hid0)
-    if backwards:
-        out = torch.flip(out, dims=(1,))
-    return out
+    x_proj = torch.matmul(x.reshape(B * T, D), w_in).reshape(B, T, 4 * H) + b
+    cell0 = cell_init.expand(B, H).contiguous()
+    hid0 = hid_init.expand(B, H).contiguous()
+    return x.contiguous(), mask.contiguous(), x_proj, cell0, hid0
+
+
+class _LSTMCore(torch.autograd.Function):
+    """The training core: counterpart of ``_lstm_core_fwd`` /
+    ``_lstm_core_bwd`` (ip_avsr_tpu/ops/lstm.py:375-588), non-peephole."""
+
+    @staticmethod
+    def forward(ctx, w_in, w_hid, b, cell_init, hid_init, x, mask, backwards, clip):
+        w_hid = w_hid.contiguous()
+        x, mask, x_proj, cell0, hid0 = _prep(w_in, b, cell_init, hid_init, x, mask,
+                                             backwards)
+        hids, cells, gates_pre = lstm_recurrence_train(x_proj, w_hid, mask, cell0, hid0)
+        ctx.save_for_backward(w_in, w_hid, x, mask, hids, cells, gates_pre, cell0, hid0)
+        ctx.backwards, ctx.clip = backwards, clip
+        return torch.flip(hids, dims=(1,)) if backwards else hids
+
+    @staticmethod
+    def backward(ctx, g_out):
+        w_in, w_hid, x, mask, hids, cells, gates_pre, cell0, hid0 = ctx.saved_tensors
+        B, T, H = hids.shape
+        D = x.shape[-1]
+        if ctx.backwards:
+            g_out = torch.flip(g_out, dims=(1,))
+        cells_prev = torch.cat([cell0[:, None], cells[:, :-1]], dim=1)
+        dgates, dcell0, dhid0 = lstm_bwd_chain(g_out.contiguous(), gates_pre, cells,
+                                               cells_prev, mask, w_hid, ctx.clip)
+        # weight and input gradients as single products over all (B, T) rows
+        dg = dgates.reshape(B * T, 4 * H)
+        need = ctx.needs_input_grad
+        dw_in = dw_hid = db = dcell_init = dhid_init = dx = None
+        if need[0]:
+            dw_in = x.reshape(B * T, D).T @ dg
+        if need[1]:
+            hids_prev = torch.cat([hid0[:, None], hids[:, :-1]], dim=1)
+            dw_hid = hids_prev.reshape(B * T, H).T @ dg
+        if need[2]:
+            db = dg.sum(dim=0)
+        if need[3]:
+            dcell_init = dcell0.sum(dim=0, keepdim=True)
+        if need[4]:
+            dhid_init = dhid0.sum(dim=0, keepdim=True)
+        if need[5]:
+            dx = (dg @ w_in.T).reshape(B, T, D)
+            if ctx.backwards:
+                dx = torch.flip(dx, dims=(1,))
+        return dw_in, dw_hid, db, dcell_init, dhid_init, dx, None, None, None
+
+
+def lstm_forward(params: dict, x: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None,
+                 backwards: bool = False,
+                 grad_clipping: float = 5.0) -> torch.Tensor:
+    """Run a masked LSTM over ``x`` (B, T, D); returns hidden states (B, T, H).
+
+    When autograd is on and ``x`` or a parameter requires a gradient, the
+    call goes through :class:`_LSTMCore`, whose backward clips the gate
+    pre-activation gradients to +-``grad_clipping`` (0 or None: no clip).
+    Otherwise it runs the inference recurrence, which stores no residuals
+    (as ``_lstm_core_primal_impl`` does)."""
+    if any(k in params for k in _PEEPHOLE_KEYS):
+        raise NotImplementedError(_PEEPHOLE_TODO)
+    B, T, D = x.shape
+    if mask is None:
+        mask = torch.ones((B, T), dtype=torch.float32, device=x.device)
+    mask = mask.to(torch.float32)
+    keys = ("w_in", "w_hid", "b", "cell_init", "hid_init")
+    tensors = [params[k] for k in keys]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (*tensors, x)):
+        return _LSTMCore.apply(*tensors, x, mask, bool(backwards),
+                               float(grad_clipping or 0.0))
+    _, mask, x_proj, cell0, hid0 = _prep(params["w_in"], params["b"], params["cell_init"],
+                                         params["hid_init"], x, mask, backwards)
+    out = lstm_recurrence(x_proj, params["w_hid"].contiguous(), mask, cell0, hid0)
+    return torch.flip(out, dims=(1,)) if backwards else out
 
 
 def blstm_forward(fwd_params: dict, bwd_params: dict, x: torch.Tensor,

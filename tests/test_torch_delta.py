@@ -4,7 +4,9 @@ the delta kernel in ops/kernels/delta.py) against the JAX package.
 References: the TPU kernel body ``_delta_kernel`` run by ``pallas_call`` in
 interpret mode (the function the CUDA kernel replaces, built as
 tests/test_ops.py builds it) and ``ip_avsr_tpu.ops.delta.append_delta_coeff``.
-Tolerance: float32 at atol 1e-5 / rtol 1e-5 (summation order only).
+Tolerance: float32 at atol 1e-5 / rtol 1e-5 (summation order only).  The
+delta layer's gradient is held against ``jax.vjp`` of
+``append_delta_coeff``, the transpose ``_append_delta_bwd`` computes.
 """
 
 import functools
@@ -82,3 +84,30 @@ def test_edge_padding_repeats_first_and_last_frame():
     x = torch.arange(6, dtype=torch.float32).reshape(1, 6, 1)
     d = tdelta.delta_coeff(x, 1)[0, :, 0]
     torch.testing.assert_close(d, torch.tensor([0.5, 1.0, 1.0, 1.0, 1.0, 0.5]))
+
+
+# W = 9 at T = 29 is the flagship's; T < W and W = 0 are the edges
+@pytest.mark.parametrize("window,T", [(9, 29), (4, 9), (4, 3), (1, 1), (0, 6)])
+def test_delta_layer_gradient_matches_jax_vjp(window, T):
+    x = _x(window * 7 + T, 2, T, 5)
+    g = _x(window * 7 + T + 1, 2, T, 15)
+    _, vjp = jax.vjp(lambda v: jdelta.append_delta_coeff(v, window), jnp.asarray(x))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    tx = torch.from_numpy(x).requires_grad_(True)
+    out = tdelta.delta_layer(tx, window)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tx.grad.numpy(), ref, atol=1e-5 * max(1.0, np.abs(ref).max()),
+                               rtol=1e-5)
+    # the forward is unchanged by the Function
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(jdelta.append_delta_coeff(jnp.asarray(x), window)),
+                               **TOL)
+
+
+def test_fir_matrix_is_the_delta_filter():
+    x = torch.from_numpy(_x(11, 3, 8, 4)).double()
+    for window in (0, 1, 3, 10):
+        F = tdelta.fir_matrix(8, window, dtype=torch.float64)
+        torch.testing.assert_close(torch.matmul(F, x), tdelta.delta_coeff(x, window))
+    # a row sums to zero: a constant sequence has no slope
+    assert tdelta.fir_matrix(8, 3).sum(1).abs().max() < 1e-6
