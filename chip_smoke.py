@@ -10,26 +10,38 @@ Phases, each fatal on failure:
    the toolchain;
 2. print the card's name and power limit (nvidia-smi);
 3. with TF32 off, hold each kernel against its plain PyTorch version at the
-   flagship's shapes and time kernel, plain version and library call: the
-   delta FIR, the inference recurrence, the training recurrence (which also
-   writes cells and gates) and the backward chain (with an upstream
-   gradient that makes the +-5 clip bite);
+   shapes of the paths below and time kernel, plain version and library
+   call: the delta FIR, the inference recurrence, the training recurrence
+   (which also writes cells and gates) and the backward chain (with an
+   upstream gradient that makes the +-5 clip bite) at the flagship's H = 500;
+   then their peephole instantiations at the 4-stream model's H = 250 (D_in
+   150, 270, 117, 250; clip 5 with x1 and x100 upstream and clip 0, the
+   three peephole gradients compared too);
 4. build the full-width trimodal adenet_v3 (1144/90/1144, H = 500, W = 9)
    from a seeded generator, serve raw uint8 requests (B = 1 and 8, T = 29,
    ragged masks) through ``serve.make_trimodal_server``, check the scores
    (finite, rows sum to 1, equal to the port's CPU path on the same
-   parameters) and that every kernel was launched by that run (5 LSTM and 2
-   delta launches per forward);
+   parameters) and the launches of that run (5 LSTM and 2 delta launches per
+   forward, no other kernel);
 5. time requests on the host clock, and trace five B = 8 requests with
    torch.profiler for the device time by kernel and the device's busy share;
 6. train the same model at B = 10, T = 29 through
    ``train.trainer.make_train_step``: three steps with its own dropout rates
    (loss, gradients and parameters finite; 5 training-recurrence, 5
-   backward-chain, 2 delta and no inference-recurrence launches per step),
-   then at dropout 0 the card against the port's CPU path on the same
-   parameters and batch (loss, every gradient, updated parameters), the step
-   median on the host clock, and a torch.profiler trace of three steps;
-7. print the kernels line, then ``{"ok": true, "device": ...}`` last.
+   backward-chain, 2 delta and no other launches per step), then at dropout
+   0 the card against the port's CPU path on the same parameters and batch
+   (loss, every gradient, updated parameters), the step median on the host
+   clock, and a torch.profiler trace of three steps;
+7. build the peephole 4-stream adasum AdeNet of ``configs/oulu_4stream.ini``
+   through ``train.config`` at full width (features 150/150/270/117, H =
+   250), serve seeded feature streams (B = 1 and 10, lengths 14-29) through
+   ``serve.make_server`` (6 peephole recurrences and 4 deltas per forward,
+   no other kernel; probabilities equal to the CPU path), time and trace it;
+8. train it three steps at the ini's batch size and learning rate (6
+   peephole training recurrences, 6 peephole backward chains, 4 deltas, no
+   other launch per step), hold the card's step against the CPU path, time
+   and trace it;
+9. print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a CUDA device or without the package beside it.
 """
@@ -69,6 +81,27 @@ LSTM_GATE_FLOPS = 20
 # gate backward per (row, step, unit): the same 5 activations, the four gate
 # cotangents, the clip, and the dcell/dhid carries, counted as 40
 LSTM_BWD_GATE_FLOPS = 40
+# peepholes per (row, step, unit): forward, three multiply-adds into the i, f
+# and o pre-activations (6 operations); backward, the same three recomputed,
+# the out-gate route into dc, the in and forget routes into dc_prev and the
+# three gradient sums (18 operations)
+PEEP_FLOPS = 6
+PEEP_BWD_FLOPS = 18
+# train step, card vs CPU path: a gradient's tolerance relative to its max
+# abs has this absolute floor (the adasum coefficients' gradients are small
+# sums of terms that cancel, so their relative error is float32 noise)
+TRAIN_GRAD_FLOOR = 1e-8
+OULU_INI = os.path.join("configs", "oulu_4stream.ini")
+# the seven kernels' launch counters: name -> wrapper attribute
+KERNEL_COUNTERS = {
+    "delta": ("delta", "append_delta"),
+    "lstm_fwd": ("lstm", "lstm_recurrence"),
+    "lstm_fwd_train": ("lstm", "lstm_recurrence_train"),
+    "lstm_bwd": ("lstm", "lstm_bwd_chain"),
+    "lstm_peep_fwd": ("lstm", "lstm_peep_recurrence"),
+    "lstm_peep_fwd_train": ("lstm", "lstm_peep_recurrence_train"),
+    "lstm_peep_bwd": ("lstm", "lstm_peep_bwd_chain"),
+}
 # backward chain, kernel vs plain version: 29 dependent steps, each summing
 # 2000 products per dh entry in another order, so the error grows with the
 # magnitudes the chain carries; held relative to each output's max abs
@@ -111,25 +144,56 @@ def delta_cost(B, T, D, W):
     return 4 * (B * T * D + 3 * B * T * D), 2 * B * T * D * 3 * max(W, 0)
 
 
-def lstm_cost(B, T, H):
-    nbytes = 4 * (B * T * 4 * H + H * 4 * H + B * T + 2 * B * H + B * T * H)
-    flops = 2 * B * T * H * 4 * H + LSTM_GATE_FLOPS * B * T * H
+def lstm_cost(B, T, H, peep=False):
+    # with peepholes, also the three (H,) vectors and their multiply-adds
+    nbytes = 4 * (B * T * 4 * H + H * 4 * H + B * T + 2 * B * H + B * T * H
+                  + (3 * H if peep else 0))
+    flops = (2 * B * T * H * 4 * H + LSTM_GATE_FLOPS * B * T * H
+             + (PEEP_FLOPS * B * T * H if peep else 0))
     return nbytes, flops
 
 
-def lstm_train_cost(B, T, H):
+def lstm_train_cost(B, T, H, peep=False):
     # the inference recurrence's traffic plus the residuals cells and gates
-    nbytes, flops = lstm_cost(B, T, H)
+    nbytes, flops = lstm_cost(B, T, H, peep)
     return nbytes + 4 * (B * T * H + B * T * 4 * H), flops
 
 
-def lstm_bwd_cost(B, T, H):
+def lstm_bwd_cost(B, T, H, peep=False):
     # reads g_out, gates, cells, cells_prev, mask, W_hid; writes dgates,
-    # dcell0, dhid0; the dgates @ W_hid^T chain and the gate backward
+    # dcell0, dhid0; the dgates @ W_hid^T chain and the gate backward; with
+    # peepholes also reads the three vectors, writes their three gradients,
+    # and sums B (H,) partials into each
     nbytes = 4 * (3 * B * T * H + B * T * 4 * H + B * T + H * 4 * H
-                  + B * T * 4 * H + 2 * B * H)
-    flops = 2 * B * T * 4 * H * H + LSTM_BWD_GATE_FLOPS * B * T * H
+                  + B * T * 4 * H + 2 * B * H + (6 * H if peep else 0))
+    flops = (2 * B * T * 4 * H * H + LSTM_BWD_GATE_FLOPS * B * T * H
+             + (PEEP_BWD_FLOPS * B * T * H + 3 * B * H if peep else 0))
     return nbytes, flops
+
+
+def counters():
+    """{name: wrapper} for the seven kernels' wrappers; each wrapper's
+    ``launches`` counts the calls that launched its kernel."""
+    import importlib
+
+    return {name: getattr(importlib.import_module(f"ip_avsr_torch.ops.kernels.{mod}"), fn)
+            for name, (mod, fn) in KERNEL_COUNTERS.items()}
+
+
+def reset_launches():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def expect_launches(got, **nonzero):
+    """Raise unless ``got`` has the counts ``nonzero`` and 0 elsewhere."""
+    expected = {name: nonzero.get(name, 0) for name in KERNEL_COUNTERS}
+    if got != expected:
+        raise AssertionError(f"kernel launches {got}, expected {expected}")
 
 
 def max_err(got, ref):
@@ -180,9 +244,10 @@ def phase_delta(dev):
     gen = torch.Generator().manual_seed(SEED)
     err = 0.0
     # the main path's shapes (B in {1, 8}, T = 29, D = 50, W = 9), then edges:
-    # no window, T < W, a feature count that is not a multiple of 32
+    # no window, T < W, a feature count that is not a multiple of 32, and the
+    # 4-stream model's other widths (D = 90 and 39 at B = 10)
     for B, T, D, W in [(1, 29, 50, 9), (8, 29, 50, 9), (2, 29, 50, 0),
-                       (2, 3, 70, 4), (3, 29, 33, 1)]:
+                       (2, 3, 70, 4), (3, 29, 33, 1), (10, 29, 90, 9), (10, 29, 39, 9)]:
         x = torch.randn(B, T, D, generator=gen).to(dev) * 3
         got = append_delta(x, W)
         ref = append_delta_coeff(x, W)
@@ -367,8 +432,6 @@ def phase_serve(dev):
 
     from ip_avsr_torch.device import tree_to
     from ip_avsr_torch.models import adenet, zoo
-    from ip_avsr_torch.ops.kernels.delta import append_delta
-    from ip_avsr_torch.ops.kernels.lstm import lstm_recurrence
     from ip_avsr_torch.serve import make_trimodal_server
 
     cfg = zoo.adenet_v3(1144, 90, 1144, lstm_size=250, window=9, output_classes=10)
@@ -389,16 +452,13 @@ def phase_serve(dev):
         server(raw, mask)  # warm-up: cuBLAS handles, kernel libraries
     torch.cuda.synchronize()
 
-    append_delta.launches = 0
-    lstm_recurrence.launches = 0
+    reset_launches()
     scores = [server(raw, mask) for raw, mask in requests]
     torch.cuda.synchronize()
-    launches = {"delta": append_delta.launches, "lstm_fwd": lstm_recurrence.launches}
+    launches = read_launches()
     n = len(requests)
     print(f"served {n} requests: launches {launches}")
-    expected = {"delta": 2 * n, "lstm_fwd": 5 * n}
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    expect_launches(launches, delta=2 * n, lstm_fwd=5 * n)
 
     cpu_server = make_trimodal_server(tree_to(params, torch.device("cpu")), cfg,
                                       IMAGE_SHAPE, DCT, device="cpu")
@@ -454,13 +514,8 @@ def phase_train(dev):
 
     from ip_avsr_torch.device import tree_map, tree_to
     from ip_avsr_torch.models import adenet, zoo
-    from ip_avsr_torch.ops.kernels.delta import append_delta
-    from ip_avsr_torch.ops.kernels.lstm import (lstm_bwd_chain, lstm_recurrence,
-                                                lstm_recurrence_train)
     from ip_avsr_torch.train import trainer
 
-    counters = {"lstm_fwd_train": lstm_recurrence_train, "lstm_bwd": lstm_bwd_chain,
-                "delta": append_delta, "lstm_fwd": lstm_recurrence}
     cfg = zoo.adenet_v3(1144, 90, 1144, lstm_size=250, window=9, output_classes=10)
     params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 4), cfg,
                                        device=dev)
@@ -478,8 +533,7 @@ def phase_train(dev):
     step(params, state, streams, y, mask, gen)  # warm-up: cuBLAS handles, libraries
     torch.cuda.synchronize()
 
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launches()
     p, st = params, state
     losses = []
     n_steps = 3
@@ -487,13 +541,11 @@ def phase_train(dev):
         p, st, loss = step(p, st, streams, y, mask, gen)
         losses.append(loss)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = read_launches()
     print(f"train {n_steps} steps, flagship dropout: losses "
           f"{[round(float(v), 6) for v in losses]}, launches {launches}")
-    expected = {"lstm_fwd_train": 5 * n_steps, "lstm_bwd": 5 * n_steps,
-                "delta": 2 * n_steps, "lstm_fwd": 0}
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    expect_launches(launches, lstm_fwd_train=5 * n_steps, lstm_bwd=5 * n_steps,
+                    delta=2 * n_steps)
     # m is a positive mix of every step's gradients: finite m, finite grads
     finite = []
     tree_map(lambda t: finite.append(bool(torch.isfinite(t).all())), (p, st["m"], st["v"]))
@@ -557,6 +609,338 @@ def phase_train(dev):
     return launches, median
 
 
+def phase_lstm_peep(dev):
+    """Rows 5-7: the peephole kernels against their plain versions at the
+    4-stream model's shapes (H = 250, D_in of its four stream LSTMs and its
+    aggregator), then their times."""
+    import torch
+
+    from ip_avsr_torch.ops.kernels.lstm import (
+        lstm_peep_bwd_chain, lstm_peep_bwd_chain_plain, lstm_peep_recurrence,
+        lstm_peep_recurrence_plain, lstm_peep_recurrence_train,
+        lstm_peep_recurrence_train_plain)
+
+    H = 250
+    gen = torch.Generator().manual_seed(SEED + 5)
+    fwd_err = train_err = bwd_err = 0.0
+    for B in (1, TRAIN_B):
+        for D in (150, 270, 117, 250):
+            w_in = (torch.randn(D, 4 * H, generator=gen) / D ** 0.5).to(dev)
+            w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev)
+            b = (torch.randn(4 * H, generator=gen) * 0.1).to(dev)
+            peep = [(torch.randn(H, generator=gen) * 0.5).to(dev) for _ in range(3)]
+            c0 = torch.randn(1, H, generator=gen).to(dev).expand(B, H).contiguous()
+            h0 = (torch.randn(1, H, generator=gen) * 0.5).to(dev).expand(B, H).contiguous()
+            x = torch.randn(B, T_FRAMES, D, generator=gen).to(dev)
+            mask = ragged_mask(B, T_FRAMES, gen, dev)
+            if B > 1:
+                mask[-1] = 0.0  # a fully padded row
+            g = torch.randn(B, T_FRAMES, H, generator=gen).to(dev)
+            for backwards in (False, True):
+                xs, ms_ = (x.flip(1), mask.flip(1)) if backwards else (x, mask)
+                ms_ = ms_.contiguous()
+                x_proj = (xs.reshape(-1, D) @ w_in).reshape(B, T_FRAMES, 4 * H) + b
+                fargs = (x_proj, w_hid, ms_, c0, h0, *peep)
+                e_inf = max_err(lstm_peep_recurrence(*fargs),
+                                lstm_peep_recurrence_plain(*fargs))[0]
+                got = lstm_peep_recurrence_train(*fargs)
+                ref = lstm_peep_recurrence_train_plain(*fargs)
+                e_train = max(max_err(a, r)[0] for a, r in zip(got, ref))
+                print(f"lstm_peep_fwd B={B} D_in={D} H={H} backwards={backwards}: "
+                      f"max_abs_err={e_inf:.3e}; training (hids, cells, gates) {e_train:.3e}")
+                if not (e_inf <= LSTM_TOL and e_train <= LSTM_TOL):
+                    raise AssertionError("peephole LSTM kernel disagrees with its plain "
+                                         f"version: {e_inf}, {e_train}")
+                fwd_err, train_err = max(fwd_err, e_inf), max(train_err, e_train)
+                _, cells, gates = ref
+                cells_prev = torch.cat([c0[:, None], cells[:, :-1]], dim=1)
+                for scale, clip in ((1.0, 5.0), (100.0, 5.0), (1.0, 0.0)):
+                    args = ((g * scale).contiguous(), gates, cells, cells_prev, ms_, w_hid,
+                            *peep, clip)
+                    got = lstm_peep_bwd_chain(*args)
+                    ref = lstm_peep_bwd_chain_plain(*args)
+                    errs = [max_err(a, r) for a, r in zip(got, ref)]
+                    rel = max(r for _, r in errs)
+                    clipped = (ref[0].abs() == clip).float().mean().item() if clip else 0.0
+                    print(f"lstm_peep_bwd B={B} D_in={D} backwards={backwards} g x{scale:g} "
+                          f"clip={clip:g}: max_abs_err={max(a for a, _ in errs):.3e} "
+                          f"(peephole grads {max(a for a, _ in errs[3:]):.3e}), relative "
+                          f"{rel:.3e}, clipped share {clipped:.4f}")
+                    if not rel <= LSTM_BWD_TOL:
+                        raise AssertionError("peephole LSTM backward kernel disagrees with "
+                                             f"its plain version: {rel}")
+                    if clip and scale > 1 and not clipped > 0.01:
+                        raise AssertionError(f"the clip did not bite: share {clipped}")
+                    if scale == 1.0 and clip:
+                        bwd_err = max(bwd_err, max(a for a, _ in errs))
+    rows = {}
+    for B in (1, TRAIN_B):
+        D = 150
+        w_in = (torch.randn(D, 4 * H, generator=gen) / D ** 0.5).to(dev)
+        w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev)
+        peep = [(torch.randn(H, generator=gen) * 0.1).to(dev) for _ in range(3)]
+        x = torch.randn(B, T_FRAMES, D, generator=gen).to(dev)
+        x_proj = (x.reshape(-1, D) @ w_in).reshape(B, T_FRAMES, 4 * H)
+        mask = ragged_mask(B, T_FRAMES, gen, dev)
+        c0 = torch.zeros(B, H, device=dev)
+        h0 = torch.zeros(B, H, device=dev)
+        fargs = (x_proj, w_hid, mask, c0, h0, *peep)
+        _, cells, gates = lstm_peep_recurrence_train(*fargs)
+        cells_prev = torch.cat([c0[:, None], cells[:, :-1]], dim=1)
+        g = torch.randn(B, T_FRAMES, H, generator=gen).to(dev)
+        bargs = (g, gates, cells, cells_prev, mask, w_hid, *peep, 5.0)
+        timed = {
+            "lstm_peep_fwd": (lambda: lstm_peep_recurrence(*fargs),
+                              lambda: lstm_peep_recurrence_plain(*fargs),
+                              lstm_cost(B, T_FRAMES, H, peep=True)),
+            "lstm_peep_fwd_train": (lambda: lstm_peep_recurrence_train(*fargs),
+                                    lambda: lstm_peep_recurrence_train_plain(*fargs),
+                                    lstm_train_cost(B, T_FRAMES, H, peep=True)),
+            "lstm_peep_bwd": (lambda: lstm_peep_bwd_chain(*bargs),
+                              lambda: lstm_peep_bwd_chain_plain(*bargs),
+                              lstm_bwd_cost(B, T_FRAMES, H, peep=True)),
+        }
+        rows[B] = {}
+        for name, (kernel, plain, cost) in timed.items():
+            ms = cuda_ms(kernel)
+            plain_ms = cuda_ms(plain, iters=5, warmup=1)
+            b_ms, by = bound(*cost)
+            # no PyTorch call computes a peephole LSTM (cuDNN's has none)
+            rows[B][name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                                 library_ms=None)
+            print(f"{name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {b_ms:.5f} ms ({by})")
+        # context only, not a yardstick of the same function: cuDNN's
+        # non-peephole LSTM at the same shapes (all-valid mask, it also does
+        # the input projection), inference, forward with grad, and backward
+        cudnn = torch.nn.LSTM(D, H, batch_first=True).to(dev)
+        xin = torch.randn(B, T_FRAMES, D, generator=gen).to(dev)
+        with torch.inference_mode():
+            inf_ms = cuda_ms(lambda: cudnn(xin))
+        xin.requires_grad_(True)
+        fwd_ms = cuda_ms(lambda: cudnn(xin))
+        out, _ = cudnn(xin)
+        gy = torch.randn_like(out)
+        wts = [xin, *cudnn.parameters()]
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, wts, gy, retain_graph=True))
+        print(f"context B={B}: cuDNN nn.LSTM without peepholes, D_in={D} H={H}: inference "
+              f"{inf_ms:.4f} ms, forward with grad {fwd_ms:.4f} ms, backward "
+              f"{bwd_ms:.4f} ms")
+    return fwd_err, train_err, bwd_err, rows
+
+
+def oulu_4stream():
+    """(model config, training config) of configs/oulu_4stream.ini through
+    the port's train.config, at the file's full widths."""
+    from ip_avsr_torch.train import config as config_lib
+
+    cp = config_lib.load_config(os.path.join(ROOT, OULU_INI))
+    cfg = config_lib.build_model_config(config_lib.parse_streams(cp),
+                                        config_lib.parse_classifier(cp))
+    return cfg, config_lib.parse_training(cp)
+
+
+def stream_batch(cfg, B, seed, device):
+    """Seeded normal features (B, 29, D_i) per stream, lengths 14-29 (the
+    first full), and labels."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    T = T_FRAMES
+    streams = [torch.from_numpy(rng.randn(B, T, s.input_dim).astype(np.float32)).to(device)
+               for s in cfg.streams]
+    lens = rng.randint(T // 2, T + 1, B)
+    lens[0] = T
+    mask = torch.from_numpy((np.arange(T)[None] < lens[:, None]).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.randint(0, cfg.output_classes, B)).long().to(device)
+    return streams, mask, y
+
+
+def busy_share(prof, n, median_ms, label, rows=14):
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    print(events.table(sort_by="self_cuda_time_total", row_limit=rows))
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3 / n
+    print(f"{label}: device busy {busy_ms:.3f} ms each (profiler, {n} traced); busy share "
+          f"of the median {busy_ms / median_ms:.3f}")
+    return events
+
+
+def phase_serve_4stream(dev):
+    """The peephole 4-stream adasum AdeNet of configs/oulu_4stream.ini at full
+    width, served on preprocessed streams through serve.make_server."""
+    import torch
+
+    from ip_avsr_torch.device import tree_to
+    from ip_avsr_torch.models import adenet
+    from ip_avsr_torch.serve import make_server
+
+    cfg, _ = oulu_4stream()
+    print(f"oulu_4stream full width: features {[s.feature_dim() for s in cfg.streams]}, "
+          f"H={cfg.lstm_size}, fusion {cfg.fusiontype}, peepholes {cfg.use_peepholes}")
+    params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 6), cfg, device=dev)
+    server = make_server(params, cfg, device=dev)
+    probs_server = make_server(params, cfg, vote=False, device=dev)
+    requests = [stream_batch(cfg, B, SEED + 6 + i, dev)[:2]
+                for i, B in enumerate((1, TRAIN_B, TRAIN_B))]
+    server(*requests[0])  # warm-up
+    torch.cuda.synchronize()
+
+    reset_launches()
+    scores = [server(streams, mask) for streams, mask in requests]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    n = len(requests)
+    print(f"4-stream served {n} requests: launches {launches}")
+    expect_launches(launches, delta=4 * n, lstm_peep_fwd=6 * n)
+
+    cpu = torch.device("cpu")
+    cpu_params = tree_to(params, cpu)
+    cpu_server = make_server(cpu_params, cfg, device="cpu")
+    cpu_probs_server = make_server(cpu_params, cfg, vote=False, device="cpu")
+    for (streams, mask), s in zip(requests, scores):
+        B = mask.shape[0]
+        s = s.cpu()
+        probs = probs_server(streams, mask).cpu()
+        c_streams, c_mask = tree_to(streams, cpu), mask.cpu()
+        ref = cpu_probs_server(c_streams, c_mask)
+        if (s.shape != (B, cfg.output_classes) or probs.shape != (B, T_FRAMES, cfg.output_classes)
+                or not (torch.isfinite(s).all() and torch.isfinite(probs).all())):
+            raise AssertionError(f"bad scores: {tuple(s.shape)}, {tuple(probs.shape)}")
+        row_err = max((s.sum(-1) - 1).abs().max().item(), (probs.sum(-1) - 1).abs().max().item())
+        ref_err = (probs - ref).abs().max().item()
+        top2 = ref.topk(2, dim=-1).values
+        gap = (top2[..., 0] - top2[..., 1])[c_mask > 0].min().item()
+        vote_err = (s - cpu_server(c_streams, c_mask)).abs().max().item()
+        print(f"4-stream B={B}: |row sum - 1| {row_err:.2e}, probabilities |card - CPU path| "
+              f"{ref_err:.2e}; voted scores |card - CPU path| {vote_err:.2e} (smallest "
+              f"top-2 gap of a frame {gap:.2e})")
+        if not (row_err <= 1e-5 and ref_err <= SCORE_TOL):
+            raise AssertionError("4-stream probabilities disagree with the CPU path")
+        # the vote compares argmaxes: held to the CPU path where no frame is
+        # within the probability tolerance of a tie
+        if gap > 2 * SCORE_TOL and not vote_err <= SCORE_TOL:
+            raise AssertionError("4-stream voted scores disagree with the CPU path")
+
+    latency = {}
+    for B, (streams, mask) in ((1, requests[0]), (TRAIN_B, requests[1])):
+        times = []
+        for _ in range(30):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            server(streams, mask)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        latency[B] = statistics.median(times[5:])
+        print(f"4-stream serve B={B}: median request {latency[B]:.3f} ms "
+              f"(host clock, 25 requests, feature upload included)")
+    print("right after: clocks.sm, clocks.max.sm, power.draw, utilization.gpu =",
+          smi("clocks.sm,clocks.max.sm,power.draw,utilization.gpu"))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    n_traced = 5
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n_traced):
+            server(*requests[1])
+        torch.cuda.synchronize()
+    busy_share(prof, n_traced, latency[TRAIN_B], f"4-stream serve B={TRAIN_B}")
+    return launches, latency
+
+
+def phase_train_4stream(dev):
+    """Three train steps of the same model at the ini's batch size and
+    learning rate through train.trainer.make_train_step, then the card
+    against the CPU path (the ini has no dropout, so this is the real
+    step)."""
+    import torch
+
+    from ip_avsr_torch.device import tree_map, tree_to
+    from ip_avsr_torch.models import adenet
+    from ip_avsr_torch.train import trainer
+
+    cfg, training = oulu_4stream()
+    B = training.batchsize
+    params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 7), cfg, device=dev)
+    streams, mask, y = stream_batch(cfg, B, SEED + 7, dev)
+    opt, step = trainer.make_train_step(cfg, lr=training.learning_rate)
+    state = opt.init(params)
+    step(params, state, streams, y, mask)  # warm-up
+    torch.cuda.synchronize()
+
+    reset_launches()
+    p, st = params, state
+    losses = []
+    n_steps = 3
+    for _ in range(n_steps):
+        p, st, loss = step(p, st, streams, y, mask)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"4-stream train {n_steps} steps at B={B}, lr={training.learning_rate}: losses "
+          f"{[round(float(v), 6) for v in losses]}, launches {launches}")
+    expect_launches(launches, lstm_peep_fwd_train=6 * n_steps, lstm_peep_bwd=6 * n_steps,
+                    delta=4 * n_steps)
+    finite = []
+    tree_map(lambda t: finite.append(bool(torch.isfinite(t).all())), (p, st["m"], st["v"]))
+    if not (all(finite) and all(torch.isfinite(v) for v in losses)):
+        raise AssertionError("non-finite loss, gradient or parameter in 4-stream training")
+
+    cpu = torch.device("cpu")
+    loss_d, grads_d = trainer.loss_and_grads(params, cfg, streams, y, mask)
+    c_params, c_streams, c_y, c_mask = (tree_to(params, cpu), tree_to(streams, cpu), y.cpu(),
+                                        mask.cpu())
+    loss_c, grads_c = trainer.loss_and_grads(c_params, cfg, c_streams, c_y, c_mask)
+    p_d, _, _ = step(params, opt.init(params), streams, y, mask)
+    p_c, _, _ = step(c_params, opt.init(c_params), c_streams, c_y, c_mask)
+    loss_rel = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    grad_ok, grad_rel, param_abs = [], [], []
+
+    def grad_check(a, b):
+        e = max_err(a.cpu(), b)[0]
+        top = b.abs().max().item()
+        grad_ok.append(e <= max(TRAIN_GRAD_TOL * top, TRAIN_GRAD_FLOOR))
+        grad_rel.append(e / max(top, 1e-30))
+
+    tree_map(grad_check, grads_d, grads_c)
+    tree_map(lambda a, b: param_abs.append(max_err(a.cpu(), b)[0]), p_d, p_c)
+    peep_grads = [grads_d["streams"]["s1"]["lstm"][k].abs().max().item()
+                  for k in ("w_cell_to_ingate", "w_cell_to_forgetgate", "w_cell_to_outgate")]
+    print(f"4-stream train, card vs CPU path: loss {float(loss_d):.7f} vs {float(loss_c):.7f} "
+          f"(relative {loss_rel:.2e}); gradients ({len(grad_rel)} tensors) relative to max abs "
+          f"worst {max(grad_rel):.2e}, within tolerance or the {TRAIN_GRAD_FLOOR:g} floor: "
+          f"{sum(grad_ok)}/{len(grad_ok)}; updated parameters max abs {max(param_abs):.2e}; "
+          f"stream 1 peephole gradients max abs {peep_grads}")
+    if not (loss_rel <= TRAIN_LOSS_TOL and all(grad_ok) and max(param_abs) <= TRAIN_PARAM_TOL
+            and min(peep_grads) > 0):
+        raise AssertionError("the 4-stream train step on the card disagrees with the CPU path")
+
+    times = []
+    p, st = params, opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(25):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, st, loss = step(p, st, streams, y, mask)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    median = statistics.median(times[5:])
+    print(f"4-stream train B={B}: median step {median:.3f} ms (host clock, 20 steps after 5); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    print("right after: clocks.sm, clocks.max.sm, power.draw, utilization.gpu =",
+          smi("clocks.sm,clocks.max.sm,power.draw,utilization.gpu"))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    n_traced = 3
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n_traced):
+            p, st, loss = step(p, st, streams, y, mask)
+        torch.cuda.synchronize()
+    events = busy_share(prof, n_traced, median, f"4-stream train B={B}", rows=16)
+    print(events.table(sort_by="self_cpu_time_total", row_limit=12))
+    return launches, median
+
+
 def main() -> int:
     import torch
 
@@ -576,26 +960,42 @@ def main() -> int:
     delta_err, delta_rows = phase_delta(dev)
     lstm_err, lstm_rows = phase_lstm(dev)
     train_fwd_err, bwd_err, train_rows = phase_lstm_train(dev)
+    peep_err, peep_train_err, peep_bwd_err, peep_rows = phase_lstm_peep(dev)
     launches, _ = phase_serve(dev)
     train_launches, _ = phase_train(dev)
+    launches4, _ = phase_serve_4stream(dev)
+    train_launches4, _ = phase_train_4stream(dev)
 
+    pallas = "ip_avsr_tpu/ops/pallas/lstm_kernel.py"
+    fwd_src, bwd_src = "ip_avsr_torch/csrc/lstm_fwd.cu", "ip_avsr_torch/csrc/lstm_bwd.cu"
+    peep_shape = f"B={TRAIN_B} T=29 H=250"
     kernels = [
         {"name": "delta", "route": "cuda", "source": "ip_avsr_torch/csrc/delta.cu",
          "replaces": "ip_avsr_tpu/ops/pallas/delta_kernel.py:56",
          "launches": launches["delta"], "max_abs_err": delta_err,
          "shape": "B=8 T=29 D=50 W=9", **delta_rows[8], "library_ms": None},
-        {"name": "lstm_fwd", "route": "cuda", "source": "ip_avsr_torch/csrc/lstm_fwd.cu",
-         "replaces": "ip_avsr_tpu/ops/pallas/lstm_kernel.py:42",
+        {"name": "lstm_fwd", "route": "cuda", "source": fwd_src, "replaces": f"{pallas}:42",
          "launches": launches["lstm_fwd"], "max_abs_err": lstm_err,
          "shape": "B=8 T=29 H=500", **lstm_rows[8]},
-        {"name": "lstm_fwd_train", "route": "cuda", "source": "ip_avsr_torch/csrc/lstm_fwd.cu",
-         "replaces": "ip_avsr_tpu/ops/pallas/lstm_kernel.py:131",
+        {"name": "lstm_fwd_train", "route": "cuda", "source": fwd_src,
+         "replaces": f"{pallas}:131",
          "launches": train_launches["lstm_fwd_train"], "max_abs_err": train_fwd_err,
          "shape": f"B={TRAIN_B} T=29 H=500", **train_rows[TRAIN_B]["lstm_fwd_train"]},
-        {"name": "lstm_bwd", "route": "cuda", "source": "ip_avsr_torch/csrc/lstm_bwd.cu",
-         "replaces": "ip_avsr_tpu/ops/pallas/lstm_kernel.py:240",
+        {"name": "lstm_bwd", "route": "cuda", "source": bwd_src, "replaces": f"{pallas}:240",
          "launches": train_launches["lstm_bwd"], "max_abs_err": bwd_err,
          "shape": f"B={TRAIN_B} T=29 H=500 clip=5", **train_rows[TRAIN_B]["lstm_bwd"]},
+        {"name": "lstm_peep_fwd", "route": "cuda", "source": fwd_src,
+         "replaces": f"{pallas}:343",
+         "launches": launches4["lstm_peep_fwd"], "max_abs_err": peep_err,
+         "shape": peep_shape, **peep_rows[TRAIN_B]["lstm_peep_fwd"]},
+        {"name": "lstm_peep_fwd_train", "route": "cuda", "source": fwd_src,
+         "replaces": f"{pallas}:388",
+         "launches": train_launches4["lstm_peep_fwd_train"], "max_abs_err": peep_train_err,
+         "shape": peep_shape, **peep_rows[TRAIN_B]["lstm_peep_fwd_train"]},
+        {"name": "lstm_peep_bwd", "route": "cuda", "source": bwd_src,
+         "replaces": f"{pallas}:515",
+         "launches": train_launches4["lstm_peep_bwd"], "max_abs_err": peep_bwd_err,
+         "shape": f"{peep_shape} clip=5", **peep_rows[TRAIN_B]["lstm_peep_bwd"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

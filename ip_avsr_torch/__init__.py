@@ -6,9 +6,14 @@ on ``cuda`` unless the caller passes ``device="cpu"``; every hand-written
 kernel (``ops/kernels/``, sources in ``csrc/``) has a plain PyTorch version
 beside it that runs only for tensors on the CPU.
 
-The port covers the flagship trimodal AdeNet-v3: its inference path, from
-raw uint8 ROI frames to class scores (``serve.make_trimodal_server``), and
-its training step (``train.trainer.make_train_step``).
+The port covers the flagship trimodal AdeNet-v3 (inference from raw uint8
+ROI frames to class scores with ``serve.make_trimodal_server``) and the
+generic N-stream AdeNets with peephole LSTMs that INI configs such as
+``configs/oulu_4stream.ini`` select (``train.config.load_config`` and
+``build_model_config``; inference on preprocessed streams with
+``serve.make_server``), and the training step of both
+(``train.trainer.make_train_step``).  Every kernel of the JAX package's
+``ops/pallas/`` has its CUDA counterpart.
 """
 
 from ip_avsr_torch.device import resolve_device

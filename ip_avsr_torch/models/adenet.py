@@ -101,9 +101,6 @@ def check_supported(config: AdeNetConfig) -> None:
     """Raise ``NotImplementedError`` for the config values the port does
     not cover yet, naming the ROADMAP item that brings each."""
     todo = []
-    if config.use_peepholes:
-        todo.append("use_peepholes=True (Queue 1 item 6 and Queue 2 item 5: "
-                    "peephole LSTM)")
     if config.fuse_scans:
         todo.append("fuse_scans=True (Queue 1 item 6: lstm_forward_grouped)")
     if config.matmul_dtype is not None:
@@ -131,17 +128,21 @@ def init_adenet_params(generator: torch.Generator, config: AdeNetConfig,
                 generator, spec.input_dim, spec.encoder_shapes, w_init)
         if spec.use_lstm:
             sp["lstm"] = lstm_ops.init_lstm_params(
-                generator, spec.feature_dim(), config.stream_lstm_size(spec), w_init)
+                generator, spec.feature_dim(), config.stream_lstm_size(spec), w_init,
+                config.use_peepholes)
         params["streams"][spec.name] = sp
     if config.fusiontype == "adasum":
         params["adasum"] = fusion_ops.init_adasum_params(len(config.streams))
     in_dim = config.fused_dim()
     params["aggregator"] = []
     for agg in config.aggregator_sizes():
-        layer = {"fwd": lstm_ops.init_lstm_params(generator, in_dim, agg, w_init)}
         if config.agg_bidirectional:
-            layer["bwd"] = lstm_ops.init_lstm_params(generator, in_dim, agg, w_init)
-        params["aggregator"].append(layer)
+            fwd, bwd = lstm_ops.init_blstm_params(generator, in_dim, agg, w_init,
+                                                  config.use_peepholes)
+            params["aggregator"].append({"fwd": fwd, "bwd": bwd})
+        else:
+            params["aggregator"].append({"fwd": lstm_ops.init_lstm_params(
+                generator, in_dim, agg, w_init, config.use_peepholes)})
         in_dim = agg
     params["output"] = {
         "w": w_init(generator, (config.classifier_in_dim(), config.output_classes)),

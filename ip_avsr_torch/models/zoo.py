@@ -1,10 +1,16 @@
 """Model zoo: reference-named AdeNet configurations.
 
-Mirrors ip_avsr_tpu/models/zoo.py for the flagship trimodal model; the other
-zoo entries come with ROADMAP Queue 1 item 6.
+Mirrors ip_avsr_tpu/models/zoo.py field for field for the builders the
+port's entry points reach: the flagship trimodal ``adenet_v3``, the generic
+N-stream ``adenet_nstream`` (peephole LSTMs by default; ``configs/
+oulu_4stream.ini`` builds it) and the three single-stream builders that
+``train/config.build_model_config`` calls.  The other zoo entries come with
+ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 from ip_avsr_torch.models.adenet import AdeNetConfig, StreamSpec
 
@@ -20,6 +26,43 @@ def _encoder_stream(input_dim, name, shapes=None, nonlinearities=None, **kw) -> 
         encoder_shapes=tuple(shapes or sh),
         encoder_nonlinearities=tuple(nonlinearities or nl),
         **kw,
+    )
+
+
+def deltanet_v1(input_dim, lstm_size=250, window=9, output_classes=26,
+                w_init="glorot", use_peepholes=False, use_blstm=True) -> AdeNetConfig:
+    """No-encoder DeltaLayer directly on the input, per-timestep softmax."""
+    return AdeNetConfig(
+        streams=[StreamSpec(input_dim=input_dim, name="s1", use_lstm=False)],
+        output_classes=output_classes, lstm_size=lstm_size, window=window,
+        agg_layers=1, agg_bidirectional=use_blstm,
+        output_mode="per_step", w_init=w_init, use_peepholes=use_peepholes,
+    )
+
+
+def deltanet_majority_vote(input_dim, encoder_shapes, encoder_nonlinearities,
+                           lstm_size=250, window=9, output_classes=26,
+                           w_init="glorot", use_peepholes=False,
+                           use_blstm=True) -> AdeNetConfig:
+    """Encoder + delta + (B)LSTM + per-timestep softmax for majority voting."""
+    return AdeNetConfig(
+        streams=[_encoder_stream(input_dim, "s1", encoder_shapes, encoder_nonlinearities,
+                                 use_lstm=False)],
+        output_classes=output_classes, lstm_size=lstm_size, window=window,
+        agg_layers=1, agg_bidirectional=use_blstm,
+        output_mode="per_step", w_init=w_init, use_peepholes=use_peepholes,
+    )
+
+
+def lstm_classifier_majority_vote(input_dim, lstm_size=250, output_classes=26,
+                                  w_init="glorot", use_peepholes=False,
+                                  use_blstm=True) -> AdeNetConfig:
+    """Raw-feature (B)LSTM + per-timestep softmax."""
+    return AdeNetConfig(
+        streams=[StreamSpec(input_dim=input_dim, name="s1", use_delta=False, use_lstm=False)],
+        output_classes=output_classes, lstm_size=lstm_size,
+        agg_layers=1, agg_bidirectional=use_blstm, output_mode="per_step",
+        w_init=w_init, use_peepholes=use_peepholes,
     )
 
 
@@ -41,4 +84,42 @@ def adenet_v3(input_dim, dct_dim, diff_dim, lstm_size=250, window=9,
         fusiontype=fusiontype, agg_layers=1, agg_bidirectional=True,
         agg_size=lstm_size * 2, agg_dropout=0.5,
         output_mode="last_step", w_init="ortho",
+    )
+
+
+def adenet_nstream(
+    input_dims: Sequence[int],
+    encoders: Sequence[Optional[tuple]],
+    lstm_size=250,
+    window=9,
+    output_classes=26,
+    fusiontype="sum",
+    w_init="glorot",
+    use_peepholes=True,
+    stream_dropout=0.0,
+    stream_lstm_multiplier=1,
+    use_delta=True,
+    use_blstm=True,
+) -> AdeNetConfig:
+    """Generic N-stream AdeNet: ``encoders[i]`` is ``(nonlinearities,
+    shapes)`` or None for an encoder-less stream; ``use_delta`` a bool or a
+    per-stream list.  Stream LSTMs, fusion, a (B)LSTM aggregator and a
+    per-timestep softmax."""
+    if isinstance(use_delta, bool):
+        use_delta = [use_delta] * len(input_dims)
+    streams = []
+    for i, (dim, enc) in enumerate(zip(input_dims, encoders)):
+        kw = dict(dropout=stream_dropout, use_delta=bool(use_delta[i]),
+                  lstm_size=(lstm_size * stream_lstm_multiplier
+                             if stream_lstm_multiplier != 1 else None))
+        if enc is not None:
+            nl, sh = enc
+            streams.append(_encoder_stream(dim, f"s{i + 1}", sh, nl, **kw))
+        else:
+            streams.append(StreamSpec(input_dim=dim, name=f"s{i + 1}", **kw))
+    return AdeNetConfig(
+        streams=streams, output_classes=output_classes, lstm_size=lstm_size,
+        window=window, fusiontype=fusiontype, agg_layers=1,
+        agg_bidirectional=use_blstm,
+        output_mode="per_step", w_init=w_init, use_peepholes=use_peepholes,
     )

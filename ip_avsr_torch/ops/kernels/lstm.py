@@ -1,13 +1,19 @@
 """Wrappers of the masked LSTM kernels (``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``).
 
-They replace, in ip_avsr_tpu/ops/pallas/lstm_kernel.py (no peepholes):
+They replace the seven-row kernel table's LSTM rows, in
+ip_avsr_tpu/ops/pallas/lstm_kernel.py:
 
 * :func:`lstm_recurrence`: ``_lstm_fwd_kernel`` as launched by ``lstm_pallas``
   (inference, no residuals);
 * :func:`lstm_recurrence_train`: the same body as launched by
   ``lstm_pallas_train`` (also writes the training residuals);
 * :func:`lstm_bwd_chain`: ``_lstm_bwd_kernel`` as launched by
-  ``lstm_pallas_bwd_chain`` (the reverse-time backward chain).
+  ``lstm_pallas_bwd_chain`` (the reverse-time backward chain);
+* :func:`lstm_peep_recurrence`, :func:`lstm_peep_recurrence_train` and
+  :func:`lstm_peep_bwd_chain`: their peephole twins, ``_lstm_peep_fwd_kernel``
+  as launched by ``lstm_pallas_peep`` and ``lstm_pallas_peep_train``, and
+  ``_lstm_peep_bwd_kernel`` as launched by ``lstm_pallas_peep_bwd_chain``
+  (the same CUDA bodies, instantiated with peepholes).
 
 Each is bound by its serial chain of T steps, each reading all of W_hid (from
 L2) and exchanging a (B, H) state across the card; the kernels partition the
@@ -28,18 +34,40 @@ import torch
 from ip_avsr_torch.ops.kernels import _build
 
 
-def _plain_step(x_proj_t, w_hid, m, cell, hid):
+def _plain_step(x_proj_t, w_hid, m, cell, hid, peep=None):
     """One masked step: returns the new (hid, cell) and the pre-activation
-    gates (B, 4H).  Where ``m`` (B, 1) is 0 both states carry over."""
+    gates (B, 4H), before any peephole term.  Where ``m`` (B, 1) is 0 both
+    states carry over.  ``peep`` is None or the (H,) vectors (w_ci, w_cf,
+    w_co): c_{t-1} feeds the in and forget gates, the new cell the out
+    gate."""
     H = w_hid.shape[0]
     gates = x_proj_t + hid @ w_hid
-    i = torch.sigmoid(gates[:, :H])
-    f = torch.sigmoid(gates[:, H: 2 * H])
-    c_in = torch.tanh(gates[:, 2 * H: 3 * H])
-    o = torch.sigmoid(gates[:, 3 * H:])
+    z_i, z_f, z_c, z_o = gates[:, :H], gates[:, H: 2 * H], gates[:, 2 * H: 3 * H], gates[:, 3 * H:]
+    if peep is not None:
+        z_i = z_i + cell * peep[0]
+        z_f = z_f + cell * peep[1]
+    i = torch.sigmoid(z_i)
+    f = torch.sigmoid(z_f)
+    c_in = torch.tanh(z_c)
     cell_cand = f * cell + i * c_in
+    if peep is not None:
+        z_o = z_o + cell_cand * peep[2]
+    o = torch.sigmoid(z_o)
     hid_cand = o * torch.tanh(cell_cand)
     return m * hid_cand + (1.0 - m) * hid, m * cell_cand + (1.0 - m) * cell, gates
+
+
+def _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, peep):
+    """All T steps: (hids, post-mask cells, gates) stacked batch-major."""
+    cell, hid = cell0, hid0
+    hids, cells, gates_all = [], [], []
+    for t in range(x_proj.shape[1]):
+        hid, cell, gates = _plain_step(x_proj[:, t], w_hid, mask[:, t: t + 1], cell, hid, peep)
+        hids.append(hid)
+        cells.append(cell)
+        gates_all.append(gates)
+    return (torch.stack(hids, dim=1), torch.stack(cells, dim=1),
+            torch.stack(gates_all, dim=1))
 
 
 def lstm_recurrence_plain(x_proj, w_hid, mask, cell0, hid0):
@@ -48,12 +76,7 @@ def lstm_recurrence_plain(x_proj, w_hid, mask, cell0, hid0):
     x_proj (B, T, 4H) (input projection plus bias), w_hid (H, 4H), mask
     (B, T), cell0/hid0 (B, H) -> hids (B, T, H).  Masked steps carry both
     the cell and the hidden state (Lasagne semantics)."""
-    cell, hid = cell0, hid0
-    outs = []
-    for t in range(x_proj.shape[1]):
-        hid, cell, _ = _plain_step(x_proj[:, t], w_hid, mask[:, t: t + 1], cell, hid)
-        outs.append(hid)
-    return torch.stack(outs, dim=1)
+    return _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, None)[0]
 
 
 def lstm_recurrence_train_plain(x_proj, w_hid, mask, cell0, hid0):
@@ -64,15 +87,72 @@ def lstm_recurrence_train_plain(x_proj, w_hid, mask, cell0, hid0):
     pre-activation gates ``x_proj[:, t] + h_{t-1} @ W_hid`` (B, T, 4H), the
     residual contract of ip_avsr_tpu/ops/lstm.py::_lstm_core_fwd_impl in the
     port's batch-major layout."""
-    cell, hid = cell0, hid0
-    hids, cells, gates_all = [], [], []
-    for t in range(x_proj.shape[1]):
-        hid, cell, gates = _plain_step(x_proj[:, t], w_hid, mask[:, t: t + 1], cell, hid)
-        hids.append(hid)
-        cells.append(cell)
-        gates_all.append(gates)
-    return (torch.stack(hids, dim=1), torch.stack(cells, dim=1),
-            torch.stack(gates_all, dim=1))
+    return _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, None)
+
+
+def lstm_peep_recurrence_plain(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
+    """The peephole recurrence in plain PyTorch: inputs as
+    :func:`lstm_recurrence_plain` plus the (H,) peephole vectors; returns
+    hids (B, T, H) (ip_avsr_tpu/ops/lstm.py::_peep_recurrence_scan)."""
+    return _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, (w_ci, w_cf, w_co))[0]
+
+
+def lstm_peep_recurrence_train_plain(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
+    """The peephole recurrence with its training residuals, in plain
+    PyTorch: ``(hids, cells, gates_pre)`` as
+    :func:`lstm_recurrence_train_plain` returns them, where gates_pre are
+    the pre-activations BEFORE the peephole terms (the residual contract of
+    ip_avsr_tpu/ops/lstm.py::_lstm_core_peep_fwd_impl)."""
+    return _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, (w_ci, w_cf, w_co))
+
+
+def _bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip, peep):
+    """The reverse-time chain; with ``peep`` (w_ci, w_cf, w_co) also the
+    peephole routes and the (B, H) per-row partial sums of their gradients."""
+    B, T, H = cells.shape
+    dcell = torch.zeros((B, H), dtype=cells.dtype, device=cells.device)
+    dhid = torch.zeros_like(dcell)
+    dw = [torch.zeros_like(dcell) for _ in range(3)] if peep is not None else None
+    dgates_all = [None] * T
+    for t in reversed(range(T)):
+        m = mask[:, t: t + 1]
+        gates = gates_pre[:, t]
+        c_prev, c_t = cells_prev[:, t], cells[:, t]
+        dhid_total = g_out[:, t] + dhid
+        dhid_cand = m * dhid_total
+        dcell_cand = m * dcell
+        z_i, z_f, z_o = gates[:, :H], gates[:, H: 2 * H], gates[:, 3 * H:]
+        if peep is not None:
+            # o from the post-mask cell, as the JAX backward recomputes it
+            z_i = z_i + c_prev * peep[0]
+            z_f = z_f + c_prev * peep[1]
+            z_o = z_o + c_t * peep[2]
+        i = torch.sigmoid(z_i)
+        f = torch.sigmoid(z_f)
+        c_in = torch.tanh(gates[:, 2 * H: 3 * H])
+        o = torch.sigmoid(z_o)
+        tc = torch.tanh(c_t)
+        do_pre = dhid_cand * tc * o * (1.0 - o)
+        dcell_cand = dcell_cand + dhid_cand * o * (1.0 - tc * tc)
+        if peep is not None:
+            dcell_cand = dcell_cand + do_pre * peep[2]
+        di_pre = dcell_cand * c_in * i * (1.0 - i)
+        df_pre = dcell_cand * c_prev * f * (1.0 - f)
+        dgates = torch.cat([di_pre, df_pre, dcell_cand * i * (1.0 - c_in * c_in), do_pre],
+                           dim=-1)
+        if clip:
+            dgates = torch.clamp(dgates, -clip, clip)
+        dhid = dgates @ w_hid.T + (1.0 - m) * dhid_total
+        dcell_prev = dcell_cand * f + (1.0 - m) * dcell
+        if peep is not None:
+            # the peephole routes take the cotangents before the clip
+            dcell_prev = dcell_prev + di_pre * peep[0] + df_pre * peep[1]
+            dw[0] = dw[0] + di_pre * c_prev
+            dw[1] = dw[1] + df_pre * c_prev
+            dw[2] = dw[2] + do_pre * c_t
+        dcell = dcell_prev
+        dgates_all[t] = dgates
+    return torch.stack(dgates_all, dim=1), dcell, dhid, dw
 
 
 def lstm_bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip):
@@ -84,33 +164,22 @@ def lstm_bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip)
     dhid0 (B, H))``.  dgates are clipped to +-``clip`` after the gate
     backward and before the W_hid^T product, and not clipped when ``clip``
     is 0 (ip_avsr_tpu/ops/lstm.py::_lstm_core_bwd, back_step)."""
-    B, T, H = cells.shape
-    dcell = torch.zeros((B, H), dtype=cells.dtype, device=cells.device)
-    dhid = torch.zeros_like(dcell)
-    dgates_all = [None] * T
-    for t in reversed(range(T)):
-        m = mask[:, t: t + 1]
-        gates = gates_pre[:, t]
-        dhid_total = g_out[:, t] + dhid
-        dhid_cand = m * dhid_total
-        dcell_cand = m * dcell
-        i = torch.sigmoid(gates[:, :H])
-        f = torch.sigmoid(gates[:, H: 2 * H])
-        c_in = torch.tanh(gates[:, 2 * H: 3 * H])
-        o = torch.sigmoid(gates[:, 3 * H:])
-        tc = torch.tanh(cells[:, t])
-        do = dhid_cand * tc
-        dcell_cand = dcell_cand + dhid_cand * o * (1.0 - tc * tc)
-        dgates = torch.cat([dcell_cand * c_in * i * (1.0 - i),
-                            dcell_cand * cells_prev[:, t] * f * (1.0 - f),
-                            dcell_cand * i * (1.0 - c_in * c_in),
-                            do * o * (1.0 - o)], dim=-1)
-        if clip:
-            dgates = torch.clamp(dgates, -clip, clip)
-        dhid = dgates @ w_hid.T + (1.0 - m) * dhid_total
-        dcell = dcell_cand * f + (1.0 - m) * dcell
-        dgates_all[t] = dgates
-    return torch.stack(dgates_all, dim=1), dcell, dhid
+    return _bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip, None)[:3]
+
+
+def lstm_peep_bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid,
+                              w_ci, w_cf, w_co, clip):
+    """The peephole backward chain in plain PyTorch: inputs as
+    :func:`lstm_bwd_chain_plain` plus the (H,) peephole vectors, gates_pre
+    before the peephole terms.  Returns ``(dgates, dcell0, dhid0, dw_ci,
+    dw_cf, dw_co)``, the last three (H,).  The cell carry's peephole routes
+    and the three peephole gradients take the gate cotangents before the
+    clip; only dgates are clipped (ip_avsr_tpu/ops/lstm.py::
+    _lstm_core_peep_bwd, back_step).  The peephole gradients are summed per
+    row over time and then over rows, as the kernels sum them."""
+    dgates, dcell, dhid, dw = _bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask,
+                                               w_hid, clip, (w_ci, w_cf, w_co))
+    return (dgates, dcell, dhid, *(d.sum(dim=0) for d in dw))
 
 
 @functools.cache
@@ -121,6 +190,12 @@ def _lib():
     lib.lstm_fwd_train_forward.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                                            + [ctypes.c_void_p])
     lib.lstm_fwd_train_forward.restype = ctypes.c_int
+    lib.lstm_fwd_peep_forward.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                                          + [ctypes.c_void_p])
+    lib.lstm_fwd_peep_forward.restype = ctypes.c_int
+    lib.lstm_fwd_peep_train_forward.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+                                                + [ctypes.c_void_p])
+    lib.lstm_fwd_peep_train_forward.restype = ctypes.c_int
     lib.lstm_fwd_smem_bytes.argtypes = [ctypes.c_int]
     lib.lstm_fwd_smem_bytes.restype = ctypes.c_size_t
     return lib
@@ -132,6 +207,9 @@ def _bwd_lib():
     lib.lstm_bwd_chain.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_float]
                                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.lstm_bwd_chain.restype = ctypes.c_int
+    lib.lstm_bwd_peep_chain.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_float]
+                                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.lstm_bwd_peep_chain.restype = ctypes.c_int
     return lib
 
 
@@ -153,18 +231,24 @@ def _check_cuda(name, args, shapes):
         raise ValueError(f"{name} kernel takes contiguous tensors")
 
 
-def _run_fwd(name, args, train):
+def _peep_shapes(peep, H):
+    return {name: (v, (H,)) for name, v in zip(("w_ci", "w_cf", "w_co"), peep)}
+
+
+def _run_fwd(name, args, train, peep=()):
     """Check the inputs and launch csrc/lstm_fwd.cu's inference entry point
-    (returns hids) or its training one (returns hids, cells, gates)."""
+    (returns hids) or its training one (returns hids, cells, gates); with
+    ``peep`` (w_ci, w_cf, w_co) their peephole instantiations."""
     x_proj, w_hid, mask, cell0, hid0 = args
     if x_proj.dim() != 3 or w_hid.dim() != 2:
         raise ValueError(f"{name}: x_proj must be (B, T, 4H) and w_hid (H, 4H), got "
                          f"{tuple(x_proj.shape)} and {tuple(w_hid.shape)}")
     B, T, _ = x_proj.shape
     H = w_hid.shape[0]
-    _check_cuda(name, args, {"x_proj": (x_proj, (B, T, 4 * H)), "w_hid": (w_hid, (H, 4 * H)),
-                             "mask": (mask, (B, T)), "cell0": (cell0, (B, H)),
-                             "hid0": (hid0, (B, H))})
+    _check_cuda(name, (*args, *peep), {
+        "x_proj": (x_proj, (B, T, 4 * H)), "w_hid": (w_hid, (H, 4 * H)),
+        "mask": (mask, (B, T)), "cell0": (cell0, (B, H)), "hid0": (hid0, (B, H)),
+        **_peep_shapes(peep, H)})
     lib = _lib()
     smem = lib.lstm_fwd_smem_bytes(H)
     if smem > _build.SMEM_LIMIT:
@@ -174,18 +258,24 @@ def _run_fwd(name, args, train):
     cell = cell0.clone()
     hids = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     ptrs = [a.data_ptr() for a in (x_proj, w_hid, mask, hid0, cell, hids)]
+    peep_ptrs = [v.data_ptr() for v in peep]
     stream = torch.cuda.current_stream(dev).cuda_stream
     if train:
         cells = torch.empty((B, T, H), dtype=torch.float32, device=dev)
         gates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
-        code = lib.lstm_fwd_train_forward(*ptrs, cells.data_ptr(), gates.data_ptr(),
-                                          B, T, H, stream)
+        entry = lib.lstm_fwd_peep_train_forward if peep else lib.lstm_fwd_train_forward
+        code = entry(*ptrs, cells.data_ptr(), gates.data_ptr(), *peep_ptrs, B, T, H, stream)
         out = (hids, cells, gates)
     else:
-        code = lib.lstm_fwd_forward(*ptrs, B, T, H, stream)
+        entry = lib.lstm_fwd_peep_forward if peep else lib.lstm_fwd_forward
+        code = entry(*ptrs, *peep_ptrs, B, T, H, stream)
         out = hids
     _build.check(lib, "lstm_fwd", code)
     return out
+
+
+def _on_cpu(args) -> bool:
+    return all(a.device.type == "cpu" for a in args)
 
 
 def lstm_recurrence(x_proj, w_hid, mask, cell0, hid0):
@@ -196,7 +286,7 @@ def lstm_recurrence(x_proj, w_hid, mask, cell0, hid0):
     kernel (one call, T per-step launches, counted once in
     ``lstm_recurrence.launches``) or raise."""
     args = (x_proj, w_hid, mask, cell0, hid0)
-    if all(a.device.type == "cpu" for a in args):
+    if _on_cpu(args):
         return lstm_recurrence_plain(*args)
     out = _run_fwd("lstm_recurrence", args, train=False)
     lstm_recurrence.launches += 1
@@ -215,7 +305,7 @@ def lstm_recurrence_train(x_proj, w_hid, mask, cell0, hid0):
     residual-emitting instantiation (T per-step launches, counted once in
     ``lstm_recurrence_train.launches``) or raise."""
     args = (x_proj, w_hid, mask, cell0, hid0)
-    if all(a.device.type == "cpu" for a in args):
+    if _on_cpu(args):
         return lstm_recurrence_train_plain(*args)
     out = _run_fwd("lstm_recurrence_train", args, train=True)
     lstm_recurrence_train.launches += 1
@@ -223,6 +313,87 @@ def lstm_recurrence_train(x_proj, w_hid, mask, cell0, hid0):
 
 
 lstm_recurrence_train.launches = 0
+
+
+def lstm_peep_recurrence(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
+    """The peephole recurrence: inputs as :func:`lstm_recurrence` plus the
+    (H,) peephole vectors; returns (B, T, H), all float32.
+
+    CPU tensors take :func:`lstm_peep_recurrence_plain`; CUDA tensors launch
+    the kernel's peephole instantiation (T per-step launches, counted once in
+    ``lstm_peep_recurrence.launches``) or raise."""
+    args = (x_proj, w_hid, mask, cell0, hid0)
+    peep = (w_ci, w_cf, w_co)
+    if _on_cpu((*args, *peep)):
+        return lstm_peep_recurrence_plain(*args, *peep)
+    out = _run_fwd("lstm_peep_recurrence", args, train=False, peep=peep)
+    lstm_peep_recurrence.launches += 1
+    return out
+
+
+lstm_peep_recurrence.launches = 0
+
+
+def lstm_peep_recurrence_train(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
+    """The peephole recurrence with its training residuals: inputs as
+    :func:`lstm_peep_recurrence`, returns ``(hids, cells, gates_pre)`` as
+    :func:`lstm_peep_recurrence_train_plain` does (gates before the
+    peephole terms).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    residual-emitting peephole instantiation (T per-step launches, counted
+    once in ``lstm_peep_recurrence_train.launches``) or raise."""
+    args = (x_proj, w_hid, mask, cell0, hid0)
+    peep = (w_ci, w_cf, w_co)
+    if _on_cpu((*args, *peep)):
+        return lstm_peep_recurrence_train_plain(*args, *peep)
+    out = _run_fwd("lstm_peep_recurrence_train", args, train=True, peep=peep)
+    lstm_peep_recurrence_train.launches += 1
+    return out
+
+
+lstm_peep_recurrence_train.launches = 0
+
+
+def _run_bwd(name, args, clip, peep=()):
+    """Check the inputs and launch csrc/lstm_bwd.cu's chain: returns
+    ``(dgates, dcell0, dhid0)``, and with ``peep`` also the three (H,)
+    peephole gradients, each the kernel's (B, H) partial sums reduced over
+    the rows here."""
+    g_out, gates_pre, cells, cells_prev, mask, w_hid = args
+    if cells.dim() != 3:
+        raise ValueError(f"{name}: cells must be (B, T, H), got {tuple(cells.shape)}")
+    B, T, H = cells.shape
+    _check_cuda(name, (*args, *peep), {
+        "g_out": (g_out, (B, T, H)), "gates_pre": (gates_pre, (B, T, 4 * H)),
+        "cells_prev": (cells_prev, (B, T, H)), "mask": (mask, (B, T)),
+        "w_hid": (w_hid, (H, 4 * H)), **_peep_shapes(peep, H)})
+    lib = _bwd_lib()
+    dev = cells.device
+    dgates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
+    dcell = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    dh_pass = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    dhid0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [a.data_ptr() for a in args]
+    outs = [a.data_ptr() for a in (dgates, dcell, dh_pass, dhid0)]
+    if peep:
+        dw = torch.zeros((3, B, H), dtype=torch.float32, device=dev)
+        code = lib.lstm_bwd_peep_chain(*ptrs, *(v.data_ptr() for v in peep), *outs,
+                                       *(d.data_ptr() for d in dw), clip, B, T, H, stream)
+    else:
+        code = lib.lstm_bwd_chain(*ptrs, *outs, clip, B, T, H, stream)
+    _build.check(lib, "lstm_bwd", code)
+    if peep:
+        return (dgates, dcell, dhid0, *dw.sum(dim=1))
+    return dgates, dcell, dhid0
+
+
+def _check_clip(name, clip) -> float:
+    clip = float(clip or 0.0)
+    if clip < 0:
+        raise ValueError(f"{name}: clip must be >= 0, got {clip}")
+    return clip
 
 
 def lstm_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip):
@@ -233,32 +404,34 @@ def lstm_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip):
     (T + 1 per-step launches, counted once in ``lstm_bwd_chain.launches``) or
     raise."""
     args = (g_out, gates_pre, cells, cells_prev, mask, w_hid)
-    clip = float(clip or 0.0)
-    if clip < 0:
-        raise ValueError(f"lstm_bwd_chain: clip must be >= 0, got {clip}")
-    if all(a.device.type == "cpu" for a in args):
+    clip = _check_clip("lstm_bwd_chain", clip)
+    if _on_cpu(args):
         return lstm_bwd_chain_plain(*args, clip)
-    if cells.dim() != 3:
-        raise ValueError(f"cells must be (B, T, H), got {tuple(cells.shape)}")
-    B, T, H = cells.shape
-    _check_cuda("lstm_bwd_chain", args, {
-        "g_out": (g_out, (B, T, H)), "gates_pre": (gates_pre, (B, T, 4 * H)),
-        "cells_prev": (cells_prev, (B, T, H)), "mask": (mask, (B, T)),
-        "w_hid": (w_hid, (H, 4 * H))})
-    lib = _bwd_lib()
-    dev = cells.device
-    dgates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
-    dcell = torch.zeros((B, H), dtype=torch.float32, device=dev)
-    dh_pass = torch.zeros((B, H), dtype=torch.float32, device=dev)
-    dhid0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.lstm_bwd_chain(g_out.data_ptr(), gates_pre.data_ptr(), cells.data_ptr(),
-                              cells_prev.data_ptr(), mask.data_ptr(), w_hid.data_ptr(),
-                              dgates.data_ptr(), dcell.data_ptr(), dh_pass.data_ptr(),
-                              dhid0.data_ptr(), clip, B, T, H, stream)
-    _build.check(lib, "lstm_bwd", code)
+    out = _run_bwd("lstm_bwd_chain", args, clip)
     lstm_bwd_chain.launches += 1
-    return dgates, dcell, dhid0
+    return out
 
 
 lstm_bwd_chain.launches = 0
+
+
+def lstm_peep_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, w_ci, w_cf, w_co,
+                        clip):
+    """The peephole backward chain: inputs and outputs as
+    :func:`lstm_peep_bwd_chain_plain`, all float32, ``clip >= 0``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    peephole instantiation (T + 1 per-step launches, counted once in
+    ``lstm_peep_bwd_chain.launches``; the peephole gradients' (B, H) partial
+    sums are reduced over B by one ``sum``) or raise."""
+    args = (g_out, gates_pre, cells, cells_prev, mask, w_hid)
+    peep = (w_ci, w_cf, w_co)
+    clip = _check_clip("lstm_peep_bwd_chain", clip)
+    if _on_cpu((*args, *peep)):
+        return lstm_peep_bwd_chain_plain(*args, *peep, clip)
+    out = _run_bwd("lstm_peep_bwd_chain", args, clip, peep)
+    lstm_peep_bwd_chain.launches += 1
+    return out
+
+
+lstm_peep_bwd_chain.launches = 0

@@ -1,4 +1,4 @@
-"""The training step of the flagship model.
+"""The training step of an AdeNet.
 
 Mirrors ``bench._make_train_step`` and the step of
 ip_avsr_tpu/train/trainer.py::Trainer._build_steps without batch norm and

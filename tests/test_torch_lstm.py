@@ -119,12 +119,21 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
 
 
 def test_peephole_params_raise_not_implemented():
+    """Peephole parameters no longer raise NotImplementedError: the layer
+    runs the peephole recurrence (equal to the JAX forward), and the init
+    draws the three vectors in the JAX layout."""
     params, x, mask = _case(6)
-    params["w_cell_to_ingate"] = np.zeros(6, np.float32)
-    with pytest.raises(NotImplementedError, match="Queue"):
-        tlstm.lstm_forward(_t(params), torch.from_numpy(x), torch.from_numpy(mask))
-    with pytest.raises(NotImplementedError):
-        tlstm.init_lstm_params(torch.Generator(), 3, 4, use_peepholes=True)
+    rng = np.random.RandomState(16)
+    for k in ("w_cell_to_ingate", "w_cell_to_forgetgate", "w_cell_to_outgate"):
+        params[k] = rng.randn(6).astype(np.float32)
+    ref = jlstm.lstm_forward({k: jnp.asarray(v) for k, v in params.items()},
+                             jnp.asarray(x), jnp.asarray(mask))
+    got = tlstm.lstm_forward(_t(params), torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    ref_p = jlstm.init_lstm_params(jax.random.PRNGKey(0), 3, 4, use_peepholes=True)
+    got_p = tlstm.init_lstm_params(torch.Generator().manual_seed(0), 3, 4, use_peepholes=True)
+    assert {k: tuple(v.shape) for k, v in got_p.items()} == {
+        k: tuple(v.shape) for k, v in ref_p.items()}
 
 
 def test_init_lstm_params_layout_matches_jax():

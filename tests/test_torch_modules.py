@@ -179,7 +179,7 @@ def test_config_fields_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("use_peepholes", True), ("fuse_scans", True), ("matmul_dtype", "bfloat16")])
+    ("w_init", "uniform"), ("fuse_scans", True), ("matmul_dtype", "bfloat16")])
 def test_unported_config_values_raise(field, value):
     cfg = dataclasses.replace(tzoo.adenet_v3(16, 4, 16, lstm_size=4), **{field: value})
     with pytest.raises(NotImplementedError, match="Queue|f32"):
@@ -245,7 +245,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "ip_avsr_torch.ops.initializers, ip_avsr_torch.ops.kernels.delta, "
         "ip_avsr_torch.ops.kernels.lstm, ip_avsr_torch.ops.kernels._build, "
         "ip_avsr_torch.ops.losses, ip_avsr_torch.train.optimizers, "
-        "ip_avsr_torch.train.trainer\n"
+        "ip_avsr_torch.train.trainer, ip_avsr_torch.train.config\n"
         "import sys\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m.startswith('ip_avsr_tpu')]\n"
