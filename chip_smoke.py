@@ -11,12 +11,16 @@ Phases, each fatal on failure:
 2. print the card's name and power limit (nvidia-smi);
 3. with TF32 off, hold each kernel against its plain PyTorch version at the
    shapes of the paths below and time kernel, plain version and library
-   call: the delta FIR, the inference recurrence, the training recurrence
-   (which also writes cells and gates) and the backward chain (with an
-   upstream gradient that makes the +-5 clip bite) at the flagship's H = 500;
-   then their peephole instantiations at the 4-stream model's H = 250 (D_in
-   150, 270, 117, 250; clip 5 with x1 and x100 upstream and clip 0, the
-   three peephole gradients compared too);
+   call: the delta FIR, the inference recurrence and the training recurrence
+   (which also writes cells and gates) at the flagship's H = 500, then their
+   peephole instantiations at the 4-stream model's H = 250 (D_in 150, 270,
+   117, 250); the two backward chains (one cooperative launch per call) at B
+   in {1, 10, 64} and H in {500, 250, 130}, both directions, clip 5 with x1
+   and x100 upstream (the clip bites) and clip 0, the three peephole
+   gradients compared too, with each shape's launch plan; each chain traced
+   with torch.profiler at the main path's shapes (exactly one launch per
+   call, its device time and the time per step), timed against cuDNN's
+   backward, and at two units-per-block settings in turns;
 4. build the full-width trimodal adenet_v3 (1144/90/1144, H = 500, W = 9)
    from a seeded generator, serve raw uint8 requests (B = 1 and 8, T = 29,
    ragged masks) through ``serve.make_trimodal_server``, check the scores
@@ -31,7 +35,8 @@ Phases, each fatal on failure:
    backward-chain, 2 delta and no other launches per step), then at dropout
    0 the card against the port's CPU path on the same parameters and batch
    (loss, every gradient, updated parameters), the step median on the host
-   clock, and a torch.profiler trace of three steps;
+   clock, and a torch.profiler trace of three steps (device time by kernel,
+   device kernels and host launch calls per step);
 7. build the peephole 4-stream adasum AdeNet of ``configs/oulu_4stream.ini``
    through ``train.config`` at full width (features 150/150/270/117, H =
    250), serve seeded feature streams (B = 1 and 10, lengths 14-29) through
@@ -51,6 +56,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -221,7 +227,7 @@ def phase_build():
     print(f"built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
     for name in sorted(_build.build_logs):
         for line in _build.build_logs[name].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers", "spill")):
                 print(f"  {name}: {line.strip()}")
 
 
@@ -327,13 +333,13 @@ def phase_lstm(dev):
 def phase_lstm_train(dev):
     import torch
 
-    from ip_avsr_torch.ops.kernels.lstm import (lstm_bwd_chain, lstm_bwd_chain_plain,
-                                                lstm_recurrence_train,
+    from ip_avsr_torch.ops.kernels.lstm import (_run_bwd, lstm_bwd_chain,
+                                                lstm_bwd_chain_plain, lstm_recurrence_train,
                                                 lstm_recurrence_train_plain)
 
     H = 500
     gen = torch.Generator().manual_seed(SEED + 3)
-    fwd_err = bwd_err = 0.0
+    fwd_err = 0.0
     for B in (1, TRAIN_B):
         for D in (150, 90, 500):
             w_in = (torch.randn(D, 4 * H, generator=gen) / D ** 0.5).to(dev)
@@ -345,7 +351,6 @@ def phase_lstm_train(dev):
             mask = ragged_mask(B, T_FRAMES, gen, dev)
             if B > 1:
                 mask[-1] = 0.0  # a fully padded row
-            g = torch.randn(B, T_FRAMES, H, generator=gen).to(dev)
             for backwards in (False, True):
                 xs, ms_ = (x.flip(1), mask.flip(1)) if backwards else (x, mask)
                 ms_ = ms_.contiguous()
@@ -359,26 +364,7 @@ def phase_lstm_train(dev):
                     raise AssertionError(
                         f"training LSTM kernel disagrees with its plain version: {e}")
                 fwd_err = max(fwd_err, e)
-                _, cells, gates = ref
-                cells_prev = torch.cat([c0[:, None], cells[:, :-1]], dim=1)
-                # scale 100 makes the clip bite; clip 0 checks the unclipped chain
-                for scale, clip in ((1.0, 5.0), (100.0, 5.0), (1.0, 0.0)):
-                    args = ((g * scale).contiguous(), gates, cells, cells_prev, ms_, w_hid)
-                    got = lstm_bwd_chain(*args, clip)
-                    ref = lstm_bwd_chain_plain(*args, clip)
-                    errs = [max_err(a, r) for a, r in zip(got, ref)]
-                    rel = max(r for _, r in errs)
-                    clipped = (ref[0].abs() == clip).float().mean().item() if clip else 0.0
-                    print(f"lstm_bwd B={B} D_in={D} backwards={backwards} g x{scale:g} "
-                          f"clip={clip:g}: max_abs_err={max(a for a, _ in errs):.3e}, "
-                          f"relative {rel:.3e}, clipped share {clipped:.4f}")
-                    if not rel <= LSTM_BWD_TOL:
-                        raise AssertionError(
-                            f"LSTM backward kernel disagrees with its plain version: {rel}")
-                    if clip and scale > 1 and not clipped > 0.01:
-                        raise AssertionError(f"the clip did not bite: share {clipped}")
-                    if scale == 1.0 and clip:
-                        bwd_err = max(bwd_err, max(a for a, _ in errs))
+    bwd_err = bwd_sweep(dev, peep=False)
     rows = {}
     for B in (1, TRAIN_B):
         D = 150
@@ -421,8 +407,127 @@ def phase_lstm_train(dev):
               f"cuDNN nn.LSTM forward (grad on) {lib_fwd:.4f} ms, bound {fb:.5f} ms ({fby})")
         print(f"lstm_bwd B={B}: kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, "
               f"cuDNN nn.LSTM backward (with dW, dx; no clip) {lib_bwd:.4f} ms, "
-              f"bound {bb:.5f} ms ({bby})")
+              f"bound {bb:.5f} ms ({bby}); kernel / cuDNN {bwd_ms / lib_bwd:.4f}")
+        trace_chain(lambda: lstm_bwd_chain(*bargs), f"lstm_bwd B={B} H={H}")
+        compare_units(lambda u: (lambda: _run_bwd("lstm_bwd_chain", bargs[:-1], 5.0,
+                                                  units=u)), (4, 8), f"lstm_bwd B={B} H={H}")
     return fwd_err, bwd_err, rows
+
+
+def bwd_sweep(dev, peep):
+    """Row 4 (``peep`` False) or row 7 against its plain version at B in {1,
+    10, 64} and H in {500, 250, 130} (130 leaves the last block ragged
+    whatever the units per block), both directions, ragged masks with a
+    fully padded row, clip 5 with x1 and x100 upstream and clip 0, each
+    output held relative to its max abs; prints each shape's launch plan and
+    the kernel's time there.
+    Returns the largest absolute error at the main path's H (500, or 250
+    with peepholes) at clip 5 and x1."""
+    import torch
+
+    from ip_avsr_torch.ops.kernels import lstm as kl
+
+    name = "lstm_peep_bwd" if peep else "lstm_bwd"
+    chain = kl.lstm_peep_bwd_chain if peep else kl.lstm_bwd_chain
+    plain = kl.lstm_peep_bwd_chain_plain if peep else kl.lstm_bwd_chain_plain
+    fwd = kl.lstm_peep_recurrence_train_plain if peep else kl.lstm_recurrence_train_plain
+    main_h = 250 if peep else 500
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator().manual_seed(SEED + 8 + peep)
+    D = 150
+    err = 0.0
+    for H in (500, 250, 130):
+        for B in (1, TRAIN_B, 64):
+            plan = kl.bwd_launch_plan(B, H, sm_count)
+            print(f"{name} plan B={B} H={H} on {sm_count} SMs: U={plan.units} hidden units per "
+                  f"block, grid {plan.grid}, {plan.smem_bytes} B of shared memory, last block "
+                  f"U={plan.last_units} live")
+            w_in = (torch.randn(D, 4 * H, generator=gen) / D ** 0.5).to(dev)
+            w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev)
+            b = (torch.randn(4 * H, generator=gen) * 0.1).to(dev)
+            vecs = [(torch.randn(H, generator=gen) * 0.5).to(dev) for _ in range(3 * peep)]
+            c0 = torch.randn(1, H, generator=gen).to(dev).expand(B, H).contiguous()
+            h0 = (torch.randn(1, H, generator=gen) * 0.5).to(dev).expand(B, H).contiguous()
+            x = torch.randn(B, T_FRAMES, D, generator=gen).to(dev)
+            mask = ragged_mask(B, T_FRAMES, gen, dev)
+            if B > 1:
+                mask[-1] = 0.0  # a fully padded row
+            g = torch.randn(B, T_FRAMES, H, generator=gen).to(dev)
+            for backwards in (False, True):
+                xs, ms_ = (x.flip(1), mask.flip(1)) if backwards else (x, mask)
+                ms_ = ms_.contiguous()
+                x_proj = (xs.reshape(-1, D) @ w_in).reshape(B, T_FRAMES, 4 * H) + b
+                _, cells, gates = fwd(x_proj, w_hid, ms_, c0, h0, *vecs)
+                cells_prev = torch.cat([c0[:, None], cells[:, :-1]], dim=1)
+                # scale 100 makes the clip bite; clip 0 checks the unclipped chain
+                for scale, clip in ((1.0, 5.0), (100.0, 5.0), (1.0, 0.0)):
+                    args = ((g * scale).contiguous(), gates, cells, cells_prev, ms_, w_hid,
+                            *vecs, clip)
+                    got = chain(*args)
+                    ref = plain(*args)
+                    errs = [max_err(a, r) for a, r in zip(got, ref)]
+                    rel = max(r for _, r in errs)
+                    clipped = (ref[0].abs() == clip).float().mean().item() if clip else 0.0
+                    peep_note = (f" (peephole grads {max(a for a, _ in errs[3:]):.3e})"
+                                 if peep else "")
+                    print(f"{name} B={B} H={H} backwards={backwards} g x{scale:g} "
+                          f"clip={clip:g}: max_abs_err={max(a for a, _ in errs):.3e}"
+                          f"{peep_note}, relative {rel:.3e}, clipped share {clipped:.4f}")
+                    if not (len(got) == len(ref) == 3 + 3 * peep and rel <= LSTM_BWD_TOL):
+                        raise AssertionError(
+                            f"{name} kernel disagrees with its plain version: {rel}")
+                    if clip and scale > 1 and not clipped > 0.01:
+                        raise AssertionError(f"the clip did not bite: share {clipped}")
+                    if scale == 1.0 and clip and H == main_h:
+                        err = max(err, max(a for a, _ in errs))
+            args = (g, gates, cells, cells_prev, ms_, w_hid, *vecs, 5.0)
+            ms = cuda_ms(lambda: chain(*args))
+            print(f"{name} B={B} H={H}: kernel {ms:.4f} ms per call (clip 5), "
+                  f"{ms * 1e3 / (T_FRAMES + 1):.3f} us per step")
+    return err
+
+
+def trace_chain(fn, label, n=5):
+    """Trace ``n`` calls of a backward chain with torch.profiler: each call
+    must be exactly one launch of lstm_bwd_chain_kernel and no other device
+    work.  Prints and returns its device time per call."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernel = [e for e in device if "lstm_bwd_chain_kernel" in e.key]
+    launches = sum(e.count for e in kernel)
+    others = sum(e.count for e in device) - launches
+    ms = sum(e.self_device_time_total for e in kernel) / 1e3 / n
+    names = sorted({re.search(r"lstm_bwd_chain_kernel<[^>]*>", e.key).group(0) for e in kernel})
+    print(f"{label}: traced {n} calls, {launches} launches of {names} and {others} other "
+          f"device ops; "
+          f"device time {ms:.4f} ms per call, {ms * 1e3 / (T_FRAMES + 1):.3f} us per step "
+          f"(/ T + 1 = {T_FRAMES + 1}; the earlier one-launch-per-step chain took 5.2-8.0 us "
+          f"per step launch)")
+    if launches != n or others:
+        raise AssertionError(f"{label}: expected {n} kernel launches and nothing else")
+    return ms
+
+
+def compare_units(make, units, label):
+    """Time the chain at each units-per-block in ``units``, in turns (a, b,
+    b, a), on the card's clock; ``make(u)`` gives the call, which bypasses
+    the wrapper's launch counter."""
+    order = list(units) + list(units)[::-1]
+    times = {u: [] for u in units}
+    for u in order:
+        times[u].append(cuda_ms(make(u)))
+    print(f"{label}: units per block vs kernel ms (two runs each, in turns): "
+          + ", ".join(f"U={u}: {' / '.join(f'{t:.4f}' for t in times[u])}" for u in units))
+    return times
 
 
 def phase_serve(dev):
@@ -606,6 +711,7 @@ def phase_train(dev):
                   if e.device_type == DeviceType.CUDA) / 1e3 / n_traced
     print(f"train B={B}: device busy {busy_ms:.3f} ms per step (profiler, {n_traced} "
           f"steps); busy share of the median step {busy_ms / median:.3f}")
+    launch_counts(events, n_traced, f"train B={B}", "about 1062")
     return launches, median
 
 
@@ -616,13 +722,13 @@ def phase_lstm_peep(dev):
     import torch
 
     from ip_avsr_torch.ops.kernels.lstm import (
-        lstm_peep_bwd_chain, lstm_peep_bwd_chain_plain, lstm_peep_recurrence,
+        _run_bwd, lstm_peep_bwd_chain, lstm_peep_bwd_chain_plain, lstm_peep_recurrence,
         lstm_peep_recurrence_plain, lstm_peep_recurrence_train,
         lstm_peep_recurrence_train_plain)
 
     H = 250
     gen = torch.Generator().manual_seed(SEED + 5)
-    fwd_err = train_err = bwd_err = 0.0
+    fwd_err = train_err = 0.0
     for B in (1, TRAIN_B):
         for D in (150, 270, 117, 250):
             w_in = (torch.randn(D, 4 * H, generator=gen) / D ** 0.5).to(dev)
@@ -635,7 +741,6 @@ def phase_lstm_peep(dev):
             mask = ragged_mask(B, T_FRAMES, gen, dev)
             if B > 1:
                 mask[-1] = 0.0  # a fully padded row
-            g = torch.randn(B, T_FRAMES, H, generator=gen).to(dev)
             for backwards in (False, True):
                 xs, ms_ = (x.flip(1), mask.flip(1)) if backwards else (x, mask)
                 ms_ = ms_.contiguous()
@@ -652,27 +757,7 @@ def phase_lstm_peep(dev):
                     raise AssertionError("peephole LSTM kernel disagrees with its plain "
                                          f"version: {e_inf}, {e_train}")
                 fwd_err, train_err = max(fwd_err, e_inf), max(train_err, e_train)
-                _, cells, gates = ref
-                cells_prev = torch.cat([c0[:, None], cells[:, :-1]], dim=1)
-                for scale, clip in ((1.0, 5.0), (100.0, 5.0), (1.0, 0.0)):
-                    args = ((g * scale).contiguous(), gates, cells, cells_prev, ms_, w_hid,
-                            *peep, clip)
-                    got = lstm_peep_bwd_chain(*args)
-                    ref = lstm_peep_bwd_chain_plain(*args)
-                    errs = [max_err(a, r) for a, r in zip(got, ref)]
-                    rel = max(r for _, r in errs)
-                    clipped = (ref[0].abs() == clip).float().mean().item() if clip else 0.0
-                    print(f"lstm_peep_bwd B={B} D_in={D} backwards={backwards} g x{scale:g} "
-                          f"clip={clip:g}: max_abs_err={max(a for a, _ in errs):.3e} "
-                          f"(peephole grads {max(a for a, _ in errs[3:]):.3e}), relative "
-                          f"{rel:.3e}, clipped share {clipped:.4f}")
-                    if not rel <= LSTM_BWD_TOL:
-                        raise AssertionError("peephole LSTM backward kernel disagrees with "
-                                             f"its plain version: {rel}")
-                    if clip and scale > 1 and not clipped > 0.01:
-                        raise AssertionError(f"the clip did not bite: share {clipped}")
-                    if scale == 1.0 and clip:
-                        bwd_err = max(bwd_err, max(a for a, _ in errs))
+    bwd_err = bwd_sweep(dev, peep=True)
     rows = {}
     for B in (1, TRAIN_B):
         D = 150
@@ -725,7 +810,12 @@ def phase_lstm_peep(dev):
         bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, wts, gy, retain_graph=True))
         print(f"context B={B}: cuDNN nn.LSTM without peepholes, D_in={D} H={H}: inference "
               f"{inf_ms:.4f} ms, forward with grad {fwd_ms:.4f} ms, backward "
-              f"{bwd_ms:.4f} ms")
+              f"{bwd_ms:.4f} ms; lstm_peep_bwd kernel / cuDNN backward "
+              f"{rows[B]['lstm_peep_bwd']['ms'] / bwd_ms:.4f}")
+        trace_chain(lambda: lstm_peep_bwd_chain(*bargs), f"lstm_peep_bwd B={B} H={H}")
+        compare_units(lambda u: (lambda: _run_bwd("lstm_peep_bwd_chain", bargs[:6], 5.0,
+                                                  tuple(peep), units=u)), (2, 4),
+                      f"lstm_peep_bwd B={B} H={H}")
     return fwd_err, train_err, bwd_err, rows
 
 
@@ -755,6 +845,21 @@ def stream_batch(cfg, B, seed, device):
     mask = torch.from_numpy((np.arange(T)[None] < lens[:, None]).astype(np.float32)).to(device)
     y = torch.from_numpy(rng.randint(0, cfg.output_classes, B)).long().to(device)
     return streams, mask, y
+
+
+def launch_counts(events, n, label, before):
+    """Print the device kernels and the host's kernel-launch calls per step
+    of a trace's ``key_averages()`` over ``n`` steps."""
+    from torch.autograd import DeviceType
+
+    kernels = sum(e.count for e in events if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith(("Memcpy", "Memset")))
+    copies = sum(e.count for e in events if e.device_type == DeviceType.CUDA) - kernels
+    calls = {e.key: e.count for e in events
+             if e.device_type == DeviceType.CPU and e.key.startswith("cu") and "Launch" in e.key}
+    print(f"{label}: {kernels / n:.1f} device kernels and {copies / n:.1f} copies or fills "
+          f"per step (trace); host launch calls per step {sum(calls.values()) / n:.1f} "
+          f"{ {k: v / n for k, v in calls.items()} } (with one launch per chain step: {before})")
 
 
 def busy_share(prof, n, median_ms, label, rows=14):
@@ -938,6 +1043,7 @@ def phase_train_4stream(dev):
         torch.cuda.synchronize()
     events = busy_share(prof, n_traced, median, f"4-stream train B={B}", rows=16)
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
+    launch_counts(events, n_traced, f"4-stream train B={B}", "about 1448")
     return launches, median
 
 

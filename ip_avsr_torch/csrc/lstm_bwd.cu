@@ -1,5 +1,5 @@
 // Reverse-time backward chain of the masked LSTM for Hopper, f32, with or
-// without peepholes.
+// without peepholes: one persistent cooperative launch per call.
 //
 // Replaces the TPU kernels ip_avsr_tpu/ops/pallas/lstm_kernel.py::
 // _lstm_bwd_kernel as launched by lstm_pallas_bwd_chain and
@@ -22,241 +22,418 @@
 // (dc's di/df terms and the three dw sums) take the cotangents before the
 // clip, as the JAX package does; only the dgates that leave the step are
 // clipped.  Returns dgates (B, T, 4H), dcell0 = dc and dhid0 = dh after step
-// 0 and, with peepholes, the per-row partial sums dw_c* (B, H), which the
-// caller reduces over B (as lstm_pallas_peep_bwd_chain does outside its
-// kernel).  dW_hid, dW_in, dx and db stay batched cuBLAS products outside the
-// kernel, as the JAX package leaves them to XLA outside the Pallas kernel.
+// 0 and, with peepholes, the three (H,) gradients dw_c*, reduced over B in
+// the kernel.  dW_hid, dW_in, dx and db stay batched cuBLAS products outside
+// the kernel, as the JAX package leaves them to XLA outside the Pallas kernel.
 //
-// Bound: like the forward, the serial chain of T steps, each of which reads
-// all of W_hid (H x 4H f32, 4 MB at H = 500) and exchanges dh across the card.
-// The design mirrors lstm_fwd.cu: a block owns kUnits hidden units j for
-// kRowsB batch rows, so the gate backward for columns {j, H+j, 2H+j, 3H+j},
-// the (dc, dh) carries and the peephole partials stay local to it.  The only
-// cross-block term, the
-// product dgates_{t+1} @ W_hid^T for unit j, reads row j of W_hid, which is
-// contiguous, so no transposed copy is needed; it is computed at the start of
-// step t's launch from the dgates_{t+1} that the previous launch wrote, so the
-// launch boundary is the step barrier (one launch per step, plus one last
-// launch that only finishes dhid0).  The local part (1 - m) * dh_total of the
-// carry waits between launches in dh_pass.  W_hid stays in the 50 MB L2.
-// Each (row, unit) element of a carry or a peephole partial is read and
-// written by one thread only, so the sums need no atomics and are
-// deterministic.  Shared memory is static and small (the block reduction), so
-// no opt-in is needed.  A persistent kernel, wgmma and bf16 are later work.
+// Bound: the serial chain of T steps.  The arithmetic of a whole call is a
+// few microseconds of the card's f32 rate; what a step costs is the
+// exchange: every hidden unit's dh needs all 4H columns of dgates_{t+1} of
+// every row, so each step ends in a grid-wide barrier and the next one
+// starts with an L2 read of B x 4H floats (80 KB at B = 10, H = 500) by
+// every block.  The design keeps everything else on-chip for the whole
+// chain:
+// - One launch per call.  lstm_bwd_chain_kernel loops over t itself and is
+//   launched with cudaLaunchCooperativeKernel, so its grid.sync() is the step
+//   barrier (T barriers: one after each step's dgates store).  The
+//   cooperative launch refuses a grid that cannot be co-resident
+//   (cudaErrorCooperativeLaunchTooLarge) rather than hang in the barrier.
+// - A block owns U hidden units j0..j0+U-1 for all B rows, for the whole
+//   chain: gate columns {j, H+j, 2H+j, 3H+j}.  The grid is ceil(H / U) blocks,
+//   U the smallest of 1, 2, 4, 8 whose grid fits the card's SMs (the Python
+//   launch plan, ops/kernels/lstm.py::bwd_launch_plan, picks it).
+// - W_hid resident in shared memory.  The block loads its U rows W_hid[j0 :
+//   j0 + U, :] (U x 4H f32: 32,000 B at H = 500, U = 4) once, and the
+//   product dh_next[b, j] = sum_col dgates[b, t+1, col] * W_hid[j, col] reads
+//   only dgates from global memory.
+// - The carries dc and (1 - m) * dh_total and, with peepholes, the three
+//   per-(row, unit) partial sums live in shared memory for the whole chain;
+//   each element is read and written by one thread only (pair q = b * U + u
+//   belongs to thread q mod kThreads), so the sums need no atomics.  At the
+//   end each block writes dcell0, dhid0 and its units' three dw, each summed
+//   over b = 0 .. B-1 in that order: deterministic, and no launch outside.
+//   The plain version sums the rows with torch's sum, in another order: the
+//   card holds the two within 1e-5 of each output's max abs.
+// Shared memory (dynamic, one layout for both instantiations): W_hid rows
+// U x 4H, then dh_next, dc, pass and the three dw partials, B x U each, then
+// the block reduction kWarps x kPairs; 16UH + 24BU + 1024 bytes in all.  Any
+// B runs whose carries fit beside W_hid (B up to about 2,000 at H = 500).
+//
+// Where trouble is likely, and what the code does about it (marked below):
+// [stale] dgates is written and read inside this launch, so it is never read
+//   through the read-only path (__ldg or a const __restrict__ pointer, which
+//   may return stale lines) nor through L1, which is not coherent across
+//   SMs: the product reads it with __ldcg (L2 only).  g_out, gates_pre,
+//   cells, cells_prev, mask, W_hid and the peephole vectors are read-only
+//   for the whole launch, so __ldg is right for them.
+// [order] grid.sync() fences before it arrives, so every block's dgates[:, t]
+//   stores are visible to every block after it.
+// [ragged] H need not be a multiple of U (H = 250 with U = 4, H = 130): the
+//   last block's dead units get zero W_hid rows and are skipped by the gate
+//   stage, the stores and the peephole loads and sums.
+// [uniform] every thread of every block reaches each grid.sync() the same
+//   number of times (T): no thread leaves early.
+// [converge] the warp shuffles of the product's reduction follow a column
+//   loop whose trip count is the same for every lane.
+// Large B: every block reads B x 4H floats of dgates each step, which grows
+// linearly with B; a tensor-core product per step for large-B training is
+// later work.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kUnits = 4;    // hidden units per block
-constexpr int kRowsB = 8;    // batch rows per block
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kOut = kRowsB * kUnits;  // (row, unit) pairs of a block: 32
+// (row, unit) pairs of one product tile: 32 / U rows by U units, one
+// accumulator each per thread, reduced across a warp in 31 shuffles
+constexpr int kPairs = 32;
 
 __device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
 
-// One reverse step t (0 <= t < T), or with t == -1 the last launch, which only
-// writes dhid0.  All sequence tensors are batch-major (B, T, .).  dcell and
-// dh_pass (B, H) are the carries, zero before the first launch; each element
-// is read and written by exactly one thread.  With Peephole, w_c* are the
-// (H,) peephole vectors and dw_c* (B, H) the partial sums, zero before the
-// first launch, owned per element like the carries; otherwise all six
-// pointers are unused.
-template <bool Peephole>
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_step_kernel(const float* __restrict__ g_out, const float* __restrict__ gates_pre,
-                     const float* __restrict__ cells, const float* __restrict__ cells_prev,
-                     const float* __restrict__ mask, const float* __restrict__ w_hid,
-                     float* dgates, float* __restrict__ dcell, float* __restrict__ dh_pass,
-                     float* __restrict__ dhid0, const float* __restrict__ w_ci,
-                     const float* __restrict__ w_cf, const float* __restrict__ w_co,
-                     float* __restrict__ dw_ci, float* __restrict__ dw_cf,
-                     float* __restrict__ dw_co, float clip, int B, int T, int H, int t) {
-  __shared__ float red[kWarps][kOut];
-  __shared__ float dh_next[kOut];
-  const int j0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.y * kRowsB;
-  const int nb = min(kRowsB, B - b0);
-  const int nu = min(kUnits, H - j0);
-  const int tid = threadIdx.x;
-  const size_t H4 = static_cast<size_t>(4) * H;
-
-  // gate-stage thread (gr, gu): batch row b0 + gr, hidden unit j0 + gu; its
-  // inputs are fetched first so the loads overlap the product below
-  const int gr = tid / kUnits;
-  const int gu = tid % kUnits;
-  const bool gate_live = tid < kOut && gr < nb && gu < nu;
-  const size_t gb = b0 + gr;
-  const size_t gj = j0 + gu;
-  float gz[4] = {0.f, 0.f, 0.f, 0.f};
-  float go = 0.f, c_t = 0.f, c_p = 0.f, m = 0.f, dc = 0.f, pass = 0.f;
-  float p_i = 0.f, p_f = 0.f, p_o = 0.f;  // peephole weights of unit gj
-  if (gate_live) {
-    pass = dh_pass[gb * H + gj];
-    if (t >= 0) {
-      const size_t bt = gb * T + t;
+// One level of the warp's transposing reduction: of the 2 * O values a lane
+// holds, it keeps the half its lane bit O selects and adds its partner's copy
+// of the same half.  After levels 16, 8, 4, 2 and 1, v[0] of lane L is the
+// warp's sum of value L.
+template <int O>
+__device__ __forceinline__ void transpose_level(float (&v)[kPairs], int lane) {
+  const bool upper = lane & O;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) gz[q] = __ldg(gates_pre + bt * H4 + static_cast<size_t>(q) * H + gj);
-      go = __ldg(g_out + bt * H + gj);
-      c_t = __ldg(cells + bt * H + gj);
-      c_p = __ldg(cells_prev + bt * H + gj);
-      m = __ldg(mask + bt);
-      dc = dcell[gb * H + gj];
-      if constexpr (Peephole) {
-        p_i = __ldg(w_ci + gj);
-        p_f = __ldg(w_cf + gj);
-        p_o = __ldg(w_co + gj);
-      }
-    }
+  for (int k = 0; k < O; ++k) {
+    const float send = upper ? v[k] : v[k + O];
+    const float keep = upper ? v[k + O] : v[k];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
   }
+}
 
-  // dh_next[r * kUnits + u] = sum_col dgates_{t+1}[b0 + r, col] * W_hid[j0 + u, col]:
-  // each thread sums a strided slice of the 4H columns (coalesced across the
-  // warp for both operands), then the block reduces the 32 sums
-  const bool has_next = t + 1 < T;
-  if (has_next) {
-    float acc[kRowsB][kUnits];
+// dh_next[b * U + u] = sum_col dg[b * row_stride + col] * w_s[u * 4H + col] for
+// every row b < B and unit u < U, from the dgates of one step (dg points at
+// dgates[0, t + 1, 0]) and the block's W_hid rows in shared memory.  Rows go
+// in tiles of R = 32 / U, columns as float4 in passes of kRounds * kThreads;
+// a thread sums the columns tid + k * kThreads of a pass for the R rows, a
+// warp reduces its 32 sums in 31 shuffles, and kWarps partial sums per pair
+// meet in shared memory.  A step is a chain of L2 round trips, so the loads
+// are batched: every load of a (tile, pass) chunk is issued before any of
+// its products (16 float4 per thread at U >= 2), and the next chunk's loads
+// go out before this tile's reduction, so they overlap it.  Ends with a
+// __syncthreads, so dh_next is visible to the whole block.
+template <int U>
+__device__ void product(const float* dg, size_t row_stride, const float* w_s, float* dh_next,
+                        float* red, int B, int H) {
+  constexpr int R = kPairs / U;
+  constexpr int kRounds = U >= 2 ? U / 2 : 1;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const float4* w4 = reinterpret_cast<const float4*>(w_s);
+  // [converge] the chunk loop's trip count is the same for every thread and
+  // the ragged edges are masked inside: a loop whose trip count differed
+  // between the lanes of a warp, followed by the shuffles below, gave wrong
+  // and run-to-run varying sums on the card whenever H % 256 split a warp
+  const int passes = (H + kRounds * kThreads - 1) / (kRounds * kThreads);
+  const int chunks = (B + R - 1) / R * passes;
+  float4 d[kRounds][R];
+  const auto load = [&](int i) {
+    const int b0 = i / passes * R;
+    const int cb = i % passes * kRounds * kThreads;
 #pragma unroll
-    for (int r = 0; r < kRowsB; ++r)
+    for (int k = 0; k < kRounds; ++k) {
+      const int c = cb + k * kThreads + tid;
 #pragma unroll
-      for (int u = 0; u < kUnits; ++u) acc[r][u] = 0.f;
-    const float* dg = dgates + static_cast<size_t>(t + 1) * H4;
-    const size_t row_stride = static_cast<size_t>(T) * H4;
-#pragma unroll 2
-    for (size_t col = tid; col < H4; col += kThreads) {
-      float w[kUnits];
-#pragma unroll
-      for (int u = 0; u < kUnits; ++u) w[u] = u < nu ? __ldg(w_hid + (j0 + u) * H4 + col) : 0.f;
-#pragma unroll
-      for (int r = 0; r < kRowsB; ++r) {
-        const float d = r < nb ? dg[(b0 + r) * row_stride + col] : 0.f;
-#pragma unroll
-        for (int u = 0; u < kUnits; ++u) acc[r][u] = fmaf(d, w[u], acc[r][u]);
+      for (int r = 0; r < R; ++r) {
+        // [stale] dgates of this launch: L2 only, never __ldg or L1
+        d[k][r] = c < H && b0 + r < B
+                      ? __ldcg(reinterpret_cast<const float4*>(dg + (b0 + r) * row_stride) + c)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
-    const int lane = tid % 32;
-    const int warp = tid / 32;
+  };
+  float acc[kPairs];
+  load(0);
+  for (int i = 0; i < chunks; ++i) {
+    const int pass = i % passes;
+    if (pass == 0) {
 #pragma unroll
-    for (int r = 0; r < kRowsB; ++r) {
+      for (int p = 0; p < kPairs; ++p) acc[p] = 0.f;
+    }
 #pragma unroll
-      for (int u = 0; u < kUnits; ++u) {
-        float v = acc[r][u];
+    for (int k = 0; k < kRounds; ++k) {
+      const int c = pass * kRounds * kThreads + k * kThreads + tid;
+      float4 w[U];
 #pragma unroll
-        for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (lane == 0) red[warp][r * kUnits + u] = v;
+      for (int u = 0; u < U; ++u) w[u] = c < H ? w4[u * H + c] : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float a = acc[r * U + u];
+          a = fmaf(d[k][r].x, w[u].x, a);
+          a = fmaf(d[k][r].y, w[u].y, a);
+          a = fmaf(d[k][r].z, w[u].z, a);
+          acc[r * U + u] = fmaf(d[k][r].w, w[u].w, a);
+        }
       }
     }
+    if (i + 1 < chunks) load(i + 1);
+    if (pass < passes - 1) continue;
+    const int b0 = i / passes * R;
+    transpose_level<16>(acc, lane);
+    transpose_level<8>(acc, lane);
+    transpose_level<4>(acc, lane);
+    transpose_level<2>(acc, lane);
+    transpose_level<1>(acc, lane);
+    red[warp * kPairs + lane] = acc[0];
     __syncthreads();
-    if (tid < kOut) {
+    if (tid < kPairs && b0 + tid / U < B) {
       float s = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += red[w][tid];
-      dh_next[tid] = s;
+      for (int w = 0; w < kWarps; ++w) s += red[w * kPairs + tid];
+      dh_next[b0 * U + tid] = s;
     }
     __syncthreads();
   }
+}
 
-  if (!gate_live) return;
-  const float dh = (has_next ? dh_next[tid] : 0.f) + pass;
-  if (t < 0) {
-    dhid0[gb * H + gj] = dh;
-    return;
-  }
-  const float dh_total = go + dh;
-  const float dh_c = m * dh_total;
-  float dc_c = m * dc;
-  float z_i = gz[0], z_f = gz[1], z_o = gz[3];
-  if constexpr (Peephole) {
-    // o from the post-mask cell, as the JAX backward recomputes it
-    z_i += c_p * p_i;
-    z_f += c_p * p_f;
-    z_o += c_t * p_o;
-  }
-  const float i = sigm(z_i);
-  const float f = sigm(z_f);
-  const float g = tanhf(gz[2]);
-  const float o = sigm(z_o);
-  const float tc = tanhf(c_t);
-  const float d_o = dh_c * tc;
-  const float do_pre = d_o * o * (1.0f - o);
-  dc_c = dc_c + dh_c * o * (1.0f - tc * tc);
-  if constexpr (Peephole) dc_c += do_pre * p_o;
-  float dgate[4] = {dc_c * g * i * (1.0f - i), dc_c * c_p * f * (1.0f - f),
-                    dc_c * i * (1.0f - g * g), do_pre};
-  float dc_prev = dc_c * f + (1.0f - m) * dc;
-  if constexpr (Peephole) {
-    // the peephole routes take the cotangents before the clip
-    dc_prev += dgate[0] * p_i + dgate[1] * p_f;
-    const size_t e = gb * H + gj;
-    dw_ci[e] += dgate[0] * c_p;
-    dw_cf[e] += dgate[1] * c_p;
-    dw_co[e] += do_pre * c_t;
-  }
-  if (clip != 0.f) {
+// The gate stage's read-only inputs of pair q = b * U + u at step t.
+struct GateIn {
+  float z[4] = {0.f, 0.f, 0.f, 0.f};
+  float go = 0.f, c_t = 0.f, c_p = 0.f, m = 0.f;
+  float p_i = 0.f, p_f = 0.f, p_o = 0.f;  // peephole weights of unit j
+};
+
+template <bool Peephole>
+__device__ __forceinline__ GateIn load_gate(const float* __restrict__ g_out,
+                                            const float* __restrict__ gates_pre,
+                                            const float* __restrict__ cells,
+                                            const float* __restrict__ cells_prev,
+                                            const float* __restrict__ mask,
+                                            const float* __restrict__ w_ci,
+                                            const float* __restrict__ w_cf,
+                                            const float* __restrict__ w_co, int b, int j,
+                                            int T, int H, int t) {
+  GateIn in;
+  const size_t bt = static_cast<size_t>(b) * T + t;
+  const size_t H4 = static_cast<size_t>(4) * H;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) dgate[q] = fminf(fmaxf(dgate[q], -clip), clip);
+  for (int q = 0; q < 4; ++q) in.z[q] = __ldg(gates_pre + bt * H4 + static_cast<size_t>(q) * H + j);
+  in.go = __ldg(g_out + bt * H + j);
+  in.c_t = __ldg(cells + bt * H + j);
+  in.c_p = __ldg(cells_prev + bt * H + j);
+  in.m = __ldg(mask + bt);
+  if constexpr (Peephole) {
+    in.p_i = __ldg(w_ci + j);
+    in.p_f = __ldg(w_cf + j);
+    in.p_o = __ldg(w_co + j);
   }
-  float* dp = dgates + (gb * T + t) * H4 + gj;
+  return in;
+}
+
+// The whole chain.  All sequence tensors are batch-major (B, T, .).  dw is
+// (3, H) (dw_ci, dw_cf, dw_co) with Peephole; without it the peephole
+// pointers and dw are unused.  Shared memory as in the header.
+template <bool Peephole, int U>
+__global__ void __launch_bounds__(kThreads)
+lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__ gates_pre,
+                      const float* __restrict__ cells, const float* __restrict__ cells_prev,
+                      const float* __restrict__ mask, const float* __restrict__ w_hid,
+                      const float* __restrict__ w_ci, const float* __restrict__ w_cf,
+                      const float* __restrict__ w_co,
+                      float* dgates,  // [stale] written and read here: not const, not restrict
+                      float* __restrict__ dcell0, float* __restrict__ dhid0,
+                      float* __restrict__ dw, float clip, int B, int T, int H) {
+  extern __shared__ float4 smem4[];
+  const size_t H4 = static_cast<size_t>(4) * H;
+  const int BU = B * U;
+  float* w_s = reinterpret_cast<float*>(smem4);  // (U, 4H)
+  float* dh_next = w_s + U * H4;                 // (B * U) each, from here on
+  float* dc_s = dh_next + BU;
+  float* pass_s = dc_s + BU;
+  float* dw_s = pass_s + BU;                     // (3, B * U)
+  float* red = dw_s + 3 * BU;                    // (kWarps, kPairs)
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * U;
+  const int nu = min(U, H - j0);
+  const size_t row_stride = static_cast<size_t>(T) * H4;
+
+  // W_hid[j0 : j0 + U, :] is contiguous: one coalesced pass, once per call.
+  // [ragged] dead units' rows are zero.
+  for (size_t i = tid; i < U * H4; i += kThreads) {
+    const bool live = static_cast<int>(i / H4) < nu;
+    w_s[i] = live ? __ldg(w_hid + j0 * H4 + i) : 0.f;
+  }
+  for (int i = tid; i < 5 * BU; i += kThreads) dc_s[i] = 0.f;  // dc, pass, dw
+  __syncthreads();
+
+  cg::grid_group grid = cg::this_grid();
+  for (int t = T - 1; t >= 0; --t) {
+    const bool has_next = t + 1 < T;
+    // the gate inputs of the thread's first pair are fetched before the
+    // product, so their loads overlap it
+    GateIn first;
+    if (tid < BU && tid % U < nu)
+      first = load_gate<Peephole>(g_out, gates_pre, cells, cells_prev, mask, w_ci, w_cf, w_co,
+                                  tid / U, j0 + tid % U, T, H, t);
+    if (has_next) product<U>(dgates + (t + 1) * H4, row_stride, w_s, dh_next, red, B, H);
+
+    for (int q = tid; q < BU; q += kThreads) {
+      const int b = q / U;
+      const int u = q % U;
+      if (u >= nu) continue;  // [ragged]
+      const int j = j0 + u;
+      const GateIn in = q == tid ? first
+                                 : load_gate<Peephole>(g_out, gates_pre, cells, cells_prev,
+                                                       mask, w_ci, w_cf, w_co, b, j, T, H, t);
+      const float dh = (has_next ? dh_next[q] : 0.f) + pass_s[q];
+      const float dc = dc_s[q];
+      const float m = in.m;
+      const float dh_total = in.go + dh;
+      const float dh_c = m * dh_total;
+      float dc_c = m * dc;
+      float z_i = in.z[0], z_f = in.z[1], z_o = in.z[3];
+      if constexpr (Peephole) {
+        // o from the post-mask cell, as the JAX backward recomputes it
+        z_i += in.c_p * in.p_i;
+        z_f += in.c_p * in.p_f;
+        z_o += in.c_t * in.p_o;
+      }
+      const float i = sigm(z_i);
+      const float f = sigm(z_f);
+      const float g = tanhf(in.z[2]);
+      const float o = sigm(z_o);
+      const float tc = tanhf(in.c_t);
+      const float do_pre = dh_c * tc * o * (1.0f - o);
+      dc_c = dc_c + dh_c * o * (1.0f - tc * tc);
+      if constexpr (Peephole) dc_c += do_pre * in.p_o;
+      float dgate[4] = {dc_c * g * i * (1.0f - i), dc_c * in.c_p * f * (1.0f - f),
+                        dc_c * i * (1.0f - g * g), do_pre};
+      float dc_prev = dc_c * f + (1.0f - m) * dc;
+      if constexpr (Peephole) {
+        // the peephole routes take the cotangents before the clip
+        dc_prev += dgate[0] * in.p_i + dgate[1] * in.p_f;
+        dw_s[q] += dgate[0] * in.c_p;
+        dw_s[BU + q] += dgate[1] * in.c_p;
+        dw_s[2 * BU + q] += do_pre * in.c_t;
+      }
+      if (clip != 0.f) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) dp[static_cast<size_t>(q) * H] = dgate[q];
-  dcell[gb * H + gj] = dc_prev;
-  dh_pass[gb * H + gj] = (1.0f - m) * dh_total;
+        for (int k = 0; k < 4; ++k) dgate[k] = fminf(fmaxf(dgate[k], -clip), clip);
+      }
+      float* dp = dgates + (static_cast<size_t>(b) * T + t) * H4 + j;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dp[static_cast<size_t>(k) * H] = dgate[k];
+      dc_s[q] = dc_prev;
+      pass_s[q] = (1.0f - m) * dh_total;
+    }
+    // [order] [uniform] every block's dgates[:, t] before any block's product
+    grid.sync();
+  }
+
+  // dh after step 0: one more product, then the block's outputs
+  product<U>(dgates, row_stride, w_s, dh_next, red, B, H);
+  for (int q = tid; q < BU; q += kThreads) {
+    const int u = q % U;
+    if (u >= nu) continue;
+    const size_t e = static_cast<size_t>(q / U) * H + j0 + u;
+    dhid0[e] = dh_next[q] + pass_s[q];
+    dcell0[e] = dc_s[q];
+  }
+  if constexpr (Peephole) {
+    // dw[k, j] = sum over b = 0 .. B-1 in order (product's __syncthreads
+    // made every thread's partial sums visible)
+    for (int i = tid; i < 3 * U; i += kThreads) {
+      const int k = i / U;
+      const int u = i % U;
+      if (u >= nu) continue;
+      float s = 0.f;
+      for (int b = 0; b < B; ++b) s += dw_s[k * BU + b * U + u];
+      dw[static_cast<size_t>(k) * H + j0 + u] = s;
+    }
+  }
+}
+
+size_t smem_bytes(int B, int H, int U) {
+  return (static_cast<size_t>(4) * U * H + static_cast<size_t>(6) * B * U + kWarps * kPairs) *
+         sizeof(float);
+}
+
+template <bool Peephole, int U>
+cudaError_t launch(const float* g_out, const float* gates_pre, const float* cells,
+                   const float* cells_prev, const float* mask, const float* w_hid,
+                   const float* w_ci, const float* w_cf, const float* w_co, float* dgates,
+                   float* dcell0, float* dhid0, float* dw, float clip, int B, int T, int H,
+                   size_t smem, cudaStream_t stream) {
+  const auto kernel = lstm_bwd_chain_kernel<Peephole, U>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  void* args[] = {&g_out, &gates_pre, &cells, &cells_prev, &mask, &w_hid, &w_ci, &w_cf, &w_co,
+                  &dgates, &dcell0, &dhid0, &dw, &clip, &B, &T, &H};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     dim3((H + U - 1) / U), dim3(kThreads), args, smem, stream);
 }
 
 // Runs the whole chain of one instantiation on `stream`; see the entry
-// points.  `peep` holds w_ci, w_cf, w_co, dw_ci, dw_cf, dw_co or is null.
+// points.  `peep` holds w_ci, w_cf, w_co, dw or is null.
 template <bool Peephole>
 int run_chain(const void* g_out, const void* gates_pre, const void* cells,
               const void* cells_prev, const void* mask, const void* w_hid, void* dgates,
-              void* dcell, void* dh_pass, void* dhid0, void* const* peep, float clip,
-              int B, int T, int H, void* stream) {
-  const dim3 grid((H + kUnits - 1) / kUnits, (B + kRowsB - 1) / kRowsB);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pv[6] = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+              void* dcell0, void* dhid0, void* const* peep, float clip, int B, int T, int H,
+              int units, size_t smem, void* stream) {
+  if (smem < smem_bytes(B, H, units)) return static_cast<int>(cudaErrorInvalidValue);
+  const float* p[3] = {nullptr, nullptr, nullptr};
+  float* dw = nullptr;
   if constexpr (Peephole) {
-    for (int k = 0; k < 6; ++k) pv[k] = static_cast<float*>(peep[k]);
+    for (int k = 0; k < 3; ++k) p[k] = static_cast<const float*>(peep[k]);
+    dw = static_cast<float*>(peep[3]);
   }
-  for (int t = T - 1; t >= -1; --t) {
-    lstm_bwd_step_kernel<Peephole><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(g_out), static_cast<const float*>(gates_pre),
-        static_cast<const float*>(cells), static_cast<const float*>(cells_prev),
-        static_cast<const float*>(mask), static_cast<const float*>(w_hid),
-        static_cast<float*>(dgates), static_cast<float*>(dcell), static_cast<float*>(dh_pass),
-        static_cast<float*>(dhid0), pv[0], pv[1], pv[2], pv[3], pv[4], pv[5], clip, B, T, H,
-        t);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const auto f = [](const void* v) { return static_cast<const float*>(v); };
+  const auto go = [&](auto launcher) {
+    return launcher(f(g_out), f(gates_pre), f(cells), f(cells_prev), f(mask), f(w_hid), p[0],
+                    p[1], p[2], static_cast<float*>(dgates), static_cast<float*>(dcell0),
+                    static_cast<float*>(dhid0), dw, clip, B, T, H, smem,
+                    static_cast<cudaStream_t>(stream));
+  };
+  cudaError_t err;
+  switch (units) {
+    case 1: err = go(launch<Peephole, 1>); break;
+    case 2: err = go(launch<Peephole, 2>); break;
+    case 4: err = go(launch<Peephole, 4>); break;
+    case 8: err = go(launch<Peephole, 8>); break;
+    default: err = cudaErrorInvalidValue;
   }
-  return 0;
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Runs the whole chain on `stream`: T reverse steps and the last launch.
-// dcell and dh_pass (B, H) must be zero on entry; dcell holds dcell0 on
-// return.  Writes dgates (B, T, 4H) and dhid0 (B, H).  Returns the first
-// CUDA error (0 on success).
+// Runs the whole chain on `stream` in one cooperative launch of ceil(H /
+// units) blocks, units in {1, 2, 4, 8}, with `smem` bytes of dynamic shared
+// memory (at least 16 * units * H + 24 * B * units + 1024).  Writes dgates
+// (B, T, 4H), dcell0 and dhid0 (B, H).  Returns the first CUDA error (0 on
+// success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be
+// co-resident).
 extern "C" int lstm_bwd_chain(const void* g_out, const void* gates_pre, const void* cells,
                               const void* cells_prev, const void* mask, const void* w_hid,
-                              void* dgates, void* dcell, void* dh_pass, void* dhid0,
-                              float clip, int B, int T, int H, void* stream) {
-  return run_chain<false>(g_out, gates_pre, cells, cells_prev, mask, w_hid, dgates, dcell,
-                          dh_pass, dhid0, nullptr, clip, B, T, H, stream);
+                              void* dgates, void* dcell0, void* dhid0, float clip, int B, int T,
+                              int H, int units, size_t smem, void* stream) {
+  return run_chain<false>(g_out, gates_pre, cells, cells_prev, mask, w_hid, dgates, dcell0,
+                          dhid0, nullptr, clip, B, T, H, units, smem, stream);
 }
 
 // The peephole chain: as lstm_bwd_chain, with the (H,) peephole vectors
-// w_ci, w_cf, w_co, and the (B, H) partial sums dw_ci, dw_cf, dw_co of their
-// gradients, which must be zero on entry.
+// w_ci, w_cf, w_co, and dw (3, H), which receives their gradients.
 extern "C" int lstm_bwd_peep_chain(const void* g_out, const void* gates_pre, const void* cells,
                                    const void* cells_prev, const void* mask,
                                    const void* w_hid, const void* w_ci, const void* w_cf,
-                                   const void* w_co, void* dgates, void* dcell, void* dh_pass,
-                                   void* dhid0, void* dw_ci, void* dw_cf, void* dw_co,
-                                   float clip, int B, int T, int H, void* stream) {
-  void* peep[6] = {const_cast<void*>(w_ci), const_cast<void*>(w_cf), const_cast<void*>(w_co),
-                   dw_ci, dw_cf, dw_co};
-  return run_chain<true>(g_out, gates_pre, cells, cells_prev, mask, w_hid, dgates, dcell,
-                         dh_pass, dhid0, peep, clip, B, T, H, stream);
+                                   const void* w_co, void* dgates, void* dcell0, void* dhid0,
+                                   void* dw, float clip, int B, int T, int H, int units,
+                                   size_t smem, void* stream) {
+  void* peep[4] = {const_cast<void*>(w_ci), const_cast<void*>(w_cf), const_cast<void*>(w_co),
+                   dw};
+  return run_chain<true>(g_out, gates_pre, cells, cells_prev, mask, w_hid, dgates, dcell0,
+                         dhid0, peep, clip, B, T, H, units, smem, stream);
 }
 
 extern "C" const char* lstm_bwd_error_string(int code) {

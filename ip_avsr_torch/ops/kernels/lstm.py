@@ -15,11 +15,14 @@ ip_avsr_tpu/ops/pallas/lstm_kernel.py:
   ``_lstm_peep_bwd_kernel`` as launched by ``lstm_pallas_peep_bwd_chain``
   (the same CUDA bodies, instantiated with peepholes).
 
-Each is bound by its serial chain of T steps, each reading all of W_hid (from
-L2) and exchanging a (B, H) state across the card; the kernels partition the
-hidden units across blocks so the gate math stays local and run one launch
-per step (see the sources' headers).  The ``*_plain`` functions are their
-plain versions.  All sequence tensors are batch-major (B, T, .), the port's
+Each is bound by its serial chain of T steps, each needing all of W_hid and
+an exchange of state across the card; the kernels partition the hidden units
+across blocks so the gate math stays local.  The recurrences run one launch
+per step and read W_hid from L2 every step; the backward chains run as one
+persistent cooperative launch per call, with each block's rows of W_hid in
+shared memory and a grid barrier between steps (:func:`bwd_launch_plan`;
+see the sources' headers).  The ``*_plain`` functions are their plain
+versions.  All sequence tensors are batch-major (B, T, .), the port's
 layout, where the JAX package keeps the training residuals time-major
 (T, B, .).
 """
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -201,14 +205,63 @@ def _lib():
     return lib
 
 
+class BwdPlan(NamedTuple):
+    """Launch plan of csrc/lstm_bwd.cu's chain kernel: ``units`` hidden units
+    per block, ``grid`` blocks, ``smem_bytes`` of dynamic shared memory per
+    block, and the live units of the last block."""
+
+    units: int
+    grid: int
+    smem_bytes: int
+    last_units: int
+
+
+# the kernel's instantiations (units per block) and its block reduction
+BWD_UNITS = (1, 2, 4, 8)
+_BWD_RED_BYTES = 8 * 32 * 4
+
+
+def bwd_launch_plan(B: int, H: int, sm_count: int, units=None) -> BwdPlan:
+    """Units per block, grid and shared memory of the backward chain at
+    batch ``B`` and width ``H`` on a card with ``sm_count`` SMs.
+
+    The cooperative launch needs every block resident at once, one block
+    per SM, so ``units`` is the smallest of :data:`BWD_UNITS` whose grid
+    ``ceil(H / units)`` fits ``sm_count`` (or the one given, which must
+    fit).  A block keeps its ``units`` rows of W_hid (16 bytes per unit and
+    column of H) and its carries (six floats per row and unit) in shared
+    memory, beside a 1 KB block reduction.  Raises ``ValueError`` when no
+    instantiation fits or the block needs more shared memory than
+    ``_build.SMEM_LIMIT``."""
+    if units is None:
+        units = next((u for u in BWD_UNITS if -(-H // u) <= sm_count), None)
+        if units is None:
+            raise ValueError(f"backward chain: H={H} needs more than {BWD_UNITS[-1]} hidden "
+                             f"units per block to fit {sm_count} SMs")
+    grid = -(-H // units)
+    if units not in BWD_UNITS or grid > sm_count:
+        raise ValueError(f"backward chain: {units} units per block at H={H} is not one of "
+                         f"{BWD_UNITS} with a grid of at most {sm_count} blocks")
+    smem = 16 * units * H + 24 * B * units + _BWD_RED_BYTES
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"backward chain: B={B}, H={H} at {units} units per block needs "
+                         f"{smem} bytes of shared memory per block, above the "
+                         f"{_build.SMEM_LIMIT} a block may use")
+    return BwdPlan(units, grid, smem, H - (grid - 1) * units)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _bwd_lib():
     lib = _build.load("lstm_bwd")
-    lib.lstm_bwd_chain.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_float]
-                                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    tail = [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_size_t, ctypes.c_void_p]
+    lib.lstm_bwd_chain.argtypes = [ctypes.c_void_p] * 9 + tail
     lib.lstm_bwd_chain.restype = ctypes.c_int
-    lib.lstm_bwd_peep_chain.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_float]
-                                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.lstm_bwd_peep_chain.argtypes = [ctypes.c_void_p] * 13 + tail
     lib.lstm_bwd_peep_chain.restype = ctypes.c_int
     return lib
 
@@ -355,11 +408,12 @@ def lstm_peep_recurrence_train(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_c
 lstm_peep_recurrence_train.launches = 0
 
 
-def _run_bwd(name, args, clip, peep=()):
-    """Check the inputs and launch csrc/lstm_bwd.cu's chain: returns
-    ``(dgates, dcell0, dhid0)``, and with ``peep`` also the three (H,)
-    peephole gradients, each the kernel's (B, H) partial sums reduced over
-    the rows here."""
+def _run_bwd(name, args, clip, peep=(), units=None):
+    """Check the inputs and launch csrc/lstm_bwd.cu's chain, one cooperative
+    launch planned by :func:`bwd_launch_plan` (``units`` forces its units
+    per block, for measurement): returns ``(dgates, dcell0, dhid0)``, and
+    with ``peep`` also the three (H,) peephole gradients, which the kernel
+    reduces over the rows itself."""
     g_out, gates_pre, cells, cells_prev, mask, w_hid = args
     if cells.dim() != 3:
         raise ValueError(f"{name}: cells must be (B, T, H), got {tuple(cells.shape)}")
@@ -368,25 +422,26 @@ def _run_bwd(name, args, clip, peep=()):
         "g_out": (g_out, (B, T, H)), "gates_pre": (gates_pre, (B, T, 4 * H)),
         "cells_prev": (cells_prev, (B, T, H)), "mask": (mask, (B, T)),
         "w_hid": (w_hid, (H, 4 * H)), **_peep_shapes(peep, H)})
-    lib = _bwd_lib()
     dev = cells.device
+    plan = bwd_launch_plan(B, H, _sm_count(dev.index), units)
+    lib = _bwd_lib()
     dgates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
-    dcell = torch.zeros((B, H), dtype=torch.float32, device=dev)
-    dh_pass = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    dcell0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dhid0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [a.data_ptr() for a in args]
-    outs = [a.data_ptr() for a in (dgates, dcell, dh_pass, dhid0)]
+    outs = [a.data_ptr() for a in (dgates, dcell0, dhid0)]
+    tail = (clip, B, T, H, plan.units, plan.smem_bytes, stream)
     if peep:
-        dw = torch.zeros((3, B, H), dtype=torch.float32, device=dev)
+        dw = torch.empty((3, H), dtype=torch.float32, device=dev)
         code = lib.lstm_bwd_peep_chain(*ptrs, *(v.data_ptr() for v in peep), *outs,
-                                       *(d.data_ptr() for d in dw), clip, B, T, H, stream)
+                                       dw.data_ptr(), *tail)
     else:
-        code = lib.lstm_bwd_chain(*ptrs, *outs, clip, B, T, H, stream)
+        code = lib.lstm_bwd_chain(*ptrs, *outs, *tail)
     _build.check(lib, "lstm_bwd", code)
     if peep:
-        return (dgates, dcell, dhid0, *dw.sum(dim=1))
-    return dgates, dcell, dhid0
+        return (dgates, dcell0, dhid0, *dw)
+    return dgates, dcell0, dhid0
 
 
 def _check_clip(name, clip) -> float:
@@ -400,9 +455,8 @@ def lstm_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip):
     """The reverse-time backward chain: inputs and outputs as
     :func:`lstm_bwd_chain_plain`, all float32, ``clip >= 0``.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (T + 1 per-step launches, counted once in ``lstm_bwd_chain.launches``) or
-    raise."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel (one
+    cooperative launch, counted in ``lstm_bwd_chain.launches``) or raise."""
     args = (g_out, gates_pre, cells, cells_prev, mask, w_hid)
     clip = _check_clip("lstm_bwd_chain", clip)
     if _on_cpu(args):
@@ -421,9 +475,9 @@ def lstm_peep_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, w_ci, 
     :func:`lstm_peep_bwd_chain_plain`, all float32, ``clip >= 0``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
-    peephole instantiation (T + 1 per-step launches, counted once in
-    ``lstm_peep_bwd_chain.launches``; the peephole gradients' (B, H) partial
-    sums are reduced over B by one ``sum``) or raise."""
+    peephole instantiation (one cooperative launch, which also reduces the
+    peephole gradients over B; counted in ``lstm_peep_bwd_chain.launches``)
+    or raise."""
     args = (g_out, gates_pre, cells, cells_prev, mask, w_hid)
     peep = (w_ci, w_cf, w_co)
     clip = _check_clip("lstm_peep_bwd_chain", clip)
