@@ -5,53 +5,379 @@
 // lstm_pallas_train (the training forward, which also writes the post-mask
 // cells and the pre-activation gates for the backward chain in lstm_bwd.cu),
 // and _lstm_peep_fwd_kernel as lstm_pallas_peep and lstm_pallas_peep_train.
-// As on the TPU, one body serves them all (template parameters EmitResiduals
-// and Peephole), so inference and training share one set of numerics; the
-// inference instantiations make no residual stores and the non-peephole ones
-// no peephole loads.  Per step t:
+// As on the TPU, inference and training share one body per peephole setting
+// (template parameter EmitResiduals), so they share one set of numerics; the
+// inference instantiations make no residual stores.  Per step t:
 //     gates = x_proj[:, t] + h_{t-1} @ W_hid          (gate order i, f, c, o)
 //     c'    = sigmoid(f + w_cf * c_{t-1}) * c_{t-1} + sigmoid(i + w_ci * c_{t-1}) * tanh(c)
 //     h'    = sigmoid(o + w_co * c') * tanh(c')
 //     (c_t, h_t) = m * (c', h') + (1 - m) * (c_{t-1}, h_{t-1})   (mask carry)
-// where the three (H,) peephole terms are zero without peepholes.  The
-// stored gates are those before the peephole terms, as on the TPU.
-// The hoisted input projection x @ W_in + b stays a cuBLAS product outside
-// (as XLA computed it outside the Pallas kernel); h @ W_hid is computed here.
+// where the three (H,) peephole terms are zero without peepholes
+// (cell_update below holds this math for both designs).  The stored gates
+// are those before the peephole terms, as on the TPU.  The hoisted input
+// projection x @ W_in + b stays a cuBLAS product outside (as XLA computed it
+// outside the Pallas kernel); h @ W_hid is computed here.
 //
-// Bound: the serial chain of T steps, each of which must read all of W_hid
-// (H x 4H f32, 4 MB at H = 500) and exchange h across the whole card.  The TPU
-// kept W_hid resident in one core's VMEM; on Hopper it does not fit one SM's
-// shared memory, so this design partitions by hidden unit instead: a block
-// owns kUnits hidden units j, hence gate columns {j, H+j, 2H+j, 3H+j}, so the
-// gate math and the cell state stay local to the block.  W_hid is read from
-// global memory every step and stays in the 50 MB L2 across steps.  Only h
-// crosses blocks, through global memory between launches: the C entry point
-// issues one launch per time step on the caller's stream (T launches per
-// call), so the launch boundary is the step barrier.  A persistent kernel
-// with a grid or cluster barrier, bf16 W_hid and wgmma are later work.  The
-// peepholes are local to a unit (three loads and three multiply-adds per
-// (row, step, unit)), so they change none of this; the peephole models' H =
-// 250 gives 63 blocks per 8 rows, the last with 2 live units.
+// Bound: the serial chain of T steps, each of which needs all of W_hid (H x
+// 4H f32, 4 MB at H = 500) and an exchange of h across the whole card.  The
+// TPU kept W_hid resident in one core's VMEM; on Hopper it does not fit one
+// SM's shared memory, so both designs partition by hidden unit: a block owns
+// U hidden units j, hence gate columns {j, H+j, 2H+j, 3H+j}, so the gate math
+// and the cell state stay local to the block and only h crosses blocks.  The
+// arithmetic of a whole call is a few microseconds of the card's f32 rate;
+// what a step costs is the exchange.
+//
+// Two designs live here:
+//
+// 1. lstm_fwd_chain_kernel<EmitResiduals, U>, the non-peephole recurrence
+//    (rows 1 and 3 of the kernel table): one persistent cooperative launch
+//    per call, which loops over t itself.
+//    - The grid is ceil(H / U) blocks, U the smallest of 1, 2, 4, 8 whose
+//      grid fits the card's SMs (ops/kernels/lstm.py::fwd_launch_plan), so
+//      every block is resident and grid.sync() is the step barrier (one per
+//      step, after the step's h stores).  The cooperative launch refuses a
+//      grid that cannot be co-resident (cudaErrorCooperativeLaunchTooLarge)
+//      rather than hang in the barrier.
+//    - W_hid resident in shared memory.  The block's 4U columns are loaded
+//      once per call as H rows of 4U floats, row k holding W_hid[k, col] for
+//      col = gate * U + unit, each row padded to 4U + 4 floats (U >= 2) so
+//      that neighbouring k's float4 reads fall in distinct banks: 40,000 B
+//      at H = 500, U = 4.  The product gates[b, col] = sum_k h_{t-1}[b, k] *
+//      W[k, col] then reads only h from global memory, and a lane's weights
+//      for one k are 4U / 4 float4 reads from one address.  (A (4U, H)
+//      layout, one row per column, took 16 strided addresses per k and
+//      measured slower: the address arithmetic, not the loads, bound a k
+//      step.)
+//    - The cell state and the block's own units of h_{t-1} (for the mask
+//      carry) live in shared memory for the whole call, each (row, unit)
+//      read and written by one thread only.
+//    - h crosses blocks through out[:, t] in global memory and L2 behind the
+//      barrier.  The product reads h_{t-1} in row tiles of R = 32 / 4U rows
+//      straight from L2; shared memory does not grow with B x H.  A warp
+//      owns one tile and a slice of k (lanes on neighbouring k, so its loads
+//      are coalesced and its weight reads free of bank conflicts), sums the
+//      tile's 32 (row, column) pairs over its slice, and reduces them across
+//      its lanes in 31 shuffles; the gate stage adds the partial sums of the
+//      warps that shared the tile, in a fixed order.  A round is up to 8
+//      tiles, one per warp or several warps per tile, so B <= 8 R rows (16
+//      at U = 4) take one round and one __syncthreads per step.
+//    Shared memory (dynamic): W H x (4U + 4) (H x 4 at U = 1), then the cell
+//    and h carries B x U each, then the warps' partial sums 8 x 32;
+//    4 (4U + 4) H + 8BU + 1024 bytes (ops/kernels/lstm.py::fwd_launch_plan).
+//
+// 2. lstm_step_kernel<EmitResiduals, Peephole = true>, the peephole
+//    recurrence (rows 5 and 6): one launch per time step (T per call) on the
+//    caller's stream, the launch boundary as the step barrier; W_hid is read
+//    from global memory every step and stays in the 50 MB L2.  A block owns
+//    kUnits = 4 units of kRowsB = 8 batch rows (blockIdx.y tiles B); the
+//    peephole models' H = 250 gives 63 blocks per 8 rows, the last with 2
+//    live units.  The cell state (B, H) is updated in place in global memory.
 //
 // Layouts are batch-major, the port's public layout, so no transpose is
 // needed: x_proj (B, T, 4H), mask (B, T), out (B, T, H), and the residuals
 // cells (B, T, H) and gates (B, T, 4H).  Step t reads h_{t-1} from
-// out[:, t-1] (or hid0 at t = 0) and writes out[:, t]; the cell state (B, H)
-// is updated in place, each element by exactly one thread.
+// out[:, t-1] (or hid0 at t = 0, row stride H) and writes out[:, t].
+//
+// Where trouble is likely in the persistent design, and what the code does
+// about it (marked below):
+// [stale] out is written and read inside one launch, so h_{t-1} is never
+//   read through the read-only path (__ldg or a const __restrict__ pointer,
+//   which may return stale lines) nor through L1, which is not coherent
+//   across SMs: the product reads it with __ldcg (L2 only), and out is
+//   neither const nor __restrict__.  x_proj, mask, W_hid, cell0 and hid0 are
+//   read-only for the whole launch, so __ldg is right for them.
+// [order] grid.sync() fences before it arrives, so every block's out[:, t]
+//   stores are visible to every block after it.
+// [carry] a padded step still stores h_{t-1} into out[:, t], for every row
+//   (a fully padded one too): the next step reads all of out[:, t].
+// [ragged] H need not be a multiple of U (H = 250 with U = 4, H = 130): the
+//   last block's dead units get zero weight columns and no gate stage.
+// [uniform] every thread of every block reaches each __syncthreads and each
+//   grid.sync() the same number of times: the gate-stage guard masks work
+//   and no thread leaves early.
+// [converge] the warp shuffles of the product's reduction follow k loops
+//   whose trip counts are the same for every lane of the warp.
+// Large B: every block reads all B rows of h_{t-1} each step and does their
+// products, so the time grows with B, and each round past the first adds a
+// __syncthreads and an L2 round trip that the previous round does not hide;
+// a tensor-core product for large B is later work.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-// 4 units per block gives H / 4 = 125 blocks at H = 500, about one per SM of
-// the 132; 8 units (63 blocks) measured slower.
+__device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// The gate math of one (row, unit): the pre-activations gate[4] (i, f, c, o,
+// before any peephole term), the carries c_prev and h_prev and the mask m ->
+// the post-mask cell and hidden state.  Without Peephole the p_* are unused.
+template <bool Peephole>
+__device__ __forceinline__ void cell_update(const float (&gate)[4], float c_prev, float h_prev,
+                                            float m, float p_i, float p_f, float p_o,
+                                            float& c_out, float& h_out) {
+  float z_i = gate[0], z_f = gate[1], z_o = gate[3];
+  if constexpr (Peephole) {
+    z_i += c_prev * p_i;
+    z_f += c_prev * p_f;
+  }
+  const float c_new = sigm(z_f) * c_prev + sigm(z_i) * tanhf(gate[2]);
+  if constexpr (Peephole) z_o += c_new * p_o;
+  const float h_new = sigm(z_o) * tanhf(c_new);
+  c_out = m * c_new + (1.0f - m) * c_prev;
+  h_out = m * h_new + (1.0f - m) * h_prev;
+}
+
+// ---------------------------------------------------------------------------
+// 1. The persistent chain (no peepholes).
+
+constexpr int kChainThreads = 256;
+constexpr int kWarps = kChainThreads / 32;
+// (row, column) pairs of one warp tile: 32 / 4U rows by 4U gate columns, one
+// accumulator each per lane, reduced across the warp in 31 shuffles
+constexpr int kPairs = 32;
+
+// Floats per k row of the block's W_hid columns in shared memory: 4U, padded
+// so that the 8 lanes of each phase of a float4 read (neighbouring k) hit
+// distinct banks (rows of 20 floats at U = 4).  U = 1 needs no padding.
+__host__ __device__ constexpr int padded_columns(int U) { return U == 1 ? 4 : 4 * U + 4; }
+
+// One level of the warp's transposing reduction: of the 2 * O values a lane
+// holds, it keeps the half its lane bit O selects and adds its partner's copy
+// of the same half.  After levels 16, 8, 4, 2 and 1, v[0] of lane L is the
+// warp's sum of value L.
+template <int O>
+__device__ __forceinline__ void transpose_level(float (&v)[kPairs], int lane) {
+  const bool upper = lane & O;
+#pragma unroll
+  for (int k = 0; k < O; ++k) {
+    const float send = upper ? v[k] : v[k + O];
+    const float keep = upper ? v[k + O] : v[k];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// The whole recurrence.  Shared memory as in the header.  cell0 and hid0 are
+// (B, H); with EmitResiduals cells (B, T, H) and gates (B, T, 4H) receive the
+// residuals, otherwise those pointers are unused.
+template <bool EmitResiduals, int U>
+__global__ void __launch_bounds__(kChainThreads)
+lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const float* __restrict__ w_hid,
+                      const float* __restrict__ mask, const float* __restrict__ cell0,
+                      const float* __restrict__ hid0,
+                      float* out,  // [stale] written and read here: not const, not restrict
+                      float* __restrict__ cells, float* __restrict__ gates, int B, int T,
+                      int H) {
+  constexpr int C = 4 * U;       // the block's gate columns, col = gate * U + unit
+  constexpr int CP = padded_columns(U);
+  constexpr int R = kPairs / C;  // rows of a warp tile
+  constexpr int KI = kPairs / R; // k steps per batch of loads: R * KI = 32 in flight
+  extern __shared__ float4 smem4[];
+  const int BU = B * U;
+  float* w_s = reinterpret_cast<float*>(smem4);  // (H, CP): row k holds the C weights
+  float* c_s = w_s + CP * H;                     // (B * U) each, from here on
+  float* h_s = c_s + BU;
+  float* red = h_s + BU;                         // (kWarps, kPairs)
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int j0 = blockIdx.x * U;
+  const int nu = min(U, H - j0);
+  const size_t H4 = static_cast<size_t>(4) * H;
+
+  // w_s[k, col] = W_hid[k, gate * H + j0 + unit], once per call, kLoadW loads
+  // in flight per thread; neighbouring threads read neighbouring units of
+  // one gate.  [ragged] dead units are 0.
+  constexpr int kLoadW = 16;
+  for (int i0 = 0; i0 < C * H; i0 += kLoadW * kChainThreads) {
+    float v[kLoadW];
+#pragma unroll
+    for (int l = 0; l < kLoadW; ++l) {
+      const int i = i0 + l * kChainThreads + tid;
+      const int k = i / C;
+      const int col = i % C;
+      const int u = col % U;
+      v[l] = i < C * H && u < nu
+                 ? __ldg(w_hid + k * H4 + static_cast<size_t>(col / U) * H + j0 + u) : 0.f;
+    }
+#pragma unroll
+    for (int l = 0; l < kLoadW; ++l) {
+      const int i = i0 + l * kChainThreads + tid;
+      if (i < C * H) w_s[i / C * CP + i % C] = v[l];
+    }
+  }
+  for (int q = tid; q < BU; q += kChainThreads) {
+    const int u = q % U;
+    const size_t e = static_cast<size_t>(q / U) * H + j0 + u;
+    c_s[q] = u < nu ? __ldg(cell0 + e) : 0.f;
+    h_s[q] = u < nu ? __ldg(hid0 + e) : 0.f;
+  }
+  __syncthreads();
+
+  cg::grid_group grid = cg::this_grid();
+  const int n_tiles = (B + R - 1) / R;
+  for (int t = 0; t < T; ++t) {
+    const float* h = t == 0 ? hid0 : out + static_cast<size_t>(t - 1) * H;
+    const size_t h_stride = t == 0 ? static_cast<size_t>(H) : static_cast<size_t>(T) * H;
+    for (int tile0 = 0; tile0 < n_tiles; tile0 += kWarps) {
+      const int G = min(kWarps, n_tiles - tile0);  // tiles of this round
+      const int rb0 = tile0 * R;
+      // gate-stage thread: row rb0 + tid / U, unit tid % U of this round;
+      // its read-only inputs are fetched first, so they overlap the product
+      const int gr = tid / U;
+      const int gu = tid % U;
+      const int gb = rb0 + gr;
+      const bool gate_live = gr < G * R && gb < B && gu < nu;  // [uniform] masks, no return
+      float xin[4] = {0.f, 0.f, 0.f, 0.f};
+      float m = 0.f;
+      if (gate_live) {
+        const float* xp = x_proj + (static_cast<size_t>(gb) * T + t) * H4 + j0 + gu;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xin[q] = __ldg(xp + static_cast<size_t>(q) * H);
+        m = __ldg(mask + static_cast<size_t>(gb) * T + t);
+      }
+
+      // product: warp -> tile g of the round and slice ks of the ns warps on it
+      const int g = warp % G;
+      const int ks = warp / G;
+      const int ns = (kWarps - 1 - g) / G + 1;
+      const int b0 = rb0 + g * R;
+      const int stride = 32 * ns;
+      // [converge] warp-uniform trip counts; k >= H is masked inside
+      const int steps = (H + stride - 1) / stride;
+      float acc[kPairs];
+#pragma unroll
+      for (int p = 0; p < kPairs; ++p) acc[p] = 0.f;
+      for (int s0 = 0; s0 < steps; s0 += KI) {
+        float hv[KI][R];
+#pragma unroll
+        for (int i = 0; i < KI; ++i) {
+          const int k = (s0 + i) * stride + ks * 32 + lane;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            // [stale] h of this launch: L2 only, never __ldg or L1
+            hv[i][r] = s0 + i < steps && k < H && b0 + r < B
+                           ? __ldcg(h + (b0 + r) * h_stride + k) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < KI; ++i) {
+          if (s0 + i >= steps) break;  // warp-uniform
+          const int k = (s0 + i) * stride + ks * 32 + lane;
+          // one address per k; past H, hv is 0 and row H - 1 stands in
+          const float4* wk = reinterpret_cast<const float4*>(w_s + min(k, H - 1) * CP);
+          float w[C];
+#pragma unroll
+          for (int c4 = 0; c4 < C / 4; ++c4) {
+            const float4 q = wk[c4];
+            w[4 * c4] = q.x;
+            w[4 * c4 + 1] = q.y;
+            w[4 * c4 + 2] = q.z;
+            w[4 * c4 + 3] = q.w;
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[r * C + c] = fmaf(hv[i][r], w[c], acc[r * C + c]);
+          }
+        }
+      }
+      transpose_level<16>(acc, lane);
+      transpose_level<8>(acc, lane);
+      transpose_level<4>(acc, lane);
+      transpose_level<2>(acc, lane);
+      transpose_level<1>(acc, lane);
+      red[warp * kPairs + lane] = acc[0];
+      __syncthreads();
+
+      if (gate_live) {
+        // the partial sums of the warps on tile gt, in warp order
+        const int gt = gr / R;
+        const int pair = (gr % R) * C + gu;
+        const int nsg = (kWarps - 1 - gt) / G + 1;
+        float gate[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float s = 0.f;
+          for (int p = 0; p < nsg; ++p) s += red[(p * G + gt) * kPairs + pair + q * U];
+          gate[q] = xin[q] + s;
+        }
+        const int q = gb * U + gu;
+        float c_out, h_out;
+        cell_update<false>(gate, c_s[q], h_s[q], m, 0.f, 0.f, 0.f, c_out, h_out);
+        c_s[q] = c_out;
+        h_s[q] = h_out;
+        const size_t e = (static_cast<size_t>(gb) * T + t) * H + j0 + gu;
+        out[e] = h_out;  // [carry] every row, padded or not
+        if constexpr (EmitResiduals) {
+          cells[e] = c_out;
+          float* gp = gates + (static_cast<size_t>(gb) * T + t) * H4 + j0 + gu;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) gp[static_cast<size_t>(k) * H] = gate[k];
+        }
+      }
+      // red is refilled by the next round; the last round's barrier is grid.sync
+      if (tile0 + kWarps < n_tiles) __syncthreads();
+    }
+    // [order] [uniform] every block's out[:, t] before any block's next product
+    grid.sync();
+  }
+}
+
+size_t chain_smem_bytes(int B, int H, int U) {
+  return (static_cast<size_t>(padded_columns(U)) * H + static_cast<size_t>(2) * B * U +
+          kWarps * kPairs) * sizeof(float);
+}
+
+template <bool EmitResiduals, int U>
+cudaError_t launch_chain(const float* x_proj, const float* w_hid, const float* mask,
+                         const float* cell0, const float* hid0, float* out, float* cells,
+                         float* gates, int B, int T, int H, size_t smem, cudaStream_t stream) {
+  const auto kernel = lstm_fwd_chain_kernel<EmitResiduals, U>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  void* args[] = {&x_proj, &w_hid, &mask, &cell0, &hid0, &out, &cells, &gates, &B, &T, &H};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     dim3((H + U - 1) / U), dim3(kChainThreads), args, smem,
+                                     stream);
+}
+
+// Runs the whole recurrence of one instantiation on `stream`; see the entry
+// points.  cells and gates are null without EmitResiduals.
+template <bool EmitResiduals>
+int run_chain(const void* x_proj, const void* w_hid, const void* mask, const void* cell0,
+              const void* hid0, void* out, void* cells, void* gates, int B, int T, int H,
+              int units, size_t smem, void* stream) {
+  if (smem < chain_smem_bytes(B, H, units)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto f = [](const void* v) { return static_cast<const float*>(v); };
+  const auto go = [&](auto launcher) {
+    return launcher(f(x_proj), f(w_hid), f(mask), f(cell0), f(hid0), static_cast<float*>(out),
+                    static_cast<float*>(cells), static_cast<float*>(gates), B, T, H, smem,
+                    static_cast<cudaStream_t>(stream));
+  };
+  cudaError_t err;
+  switch (units) {
+    case 1: err = go(launch_chain<EmitResiduals, 1>); break;
+    case 2: err = go(launch_chain<EmitResiduals, 2>); break;
+    case 4: err = go(launch_chain<EmitResiduals, 4>); break;
+    case 8: err = go(launch_chain<EmitResiduals, 8>); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// 2. The per-step kernel (instantiated with peepholes only).
+
+// 4 units per block gives H / 4 blocks, about one per SM at H = 500.
 constexpr int kUnits = 4;   // hidden units per block -> 4 * kUnits gate columns
 constexpr int kSplit = 16;  // slices of the length-H dot product per column
 constexpr int kRowsB = 8;   // batch rows per block
 constexpr int kCols = 4 * kUnits;
 constexpr int kThreads = kCols * kSplit;  // 256
 constexpr int kStage = 2;   // h elements per row and thread staged per round
-
-__device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
 
 // A step is a short chain of memory round trips (h_{t-1}, then W_hid, then
 // the gate inputs), so the kernel keeps as many loads in flight as it can:
@@ -157,18 +483,10 @@ lstm_step_kernel(const float* __restrict__ x_proj, const float* __restrict__ w_h
       for (int p = 0; p < kSplit; ++p) s += part[(p * kRowsB + gr) * kCols + q * kUnits + gu];
       gate[q] = xin[q] + s;
     }
-    const float h_prev_v = hs[gr * H + gj];
-    float z_i = gate[0], z_f = gate[1], z_o = gate[3];
-    if constexpr (Peephole) {
-      z_i += c_prev * p_i;
-      z_f += c_prev * p_f;
-    }
-    const float c_new = sigm(z_f) * c_prev + sigm(z_i) * tanhf(gate[2]);
-    if constexpr (Peephole) z_o += c_new * p_o;
-    const float h_new = sigm(z_o) * tanhf(c_new);
-    const float c_out = m * c_new + (1.0f - m) * c_prev;
+    float c_out, h_out;
+    cell_update<Peephole>(gate, c_prev, hs[gr * H + gj], m, p_i, p_f, p_o, c_out, h_out);
     cell[gb * H + gj] = c_out;
-    out[(gb * T + t) * H + gj] = m * h_new + (1.0f - m) * h_prev_v;
+    out[(gb * T + t) * H + gj] = h_out;
     if constexpr (EmitResiduals) {
       cells[(gb * T + t) * H + gj] = c_out;
       float* gp = gates + (gb * T + t) * 4 * static_cast<size_t>(H) + gj;
@@ -179,13 +497,13 @@ lstm_step_kernel(const float* __restrict__ x_proj, const float* __restrict__ w_h
 }
 
 // Runs all T steps of one instantiation on `stream`; see the entry points.
-// `peep` holds w_ci, w_cf, w_co (each (H,)) or is null without peepholes.
-template <bool EmitResiduals, bool Peephole>
+// `peep` holds w_ci, w_cf, w_co (each (H,)).
+template <bool EmitResiduals>
 int run_steps(const void* x_proj, const void* w_hid, const void* mask, const void* hid0,
               void* cell, void* out, void* cells, void* gates, const void* const* peep,
               int B, int T, int H, size_t smem, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(lstm_step_kernel<EmitResiduals, Peephole>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto kernel = lstm_step_kernel<EmitResiduals, true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((H + kUnits - 1) / kUnits, (B + kRowsB - 1) / kRowsB);
@@ -195,15 +513,15 @@ int run_steps(const void* x_proj, const void* w_hid, const void* mask, const voi
   const float* m = static_cast<const float*>(mask);
   float* c = static_cast<float*>(cell);
   float* o = static_cast<float*>(out);
-  const float* wci = Peephole ? static_cast<const float*>(peep[0]) : nullptr;
-  const float* wcf = Peephole ? static_cast<const float*>(peep[1]) : nullptr;
-  const float* wco = Peephole ? static_cast<const float*>(peep[2]) : nullptr;
+  const float* wci = static_cast<const float*>(peep[0]);
+  const float* wcf = static_cast<const float*>(peep[1]);
+  const float* wco = static_cast<const float*>(peep[2]);
   for (int t = 0; t < T; ++t) {
     const float* h = t == 0 ? static_cast<const float*>(hid0) : o + static_cast<size_t>(t - 1) * H;
     const long long stride = t == 0 ? H : static_cast<long long>(T) * H;
-    lstm_step_kernel<EmitResiduals, Peephole><<<grid, kThreads, smem, s>>>(
-        xp, w, m, h, stride, c, o, static_cast<float*>(cells), static_cast<float*>(gates),
-        wci, wcf, wco, B, T, H, t);
+    lstm_step_kernel<EmitResiduals, true><<<grid, kThreads, smem, s>>>(
+        xp, w, m, h, stride, c, o, static_cast<float*>(cells), static_cast<float*>(gates), wci,
+        wcf, wco, B, T, H, t);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -212,42 +530,50 @@ int run_steps(const void* x_proj, const void* w_hid, const void* mask, const voi
 
 }  // namespace
 
-extern "C" size_t lstm_fwd_smem_bytes(int H) {
-  return (static_cast<size_t>(kRowsB) * H + kSplit * kRowsB * kCols) * sizeof(float);
-}
-
-// Runs all T steps on `stream`.  `cell` (B, H) holds cell0 on entry and the
-// final cell state on return; `hid0` (B, H) is read at t = 0.  Returns the
-// first CUDA error (0 on success).
+// Runs all T steps on `stream` in one cooperative launch of ceil(H / units)
+// blocks, units in {1, 2, 4, 8}, with `smem` bytes of dynamic shared memory
+// (at least 16 * units * H + 8 * B * units + 1024).  cell0 and hid0 (B, H)
+// are the initial state; writes out (B, T, H).  Returns the first CUDA error
+// (0 on success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be
+// co-resident).
 extern "C" int lstm_fwd_forward(const void* x_proj, const void* w_hid, const void* mask,
-                                const void* hid0, void* cell, void* out,
-                                int B, int T, int H, void* stream) {
-  return run_steps<false, false>(x_proj, w_hid, mask, hid0, cell, out, nullptr, nullptr,
-                                 nullptr, B, T, H, lstm_fwd_smem_bytes(H), stream);
+                                const void* cell0, const void* hid0, void* out, int B, int T,
+                                int H, int units, size_t smem, void* stream) {
+  return run_chain<false>(x_proj, w_hid, mask, cell0, hid0, out, nullptr, nullptr, B, T, H,
+                          units, smem, stream);
 }
 
 // The training forward: as lstm_fwd_forward, and also writes the residuals
 // cells (B, T, H) and gates (B, T, 4H).
 extern "C" int lstm_fwd_train_forward(const void* x_proj, const void* w_hid, const void* mask,
-                                      const void* hid0, void* cell, void* out, void* cells,
-                                      void* gates, int B, int T, int H, void* stream) {
-  return run_steps<true, false>(x_proj, w_hid, mask, hid0, cell, out, cells, gates, nullptr,
-                                B, T, H, lstm_fwd_smem_bytes(H), stream);
+                                      const void* cell0, const void* hid0, void* out,
+                                      void* cells, void* gates, int B, int T, int H, int units,
+                                      size_t smem, void* stream) {
+  return run_chain<true>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates, B, T, H, units,
+                         smem, stream);
 }
 
-// The peephole recurrence: as lstm_fwd_forward, with the (H,) peephole
-// vectors w_ci, w_cf and w_co.
+// Dynamic shared memory of the per-step peephole kernel at width H.
+extern "C" size_t lstm_fwd_step_smem_bytes(int H) {
+  return (static_cast<size_t>(kRowsB) * H + kSplit * kRowsB * kCols) * sizeof(float);
+}
+
+// The peephole recurrence, T launches on `stream`: `cell` (B, H) holds cell0
+// on entry and the final cell state on return; `hid0` (B, H) is read at
+// t = 0; w_ci, w_cf and w_co are the (H,) peephole vectors.  Writes out
+// (B, T, H).  Returns the first CUDA error (0 on success).
 extern "C" int lstm_fwd_peep_forward(const void* x_proj, const void* w_hid, const void* mask,
                                      const void* hid0, void* cell, void* out, const void* w_ci,
                                      const void* w_cf, const void* w_co, int B, int T, int H,
                                      void* stream) {
   const void* peep[3] = {w_ci, w_cf, w_co};
-  return run_steps<false, true>(x_proj, w_hid, mask, hid0, cell, out, nullptr, nullptr, peep,
-                                B, T, H, lstm_fwd_smem_bytes(H), stream);
+  return run_steps<false>(x_proj, w_hid, mask, hid0, cell, out, nullptr, nullptr, peep, B, T,
+                          H, lstm_fwd_step_smem_bytes(H), stream);
 }
 
-// The peephole training forward: as lstm_fwd_train_forward, with the
-// peephole vectors; the gates stored are those before the peephole terms.
+// The peephole training forward: as lstm_fwd_peep_forward, and also writes
+// the residuals cells (B, T, H) and gates (B, T, 4H), the gates before the
+// peephole terms.
 extern "C" int lstm_fwd_peep_train_forward(const void* x_proj, const void* w_hid,
                                            const void* mask, const void* hid0, void* cell,
                                            void* out, void* cells, void* gates,
@@ -255,8 +581,8 @@ extern "C" int lstm_fwd_peep_train_forward(const void* x_proj, const void* w_hid
                                            const void* w_co, int B, int T, int H,
                                            void* stream) {
   const void* peep[3] = {w_ci, w_cf, w_co};
-  return run_steps<true, true>(x_proj, w_hid, mask, hid0, cell, out, cells, gates, peep,
-                               B, T, H, lstm_fwd_smem_bytes(H), stream);
+  return run_steps<true>(x_proj, w_hid, mask, hid0, cell, out, cells, gates, peep, B, T, H,
+                         lstm_fwd_step_smem_bytes(H), stream);
 }
 
 extern "C" const char* lstm_fwd_error_string(int code) {

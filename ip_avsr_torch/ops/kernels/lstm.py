@@ -17,11 +17,12 @@ ip_avsr_tpu/ops/pallas/lstm_kernel.py:
 
 Each is bound by its serial chain of T steps, each needing all of W_hid and
 an exchange of state across the card; the kernels partition the hidden units
-across blocks so the gate math stays local.  The recurrences run one launch
-per step and read W_hid from L2 every step; the backward chains run as one
-persistent cooperative launch per call, with each block's rows of W_hid in
-shared memory and a grid barrier between steps (:func:`bwd_launch_plan`;
-see the sources' headers).  The ``*_plain`` functions are their plain
+across blocks so the gate math stays local.  The non-peephole recurrences
+and both backward chains run as one persistent cooperative launch per call,
+with each block's share of W_hid in shared memory and a grid barrier between
+steps (:func:`fwd_launch_plan`, :func:`bwd_launch_plan`; see the sources'
+headers); the peephole recurrences run one launch per step and read W_hid
+from L2 every step.  The ``*_plain`` functions are their plain
 versions.  All sequence tensors are batch-major (B, T, .), the port's
 layout, where the JAX package keeps the training residuals time-major
 (T, B, .).
@@ -189,24 +190,24 @@ def lstm_peep_bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid,
 @functools.cache
 def _lib():
     lib = _build.load("lstm_fwd")
-    lib.lstm_fwd_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    chain_tail = [ctypes.c_int] * 4 + [ctypes.c_size_t, ctypes.c_void_p]
+    lib.lstm_fwd_forward.argtypes = [ctypes.c_void_p] * 6 + chain_tail
     lib.lstm_fwd_forward.restype = ctypes.c_int
-    lib.lstm_fwd_train_forward.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                                           + [ctypes.c_void_p])
+    lib.lstm_fwd_train_forward.argtypes = [ctypes.c_void_p] * 8 + chain_tail
     lib.lstm_fwd_train_forward.restype = ctypes.c_int
-    lib.lstm_fwd_peep_forward.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
-                                          + [ctypes.c_void_p])
+    step_tail = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.lstm_fwd_peep_forward.argtypes = [ctypes.c_void_p] * 9 + step_tail
     lib.lstm_fwd_peep_forward.restype = ctypes.c_int
-    lib.lstm_fwd_peep_train_forward.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
-                                                + [ctypes.c_void_p])
+    lib.lstm_fwd_peep_train_forward.argtypes = [ctypes.c_void_p] * 11 + step_tail
     lib.lstm_fwd_peep_train_forward.restype = ctypes.c_int
-    lib.lstm_fwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.lstm_fwd_smem_bytes.restype = ctypes.c_size_t
+    lib.lstm_fwd_step_smem_bytes.argtypes = [ctypes.c_int]
+    lib.lstm_fwd_step_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
-class BwdPlan(NamedTuple):
-    """Launch plan of csrc/lstm_bwd.cu's chain kernel: ``units`` hidden units
+class ChainPlan(NamedTuple):
+    """Launch plan of a persistent chain kernel (csrc/lstm_fwd.cu's
+    recurrence, csrc/lstm_bwd.cu's backward chain): ``units`` hidden units
     per block, ``grid`` blocks, ``smem_bytes`` of dynamic shared memory per
     block, and the live units of the last block."""
 
@@ -216,38 +217,61 @@ class BwdPlan(NamedTuple):
     last_units: int
 
 
-# the kernel's instantiations (units per block) and its block reduction
-BWD_UNITS = (1, 2, 4, 8)
-_BWD_RED_BYTES = 8 * 32 * 4
+# the kernels' instantiations (units per block) and their warps' partial
+# sums (8 warps x 32 floats)
+CHAIN_UNITS = (1, 2, 4, 8)
+_RED_BYTES = 8 * 32 * 4
 
 
-def bwd_launch_plan(B: int, H: int, sm_count: int, units=None) -> BwdPlan:
-    """Units per block, grid and shared memory of the backward chain at
-    batch ``B`` and width ``H`` on a card with ``sm_count`` SMs.
-
-    The cooperative launch needs every block resident at once, one block
-    per SM, so ``units`` is the smallest of :data:`BWD_UNITS` whose grid
+def _chain_plan(name, B, H, sm_count, units, row_floats, carry_floats) -> ChainPlan:
+    """The cooperative launch needs every block resident at once, one block
+    per SM, so ``units`` is the smallest of :data:`CHAIN_UNITS` whose grid
     ``ceil(H / units)`` fits ``sm_count`` (or the one given, which must
-    fit).  A block keeps its ``units`` rows of W_hid (16 bytes per unit and
-    column of H) and its carries (six floats per row and unit) in shared
-    memory, beside a 1 KB block reduction.  Raises ``ValueError`` when no
+    fit).  A block keeps its ``units`` units' W_hid (``row_floats(units)``
+    floats per element of H) and ``carry_floats`` per row and unit in shared
+    memory, beside the 1 KB of partial sums.  Raises ``ValueError`` when no
     instantiation fits or the block needs more shared memory than
     ``_build.SMEM_LIMIT``."""
     if units is None:
-        units = next((u for u in BWD_UNITS if -(-H // u) <= sm_count), None)
+        units = next((u for u in CHAIN_UNITS if -(-H // u) <= sm_count), None)
         if units is None:
-            raise ValueError(f"backward chain: H={H} needs more than {BWD_UNITS[-1]} hidden "
+            raise ValueError(f"{name}: H={H} needs more than {CHAIN_UNITS[-1]} hidden "
                              f"units per block to fit {sm_count} SMs")
     grid = -(-H // units)
-    if units not in BWD_UNITS or grid > sm_count:
-        raise ValueError(f"backward chain: {units} units per block at H={H} is not one of "
-                         f"{BWD_UNITS} with a grid of at most {sm_count} blocks")
-    smem = 16 * units * H + 24 * B * units + _BWD_RED_BYTES
+    if units not in CHAIN_UNITS or grid > sm_count:
+        raise ValueError(f"{name}: {units} units per block at H={H} is not one of "
+                         f"{CHAIN_UNITS} with a grid of at most {sm_count} blocks")
+    smem = 4 * row_floats(units) * H + 4 * carry_floats * B * units + _RED_BYTES
     if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"backward chain: B={B}, H={H} at {units} units per block needs "
+        raise ValueError(f"{name}: B={B}, H={H} at {units} units per block needs "
                          f"{smem} bytes of shared memory per block, above the "
                          f"{_build.SMEM_LIMIT} a block may use")
-    return BwdPlan(units, grid, smem, H - (grid - 1) * units)
+    return ChainPlan(units, grid, smem, H - (grid - 1) * units)
+
+
+def fwd_launch_plan(B: int, H: int, sm_count: int, units=None) -> ChainPlan:
+    """Units per block, grid and shared memory of the non-peephole
+    recurrence at batch ``B`` and width ``H`` on a card with ``sm_count``
+    SMs: the block's 4 * units columns of W_hid as rows of
+    :func:`fwd_row_floats` floats, and two carries per row and unit (cell
+    and hidden state); see :func:`_chain_plan`."""
+    return _chain_plan("recurrence", B, H, sm_count, units, fwd_row_floats, carry_floats=2)
+
+
+def fwd_row_floats(units: int) -> int:
+    """Floats per k row of a recurrence block's W_hid columns in shared
+    memory: 4 * units, padded by 4 above one unit so that neighbouring rows'
+    float4 reads hit distinct banks (csrc/lstm_fwd.cu::padded_columns)."""
+    return 4 if units == 1 else 4 * units + 4
+
+
+def bwd_launch_plan(B: int, H: int, sm_count: int, units=None) -> ChainPlan:
+    """Units per block, grid and shared memory of the backward chain at
+    batch ``B`` and width ``H`` on a card with ``sm_count`` SMs: the block's
+    units rows of W_hid and six carries per row and unit (dh_next, dc, the
+    pass-through and three peephole partials); see :func:`_chain_plan`."""
+    return _chain_plan("backward chain", B, H, sm_count, units, lambda u: 4 * u,
+                       carry_floats=6)
 
 
 @functools.cache
@@ -288,10 +312,15 @@ def _peep_shapes(peep, H):
     return {name: (v, (H,)) for name, v in zip(("w_ci", "w_cf", "w_co"), peep)}
 
 
-def _run_fwd(name, args, train, peep=()):
+def _run_fwd(name, args, train, peep=(), units=None, outs=None):
     """Check the inputs and launch csrc/lstm_fwd.cu's inference entry point
-    (returns hids) or its training one (returns hids, cells, gates); with
-    ``peep`` (w_ci, w_cf, w_co) their peephole instantiations."""
+    (returns hids) or its training one (returns hids, cells, gates).  Without
+    peepholes that is one cooperative launch planned by
+    :func:`fwd_launch_plan`; with ``peep`` (w_ci, w_cf, w_co) the per-step
+    peephole instantiations, T launches.  For measurement, ``units`` forces
+    the units per block and ``outs`` gives the output tensors to write
+    (contiguous float32 of the output shapes, for example NaN-filled, so a
+    value the kernel does not write shows)."""
     x_proj, w_hid, mask, cell0, hid0 = args
     if x_proj.dim() != 3 or w_hid.dim() != 2:
         raise ValueError(f"{name}: x_proj must be (B, T, 4H) and w_hid (H, 4H), got "
@@ -302,29 +331,38 @@ def _run_fwd(name, args, train, peep=()):
         "x_proj": (x_proj, (B, T, 4 * H)), "w_hid": (w_hid, (H, 4 * H)),
         "mask": (mask, (B, T)), "cell0": (cell0, (B, H)), "hid0": (hid0, (B, H)),
         **_peep_shapes(peep, H)})
-    lib = _lib()
-    smem = lib.lstm_fwd_smem_bytes(H)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"{name}: H={H} needs {smem} bytes of shared memory per "
-                         f"block, above the {_build.SMEM_LIMIT} a block may use")
     dev = x_proj.device
-    cell = cell0.clone()
-    hids = torch.empty((B, T, H), dtype=torch.float32, device=dev)
-    ptrs = [a.data_ptr() for a in (x_proj, w_hid, mask, hid0, cell, hids)]
-    peep_ptrs = [v.data_ptr() for v in peep]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if train:
-        cells = torch.empty((B, T, H), dtype=torch.float32, device=dev)
-        gates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
-        entry = lib.lstm_fwd_peep_train_forward if peep else lib.lstm_fwd_train_forward
-        code = entry(*ptrs, cells.data_ptr(), gates.data_ptr(), *peep_ptrs, B, T, H, stream)
-        out = (hids, cells, gates)
+    lib = _lib()
+    if peep:
+        smem = lib.lstm_fwd_step_smem_bytes(H)
+        if smem > _build.SMEM_LIMIT:
+            raise ValueError(f"{name}: H={H} needs {smem} bytes of shared memory per "
+                             f"block, above the {_build.SMEM_LIMIT} a block may use")
     else:
-        entry = lib.lstm_fwd_peep_forward if peep else lib.lstm_fwd_forward
-        code = entry(*ptrs, *peep_ptrs, B, T, H, stream)
-        out = hids
+        plan = fwd_launch_plan(B, H, _sm_count(dev.index), units)
+    shapes = [(B, T, H), (B, T, H), (B, T, 4 * H)][:3 if train else 1]
+    if outs is None:
+        outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
+    elif len(outs) != len(shapes):
+        raise ValueError(f"{name}: expected {len(shapes)} output tensors, got {len(outs)}")
+    else:
+        _check_cuda(name, (*args, *outs), {f"out {i}": (o, s)
+                                           for i, (o, s) in enumerate(zip(outs, shapes))})
+    hids = outs[0]
+    out_ptrs = [a.data_ptr() for a in outs]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if peep:
+        # the per-step kernel updates the cell state in place
+        cell = cell0.clone()
+        entry = lib.lstm_fwd_peep_train_forward if train else lib.lstm_fwd_peep_forward
+        code = entry(*(a.data_ptr() for a in (x_proj, w_hid, mask, hid0, cell)), *out_ptrs,
+                     *(v.data_ptr() for v in peep), B, T, H, stream)
+    else:
+        entry = lib.lstm_fwd_train_forward if train else lib.lstm_fwd_forward
+        code = entry(*(a.data_ptr() for a in args), *out_ptrs, B, T, H, plan.units,
+                     plan.smem_bytes, stream)
     _build.check(lib, "lstm_fwd", code)
-    return out
+    return tuple(outs) if train else hids
 
 
 def _on_cpu(args) -> bool:
@@ -336,8 +374,8 @@ def lstm_recurrence(x_proj, w_hid, mask, cell0, hid0):
     (B, T, H), all float32.
 
     CPU tensors take :func:`lstm_recurrence_plain`; CUDA tensors launch the
-    kernel (one call, T per-step launches, counted once in
-    ``lstm_recurrence.launches``) or raise."""
+    kernel (one cooperative launch, counted in ``lstm_recurrence.launches``)
+    or raise."""
     args = (x_proj, w_hid, mask, cell0, hid0)
     if _on_cpu(args):
         return lstm_recurrence_plain(*args)
@@ -355,7 +393,7 @@ def lstm_recurrence_train(x_proj, w_hid, mask, cell0, hid0):
     :func:`lstm_recurrence_train_plain` does.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
-    residual-emitting instantiation (T per-step launches, counted once in
+    residual-emitting instantiation (one cooperative launch, counted in
     ``lstm_recurrence_train.launches``) or raise."""
     args = (x_proj, w_hid, mask, cell0, hid0)
     if _on_cpu(args):
