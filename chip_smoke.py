@@ -12,20 +12,22 @@ Phases, each fatal on failure:
 3. with TF32 off, hold each kernel against its plain PyTorch version at the
    shapes of the paths below and time kernel, plain version and library
    call: the delta FIR, the inference recurrence and the training recurrence
-   (which also writes cells and gates; both one cooperative launch per call)
-   at the flagship's H = 500, then the peephole recurrences (one launch per
-   step) at the 4-stream model's H = 250 (D_in 150, 270, 117, 250); the two
-   non-peephole recurrences again at B in {1, 8, 10, 64}, H in {500, 250,
-   130} and T in {1, 29}, both directions, ragged masks with a fully padded
-   row and a length-1 row, into NaN-filled outputs, with each shape's
-   launch plan and its time per call and per step; the two backward chains
-   (one cooperative launch per call) at B in {1, 10, 64} and H in {500, 250,
-   130}, both directions, clip 5 with x1 and x100 upstream (the clip bites)
-   and clip 0, the three peephole gradients compared too, with each shape's
-   launch plan; the four persistent kernels traced with torch.profiler at
-   the main path's shapes (exactly one launch per call and no other device
-   work, its device time per call and per step), timed against cuDNN, and at
-   two units-per-block settings in turns;
+   (which also writes cells and gates) at the flagship's H = 500, then the
+   peephole recurrences at the 4-stream model's H = 250 (D_in 150, 270, 117,
+   250), all six LSTM kernels one cooperative launch per call; the four
+   recurrences again at B in {1, 8, 10, 64}, H in {500, 250, 130} and T in
+   {1, 29}, both directions, ragged masks with a fully padded row and a
+   length-1 row, nonzero peephole vectors, into NaN-filled outputs, with each
+   shape's launch plan and its time per call and per step; the two backward
+   chains at B in {1, 10, 64} and H in {500, 250, 130}, both directions,
+   clip 5 with x1 and x100 upstream (the clip bites) and clip 0, the three
+   peephole gradients compared too, with each shape's launch plan; the six
+   persistent kernels traced with torch.profiler at the main path's shapes
+   (exactly one launch per call and no other device work, its device time
+   per call and per step), timed against cuDNN, and at two units-per-block
+   settings in turns; batches above one launch's shared memory (rows 1 and
+   3 at B = 6000, rows 3 and 4 at B = 2100, H = 500) and forced row chunks
+   at B = 64 (all six), each chunked call against its plain version;
 4. build the full-width trimodal adenet_v3 (1144/90/1144, H = 500, W = 9)
    from a seeded generator, serve raw uint8 requests (B = 1 and 8, T = 29,
    ragged masks) through ``serve.make_trimodal_server``, check the scores
@@ -35,7 +37,8 @@ Phases, each fatal on failure:
 5. time requests on the host clock, and trace five B = 8 requests with
    torch.profiler for the device time by kernel, the device's busy share,
    and the device kernels and host launch calls per request (5 launches of
-   the persistent recurrence and none of the per-step kernel per request);
+   the non-peephole recurrence, no other chain kernel and none of the
+   per-step kernel per request);
 6. train the same model at B = 10, T = 29 through
    ``train.trainer.make_train_step``: three steps with its own dropout rates
    (loss, gradients and parameters finite; 5 training-recurrence, 5
@@ -44,19 +47,32 @@ Phases, each fatal on failure:
    (loss, every gradient, updated parameters), the step median on the host
    clock, and a torch.profiler trace of three steps (device time by kernel,
    device kernels and host launch calls per step, 5 launches of each
-   persistent kernel and none of the per-step kernel per step);
+   non-peephole persistent kernel, none of the peephole ones and none of
+   the per-step kernel per step);
 7. build the peephole 4-stream adasum AdeNet of ``configs/oulu_4stream.ini``
    through ``train.config`` at full width (features 150/150/270/117, H =
    250), serve seeded feature streams (B = 1 and 10, lengths 14-29) through
    ``serve.make_server`` (6 peephole recurrences and 4 deltas per forward,
-   no other kernel; probabilities equal to the CPU path), time and trace it;
+   no other kernel; probabilities equal to the CPU path), time and trace it
+   (6 launches of the peephole inference chain per request, no other chain
+   kernel and none of the per-step kernel; device kernels and host launch
+   calls per request);
 8. train it three steps at the ini's batch size and learning rate (6
    peephole training recurrences, 6 peephole backward chains, 4 deltas, no
    other launch per step), hold the card's step against the CPU path, time
-   and trace it;
+   and trace it (6 launches of each peephole chain kernel per step, none of
+   the others);
 9. print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a CUDA device or without the package beside it.
+
+    python3 chip_smoke.py --ab DIR
+
+is a measurement only: it times the peephole recurrences (B = 1, 10, 64)
+and traces the serve and train paths of both models with the package in DIR
+(another checkout, for example an earlier commit unpacked by ``git
+archive``), so two trees can be compared in turns on one card, and prints
+one JSON line.
 """
 
 from __future__ import annotations
@@ -115,6 +131,17 @@ KERNEL_COUNTERS = {
     "lstm_peep_fwd": ("lstm", "lstm_peep_recurrence"),
     "lstm_peep_fwd_train": ("lstm", "lstm_peep_recurrence_train"),
     "lstm_peep_bwd": ("lstm", "lstm_peep_bwd_chain"),
+}
+# the persistent kernels' instantiations as a trace names them, by their
+# template arguments before the units per block: lstm_fwd_chain_kernel
+# <EmitResiduals, Peephole, U> and lstm_bwd_chain_kernel<Peephole, U>
+CHAIN_TRACE = {
+    "lstm_fwd": "lstm_fwd_chain_kernel<false, false,",
+    "lstm_fwd_train": "lstm_fwd_chain_kernel<true, false,",
+    "lstm_peep_fwd": "lstm_fwd_chain_kernel<false, true,",
+    "lstm_peep_fwd_train": "lstm_fwd_chain_kernel<true, true,",
+    "lstm_bwd": "lstm_bwd_chain_kernel<false,",
+    "lstm_peep_bwd": "lstm_bwd_chain_kernel<true,",
 }
 # backward chain, kernel vs plain version: 29 dependent steps, each summing
 # 2000 products per dh entry in another order, so the error grows with the
@@ -336,7 +363,7 @@ def phase_lstm(dev):
               f"cuDNN nn.LSTM {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({by})")
         args = (x_proj, w_hid, mask, c0, h0)
         traced = trace_chain(lambda: lstm_recurrence(*args), f"lstm_fwd B={B} H={H}",
-                             "lstm_fwd_chain_kernel", T_FRAMES)
+                             "lstm_fwd", T_FRAMES)
         rows[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                        library_ms=lib_ms, traced_ms=traced)
         compare_units(lambda u: (lambda: _run_fwd("lstm_recurrence", args, False, units=u)),
@@ -345,33 +372,41 @@ def phase_lstm(dev):
 
 
 def fwd_sweep(dev):
-    """Rows 1 and 3 against their plain versions at B in {1, 8, 10, 64}, H in
-    {500, 250, 130} (130 leaves the last block ragged whatever the units per
-    block) and T in {1, 29}, both directions, ragged masks with a fully
-    padded row and a length-1 row, each output held relative to its max abs.
-    Each kernel runs twice: through its wrapper, and into NaN-filled outputs
-    (which must come out finite and bit-equal to the first), so a value the
-    kernel did not write, or read stale, shows.  Prints each shape's launch
-    plan and, at T = 29, both kernels' time per call and per step.  Returns
-    the largest absolute error of each row at the main path's H = 500."""
+    """Rows 1, 3, 5 and 6 against their plain versions at B in {1, 8, 10,
+    64}, H in {500, 250, 130} (130 leaves the last block ragged whatever the
+    units per block) and T in {1, 29}, both directions, ragged masks with a
+    fully padded row and a length-1 row, nonzero peephole vectors, each
+    output held relative to its max abs.  Each kernel runs twice: through
+    its wrapper, and into NaN-filled outputs (which must come out finite and
+    bit-equal to the first), so a value the kernel did not write, or read
+    stale, shows.  Prints each shape's launch plan and, at T = 29, each
+    kernel's time per call and per step.  Returns the largest absolute error
+    of each row at its main path's H (500, or 250 with peepholes)."""
     import torch
 
     from ip_avsr_torch.ops.kernels import lstm as kl
 
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator().manual_seed(SEED + 10)
-    rows = {"lstm_fwd": (kl.lstm_recurrence, kl.lstm_recurrence_plain, False),
-            "lstm_fwd_train": (kl.lstm_recurrence_train, kl.lstm_recurrence_train_plain, True)}
+    # name -> (wrapper, plain version, training, peepholes)
+    rows = {"lstm_fwd": (kl.lstm_recurrence, kl.lstm_recurrence_plain, False, False),
+            "lstm_fwd_train": (kl.lstm_recurrence_train, kl.lstm_recurrence_train_plain, True,
+                               False),
+            "lstm_peep_fwd": (kl.lstm_peep_recurrence, kl.lstm_peep_recurrence_plain, False,
+                              True),
+            "lstm_peep_fwd_train": (kl.lstm_peep_recurrence_train,
+                                    kl.lstm_peep_recurrence_train_plain, True, True)}
     err = {name: 0.0 for name in rows}
     for H in (500, 250, 130):
         for B in (1, 8, TRAIN_B, 64):
             plan = kl.fwd_launch_plan(B, H, sm_count)
             print(f"lstm_fwd plan B={B} H={H} on {sm_count} SMs: U={plan.units} hidden units per "
                   f"block, grid {plan.grid}, {plan.smem_bytes} B of shared memory, last block "
-                  f"U={plan.last_units} live")
+                  f"U={plan.last_units} live, {plan.chunks} chunk(s) of <= {plan.rows} rows")
             w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev)
             c0 = torch.randn(B, H, generator=gen).to(dev)
             h0 = (torch.randn(B, H, generator=gen) * 0.5).to(dev)
+            vecs = tuple((torch.randn(H, generator=gen) * 0.5).to(dev) for _ in range(3))
             for T in (1, T_FRAMES):
                 x_proj = torch.randn(B, T, 4 * H, generator=gen).to(dev)
                 mask = ragged_mask(B, T, gen, "cpu")
@@ -382,13 +417,14 @@ def fwd_sweep(dev):
                 for backwards in (False, True):
                     ms_ = (mask.flip(1) if backwards else mask).contiguous().to(dev)
                     args = (x_proj, w_hid, ms_, c0, h0)
-                    for name, (kernel, plain, train) in rows.items():
-                        got = kernel(*args)
+                    for name, (kernel, plain, train, peep) in rows.items():
+                        pargs = (*args, *vecs) if peep else args
+                        got = kernel(*pargs)
                         got = got if train else (got,)
-                        ref = plain(*args)
+                        ref = plain(*pargs)
                         ref = ref if train else (ref,)
                         nan = [torch.full_like(g, float("nan")) for g in got]
-                        kl._run_fwd(name, args, train, outs=nan)
+                        kl._run_fwd(name, args, train, peep=vecs if peep else (), outs=nan)
                         same = all(torch.equal(a, b) for a, b in zip(nan, got))
                         errs = [max_err(a, r)[0] for a, r in zip(got, ref)]
                         rel = max(a / max(r.abs().max().item(), 1e-30)
@@ -399,11 +435,12 @@ def fwd_sweep(dev):
                         if not (same and rel <= LSTM_TOL):
                             raise AssertionError(
                                 f"{name} kernel disagrees with its plain version: {rel}")
-                        if H == 500:
+                        if H == (250 if peep else 500):
                             err[name] = max(err[name], max(errs))
                 if T == T_FRAMES:
-                    for name, (kernel, _, _) in rows.items():
-                        ms = cuda_ms(lambda: kernel(*args))
+                    for name, (kernel, _, _, peep) in rows.items():
+                        pargs = (*args, *vecs) if peep else args
+                        ms = cuda_ms(lambda: kernel(*pargs))
                         print(f"{name} B={B} H={H}: kernel {ms:.4f} ms per call, "
                               f"{ms * 1e3 / T_FRAMES:.3f} us per step (event clock)")
     return err
@@ -483,11 +520,11 @@ def phase_lstm_train(dev):
               f"bound {bb:.5f} ms ({bby}); kernel / cuDNN {bwd_ms / lib_bwd:.4f}")
         fargs = (x_proj, w_hid, mask, c0, h0)
         fwd_traced = trace_chain(lambda: lstm_recurrence_train(*fargs),
-                                 f"lstm_fwd_train B={B} H={H}", "lstm_fwd_chain_kernel", T_FRAMES)
+                                 f"lstm_fwd_train B={B} H={H}", "lstm_fwd_train", T_FRAMES)
         compare_units(lambda u: (lambda: _run_fwd("lstm_recurrence_train", fargs, True,
                                                   units=u)), (4, 8), f"lstm_fwd_train B={B} H={H}")
         bwd_traced = trace_chain(lambda: lstm_bwd_chain(*bargs), f"lstm_bwd B={B} H={H}",
-                                 "lstm_bwd_chain_kernel", T_FRAMES + 1)
+                                 "lstm_bwd", T_FRAMES + 1)
         compare_units(lambda u: (lambda: _run_bwd("lstm_bwd_chain", bargs[:-1], 5.0,
                                                   units=u)), (4, 8), f"lstm_bwd B={B} H={H}")
         rows[B] = {
@@ -572,30 +609,45 @@ def bwd_sweep(dev, peep):
     return err
 
 
-def trace_chain(fn, label, kernel, steps, n=5):
-    """Trace ``n`` calls of a persistent kernel's wrapper with torch.profiler:
-    each call must be exactly one launch of ``kernel`` (its name in the
-    trace) and no other device work.  Prints and returns its device time per
-    call, and prints it per step over ``steps``."""
+def traced(fn, n):
+    """``key_averages()`` of a torch.profiler trace (host and card) of ``n``
+    calls of ``fn``, after one call outside the trace.  The traced calls
+    start and end 10 ms inside the trace: the trace's device clock can stand
+    milliseconds off the host's, and a record that falls outside the trace
+    is lost (one run on the H100 traced 4 of 5 chain launches)."""
     import torch
-    from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(0.01)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    ours = [e for e in device if kernel in e.key]
+        time.sleep(0.01)
+    return prof.key_averages()
+
+
+def trace_chain(fn, label, row, steps, n=5):
+    """Trace ``n`` calls of a persistent kernel's wrapper with torch.profiler:
+    each call must be exactly one launch of the instantiation of ``row``
+    (:data:`CHAIN_TRACE`) and no other device work.  Prints and returns its
+    device time per call, and prints it per step over ``steps``."""
+    from torch.autograd import DeviceType
+
+    events = traced(fn, n)
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    ours = [e for e in device if CHAIN_TRACE[row] in e.key]
     launches = sum(e.count for e in ours)
     others = sum(e.count for e in device) - launches
+    host = sum(e.count for e in events if e.key == "cudaLaunchCooperativeKernel")
     ms = sum(e.self_device_time_total for e in ours) / 1e3 / n
-    names = sorted({re.search(kernel + r"<[^>]*>", e.key).group(0) for e in ours})
-    print(f"{label}: traced {n} calls, {launches} launches of {names} and {others} other "
-          f"device ops; device time {ms:.4f} ms per call, {ms * 1e3 / steps:.3f} us per step "
-          f"(/ {steps}; the one-launch-per-step kernels took 5.2-8.0 us per step launch)")
+    names = sorted({re.search(r"lstm_\w+_chain_kernel<[^>]*>", e.key).group(0) for e in ours})
+    print(f"{label}: traced {n} calls, {launches} launches of {names} ({host} cooperative "
+          f"launch calls on the host) and {others} other device ops; device time {ms:.4f} ms "
+          f"per call, {ms * 1e3 / steps:.3f} us per step (/ {steps}; the earlier "
+          f"one-launch-per-step kernels took 5.2-8.0 us per step launch)")
     if launches != n or others:
         raise AssertionError(f"{label}: expected {n} kernel launches and nothing else")
     return ms
@@ -677,40 +729,40 @@ def phase_serve(dev):
     print("right after: clocks.sm, clocks.max.sm, power.draw, utilization.gpu =",
           smi("clocks.sm,clocks.max.sm,power.draw,utilization.gpu"))
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     raw, mask = requests[1]
     n_traced = 5
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n_traced):
-            server(raw, mask)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    events = traced(lambda: server(raw, mask), n_traced)
     print(events.table(sort_by="self_cuda_time_total", row_limit=14))
     busy_ms = sum(e.self_device_time_total for e in events
                   if e.device_type == DeviceType.CUDA) / 1e3 / n_traced
     print(f"serve B=8: device busy {busy_ms:.3f} ms per request (profiler, "
           f"{n_traced} requests); busy share of the median request "
           f"{busy_ms / latency[8]:.3f}")
-    expect_traced(events, n_traced, "serve B=8", {"lstm_fwd_chain_kernel<false": 5})
+    expect_traced(events, n_traced, "serve B=8", lstm_fwd=5)
     launch_counts(events, n_traced, "serve B=8",
-                  "PR 4, with one launch per recurrence step: 145 step launches and 5 "
-                  "cell-state copies more")
+                  "with the earlier one launch per recurrence step: 145 step launches and "
+                  "5 cell-state copies more")
     return launches, latency
 
 
-def expect_traced(events, n, label, kernels):
+def expect_traced(events, n, label, **per_call):
     """Raise unless a trace's ``key_averages()`` over ``n`` requests or steps
-    holds, per request or step, the launches ``kernels`` (name prefix ->
-    count) and no launch of the per-step recurrence kernel."""
+    holds, per request or step, the launches ``per_call`` (row name -> count)
+    of the persistent kernels' instantiations (:data:`CHAIN_TRACE`), none of
+    the other instantiations and no launch of the per-step recurrence
+    kernel."""
     from torch.autograd import DeviceType
 
     forbidden = "lstm_step_kernel"
     device = [e for e in events if e.device_type == DeviceType.CUDA]
-    got = {k: sum(e.count for e in device if k in e.key) / n for k in kernels}
+    got = {row: sum(e.count for e in device if name in e.key) / n
+           for row, name in CHAIN_TRACE.items()}
+    want = {row: float(per_call.get(row, 0)) for row in CHAIN_TRACE}
     bad = {e.key: e.count for e in device if forbidden in e.key}
-    print(f"{label}: traced launches per request or step {got}; {forbidden}: {bad or 'none'}")
-    if got != {k: float(v) for k, v in kernels.items()} or bad:
-        raise AssertionError(f"{label}: expected {kernels} per call and no {forbidden}")
+    print(f"{label}: traced chain launches per request or step {got}; {forbidden}: "
+          f"{bad or 'none'}")
+    if got != want or bad:
+        raise AssertionError(f"{label}: expected {want} per call and no {forbidden}")
 
 
 def phase_train(dev):
@@ -800,13 +852,13 @@ def phase_train(dev):
     print("right after: clocks.sm, clocks.max.sm, power.draw, utilization.gpu =",
           smi("clocks.sm,clocks.max.sm,power.draw,utilization.gpu"))
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     n_traced = 3
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n_traced):
-            p, st, loss = step(p, st, streams, y, mask, gen)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    carry = [p, st]
+
+    def train_step():
+        carry[:] = step(*carry, streams, y, mask, gen)[:2]
+
+    events = traced(train_step, n_traced)
     print(events.table(sort_by="self_cuda_time_total", row_limit=16))
     # where the host's time goes: the step is expected to be host-bound
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
@@ -814,10 +866,9 @@ def phase_train(dev):
                   if e.device_type == DeviceType.CUDA) / 1e3 / n_traced
     print(f"train B={B}: device busy {busy_ms:.3f} ms per step (profiler, {n_traced} "
           f"steps); busy share of the median step {busy_ms / median:.3f}")
-    expect_traced(events, n_traced, f"train B={B}",
-                  {"lstm_fwd_chain_kernel<true": 5, "lstm_bwd_chain_kernel<false": 5})
+    expect_traced(events, n_traced, f"train B={B}", lstm_fwd_train=5, lstm_bwd=5)
     launch_counts(events, n_traced, f"train B={B}",
-                  "PR 4, with one launch per recurrence step: 912")
+                  "912 with the earlier one launch per recurrence step")
     return launches, median
 
 
@@ -828,7 +879,7 @@ def phase_lstm_peep(dev):
     import torch
 
     from ip_avsr_torch.ops.kernels.lstm import (
-        _run_bwd, lstm_peep_bwd_chain, lstm_peep_bwd_chain_plain, lstm_peep_recurrence,
+        _run_bwd, _run_fwd, lstm_peep_bwd_chain, lstm_peep_bwd_chain_plain, lstm_peep_recurrence,
         lstm_peep_recurrence_plain, lstm_peep_recurrence_train,
         lstm_peep_recurrence_train_plain)
 
@@ -918,13 +969,109 @@ def phase_lstm_peep(dev):
               f"{inf_ms:.4f} ms, forward with grad {fwd_ms:.4f} ms, backward "
               f"{bwd_ms:.4f} ms; lstm_peep_bwd kernel / cuDNN backward "
               f"{rows[B]['lstm_peep_bwd']['ms'] / bwd_ms:.4f}")
+        for name, fn, train in (("lstm_peep_fwd", lstm_peep_recurrence, False),
+                                ("lstm_peep_fwd_train", lstm_peep_recurrence_train, True)):
+            rows[B][name]["traced_ms"] = trace_chain(lambda: fn(*fargs), f"{name} B={B} H={H}",
+                                                     name, T_FRAMES)
+            compare_units(lambda u: (lambda: _run_fwd(name.replace("fwd", "recurrence"),
+                                                      fargs[:5], train, tuple(peep), units=u)),
+                          (2, 4), f"{name} B={B} H={H}")
         rows[B]["lstm_peep_bwd"]["traced_ms"] = trace_chain(
             lambda: lstm_peep_bwd_chain(*bargs), f"lstm_peep_bwd B={B} H={H}",
-            "lstm_bwd_chain_kernel", T_FRAMES + 1)
+            "lstm_peep_bwd", T_FRAMES + 1)
         compare_units(lambda u: (lambda: _run_bwd("lstm_peep_bwd_chain", bargs[:6], 5.0,
                                                   tuple(peep), units=u)), (2, 4),
                       f"lstm_peep_bwd B={B} H={H}")
     return fwd_err, train_err, bwd_err, rows
+
+
+def phase_chunks(dev):
+    """Batches whose carries do not fit one launch's shared memory beside
+    W_hid, and forced row chunks at a small batch, each chunked call held
+    against its plain version (relative to each output's max abs) and timed
+    on the event clock: rows 1 and 3 at B = 6000 and rows 3 and 4 at
+    B = 2100 (H = 500, T = 29) through their wrappers, then all six
+    persistent rows at B = 64 in 3 chunks of 21, 21 and 22 rows (H = 500, or
+    250 with peepholes), the recurrences also into NaN-filled outputs."""
+    import torch
+
+    from ip_avsr_torch.ops.kernels import lstm as kl
+
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator().manual_seed(SEED + 12)
+    fwd_rows = {  # name -> (wrapper, plain version, training, peepholes)
+        "lstm_fwd": (kl.lstm_recurrence, kl.lstm_recurrence_plain, False, False),
+        "lstm_fwd_train": (kl.lstm_recurrence_train, kl.lstm_recurrence_train_plain, True,
+                           False),
+        "lstm_peep_fwd": (kl.lstm_peep_recurrence, kl.lstm_peep_recurrence_plain, False, True),
+        "lstm_peep_fwd_train": (kl.lstm_peep_recurrence_train,
+                                kl.lstm_peep_recurrence_train_plain, True, True)}
+    bwd_rows = {"lstm_bwd": (kl.lstm_bwd_chain, kl.lstm_bwd_chain_plain, False),
+                "lstm_peep_bwd": (kl.lstm_peep_bwd_chain, kl.lstm_peep_bwd_chain_plain, True)}
+
+    def inputs(B, H, peep):
+        x_proj = torch.randn(B, T_FRAMES, 4 * H, generator=gen).to(dev)
+        w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev)
+        mask = ragged_mask(B, T_FRAMES, gen, "cpu")
+        mask[-1] = 0.0  # a fully padded row
+        c0 = torch.randn(B, H, generator=gen).to(dev)
+        h0 = (torch.randn(B, H, generator=gen) * 0.5).to(dev)
+        vecs = tuple((torch.randn(H, generator=gen) * 0.5).to(dev) for _ in range(3 * peep))
+        return (x_proj, w_hid, mask.to(dev), c0, h0), vecs
+
+    def hold(label, got, ref, tol, ms, plan):
+        errs = [max_err(a, r)[0] for a, r in zip(got, ref)]
+        rel = max(e / max(r.abs().max().item(), 1e-30) for e, r in zip(errs, ref))
+        print(f"{label}: {plan.chunks} chunk(s) of <= {plan.rows} rows, {plan.smem_bytes} B of "
+              f"shared memory per block, U={plan.units}; max_abs_err {max(errs):.3e}, relative "
+              f"{rel:.3e}; kernel {ms:.4f} ms per call (event clock)")
+        if not (len(got) == len(ref) and rel <= tol):
+            raise AssertionError(f"{label}: chunked kernel disagrees with its plain version")
+
+    for name, B, H, chunks in (("lstm_fwd", 6000, 500, None), ("lstm_fwd_train", 6000, 500, None),
+                               ("lstm_fwd_train", 2100, 500, None), ("lstm_bwd", 2100, 500, None),
+                               *((n, 64, 250 if "peep" in n else 500, 3)
+                                 for n in (*fwd_rows, *bwd_rows))):
+        label = f"{name} B={B} H={H}" + (f" forced into {chunks} chunks" if chunks else "")
+        if name in fwd_rows:
+            wrapper, plain, train, peep = fwd_rows[name]
+            args, vecs = inputs(B, H, peep)
+
+            def call():
+                if chunks is None:
+                    return wrapper(*args, *vecs)
+                return kl._run_fwd(name, args, train, peep=vecs, chunks=chunks)
+
+            got = call()
+            got = got if train else (got,)
+            ref = plain(*args, *vecs)
+            ref = ref if train else (ref,)
+            nan = [torch.full_like(g, float("nan")) for g in got]
+            kl._run_fwd(name, args, train, peep=vecs, chunks=chunks, outs=nan)
+            if not all(torch.equal(a, b) for a, b in zip(nan, got)):
+                raise AssertionError(f"{label}: NaN-filled outputs not bit-equal")
+            ms = cuda_ms(call, iters=3, warmup=1)
+            plan = kl.fwd_launch_plan(B, H, sm_count, chunks=chunks)
+            hold(label, got, ref, LSTM_TOL, ms, plan)
+        else:
+            chain, plain, peep = bwd_rows[name]
+            fwd = kl.lstm_peep_recurrence_train_plain if peep else kl.lstm_recurrence_train_plain
+            (x_proj, w_hid, mask, c0, h0), vecs = inputs(B, H, peep)
+            _, cells, gates = fwd(x_proj, w_hid, mask, c0, h0, *vecs)
+            cells_prev = torch.cat([c0[:, None], cells[:, :-1]], dim=1)
+            g = torch.randn(B, T_FRAMES, H, generator=gen).to(dev)
+            bargs = (g, gates, cells, cells_prev, mask, w_hid)
+
+            def call():
+                if chunks is None:
+                    return chain(*bargs, *vecs, 5.0)
+                return kl._run_bwd(name.replace("bwd", "bwd_chain"), bargs, 5.0, vecs,
+                                   chunks=chunks)
+
+            got = call()
+            ms = cuda_ms(call, iters=3, warmup=1)
+            plan = kl.bwd_launch_plan(B, H, sm_count, chunks=chunks)
+            hold(label, got, plain(*bargs, *vecs, 5.0), LSTM_BWD_TOL, ms, plan)
 
 
 def oulu_4stream():
@@ -958,7 +1105,8 @@ def stream_batch(cfg, B, seed, device):
 def launch_counts(events, n, label, before):
     """Print the device kernels and the host's kernel-launch calls per
     request or step of a trace's ``key_averages()`` over ``n`` of them, with
-    ``before``, the earlier count, beside them."""
+    ``before``, the earlier count, beside them.  Returns (device kernels,
+    host launch calls) per request or step."""
     from torch.autograd import DeviceType
 
     kernels = sum(e.count for e in events if e.device_type == DeviceType.CUDA
@@ -969,18 +1117,21 @@ def launch_counts(events, n, label, before):
     print(f"{label}: {kernels / n:.1f} device kernels and {copies / n:.1f} copies or fills "
           f"each (trace); host launch calls each {sum(calls.values()) / n:.1f} "
           f"{ {k: v / n for k, v in calls.items()} } (device kernels, {before})")
+    return kernels / n, sum(calls.values()) / n
 
 
-def busy_share(prof, n, median_ms, label, rows=14):
+def busy_share(events, n, median_ms, label, rows=14):
+    """Print a trace's table (its ``key_averages()``) and its device time per
+    request or step over ``n`` of them, and its share of ``median_ms`` (none
+    without one).  Returns ``events`` and that device time."""
     from torch.autograd import DeviceType
 
-    events = prof.key_averages()
     print(events.table(sort_by="self_cuda_time_total", row_limit=rows))
     busy_ms = sum(e.self_device_time_total for e in events
                   if e.device_type == DeviceType.CUDA) / 1e3 / n
-    print(f"{label}: device busy {busy_ms:.3f} ms each (profiler, {n} traced); busy share "
-          f"of the median {busy_ms / median_ms:.3f}")
-    return events
+    share = f"; busy share of the median {busy_ms / median_ms:.3f}" if median_ms else ""
+    print(f"{label}: device busy {busy_ms:.3f} ms each (profiler, {n} traced){share}")
+    return events, busy_ms
 
 
 def phase_serve_4stream(dev):
@@ -1053,13 +1204,13 @@ def phase_serve_4stream(dev):
               f"(host clock, 25 requests, feature upload included)")
     print("right after: clocks.sm, clocks.max.sm, power.draw, utilization.gpu =",
           smi("clocks.sm,clocks.max.sm,power.draw,utilization.gpu"))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     n_traced = 5
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n_traced):
-            server(*requests[1])
-        torch.cuda.synchronize()
-    busy_share(prof, n_traced, latency[TRAIN_B], f"4-stream serve B={TRAIN_B}")
+    events, _ = busy_share(traced(lambda: server(*requests[1]), n_traced), n_traced,
+                           latency[TRAIN_B], f"4-stream serve B={TRAIN_B}")
+    expect_traced(events, n_traced, f"4-stream serve B={TRAIN_B}", lstm_peep_fwd=6)
+    launch_counts(events, n_traced, f"4-stream serve B={TRAIN_B}",
+                  "252 with the earlier per-step peephole recurrence: 174 step launches "
+                  "and 6 cell-state copies")
     return launches, latency
 
 
@@ -1144,17 +1295,102 @@ def phase_train_4stream(dev):
           f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     print("right after: clocks.sm, clocks.max.sm, power.draw, utilization.gpu =",
           smi("clocks.sm,clocks.max.sm,power.draw,utilization.gpu"))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     n_traced = 3
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n_traced):
-            p, st, loss = step(p, st, streams, y, mask)
-        torch.cuda.synchronize()
-    events = busy_share(prof, n_traced, median, f"4-stream train B={B}", rows=16)
+    carry = [p, st]
+
+    def train_step():
+        carry[:] = step(*carry, streams, y, mask)[:2]
+
+    events, _ = busy_share(traced(train_step, n_traced), n_traced, median,
+                           f"4-stream train B={B}", rows=16)
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
+    expect_traced(events, n_traced, f"4-stream train B={B}", lstm_peep_fwd_train=6,
+                  lstm_peep_bwd=6)
     launch_counts(events, n_traced, f"4-stream train B={B}",
-                  "PR 4: 1256, with one launch per peephole recurrence step")
+                  "1256 with the earlier per-step peephole recurrence: 174 step launches "
+                  "and 6 cell-state copies")
     return launches, median
+
+
+def trace_device(fn, n):
+    """Device time and device operations (kernels, copies and fills) per
+    call of ``fn`` over ``n`` traced calls, whatever they are."""
+    from torch.autograd import DeviceType
+
+    device = [e for e in traced(fn, n) if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in device) / 1e3 / n,
+            sum(e.count for e in device) / n)
+
+
+def ab_run(dev):
+    """``--ab``: the peephole recurrences at B in {1, 10, 64} (H = 250,
+    T = 29; event clock, and traced device time and kernels per call) and
+    the traces of the 4-stream serve (B = 10) and train (B = 10) paths and
+    of the flagship's (B = 8 and 10) of whichever package is first on the
+    path, through the entry points every version of the port has.  Returns
+    the numbers."""
+    import numpy as np
+    import torch
+
+    import ip_avsr_torch
+    from ip_avsr_torch.models import adenet, zoo
+    from ip_avsr_torch.ops.kernels import lstm as kl
+    from ip_avsr_torch.serve import make_server, make_trimodal_server
+    from ip_avsr_torch.train import trainer
+
+    out = {"package": os.path.dirname(os.path.abspath(ip_avsr_torch.__file__))}
+    H = 250
+    gen = torch.Generator().manual_seed(SEED + 13)
+    for B in (1, TRAIN_B, 64):
+        args = (torch.randn(B, T_FRAMES, 4 * H, generator=gen).to(dev),
+                (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev),
+                ragged_mask(B, T_FRAMES, gen, dev), torch.zeros(B, H, device=dev),
+                torch.zeros(B, H, device=dev),
+                *((torch.randn(H, generator=gen) * 0.1).to(dev) for _ in range(3)))
+        for name, fn in (("lstm_peep_fwd", kl.lstm_peep_recurrence),
+                         ("lstm_peep_fwd_train", kl.lstm_peep_recurrence_train)):
+            ms = cuda_ms(lambda: fn(*args))
+            traced, kernels = trace_device(lambda: fn(*args), 5)
+            out[f"{name} B={B}"] = dict(ms=ms, traced_ms=traced, device_ops=kernels)
+            print(f"{name} B={B} H={H}: kernel {ms:.4f} ms per call (event clock); traced "
+                  f"{traced:.4f} ms per call, {traced * 1e3 / T_FRAMES:.3f} us per step, "
+                  f"{kernels:.1f} device operations per call")
+    cfg, training = oulu_4stream()
+    params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 6), cfg, device=dev)
+    server = make_server(params, cfg, device=dev)
+    streams, mask, y = stream_batch(cfg, TRAIN_B, SEED + 7, dev)
+    opt, step = trainer.make_train_step(cfg, lr=training.learning_rate)
+    state = [params, opt.init(params)]
+    # the flagship at full width: served from raw uint8 (B = 8), trained
+    # with its dropout (B = 10)
+    cfg3 = zoo.adenet_v3(1144, 90, 1144, lstm_size=250, window=9, output_classes=10)
+    params3 = adenet.init_adenet_params(torch.Generator().manual_seed(SEED), cfg3, device=dev)
+    server3 = make_trimodal_server(params3, cfg3, IMAGE_SHAPE, DCT, device=dev)
+    rng = np.random.RandomState(SEED)
+    raw = rng.randint(0, 256, (8, T_FRAMES, 1144)).astype(np.uint8)
+    raw_mask = (np.arange(T_FRAMES)[None] < rng.randint(1, T_FRAMES + 1, 8)[:, None]).astype(
+        np.float32)
+    streams3 = [torch.from_numpy(rng.randn(TRAIN_B, T_FRAMES, s.input_dim).astype(np.float32))
+                .to(dev) for s in cfg3.streams]
+    y3 = torch.from_numpy(rng.randint(0, 10, TRAIN_B)).long().to(dev)
+    opt3, step3 = trainer.make_train_step(cfg3)
+    gen3 = torch.Generator(device=dev).manual_seed(SEED)
+    state3 = [params3, opt3.init(params3)]
+
+    def train_step():
+        state[:2] = step(*state, streams, y, mask)[:2]
+
+    def train_step3():
+        state3[:2] = step3(*state3, streams3, y3, mask, gen3)[:2]
+
+    for label, fn, n in ((f"4-stream serve B={TRAIN_B}", lambda: server(streams, mask), 5),
+                         (f"4-stream train B={TRAIN_B}", train_step, 3),
+                         ("flagship serve B=8", lambda: server3(raw, raw_mask), 5),
+                         (f"flagship train B={TRAIN_B}", train_step3, 3)):
+        events, busy = busy_share(traced(fn, n), n, None, label, rows=8)
+        kernels, calls = launch_counts(events, n, label, "this tree")
+        out[label] = dict(device_ms=busy, device_kernels=kernels, host_launch_calls=calls)
+    return out
 
 
 def main() -> int:
@@ -1163,7 +1399,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    ab = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--ab" else None
+    if len(sys.argv) > 1 and ab is None:
+        print(f"usage: {sys.argv[0]} [--ab DIR]", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(ab) if ab else ROOT)
     import ip_avsr_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     print("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -1173,6 +1413,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if ab:
+        print(json.dumps({"ab": ab_run(dev)}))
+        return 0
     delta_err, delta_rows = phase_delta(dev)
     lstm_err, lstm_rows = phase_lstm(dev)
     train_fwd_err, bwd_err, train_rows = phase_lstm_train(dev)
@@ -1180,6 +1423,9 @@ def main() -> int:
     lstm_err = max(lstm_err, sweep_err["lstm_fwd"])
     train_fwd_err = max(train_fwd_err, sweep_err["lstm_fwd_train"])
     peep_err, peep_train_err, peep_bwd_err, peep_rows = phase_lstm_peep(dev)
+    peep_err = max(peep_err, sweep_err["lstm_peep_fwd"])
+    peep_train_err = max(peep_train_err, sweep_err["lstm_peep_fwd_train"])
+    phase_chunks(dev)
     launches, _ = phase_serve(dev)
     train_launches, _ = phase_train(dev)
     launches4, _ = phase_serve_4stream(dev)

@@ -56,8 +56,11 @@
 //   card holds the two within 1e-5 of each output's max abs.
 // Shared memory (dynamic, one layout for both instantiations): W_hid rows
 // U x 4H, then dh_next, dc, pass and the three dw partials, B x U each, then
-// the block reduction kWarps x kPairs; 16UH + 24BU + 1024 bytes in all.  Any
-// B runs whose carries fit beside W_hid (B up to about 2,000 at H = 500).
+// the block reduction kWarps x kPairs; 16UH + 24BU + 1024 bytes in all, so
+// one launch holds up to 2077 rows at H = 500.  Rows are independent: a
+// larger batch runs as several launches over near-equal row chunks, each a
+// pointer offset into the batch-major tensors, and the chunks' (3, H)
+// peephole gradients are added in chunk order (ops/kernels/lstm.py).
 //
 // Where trouble is likely, and what the code does about it (marked below):
 // [stale] dgates is written and read inside this launch, so it is never read

@@ -13,88 +13,84 @@
 //     h'    = sigmoid(o + w_co * c') * tanh(c')
 //     (c_t, h_t) = m * (c', h') + (1 - m) * (c_{t-1}, h_{t-1})   (mask carry)
 // where the three (H,) peephole terms are zero without peepholes
-// (cell_update below holds this math for both designs).  The stored gates
-// are those before the peephole terms, as on the TPU.  The hoisted input
-// projection x @ W_in + b stays a cuBLAS product outside (as XLA computed it
-// outside the Pallas kernel); h @ W_hid is computed here.
+// (cell_update below holds this math).  The stored gates are those before
+// the peephole terms, as on the TPU.  The hoisted input projection x @ W_in
+// + b stays a cuBLAS product outside (as XLA computed it outside the Pallas
+// kernel); h @ W_hid is computed here.
 //
 // Bound: the serial chain of T steps, each of which needs all of W_hid (H x
 // 4H f32, 4 MB at H = 500) and an exchange of h across the whole card.  The
 // TPU kept W_hid resident in one core's VMEM; on Hopper it does not fit one
-// SM's shared memory, so both designs partition by hidden unit: a block owns
+// SM's shared memory, so the kernel partitions by hidden unit: a block owns
 // U hidden units j, hence gate columns {j, H+j, 2H+j, 3H+j}, so the gate math
 // and the cell state stay local to the block and only h crosses blocks.  The
 // arithmetic of a whole call is a few microseconds of the card's f32 rate;
 // what a step costs is the exchange.
 //
-// Two designs live here:
-//
-// 1. lstm_fwd_chain_kernel<EmitResiduals, U>, the non-peephole recurrence
-//    (rows 1 and 3 of the kernel table): one persistent cooperative launch
-//    per call, which loops over t itself.
-//    - The grid is ceil(H / U) blocks, U the smallest of 1, 2, 4, 8 whose
-//      grid fits the card's SMs (ops/kernels/lstm.py::fwd_launch_plan), so
-//      every block is resident and grid.sync() is the step barrier (one per
-//      step, after the step's h stores).  The cooperative launch refuses a
-//      grid that cannot be co-resident (cudaErrorCooperativeLaunchTooLarge)
-//      rather than hang in the barrier.
-//    - W_hid resident in shared memory.  The block's 4U columns are loaded
-//      once per call as H rows of 4U floats, row k holding W_hid[k, col] for
-//      col = gate * U + unit, each row padded to 4U + 4 floats (U >= 2) so
-//      that neighbouring k's float4 reads fall in distinct banks: 40,000 B
-//      at H = 500, U = 4.  The product gates[b, col] = sum_k h_{t-1}[b, k] *
-//      W[k, col] then reads only h from global memory, and a lane's weights
-//      for one k are 4U / 4 float4 reads from one address.  (A (4U, H)
-//      layout, one row per column, took 16 strided addresses per k and
-//      measured slower: the address arithmetic, not the loads, bound a k
-//      step.)
-//    - The cell state and the block's own units of h_{t-1} (for the mask
-//      carry) live in shared memory for the whole call, each (row, unit)
-//      read and written by one thread only.
-//    - h crosses blocks through out[:, t] in global memory and L2 behind the
-//      barrier.  The product reads h_{t-1} in row tiles of R = 32 / 4U rows
-//      straight from L2; shared memory does not grow with B x H.  A warp
-//      owns one tile and a slice of k (lanes on neighbouring k, so its loads
-//      are coalesced and its weight reads free of bank conflicts), sums the
-//      tile's 32 (row, column) pairs over its slice, and reduces them across
-//      its lanes in 31 shuffles; the gate stage adds the partial sums of the
-//      warps that shared the tile, in a fixed order.  A round is up to 8
-//      tiles, one per warp or several warps per tile, so B <= 8 R rows (16
-//      at U = 4) take one round and one __syncthreads per step.
-//    Shared memory (dynamic): W H x (4U + 4) (H x 4 at U = 1), then the cell
-//    and h carries B x U each, then the warps' partial sums 8 x 32;
-//    4 (4U + 4) H + 8BU + 1024 bytes (ops/kernels/lstm.py::fwd_launch_plan).
-//
-// 2. lstm_step_kernel<EmitResiduals, Peephole = true>, the peephole
-//    recurrence (rows 5 and 6): one launch per time step (T per call) on the
-//    caller's stream, the launch boundary as the step barrier; W_hid is read
-//    from global memory every step and stays in the 50 MB L2.  A block owns
-//    kUnits = 4 units of kRowsB = 8 batch rows (blockIdx.y tiles B); the
-//    peephole models' H = 250 gives 63 blocks per 8 rows, the last with 2
-//    live units.  The cell state (B, H) is updated in place in global memory.
+// One design serves all four rows: lstm_fwd_chain_kernel<EmitResiduals,
+// Peephole, U>, one persistent cooperative launch per call (per row chunk,
+// see below), which loops over t itself.
+// - The grid is ceil(H / U) blocks, U the smallest of 1, 2, 4, 8 whose grid
+//   fits the card's SMs (ops/kernels/lstm.py::fwd_launch_plan), so every
+//   block is resident and grid.sync() is the step barrier (one per step,
+//   after the step's h stores).  The cooperative launch refuses a grid that
+//   cannot be co-resident (cudaErrorCooperativeLaunchTooLarge) rather than
+//   hang in the barrier.
+// - W_hid resident in shared memory.  The block's 4U columns are loaded once
+//   per call as H rows of 4U floats, row k holding W_hid[k, col] for col =
+//   gate * U + unit, each row padded to 4U + 4 floats (U >= 2) so that
+//   neighbouring k's float4 reads fall in distinct banks: 40,000 B at H =
+//   500, U = 4.  The product gates[b, col] = sum_k h_{t-1}[b, k] * W[k, col]
+//   then reads only h from global memory, and a lane's weights for one k are
+//   4U / 4 float4 reads from one address.  (A (4U, H) layout, one row per
+//   column, took 16 strided addresses per k and measured slower: the address
+//   arithmetic, not the loads, bound a k step.)
+// - The cell state and the block's own units of h_{t-1} (for the mask carry)
+//   live in shared memory for the whole call, each (row, unit) read and
+//   written by one thread only.  With peepholes, each gate-stage thread holds
+//   its unit's three peephole weights in registers for the whole call: its
+//   unit tid % U is the same in every round and step.
+// - h crosses blocks through out[:, t] in global memory and L2 behind the
+//   barrier.  The product reads h_{t-1} in row tiles of R = 32 / 4U rows
+//   straight from L2; shared memory does not grow with B x H.  A warp owns
+//   one tile and a slice of k (lanes on neighbouring k, so its loads are
+//   coalesced and its weight reads free of bank conflicts), sums the tile's
+//   32 (row, column) pairs over its slice, and reduces them across its lanes
+//   in 31 shuffles; the gate stage adds the partial sums of the warps that
+//   shared the tile, in a fixed order.  A round is up to 8 tiles, one per
+//   warp or several warps per tile, so B <= 8 R rows (16 at U = 4) take one
+//   round and one __syncthreads per step.
+// Shared memory (dynamic): W H x (4U + 4) (H x 4 at U = 1), then the cell and
+// h carries B x U each, then the warps' partial sums 8 x 32; 4 (4U + 4) H +
+// 8BU + 1024 bytes (ops/kernels/lstm.py::fwd_launch_plan).  Rows are
+// independent, so a batch whose carries do not fit beside W_hid runs as
+// several launches over near-equal row chunks, each a pointer offset into
+// the batch-major tensors (the plan's `chunks`; the wrapper launches them in
+// order on one stream).
 //
 // Layouts are batch-major, the port's public layout, so no transpose is
 // needed: x_proj (B, T, 4H), mask (B, T), out (B, T, H), and the residuals
 // cells (B, T, H) and gates (B, T, 4H).  Step t reads h_{t-1} from
 // out[:, t-1] (or hid0 at t = 0, row stride H) and writes out[:, t].
 //
-// Where trouble is likely in the persistent design, and what the code does
-// about it (marked below):
+// Where trouble is likely, and what the code does about it (marked below):
 // [stale] out is written and read inside one launch, so h_{t-1} is never
 //   read through the read-only path (__ldg or a const __restrict__ pointer,
 //   which may return stale lines) nor through L1, which is not coherent
 //   across SMs: the product reads it with __ldcg (L2 only), and out is
-//   neither const nor __restrict__.  x_proj, mask, W_hid, cell0 and hid0 are
-//   read-only for the whole launch, so __ldg is right for them.
+//   neither const nor __restrict__.  x_proj, mask, W_hid, cell0, hid0 and the
+//   peephole vectors are read-only for the whole launch, so __ldg is right
+//   for them.
 // [order] grid.sync() fences before it arrives, so every block's out[:, t]
 //   stores are visible to every block after it.
 // [carry] a padded step still stores h_{t-1} into out[:, t], for every row
 //   (a fully padded one too): the next step reads all of out[:, t].
 // [ragged] H need not be a multiple of U (H = 250 with U = 4, H = 130): the
-//   last block's dead units get zero weight columns and no gate stage.
+//   last block's dead units get zero weight columns, no peephole weights and
+//   no gate stage.
 // [uniform] every thread of every block reaches each __syncthreads and each
-//   grid.sync() the same number of times: the gate-stage guard masks work
-//   and no thread leaves early.
+//   grid.sync() the same number of times: the gate-stage and peephole-load
+//   guards mask work and no thread leaves early.
 // [converge] the warp shuffles of the product's reduction follow k loops
 //   whose trip counts are the same for every lane of the warp.
 // Large B: every block reads all B rows of h_{t-1} each step and does their
@@ -129,9 +125,6 @@ __device__ __forceinline__ void cell_update(const float (&gate)[4], float c_prev
   h_out = m * h_new + (1.0f - m) * h_prev;
 }
 
-// ---------------------------------------------------------------------------
-// 1. The persistent chain (no peepholes).
-
 constexpr int kChainThreads = 256;
 constexpr int kWarps = kChainThreads / 32;
 // (row, column) pairs of one warp tile: 32 / 4U rows by 4U gate columns, one
@@ -160,15 +153,17 @@ __device__ __forceinline__ void transpose_level(float (&v)[kPairs], int lane) {
 
 // The whole recurrence.  Shared memory as in the header.  cell0 and hid0 are
 // (B, H); with EmitResiduals cells (B, T, H) and gates (B, T, 4H) receive the
-// residuals, otherwise those pointers are unused.
-template <bool EmitResiduals, int U>
+// residuals, otherwise those pointers are unused; with Peephole w_ci, w_cf
+// and w_co are the (H,) peephole vectors, otherwise unused.
+template <bool EmitResiduals, bool Peephole, int U>
 __global__ void __launch_bounds__(kChainThreads)
 lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const float* __restrict__ w_hid,
                       const float* __restrict__ mask, const float* __restrict__ cell0,
                       const float* __restrict__ hid0,
                       float* out,  // [stale] written and read here: not const, not restrict
-                      float* __restrict__ cells, float* __restrict__ gates, int B, int T,
-                      int H) {
+                      float* __restrict__ cells, float* __restrict__ gates,
+                      const float* __restrict__ w_ci, const float* __restrict__ w_cf,
+                      const float* __restrict__ w_co, int B, int T, int H) {
   constexpr int C = 4 * U;       // the block's gate columns, col = gate * U + unit
   constexpr int CP = padded_columns(U);
   constexpr int R = kPairs / C;  // rows of a warp tile
@@ -212,6 +207,16 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const float* __restrict_
     const size_t e = static_cast<size_t>(q / U) * H + j0 + u;
     c_s[q] = u < nu ? __ldg(cell0 + e) : 0.f;
     h_s[q] = u < nu ? __ldg(hid0 + e) : 0.f;
+  }
+  // the peephole weights of the gate-stage thread's unit, tid % U in every
+  // round and step; [ragged] [uniform] a guard, not a return
+  float p_i = 0.f, p_f = 0.f, p_o = 0.f;
+  if constexpr (Peephole) {
+    if (tid % U < nu) {
+      p_i = __ldg(w_ci + j0 + tid % U);
+      p_f = __ldg(w_cf + j0 + tid % U);
+      p_o = __ldg(w_co + j0 + tid % U);
+    }
   }
   __syncthreads();
 
@@ -305,12 +310,13 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const float* __restrict_
         }
         const int q = gb * U + gu;
         float c_out, h_out;
-        cell_update<false>(gate, c_s[q], h_s[q], m, 0.f, 0.f, 0.f, c_out, h_out);
+        cell_update<Peephole>(gate, c_s[q], h_s[q], m, p_i, p_f, p_o, c_out, h_out);
         c_s[q] = c_out;
         h_s[q] = h_out;
         const size_t e = (static_cast<size_t>(gb) * T + t) * H + j0 + gu;
         out[e] = h_out;  // [carry] every row, padded or not
         if constexpr (EmitResiduals) {
+          // gate[] holds the pre-activations before any peephole term
           cells[e] = c_out;
           float* gp = gates + (static_cast<size_t>(gb) * T + t) * H4 + j0 + gu;
 #pragma unroll
@@ -330,217 +336,64 @@ size_t chain_smem_bytes(int B, int H, int U) {
           kWarps * kPairs) * sizeof(float);
 }
 
-template <bool EmitResiduals, int U>
+template <bool EmitResiduals, bool Peephole, int U>
 cudaError_t launch_chain(const float* x_proj, const float* w_hid, const float* mask,
                          const float* cell0, const float* hid0, float* out, float* cells,
-                         float* gates, int B, int T, int H, size_t smem, cudaStream_t stream) {
-  const auto kernel = lstm_fwd_chain_kernel<EmitResiduals, U>;
+                         float* gates, const float* w_ci, const float* w_cf, const float* w_co,
+                         int B, int T, int H, size_t smem, cudaStream_t stream) {
+  const auto kernel = lstm_fwd_chain_kernel<EmitResiduals, Peephole, U>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  void* args[] = {&x_proj, &w_hid, &mask, &cell0, &hid0, &out, &cells, &gates, &B, &T, &H};
+  void* args[] = {&x_proj, &w_hid, &mask, &cell0, &hid0, &out, &cells,
+                  &gates, &w_ci, &w_cf, &w_co, &B, &T, &H};
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                      dim3((H + U - 1) / U), dim3(kChainThreads), args, smem,
                                      stream);
 }
 
 // Runs the whole recurrence of one instantiation on `stream`; see the entry
-// points.  cells and gates are null without EmitResiduals.
-template <bool EmitResiduals>
+// points.  cells and gates are null without EmitResiduals, `peep` (w_ci,
+// w_cf, w_co) is null without Peephole.
+template <bool EmitResiduals, bool Peephole>
 int run_chain(const void* x_proj, const void* w_hid, const void* mask, const void* cell0,
-              const void* hid0, void* out, void* cells, void* gates, int B, int T, int H,
-              int units, size_t smem, void* stream) {
+              const void* hid0, void* out, void* cells, void* gates, const void* const* peep,
+              int B, int T, int H, int units, size_t smem, void* stream) {
   if (smem < chain_smem_bytes(B, H, units)) return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* v) { return static_cast<const float*>(v); };
+  const void* p[3] = {nullptr, nullptr, nullptr};
+  if constexpr (Peephole) {
+    for (int k = 0; k < 3; ++k) p[k] = peep[k];
+  }
   const auto go = [&](auto launcher) {
     return launcher(f(x_proj), f(w_hid), f(mask), f(cell0), f(hid0), static_cast<float*>(out),
-                    static_cast<float*>(cells), static_cast<float*>(gates), B, T, H, smem,
-                    static_cast<cudaStream_t>(stream));
+                    static_cast<float*>(cells), static_cast<float*>(gates), f(p[0]), f(p[1]),
+                    f(p[2]), B, T, H, smem, static_cast<cudaStream_t>(stream));
   };
   cudaError_t err;
   switch (units) {
-    case 1: err = go(launch_chain<EmitResiduals, 1>); break;
-    case 2: err = go(launch_chain<EmitResiduals, 2>); break;
-    case 4: err = go(launch_chain<EmitResiduals, 4>); break;
-    case 8: err = go(launch_chain<EmitResiduals, 8>); break;
+    case 1: err = go(launch_chain<EmitResiduals, Peephole, 1>); break;
+    case 2: err = go(launch_chain<EmitResiduals, Peephole, 2>); break;
+    case 4: err = go(launch_chain<EmitResiduals, Peephole, 4>); break;
+    case 8: err = go(launch_chain<EmitResiduals, Peephole, 8>); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
-}
-
-// ---------------------------------------------------------------------------
-// 2. The per-step kernel (instantiated with peepholes only).
-
-// 4 units per block gives H / 4 blocks, about one per SM at H = 500.
-constexpr int kUnits = 4;   // hidden units per block -> 4 * kUnits gate columns
-constexpr int kSplit = 16;  // slices of the length-H dot product per column
-constexpr int kRowsB = 8;   // batch rows per block
-constexpr int kCols = 4 * kUnits;
-constexpr int kThreads = kCols * kSplit;  // 256
-constexpr int kStage = 2;   // h elements per row and thread staged per round
-
-// A step is a short chain of memory round trips (h_{t-1}, then W_hid, then
-// the gate inputs), so the kernel keeps as many loads in flight as it can:
-// the gate inputs are fetched first, h_{t-1} is staged through registers in
-// whole rounds (a store to shared memory between two loads would serialise
-// them), and the dot-product loop is unrolled by 8 (16 measured the same,
-// 32 slower).  With EmitResiduals the gate-stage threads also store the
-// post-mask cell to cells[:, t] and the four pre-activation gates to
-// gates[:, t]; otherwise those pointers are unused.  With Peephole the
-// gate-stage thread of unit j also loads w_ci[j], w_cf[j] and w_co[j]
-// (H-vectors; the j < H guard of gate_live covers a last block with fewer
-// than kUnits live units); otherwise those pointers are unused.
-template <bool EmitResiduals, bool Peephole>
-__global__ void __launch_bounds__(kThreads)
-lstm_step_kernel(const float* __restrict__ x_proj, const float* __restrict__ w_hid,
-                 const float* __restrict__ mask, const float* h_prev,
-                 long long h_stride, float* __restrict__ cell, float* out,
-                 float* __restrict__ cells, float* __restrict__ gates,
-                 const float* __restrict__ w_ci, const float* __restrict__ w_cf,
-                 const float* __restrict__ w_co, int B, int T, int H, int t) {
-  extern __shared__ float smem[];
-  float* hs = smem;                   // (kRowsB, H): h_{t-1} of this block's rows
-  float* part = smem + kRowsB * H;    // (kSplit, kRowsB, kCols): partial dots
-  const int j0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.y * kRowsB;
-  const int nb = min(kRowsB, B - b0);
-  const int tid = threadIdx.x;
-
-  // gate-stage thread (gr, gu): batch row b0 + gr, hidden unit j0 + gu
-  const int gr = tid / kUnits;
-  const int gu = tid % kUnits;
-  const bool gate_live = tid < kRowsB * kUnits && gr < nb && j0 + gu < H;
-  const size_t gb = b0 + gr;
-  const size_t gj = j0 + gu;
-  float xin[4] = {0.f, 0.f, 0.f, 0.f};
-  float c_prev = 0.f, m = 0.f;
-  float p_i = 0.f, p_f = 0.f, p_o = 0.f;  // peephole weights of unit gj
-  if (gate_live) {
-    const float* xp = x_proj + (gb * T + t) * 4 * static_cast<size_t>(H) + gj;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) xin[q] = __ldg(xp + static_cast<size_t>(q) * H);
-    m = __ldg(mask + gb * T + t);
-    c_prev = cell[gb * H + gj];
-    if constexpr (Peephole) {
-      p_i = __ldg(w_ci + gj);
-      p_f = __ldg(w_cf + gj);
-      p_o = __ldg(w_co + gj);
-    }
-  }
-
-  for (int k0 = 0; k0 < H; k0 += kStage * kThreads) {
-    float v[kRowsB][kStage];
-#pragma unroll
-    for (int r = 0; r < kRowsB; ++r) {
-#pragma unroll
-      for (int u = 0; u < kStage; ++u) {
-        const int k = k0 + u * kThreads + tid;
-        v[r][u] = (r < nb && k < H)
-                      ? __ldg(h_prev + static_cast<size_t>(b0 + r) * h_stride + k) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsB; ++r) {
-#pragma unroll
-      for (int u = 0; u < kStage; ++u) {
-        const int k = k0 + u * kThreads + tid;
-        if (k < H) hs[r * H + k] = v[r][u];
-      }
-    }
-  }
-  __syncthreads();
-
-  // Thread (col, ks): column col = g * kUnits + u of gate g for unit j0 + u,
-  // summing k = ks, ks + kSplit, ...  A warp is two ks across all 16
-  // columns, so each hs[r * H + k] read is a broadcast.
-  const int col = tid % kCols;
-  const int ks = tid / kCols;
-  const int g = col / kUnits;
-  const int j = j0 + col % kUnits;
-  float acc[kRowsB];
-#pragma unroll
-  for (int r = 0; r < kRowsB; ++r) acc[r] = 0.f;
-  if (j < H) {
-    const float* wcol = w_hid + static_cast<size_t>(g) * H + j;
-    const size_t ld = static_cast<size_t>(4) * H;
-#pragma unroll 8
-    for (int k = ks; k < H; k += kSplit) {
-      const float w = __ldg(wcol + k * ld);
-#pragma unroll
-      for (int r = 0; r < kRowsB; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRowsB; ++r) part[(ks * kRowsB + r) * kCols + col] = acc[r];
-  __syncthreads();
-
-  if (gate_live) {
-    float gate[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float s = 0.f;
-#pragma unroll
-      for (int p = 0; p < kSplit; ++p) s += part[(p * kRowsB + gr) * kCols + q * kUnits + gu];
-      gate[q] = xin[q] + s;
-    }
-    float c_out, h_out;
-    cell_update<Peephole>(gate, c_prev, hs[gr * H + gj], m, p_i, p_f, p_o, c_out, h_out);
-    cell[gb * H + gj] = c_out;
-    out[(gb * T + t) * H + gj] = h_out;
-    if constexpr (EmitResiduals) {
-      cells[(gb * T + t) * H + gj] = c_out;
-      float* gp = gates + (gb * T + t) * 4 * static_cast<size_t>(H) + gj;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) gp[static_cast<size_t>(q) * H] = gate[q];
-    }
-  }
-}
-
-// Runs all T steps of one instantiation on `stream`; see the entry points.
-// `peep` holds w_ci, w_cf, w_co (each (H,)).
-template <bool EmitResiduals>
-int run_steps(const void* x_proj, const void* w_hid, const void* mask, const void* hid0,
-              void* cell, void* out, void* cells, void* gates, const void* const* peep,
-              int B, int T, int H, size_t smem, void* stream) {
-  const auto kernel = lstm_step_kernel<EmitResiduals, true>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((H + kUnits - 1) / kUnits, (B + kRowsB - 1) / kRowsB);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xp = static_cast<const float*>(x_proj);
-  const float* w = static_cast<const float*>(w_hid);
-  const float* m = static_cast<const float*>(mask);
-  float* c = static_cast<float*>(cell);
-  float* o = static_cast<float*>(out);
-  const float* wci = static_cast<const float*>(peep[0]);
-  const float* wcf = static_cast<const float*>(peep[1]);
-  const float* wco = static_cast<const float*>(peep[2]);
-  for (int t = 0; t < T; ++t) {
-    const float* h = t == 0 ? static_cast<const float*>(hid0) : o + static_cast<size_t>(t - 1) * H;
-    const long long stride = t == 0 ? H : static_cast<long long>(T) * H;
-    lstm_step_kernel<EmitResiduals, true><<<grid, kThreads, smem, s>>>(
-        xp, w, m, h, stride, c, o, static_cast<float*>(cells), static_cast<float*>(gates), wci,
-        wcf, wco, B, T, H, t);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
 }
 
 }  // namespace
 
 // Runs all T steps on `stream` in one cooperative launch of ceil(H / units)
 // blocks, units in {1, 2, 4, 8}, with `smem` bytes of dynamic shared memory
-// (at least 16 * units * H + 8 * B * units + 1024).  cell0 and hid0 (B, H)
-// are the initial state; writes out (B, T, H).  Returns the first CUDA error
+// (at least 4 * padded_columns(units) * H + 8 * B * units + 1024).  cell0 and
+// hid0 (B, H) are the initial state; writes out (B, T, H).  Returns the first CUDA error
 // (0 on success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be
 // co-resident).
 extern "C" int lstm_fwd_forward(const void* x_proj, const void* w_hid, const void* mask,
                                 const void* cell0, const void* hid0, void* out, int B, int T,
                                 int H, int units, size_t smem, void* stream) {
-  return run_chain<false>(x_proj, w_hid, mask, cell0, hid0, out, nullptr, nullptr, B, T, H,
-                          units, smem, stream);
+  return run_chain<false, false>(x_proj, w_hid, mask, cell0, hid0, out, nullptr, nullptr,
+                                 nullptr, B, T, H, units, smem, stream);
 }
 
 // The training forward: as lstm_fwd_forward, and also writes the residuals
@@ -549,40 +402,33 @@ extern "C" int lstm_fwd_train_forward(const void* x_proj, const void* w_hid, con
                                       const void* cell0, const void* hid0, void* out,
                                       void* cells, void* gates, int B, int T, int H, int units,
                                       size_t smem, void* stream) {
-  return run_chain<true>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates, B, T, H, units,
-                         smem, stream);
+  return run_chain<true, false>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates, nullptr,
+                                B, T, H, units, smem, stream);
 }
 
-// Dynamic shared memory of the per-step peephole kernel at width H.
-extern "C" size_t lstm_fwd_step_smem_bytes(int H) {
-  return (static_cast<size_t>(kRowsB) * H + kSplit * kRowsB * kCols) * sizeof(float);
-}
-
-// The peephole recurrence, T launches on `stream`: `cell` (B, H) holds cell0
-// on entry and the final cell state on return; `hid0` (B, H) is read at
-// t = 0; w_ci, w_cf and w_co are the (H,) peephole vectors.  Writes out
-// (B, T, H).  Returns the first CUDA error (0 on success).
+// The peephole recurrence: as lstm_fwd_forward, with the (H,) peephole
+// vectors w_ci, w_cf and w_co.
 extern "C" int lstm_fwd_peep_forward(const void* x_proj, const void* w_hid, const void* mask,
-                                     const void* hid0, void* cell, void* out, const void* w_ci,
-                                     const void* w_cf, const void* w_co, int B, int T, int H,
-                                     void* stream) {
+                                     const void* cell0, const void* hid0, void* out,
+                                     const void* w_ci, const void* w_cf, const void* w_co, int B,
+                                     int T, int H, int units, size_t smem, void* stream) {
   const void* peep[3] = {w_ci, w_cf, w_co};
-  return run_steps<false>(x_proj, w_hid, mask, hid0, cell, out, nullptr, nullptr, peep, B, T,
-                          H, lstm_fwd_step_smem_bytes(H), stream);
+  return run_chain<false, true>(x_proj, w_hid, mask, cell0, hid0, out, nullptr, nullptr, peep,
+                                B, T, H, units, smem, stream);
 }
 
 // The peephole training forward: as lstm_fwd_peep_forward, and also writes
 // the residuals cells (B, T, H) and gates (B, T, 4H), the gates before the
 // peephole terms.
 extern "C" int lstm_fwd_peep_train_forward(const void* x_proj, const void* w_hid,
-                                           const void* mask, const void* hid0, void* cell,
-                                           void* out, void* cells, void* gates,
-                                           const void* w_ci, const void* w_cf,
-                                           const void* w_co, int B, int T, int H,
-                                           void* stream) {
+                                           const void* mask, const void* cell0,
+                                           const void* hid0, void* out, void* cells,
+                                           void* gates, const void* w_ci, const void* w_cf,
+                                           const void* w_co, int B, int T, int H, int units,
+                                           size_t smem, void* stream) {
   const void* peep[3] = {w_ci, w_cf, w_co};
-  return run_steps<true>(x_proj, w_hid, mask, hid0, cell, out, cells, gates, peep, B, T, H,
-                         lstm_fwd_step_smem_bytes(H), stream);
+  return run_chain<true, true>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates, peep, B, T,
+                               H, units, smem, stream);
 }
 
 extern "C" const char* lstm_fwd_error_string(int code) {

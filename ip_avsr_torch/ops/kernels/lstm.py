@@ -17,14 +17,14 @@ ip_avsr_tpu/ops/pallas/lstm_kernel.py:
 
 Each is bound by its serial chain of T steps, each needing all of W_hid and
 an exchange of state across the card; the kernels partition the hidden units
-across blocks so the gate math stays local.  The non-peephole recurrences
-and both backward chains run as one persistent cooperative launch per call,
-with each block's share of W_hid in shared memory and a grid barrier between
-steps (:func:`fwd_launch_plan`, :func:`bwd_launch_plan`; see the sources'
-headers); the peephole recurrences run one launch per step and read W_hid
-from L2 every step.  The ``*_plain`` functions are their plain
-versions.  All sequence tensors are batch-major (B, T, .), the port's
-layout, where the JAX package keeps the training residuals time-major
+across blocks so the gate math stays local.  All six run as one persistent
+cooperative launch per call, with each block's share of W_hid in shared
+memory and a grid barrier between steps (:func:`fwd_launch_plan`,
+:func:`bwd_launch_plan`; see the sources' headers).  A batch whose carries do
+not fit one block's shared memory beside W_hid runs as near-equal row
+chunks, one launch each (:func:`map_chunks`).  The ``*_plain`` functions are
+their plain versions.  All sequence tensors are batch-major (B, T, .), the
+port's layout, where the JAX package keeps the training residuals time-major
 (T, B, .).
 """
 
@@ -195,13 +195,10 @@ def _lib():
     lib.lstm_fwd_forward.restype = ctypes.c_int
     lib.lstm_fwd_train_forward.argtypes = [ctypes.c_void_p] * 8 + chain_tail
     lib.lstm_fwd_train_forward.restype = ctypes.c_int
-    step_tail = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.lstm_fwd_peep_forward.argtypes = [ctypes.c_void_p] * 9 + step_tail
+    lib.lstm_fwd_peep_forward.argtypes = [ctypes.c_void_p] * 9 + chain_tail
     lib.lstm_fwd_peep_forward.restype = ctypes.c_int
-    lib.lstm_fwd_peep_train_forward.argtypes = [ctypes.c_void_p] * 11 + step_tail
+    lib.lstm_fwd_peep_train_forward.argtypes = [ctypes.c_void_p] * 11 + chain_tail
     lib.lstm_fwd_peep_train_forward.restype = ctypes.c_int
-    lib.lstm_fwd_step_smem_bytes.argtypes = [ctypes.c_int]
-    lib.lstm_fwd_step_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -209,12 +206,16 @@ class ChainPlan(NamedTuple):
     """Launch plan of a persistent chain kernel (csrc/lstm_fwd.cu's
     recurrence, csrc/lstm_bwd.cu's backward chain): ``units`` hidden units
     per block, ``grid`` blocks, ``smem_bytes`` of dynamic shared memory per
-    block, and the live units of the last block."""
+    block, the live units of the last block, and the batch cut into
+    ``chunks`` launches of at most ``rows`` rows each (:func:`chunk_spans`),
+    for which ``smem_bytes`` is sized."""
 
     units: int
     grid: int
     smem_bytes: int
     last_units: int
+    rows: int
+    chunks: int
 
 
 # the kernels' instantiations (units per block) and their warps' partial
@@ -223,15 +224,17 @@ CHAIN_UNITS = (1, 2, 4, 8)
 _RED_BYTES = 8 * 32 * 4
 
 
-def _chain_plan(name, B, H, sm_count, units, row_floats, carry_floats) -> ChainPlan:
+def _chain_plan(name, B, H, sm_count, units, chunks, row_floats, carry_floats) -> ChainPlan:
     """The cooperative launch needs every block resident at once, one block
     per SM, so ``units`` is the smallest of :data:`CHAIN_UNITS` whose grid
     ``ceil(H / units)`` fits ``sm_count`` (or the one given, which must
     fit).  A block keeps its ``units`` units' W_hid (``row_floats(units)``
     floats per element of H) and ``carry_floats`` per row and unit in shared
-    memory, beside the 1 KB of partial sums.  Raises ``ValueError`` when no
-    instantiation fits or the block needs more shared memory than
-    ``_build.SMEM_LIMIT``."""
+    memory, beside the 1 KB of partial sums.  Rows are independent, so B
+    runs in the fewest near-equal chunks whose carries fit beside W_hid (or
+    in ``chunks``, for measurement, which must be at least that many and at
+    most B).  Raises ``ValueError`` when no instantiation fits the grid or
+    W_hid leaves no room for one row's carries under ``_build.SMEM_LIMIT``."""
     if units is None:
         units = next((u for u in CHAIN_UNITS if -(-H // u) <= sm_count), None)
         if units is None:
@@ -241,21 +244,31 @@ def _chain_plan(name, B, H, sm_count, units, row_floats, carry_floats) -> ChainP
     if units not in CHAIN_UNITS or grid > sm_count:
         raise ValueError(f"{name}: {units} units per block at H={H} is not one of "
                          f"{CHAIN_UNITS} with a grid of at most {sm_count} blocks")
-    smem = 4 * row_floats(units) * H + 4 * carry_floats * B * units + _RED_BYTES
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"{name}: B={B}, H={H} at {units} units per block needs "
-                         f"{smem} bytes of shared memory per block, above the "
+    fixed = 4 * row_floats(units) * H + _RED_BYTES
+    per_row = 4 * carry_floats * units
+    cap = (_build.SMEM_LIMIT - fixed) // per_row
+    if cap < 1:
+        raise ValueError(f"{name}: H={H} at {units} units per block needs {fixed + per_row} "
+                         f"bytes of shared memory per block for one row, above the "
                          f"{_build.SMEM_LIMIT} a block may use")
-    return ChainPlan(units, grid, smem, H - (grid - 1) * units)
+    need = max(1, -(-B // cap))
+    if chunks is None:
+        chunks = need
+    elif not need <= chunks <= max(B, 1):
+        raise ValueError(f"{name}: B={B}, H={H} runs in {need} to {max(B, 1)} chunks "
+                         f"of at most {cap} rows, not {chunks}")
+    rows = -(-B // chunks)
+    return ChainPlan(units, grid, fixed + per_row * rows, H - (grid - 1) * units, rows, chunks)
 
 
-def fwd_launch_plan(B: int, H: int, sm_count: int, units=None) -> ChainPlan:
-    """Units per block, grid and shared memory of the non-peephole
-    recurrence at batch ``B`` and width ``H`` on a card with ``sm_count``
-    SMs: the block's 4 * units columns of W_hid as rows of
+def fwd_launch_plan(B: int, H: int, sm_count: int, units=None, chunks=None) -> ChainPlan:
+    """Units per block, grid, shared memory and row chunks of the recurrence
+    (all four instantiations) at batch ``B`` and width ``H`` on a card with
+    ``sm_count`` SMs: the block's 4 * units columns of W_hid as rows of
     :func:`fwd_row_floats` floats, and two carries per row and unit (cell
     and hidden state); see :func:`_chain_plan`."""
-    return _chain_plan("recurrence", B, H, sm_count, units, fwd_row_floats, carry_floats=2)
+    return _chain_plan("recurrence", B, H, sm_count, units, chunks, fwd_row_floats,
+                       carry_floats=2)
 
 
 def fwd_row_floats(units: int) -> int:
@@ -265,13 +278,29 @@ def fwd_row_floats(units: int) -> int:
     return 4 if units == 1 else 4 * units + 4
 
 
-def bwd_launch_plan(B: int, H: int, sm_count: int, units=None) -> ChainPlan:
-    """Units per block, grid and shared memory of the backward chain at
-    batch ``B`` and width ``H`` on a card with ``sm_count`` SMs: the block's
-    units rows of W_hid and six carries per row and unit (dh_next, dc, the
-    pass-through and three peephole partials); see :func:`_chain_plan`."""
-    return _chain_plan("backward chain", B, H, sm_count, units, lambda u: 4 * u,
+def bwd_launch_plan(B: int, H: int, sm_count: int, units=None, chunks=None) -> ChainPlan:
+    """Units per block, grid, shared memory and row chunks of the backward
+    chain at batch ``B`` and width ``H`` on a card with ``sm_count`` SMs:
+    the block's units rows of W_hid and six carries per row and unit
+    (dh_next, dc, the pass-through and three peephole partials); see
+    :func:`_chain_plan`."""
+    return _chain_plan("backward chain", B, H, sm_count, units, chunks, lambda u: 4 * u,
                        carry_floats=6)
+
+
+def chunk_spans(B: int, chunks: int) -> list:
+    """Rows [0, B) as ``chunks`` consecutive (b0, b1) spans whose sizes differ
+    by at most one, the larger ones last."""
+    return [(i * B // chunks, (i + 1) * B // chunks) for i in range(chunks)]
+
+
+def map_chunks(launch, chunks: int, *batched) -> list:
+    """``launch(*views)`` for each span of :func:`chunk_spans`, in order,
+    where ``views`` are rows [b0, b1) of each tensor of ``batched`` (all
+    batch-major with B rows, so each view is one contiguous span at an
+    offset: no copy).  Returns the calls' results in order."""
+    spans = chunk_spans(batched[0].shape[0], chunks)
+    return [launch(*(a[b0:b1] for a in batched)) for b0, b1 in spans]
 
 
 @functools.cache
@@ -312,15 +341,15 @@ def _peep_shapes(peep, H):
     return {name: (v, (H,)) for name, v in zip(("w_ci", "w_cf", "w_co"), peep)}
 
 
-def _run_fwd(name, args, train, peep=(), units=None, outs=None):
+def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None):
     """Check the inputs and launch csrc/lstm_fwd.cu's inference entry point
-    (returns hids) or its training one (returns hids, cells, gates).  Without
-    peepholes that is one cooperative launch planned by
-    :func:`fwd_launch_plan`; with ``peep`` (w_ci, w_cf, w_co) the per-step
-    peephole instantiations, T launches.  For measurement, ``units`` forces
-    the units per block and ``outs`` gives the output tensors to write
-    (contiguous float32 of the output shapes, for example NaN-filled, so a
-    value the kernel does not write shows)."""
+    (returns hids) or its training one (returns hids, cells, gates), with
+    peepholes when ``peep`` holds (w_ci, w_cf, w_co): one cooperative launch
+    per row chunk planned by :func:`fwd_launch_plan`.  For measurement,
+    ``units`` and ``chunks`` force the plan's units per block and row chunks,
+    and ``outs`` gives the output tensors to write (contiguous float32 of
+    the output shapes, for example NaN-filled, so a value the kernel does
+    not write shows)."""
     x_proj, w_hid, mask, cell0, hid0 = args
     if x_proj.dim() != 3 or w_hid.dim() != 2:
         raise ValueError(f"{name}: x_proj must be (B, T, 4H) and w_hid (H, 4H), got "
@@ -332,14 +361,7 @@ def _run_fwd(name, args, train, peep=(), units=None, outs=None):
         "mask": (mask, (B, T)), "cell0": (cell0, (B, H)), "hid0": (hid0, (B, H)),
         **_peep_shapes(peep, H)})
     dev = x_proj.device
-    lib = _lib()
-    if peep:
-        smem = lib.lstm_fwd_step_smem_bytes(H)
-        if smem > _build.SMEM_LIMIT:
-            raise ValueError(f"{name}: H={H} needs {smem} bytes of shared memory per "
-                             f"block, above the {_build.SMEM_LIMIT} a block may use")
-    else:
-        plan = fwd_launch_plan(B, H, _sm_count(dev.index), units)
+    plan = fwd_launch_plan(B, H, _sm_count(dev.index), units, chunks)
     shapes = [(B, T, H), (B, T, H), (B, T, 4 * H)][:3 if train else 1]
     if outs is None:
         outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
@@ -348,21 +370,22 @@ def _run_fwd(name, args, train, peep=(), units=None, outs=None):
     else:
         _check_cuda(name, (*args, *outs), {f"out {i}": (o, s)
                                            for i, (o, s) in enumerate(zip(outs, shapes))})
-    hids = outs[0]
-    out_ptrs = [a.data_ptr() for a in outs]
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _lib()
     if peep:
-        # the per-step kernel updates the cell state in place
-        cell = cell0.clone()
         entry = lib.lstm_fwd_peep_train_forward if train else lib.lstm_fwd_peep_forward
-        code = entry(*(a.data_ptr() for a in (x_proj, w_hid, mask, hid0, cell)), *out_ptrs,
-                     *(v.data_ptr() for v in peep), B, T, H, stream)
     else:
         entry = lib.lstm_fwd_train_forward if train else lib.lstm_fwd_forward
-        code = entry(*(a.data_ptr() for a in args), *out_ptrs, B, T, H, plan.units,
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(x_c, mask_c, cell0_c, hid0_c, *outs_c):
+        code = entry(x_c.data_ptr(), w_hid.data_ptr(), mask_c.data_ptr(), cell0_c.data_ptr(),
+                     hid0_c.data_ptr(), *(o.data_ptr() for o in outs_c),
+                     *(v.data_ptr() for v in peep), x_c.shape[0], T, H, plan.units,
                      plan.smem_bytes, stream)
-    _build.check(lib, "lstm_fwd", code)
-    return tuple(outs) if train else hids
+        _build.check(lib, "lstm_fwd", code)
+
+    map_chunks(launch, plan.chunks, x_proj, mask, cell0, hid0, *outs)
+    return tuple(outs) if train else outs[0]
 
 
 def _on_cpu(args) -> bool:
@@ -374,8 +397,8 @@ def lstm_recurrence(x_proj, w_hid, mask, cell0, hid0):
     (B, T, H), all float32.
 
     CPU tensors take :func:`lstm_recurrence_plain`; CUDA tensors launch the
-    kernel (one cooperative launch, counted in ``lstm_recurrence.launches``)
-    or raise."""
+    kernel (one cooperative launch per row chunk, the call counted once in
+    ``lstm_recurrence.launches``) or raise."""
     args = (x_proj, w_hid, mask, cell0, hid0)
     if _on_cpu(args):
         return lstm_recurrence_plain(*args)
@@ -393,8 +416,8 @@ def lstm_recurrence_train(x_proj, w_hid, mask, cell0, hid0):
     :func:`lstm_recurrence_train_plain` does.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
-    residual-emitting instantiation (one cooperative launch, counted in
-    ``lstm_recurrence_train.launches``) or raise."""
+    residual-emitting instantiation (one cooperative launch per row chunk,
+    the call counted once in ``lstm_recurrence_train.launches``) or raise."""
     args = (x_proj, w_hid, mask, cell0, hid0)
     if _on_cpu(args):
         return lstm_recurrence_train_plain(*args)
@@ -411,8 +434,9 @@ def lstm_peep_recurrence(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
     (H,) peephole vectors; returns (B, T, H), all float32.
 
     CPU tensors take :func:`lstm_peep_recurrence_plain`; CUDA tensors launch
-    the kernel's peephole instantiation (T per-step launches, counted once in
-    ``lstm_peep_recurrence.launches``) or raise."""
+    the kernel's peephole instantiation (one cooperative launch per row
+    chunk, the call counted once in ``lstm_peep_recurrence.launches``) or
+    raise."""
     args = (x_proj, w_hid, mask, cell0, hid0)
     peep = (w_ci, w_cf, w_co)
     if _on_cpu((*args, *peep)):
@@ -432,8 +456,9 @@ def lstm_peep_recurrence_train(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_c
     peephole terms).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
-    residual-emitting peephole instantiation (T per-step launches, counted
-    once in ``lstm_peep_recurrence_train.launches``) or raise."""
+    residual-emitting peephole instantiation (one cooperative launch per row
+    chunk, the call counted once in ``lstm_peep_recurrence_train.launches``)
+    or raise."""
     args = (x_proj, w_hid, mask, cell0, hid0)
     peep = (w_ci, w_cf, w_co)
     if _on_cpu((*args, *peep)):
@@ -446,12 +471,13 @@ def lstm_peep_recurrence_train(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_c
 lstm_peep_recurrence_train.launches = 0
 
 
-def _run_bwd(name, args, clip, peep=(), units=None):
+def _run_bwd(name, args, clip, peep=(), units=None, chunks=None):
     """Check the inputs and launch csrc/lstm_bwd.cu's chain, one cooperative
-    launch planned by :func:`bwd_launch_plan` (``units`` forces its units
-    per block, for measurement): returns ``(dgates, dcell0, dhid0)``, and
-    with ``peep`` also the three (H,) peephole gradients, which the kernel
-    reduces over the rows itself."""
+    launch per row chunk planned by :func:`bwd_launch_plan` (``units`` and
+    ``chunks`` force its units per block and row chunks, for measurement):
+    returns ``(dgates, dcell0, dhid0)``, and with ``peep`` also the three
+    (H,) peephole gradients, which the kernel reduces over a chunk's rows
+    itself; the chunks' partial sums are added in chunk order."""
     g_out, gates_pre, cells, cells_prev, mask, w_hid = args
     if cells.dim() != 3:
         raise ValueError(f"{name}: cells must be (B, T, H), got {tuple(cells.shape)}")
@@ -461,25 +487,35 @@ def _run_bwd(name, args, clip, peep=(), units=None):
         "cells_prev": (cells_prev, (B, T, H)), "mask": (mask, (B, T)),
         "w_hid": (w_hid, (H, 4 * H)), **_peep_shapes(peep, H)})
     dev = cells.device
-    plan = bwd_launch_plan(B, H, _sm_count(dev.index), units)
+    plan = bwd_launch_plan(B, H, _sm_count(dev.index), units, chunks)
     lib = _bwd_lib()
     dgates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
     dcell0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dhid0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [a.data_ptr() for a in args]
-    outs = [a.data_ptr() for a in (dgates, dcell0, dhid0)]
-    tail = (clip, B, T, H, plan.units, plan.smem_bytes, stream)
-    if peep:
-        dw = torch.empty((3, H), dtype=torch.float32, device=dev)
-        code = lib.lstm_bwd_peep_chain(*ptrs, *(v.data_ptr() for v in peep), *outs,
-                                       dw.data_ptr(), *tail)
-    else:
-        code = lib.lstm_bwd_chain(*ptrs, *outs, *tail)
-    _build.check(lib, "lstm_bwd", code)
-    if peep:
-        return (dgates, dcell0, dhid0, *dw)
-    return dgates, dcell0, dhid0
+
+    def launch(*views):
+        ptrs = [a.data_ptr() for a in views]
+        tail = (clip, views[0].shape[0], T, H, plan.units, plan.smem_bytes, stream)
+        if peep:
+            dw = torch.empty((3, H), dtype=torch.float32, device=dev)
+            code = lib.lstm_bwd_peep_chain(*ptrs[:5], w_hid.data_ptr(),
+                                           *(v.data_ptr() for v in peep), *ptrs[5:],
+                                           dw.data_ptr(), *tail)
+        else:
+            dw = None
+            code = lib.lstm_bwd_chain(*ptrs[:5], w_hid.data_ptr(), *ptrs[5:], *tail)
+        _build.check(lib, "lstm_bwd", code)
+        return dw
+
+    dws = map_chunks(launch, plan.chunks, g_out, gates_pre, cells, cells_prev, mask, dgates,
+                     dcell0, dhid0)
+    if not peep:
+        return dgates, dcell0, dhid0
+    dw = dws[0]
+    for part in dws[1:]:
+        dw = dw + part
+    return (dgates, dcell0, dhid0, *dw)
 
 
 def _check_clip(name, clip) -> float:
@@ -494,7 +530,8 @@ def lstm_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip):
     :func:`lstm_bwd_chain_plain`, all float32, ``clip >= 0``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (one
-    cooperative launch, counted in ``lstm_bwd_chain.launches``) or raise."""
+    cooperative launch per row chunk, the call counted once in
+    ``lstm_bwd_chain.launches``) or raise."""
     args = (g_out, gates_pre, cells, cells_prev, mask, w_hid)
     clip = _check_clip("lstm_bwd_chain", clip)
     if _on_cpu(args):
@@ -513,9 +550,9 @@ def lstm_peep_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, w_ci, 
     :func:`lstm_peep_bwd_chain_plain`, all float32, ``clip >= 0``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
-    peephole instantiation (one cooperative launch, which also reduces the
-    peephole gradients over B; counted in ``lstm_peep_bwd_chain.launches``)
-    or raise."""
+    peephole instantiation (one cooperative launch per row chunk, which also
+    reduces the peephole gradients over the chunk's rows; the call counted
+    once in ``lstm_peep_bwd_chain.launches``) or raise."""
     args = (g_out, gates_pre, cells, cells_prev, mask, w_hid)
     peep = (w_ci, w_cf, w_co)
     clip = _check_clip("lstm_peep_bwd_chain", clip)

@@ -74,12 +74,15 @@ def test_bwd_launch_plan(args, expected):
 @pytest.mark.parametrize("B,fits", [(538, True), (539, False), (4096, False)])
 def test_bwd_launch_plan_shared_memory_limit(B, fits):
     """H = 1000 on 132 SMs takes 8 units (128,000 bytes of W_hid); the
-    carries of 538 rows still fit beside them, those of 539 do not."""
+    carries of 538 rows still fit beside them, those of 539 do not, so a
+    larger batch runs in the fewest near-equal chunks of at most 538 rows."""
+    plan = klstm.bwd_launch_plan(B, 1000, 132)
+    assert plan.units == 8 and plan.smem_bytes <= _build.SMEM_LIMIT
     if fits:
-        assert klstm.bwd_launch_plan(B, 1000, 132).smem_bytes <= _build.SMEM_LIMIT
+        assert (plan.rows, plan.chunks) == (B, 1)
         return
-    with pytest.raises(ValueError, match=f"B={B}, H=1000.*{_build.SMEM_LIMIT}"):
-        klstm.bwd_launch_plan(B, 1000, 132)
+    assert plan.chunks == -(-B // 538) and plan.rows == -(-B // plan.chunks) <= 538
+    assert plan.smem_bytes == 128000 + 192 * plan.rows + 1024
 
 
 def _chain_case(seed, H, peep, backwards, scale):

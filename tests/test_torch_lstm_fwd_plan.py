@@ -85,12 +85,16 @@ def test_fwd_launch_plan(args, expected):
 def test_fwd_launch_plan_shared_memory_limit(B, fits):
     """H = 1000 on 132 SMs takes 8 units (144,000 bytes of W_hid rows of 36
     floats); the carries of 1366 rows fill the block's shared memory to the
-    byte, those of 1367 do not fit."""
+    byte, so 1366 rows run in one launch and a larger batch in the fewest
+    near-equal chunks of at most 1366 rows."""
+    plan = klstm.fwd_launch_plan(B, 1000, 132)
+    assert plan.units == 8 and plan.smem_bytes <= _build.SMEM_LIMIT
     if fits:
-        assert klstm.fwd_launch_plan(B, 1000, 132).smem_bytes == _build.SMEM_LIMIT
+        assert (plan.rows, plan.chunks) == (B, 1)
+        assert plan.smem_bytes == _build.SMEM_LIMIT
         return
-    with pytest.raises(ValueError, match=f"B={B}, H=1000.*{_build.SMEM_LIMIT}"):
-        klstm.fwd_launch_plan(B, 1000, 132)
+    assert plan.chunks == -(-B // 1366) and plan.rows == -(-B // plan.chunks) <= 1366
+    assert plan.smem_bytes == 144000 + 64 * plan.rows + 1024
 
 
 def _case(seed, T, backwards, H=6):
