@@ -11,7 +11,12 @@ Phases, each fatal on failure:
 2. print the card's name and power limit (nvidia-smi);
 3. with TF32 off, hold each kernel against its plain PyTorch version at the
    shapes of the paths below and time kernel, plain version and library
-   call: the delta FIR, the inference recurrence and the training recurrence
+   call: the grouped delta FIR (the flagship's two streams at B = 1 and 8,
+   the 4-stream model's four at B = 1 and 10 and edge groups of one, into
+   NaN-filled outputs; the grid of each model's group; one
+   traced launch per call, its device time, the yardstick ``torch.matmul(S,
+   x)`` and the DeltaLayer's backward), the inference recurrence and the
+   training recurrence
    (which also writes cells and gates) at the flagship's H = 500, then the
    peephole recurrences at the 4-stream model's H = 250 (D_in 150, 270, 117,
    250), all six LSTM kernels one cooperative launch per call; the four
@@ -32,47 +37,55 @@ Phases, each fatal on failure:
    from a seeded generator, serve raw uint8 requests (B = 1 and 8, T = 29,
    ragged masks) through ``serve.make_trimodal_server``, check the scores
    (finite, rows sum to 1, equal to the port's CPU path on the same
-   parameters) and the launches of that run (5 LSTM and 2 delta launches per
-   forward, no other kernel);
+   parameters) and the launches of that run (5 LSTM launches and 1 delta
+   launch per forward, no other kernel);
 5. time requests on the host clock, and trace five B = 8 requests with
    torch.profiler for the device time by kernel, the device's busy share,
-   and the device kernels and host launch calls per request (5 launches of
-   the non-peephole recurrence, no other chain kernel and none of the
-   per-step kernel per request);
+   and the device kernels and host launch calls per request (1 launch of the
+   grouped delta kernel and 5 of the non-peephole recurrence, no other chain
+   kernel and none of the per-step kernel per request);
 6. train the same model at B = 10, T = 29 through
    ``train.trainer.make_train_step``: three steps with its own dropout rates
    (loss, gradients and parameters finite; 5 training-recurrence, 5
-   backward-chain, 2 delta and no other launches per step), then at dropout
+   backward-chain, 1 delta and no other launches per step), then at dropout
    0 the card against the port's CPU path on the same parameters and batch
    (loss, every gradient, updated parameters), the step median on the host
    clock, and a torch.profiler trace of three steps (device time by kernel,
-   device kernels and host launch calls per step, 5 launches of each
-   non-peephole persistent kernel, none of the peephole ones and none of
-   the per-step kernel per step);
+   device kernels and host launch calls per step, 1 delta launch and 5 of
+   each non-peephole persistent kernel, none of the peephole ones and none
+   of the per-step kernel per step);
 7. build the peephole 4-stream adasum AdeNet of ``configs/oulu_4stream.ini``
    through ``train.config`` at full width (features 150/150/270/117, H =
    250), serve seeded feature streams (B = 1 and 10, lengths 14-29) through
-   ``serve.make_server`` (6 peephole recurrences and 4 deltas per forward,
-   no other kernel; probabilities equal to the CPU path), time and trace it
-   (6 launches of the peephole inference chain per request, no other chain
+   ``serve.make_server`` (6 peephole recurrences and 1 delta launch over
+   the four streams per forward, no other kernel; probabilities equal to the
+   CPU path), time and trace it (1 delta launch and 6 launches of the
+   peephole inference chain per request, no other chain
    kernel and none of the per-step kernel; device kernels and host launch
    calls per request);
 8. train it three steps at the ini's batch size and learning rate (6
-   peephole training recurrences, 6 peephole backward chains, 4 deltas, no
+   peephole training recurrences, 6 peephole backward chains, 1 delta, no
    other launch per step), hold the card's step against the CPU path, time
-   and trace it (6 launches of each peephole chain kernel per step, none of
-   the others);
+   and trace it (1 delta launch and 6 of each peephole chain kernel per
+   step, none of the others);
 9. print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a CUDA device or without the package beside it.
 
     python3 chip_smoke.py --ab DIR
 
-is a measurement only: it times the peephole recurrences (B = 1, 10, 64)
-and traces the serve and train paths of both models with the package in DIR
-(another checkout, for example an earlier commit unpacked by ``git
-archive``), so two trees can be compared in turns on one card, and prints
-one JSON line.
+is a measurement only: it times and traces row 2 per forward of both models
+(the model's delta stage, its yardstick and the DeltaLayer's backward), and
+times on the host clock and traces the serve and train paths of both
+models, with the package in DIR (another checkout, for example an earlier
+commit unpacked by ``git archive``), and prints one JSON line.  Two trees
+are compared in turns on one card, parent, change, change, parent, each
+turn its own process:
+
+    git archive PARENT | tar -x -C results/parent
+    for d in results/parent . . results/parent; do
+        python3 chip_smoke.py --ab $d
+    done
 """
 
 from __future__ import annotations
@@ -97,8 +110,10 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 # kernel vs plain version on identical inputs, float32: the two differ only
-# in summation order (delta: none beyond FMA contraction; LSTM: 500-term
-# dot products over 29 dependent steps), as in the CPU tests
+# in rounding (delta: the kernel applies the composed (3T, T) matrix, one
+# rounding per tap, where the plain version rounds d before its second FIR,
+# a few float32 ulps of outputs below 32; LSTM: 500-term dot products over
+# 29 dependent steps), as in the CPU tests
 DELTA_TOL = 1e-5
 LSTM_TOL = 1e-5
 # card (cuBLAS, kernels) vs the port's CPU path on one request, on
@@ -143,6 +158,8 @@ CHAIN_TRACE = {
     "lstm_bwd": "lstm_bwd_chain_kernel<false,",
     "lstm_peep_bwd": "lstm_bwd_chain_kernel<true,",
 }
+# every kernel a path trace is checked for, as the trace names it
+TRACE_NAMES = {"delta": "delta_group_kernel", **CHAIN_TRACE}
 # backward chain, kernel vs plain version: 29 dependent steps, each summing
 # 2000 products per dh entry in another order, so the error grows with the
 # magnitudes the chain carries; held relative to each output's max abs
@@ -155,6 +172,8 @@ TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
 TRAIN_PARAM_TOL = 1e-5
 TRAIN_B = 10
+# the delta groups of the two models' forwards: stream widths and batches
+DELTA_GROUPS = {"flagship": ((50, 50), (1, 8)), "4-stream": ((50, 50, 90, 39), (1, TRAIN_B))}
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -276,37 +295,97 @@ def phase_card():
     print(smi("name,power.limit"))
 
 
-def phase_delta(dev):
-    import torch
+def delta_group_cost(widths, B, T, W):
+    """(bytes, operations) of one grouped call: the sum over its streams."""
+    costs = [delta_cost(B, T, D, W) for D in widths]
+    return sum(c[0] for c in costs), sum(c[1] for c in costs)
 
-    from ip_avsr_torch.ops.delta import append_delta_coeff
-    from ip_avsr_torch.ops.kernels.delta import append_delta
+
+def phase_delta(dev):
+    """Row 2, the grouped delta kernel: against its plain version per stream
+    into NaN-filled outputs (the models' groups, then groups of one at the
+    edges, every block of the grid written); at the models' groups,
+    one traced launch per call and its device time, the event and host
+    times, the plain version, the bound, the yardstick ``torch.matmul(S,
+    x)``, and the DeltaLayer's backward (one product per stream)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from ip_avsr_torch.ops.delta import append_delta_coeff, delta_group
+    from ip_avsr_torch.ops.kernels.delta import append_delta, append_delta_group
 
     gen = torch.Generator().manual_seed(SEED)
+
+    def group(widths, B, T=T_FRAMES):
+        return [(torch.randn(B, T, D, generator=gen) * 3).to(dev) for D in widths]
+
     err = 0.0
-    # the main path's shapes (B in {1, 8}, T = 29, D = 50, W = 9), then edges:
-    # no window, T < W, a feature count that is not a multiple of 32, and the
-    # 4-stream model's other widths (D = 90 and 39 at B = 10)
-    for B, T, D, W in [(1, 29, 50, 9), (8, 29, 50, 9), (2, 29, 50, 0),
-                       (2, 3, 70, 4), (3, 29, 33, 1), (10, 29, 90, 9), (10, 29, 39, 9)]:
-        x = torch.randn(B, T, D, generator=gen).to(dev) * 3
-        got = append_delta(x, W)
-        ref = append_delta_coeff(x, W)
+    # the models' groups at their batches; groups of one with no window, T < W,
+    # T = 1 and D not a multiple of 32
+    cases = [(widths, B, T_FRAMES, 9) for widths, batches in DELTA_GROUPS.values()
+             for B in batches]
+    cases += [((50,), 2, 29, 0), ((70,), 2, 3, 4), ((33,), 3, 29, 1), ((20,), 2, 1, 9)]
+    for widths, B, T, W in cases:
+        xs = group(widths, B, T)
+        outs = [torch.full((B, T, 3 * D), float("nan"), device=dev) for D in widths]
+        append_delta_group(xs, W, outs=outs)
         torch.cuda.synchronize()
-        e = (got - ref).abs().max().item()
-        print(f"delta B={B} T={T} D={D} W={W}: max_abs_err={e:.3e}")
+        e = max((o - append_delta_coeff(x, W)).abs().max().item() for x, o in zip(xs, outs))
+        print(f"delta group D={list(widths)} B={B} T={T} W={W}: {append_delta.blocks} "
+              f"blocks, max_abs_err={e:.3e}")
         if not e <= DELTA_TOL:
             raise AssertionError(f"delta kernel disagrees with its plain version: {e}")
         err = max(err, e)
+
     rows = {}
-    for B in (1, 8):
-        x = torch.randn(B, T_FRAMES, 50, generator=gen).to(dev)
-        ms = cuda_ms(lambda: append_delta(x, 9))
-        plain_ms = cuda_ms(lambda: append_delta_coeff(x, 9))
-        b_ms, by = bound(*delta_cost(B, T_FRAMES, 50, 9))
-        rows[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
-        print(f"delta B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({by})")
+    W = 9
+    S = yardstick_matrix(T_FRAMES, W, dev)
+    for model, (widths, batches) in DELTA_GROUPS.items():
+        for B in batches:
+            xs = group(widths, B)
+            fn = lambda: append_delta_group(xs, W)  # noqa: E731
+            events = traced(fn, 5)
+            device = [e for e in events if e.device_type == DeviceType.CUDA]
+            ours = sum(e.count for e in device if "delta_group_kernel" in e.key)
+            traced_ms = sum(e.self_device_time_total for e in device) / 1e3 / 5
+            if ours != 5 or sum(e.count for e in device) != ours:
+                raise AssertionError(f"delta {model} B={B}: expected 5 launches of "
+                                     f"delta_group_kernel and nothing else, got "
+                                     f"{[(e.key, e.count) for e in device]}")
+            ms, host = cuda_ms(fn), host_us(fn)
+            plain_ms = cuda_ms(lambda: [append_delta_coeff(x, W) for x in xs])
+            # the yardstick: one matmul over the streams stacked where they
+            # share D (the flagship's), else one per stream
+            if len(set(widths)) == 1:
+                stacked = torch.cat(xs)
+                lib, lib_calls = (lambda: torch.matmul(S, stacked)), 1
+            else:
+                lib, lib_calls = (lambda: [torch.matmul(S, x) for x in xs]), len(xs)
+            lib_ms = cuda_ms(lib)
+            lib_traced, lib_ops = trace_device(lib, 5)
+            b_ms, by = bound(*delta_group_cost(widths, B, T_FRAMES, W))
+            xg = [x.clone().requires_grad_(True) for x in xs]
+            outs = delta_group(xg, W)
+            gs = [torch.randn_like(o) for o in outs]
+            bwd = traced(lambda: torch.autograd.grad(outs, xg, gs, retain_graph=True), 5)
+            bwd_dev = [e for e in bwd if e.device_type == DeviceType.CUDA]
+            bwd_ms = sum(e.self_device_time_total for e in bwd_dev) / 1e3 / 5
+            bwd_ops = sum(e.count for e in bwd_dev) / 5
+            label = f"delta {model} B={B} D={list(widths)}"
+            if bwd_ops != len(xs):
+                raise AssertionError(f"{label}: the DeltaLayer backward took {bwd_ops:g} "
+                                     f"device ops, not one product per stream")
+            print(f"{label}: one launch per call, traced {traced_ms:.4f} ms per call, "
+                  f"events {ms:.4f} ms, host {host:.1f} us per call; plain {plain_ms:.4f} ms; "
+                  f"bound {b_ms:.7f} ms ({by}); yardstick matmul(S, x) ({lib_calls} call(s)) "
+                  f"{lib_ms:.4f} ms events, traced {lib_traced:.4f} ms, {lib_ops:g} ops; "
+                  f"DeltaLayer backward traced {bwd_ms:.4f} ms, {bwd_ops:g} device ops "
+                  f"for {len(xs)} streams: " + "; ".join(
+                      f"{e.key[:50]} x{e.count / 5:g}" for e in bwd_dev))
+            rows[(model, B)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                                    library_ms=lib_ms, traced_ms=traced_ms,
+                                    library_traced_ms=lib_traced, host_us=host,
+                                    bwd_traced_ms=bwd_ms, bwd_device_ops=bwd_ops)
     return err, rows
 
 
@@ -699,7 +778,7 @@ def phase_serve(dev):
     launches = read_launches()
     n = len(requests)
     print(f"served {n} requests: launches {launches}")
-    expect_launches(launches, delta=2 * n, lstm_fwd=5 * n)
+    expect_launches(launches, delta=n, lstm_fwd=5 * n)
 
     cpu_server = make_trimodal_server(tree_to(params, torch.device("cpu")), cfg,
                                       IMAGE_SHAPE, DCT, device="cpu")
@@ -738,28 +817,26 @@ def phase_serve(dev):
     print(f"serve B=8: device busy {busy_ms:.3f} ms per request (profiler, "
           f"{n_traced} requests); busy share of the median request "
           f"{busy_ms / latency[8]:.3f}")
-    expect_traced(events, n_traced, "serve B=8", lstm_fwd=5)
-    launch_counts(events, n_traced, "serve B=8",
-                  "with the earlier one launch per recurrence step: 145 step launches and "
-                  "5 cell-state copies more")
+    expect_traced(events, n_traced, "serve B=8", delta=1, lstm_fwd=5)
+    launch_counts(events, n_traced, "serve B=8", "95 with one delta launch per stream")
     return launches, latency
 
 
 def expect_traced(events, n, label, **per_call):
     """Raise unless a trace's ``key_averages()`` over ``n`` requests or steps
     holds, per request or step, the launches ``per_call`` (row name -> count)
-    of the persistent kernels' instantiations (:data:`CHAIN_TRACE`), none of
-    the other instantiations and no launch of the per-step recurrence
-    kernel."""
+    of the grouped delta kernel and of the persistent kernels' instantiations
+    (:data:`TRACE_NAMES`), none of the other instantiations and no launch of
+    the per-step recurrence kernel."""
     from torch.autograd import DeviceType
 
     forbidden = "lstm_step_kernel"
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     got = {row: sum(e.count for e in device if name in e.key) / n
-           for row, name in CHAIN_TRACE.items()}
-    want = {row: float(per_call.get(row, 0)) for row in CHAIN_TRACE}
+           for row, name in TRACE_NAMES.items()}
+    want = {row: float(per_call.get(row, 0)) for row in TRACE_NAMES}
     bad = {e.key: e.count for e in device if forbidden in e.key}
-    print(f"{label}: traced chain launches per request or step {got}; {forbidden}: "
+    print(f"{label}: traced kernel launches per request or step {got}; {forbidden}: "
           f"{bad or 'none'}")
     if got != want or bad:
         raise AssertionError(f"{label}: expected {want} per call and no {forbidden}")
@@ -805,7 +882,7 @@ def phase_train(dev):
     print(f"train {n_steps} steps, flagship dropout: losses "
           f"{[round(float(v), 6) for v in losses]}, launches {launches}")
     expect_launches(launches, lstm_fwd_train=5 * n_steps, lstm_bwd=5 * n_steps,
-                    delta=2 * n_steps)
+                    delta=n_steps)
     # m is a positive mix of every step's gradients: finite m, finite grads
     finite = []
     tree_map(lambda t: finite.append(bool(torch.isfinite(t).all())), (p, st["m"], st["v"]))
@@ -866,9 +943,10 @@ def phase_train(dev):
                   if e.device_type == DeviceType.CUDA) / 1e3 / n_traced
     print(f"train B={B}: device busy {busy_ms:.3f} ms per step (profiler, {n_traced} "
           f"steps); busy share of the median step {busy_ms / median:.3f}")
-    expect_traced(events, n_traced, f"train B={B}", lstm_fwd_train=5, lstm_bwd=5)
+    expect_traced(events, n_traced, f"train B={B}", delta=1, lstm_fwd_train=5,
+                  lstm_bwd=5)
     launch_counts(events, n_traced, f"train B={B}",
-                  "912 with the earlier one launch per recurrence step")
+                  "772 with one delta launch per stream and a 17-op FIR backward per stream")
     return launches, median
 
 
@@ -1160,7 +1238,7 @@ def phase_serve_4stream(dev):
     launches = read_launches()
     n = len(requests)
     print(f"4-stream served {n} requests: launches {launches}")
-    expect_launches(launches, delta=4 * n, lstm_peep_fwd=6 * n)
+    expect_launches(launches, delta=n, lstm_peep_fwd=6 * n)
 
     cpu = torch.device("cpu")
     cpu_params = tree_to(params, cpu)
@@ -1207,10 +1285,10 @@ def phase_serve_4stream(dev):
     n_traced = 5
     events, _ = busy_share(traced(lambda: server(*requests[1]), n_traced), n_traced,
                            latency[TRAIN_B], f"4-stream serve B={TRAIN_B}")
-    expect_traced(events, n_traced, f"4-stream serve B={TRAIN_B}", lstm_peep_fwd=6)
+    expect_traced(events, n_traced, f"4-stream serve B={TRAIN_B}", delta=1,
+                  lstm_peep_fwd=6)
     launch_counts(events, n_traced, f"4-stream serve B={TRAIN_B}",
-                  "252 with the earlier per-step peephole recurrence: 174 step launches "
-                  "and 6 cell-state copies")
+                  "84 with one delta launch per stream")
     return launches, latency
 
 
@@ -1246,7 +1324,7 @@ def phase_train_4stream(dev):
     print(f"4-stream train {n_steps} steps at B={B}, lr={training.learning_rate}: losses "
           f"{[round(float(v), 6) for v in losses]}, launches {launches}")
     expect_launches(launches, lstm_peep_fwd_train=6 * n_steps, lstm_peep_bwd=6 * n_steps,
-                    delta=4 * n_steps)
+                    delta=n_steps)
     finite = []
     tree_map(lambda t: finite.append(bool(torch.isfinite(t).all())), (p, st["m"], st["v"]))
     if not (all(finite) and all(torch.isfinite(v) for v in losses)):
@@ -1304,11 +1382,11 @@ def phase_train_4stream(dev):
     events, _ = busy_share(traced(train_step, n_traced), n_traced, median,
                            f"4-stream train B={B}", rows=16)
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
-    expect_traced(events, n_traced, f"4-stream train B={B}", lstm_peep_fwd_train=6,
-                  lstm_peep_bwd=6)
+    expect_traced(events, n_traced, f"4-stream train B={B}", delta=1,
+                  lstm_peep_fwd_train=6, lstm_peep_bwd=6)
     launch_counts(events, n_traced, f"4-stream train B={B}",
-                  "1256 with the earlier per-step peephole recurrence: 174 step launches "
-                  "and 6 cell-state copies")
+                  "1088 with one delta launch per stream and a 17-op FIR backward per "
+                  "stream")
     return launches, median
 
 
@@ -1322,39 +1400,131 @@ def trace_device(fn, n):
             sum(e.count for e in device) / n)
 
 
+def yardstick_matrix(T, W, dev):
+    """The (3T, T) matrix S whose row 3t + k is row t of I, F and F F (F the
+    edge-clamped FIR matrix, F F in float64): viewed as (B, 3T, D), one
+    ``torch.matmul(S, x)`` is the (B, T, 3D) output [x, d, a].  Built here
+    from ``ops/delta.fir_matrix``, which every version of the port has."""
+    import torch
+
+    from ip_avsr_torch.ops.delta import fir_matrix
+
+    F = fir_matrix(T, W, dtype=torch.float64)
+    S = torch.stack([torch.eye(T, dtype=torch.float64), F, F @ F], dim=1)
+    return S.reshape(3 * T, T).float().to(dev)
+
+
+def host_us(fn, n=200):
+    """Host time of one call of ``fn``, the enqueue, with no synchronize
+    inside the timed loop: the median of ``n`` calls on the host's clock, in
+    microseconds."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(walls) * 1e6
+
+
+def host_median_ms(fn, calls=25, warmup=5):
+    """Median host-clock time of one call of ``fn``, synchronized before and
+    after each, over ``calls`` calls after ``warmup``."""
+    import torch
+
+    times = []
+    for _ in range(warmup + calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[warmup:])
+
+
+def delta_ab(dev):
+    """Row 2 per forward of both models at T = 29, W = 9, through the model's
+    own delta stage (``adenet.stream_prefix`` over streams with no encoder,
+    so every version of the port runs its DeltaLayer as its models do): the
+    event time, traced device time, device operations and host time of one
+    forward's delta; the yardstick ``torch.matmul(S, x)`` (one call per
+    stream, S built once outside the timed region) on events and traced; and
+    the traced device time and operations of the DeltaLayer's backward over
+    the same streams.  Returns the numbers."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from ip_avsr_torch.models import adenet
+    from ip_avsr_torch.ops.delta import append_delta_coeff
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    W = 9
+    S = yardstick_matrix(T_FRAMES, W, dev)
+    out = {}
+    for model, (widths, batches) in DELTA_GROUPS.items():
+        cfg = adenet.AdeNetConfig(
+            streams=[adenet.StreamSpec(D, name=f"s{i}") for i, D in enumerate(widths)],
+            output_classes=2, window=W)
+        params = {"streams": {s.name: {} for s in cfg.streams}}
+        for B in batches:
+            xs = [(torch.randn(B, T_FRAMES, D, generator=gen) * 3).to(dev) for D in widths]
+            fwd = lambda: adenet.stream_prefix(params, cfg, xs)  # noqa: E731
+            lib = lambda: [torch.matmul(S, x) for x in xs]  # noqa: E731
+            err = max((o - append_delta_coeff(x, W)).abs().max().item()
+                      for x, o in zip(xs, fwd()))
+            lib_err = max((torch.matmul(S, x).view(B, T_FRAMES, -1)
+                           - append_delta_coeff(x, W)).abs().max().item() for x in xs)
+            if not (err <= DELTA_TOL and lib_err <= DELTA_TOL):
+                raise AssertionError(f"delta {model} B={B}: |kernel - plain| {err:.2e}, "
+                                     f"|S x - plain| {lib_err:.2e}")
+            ms, lib_ms = cuda_ms(fwd), cuda_ms(lib)
+            traced_ms, ops = trace_device(fwd, 5)
+            lib_traced, lib_ops = trace_device(lib, 5)
+            host = host_us(fwd)
+            xg = [x.clone().requires_grad_(True) for x in xs]
+            outs = adenet.stream_prefix(params, cfg, xg)
+            gs = [torch.randn_like(o) for o in outs]
+            events = traced(lambda: torch.autograd.grad(outs, xg, gs, retain_graph=True), 5)
+            device = [e for e in events if e.device_type == DeviceType.CUDA]
+            bwd_ms = sum(e.self_device_time_total for e in device) / 1e3 / 5
+            bwd_ops = sum(e.count for e in device) / 5
+            label = f"delta {model} B={B} D={list(widths)}"
+            print(f"{label}: per forward {ms:.4f} ms (events), traced {traced_ms:.4f} ms, "
+                  f"{ops:.1f} device ops, host {host:.1f} us, |kernel - plain| {err:.2e}; "
+                  f"yardstick matmul(S, x) per stream {lib_ms:.4f} ms (events), traced "
+                  f"{lib_traced:.4f} ms, {lib_ops:.1f} ops, |S x - plain| {lib_err:.2e}; "
+                  f"DeltaLayer backward traced {bwd_ms:.4f} ms, {bwd_ops:.1f} device ops")
+            print("  backward kernels: " + "; ".join(
+                f"{e.key[:60]} x{e.count / 5:g}" for e in device))
+            out[label] = dict(ms=ms, traced_ms=traced_ms, device_ops=ops, host_us=host,
+                              library_ms=lib_ms, library_traced_ms=lib_traced,
+                              bwd_traced_ms=bwd_ms, bwd_device_ops=bwd_ops)
+    return out
+
+
 def ab_run(dev):
-    """``--ab``: the peephole recurrences at B in {1, 10, 64} (H = 250,
-    T = 29; event clock, and traced device time and kernels per call) and
-    the traces of the 4-stream serve (B = 10) and train (B = 10) paths and
-    of the flagship's (B = 8 and 10) of whichever package is first on the
-    path, through the entry points every version of the port has.  Returns
-    the numbers."""
+    """``--ab``: row 2 per forward of both models (:func:`delta_ab`), then
+    the 4-stream serve (B = 10) and train (B = 10) paths and the flagship's
+    (serve B = 1 and 8, train B = 10) of whichever package is first on the
+    path, through the entry points every version of the port has: each
+    path's median on the host clock, then its trace (device time, kernels,
+    host launch calls, row 2's launches and device time).  Returns the
+    numbers."""
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
 
     import ip_avsr_torch
     from ip_avsr_torch.models import adenet, zoo
-    from ip_avsr_torch.ops.kernels import lstm as kl
     from ip_avsr_torch.serve import make_server, make_trimodal_server
     from ip_avsr_torch.train import trainer
 
     out = {"package": os.path.dirname(os.path.abspath(ip_avsr_torch.__file__))}
-    H = 250
-    gen = torch.Generator().manual_seed(SEED + 13)
-    for B in (1, TRAIN_B, 64):
-        args = (torch.randn(B, T_FRAMES, 4 * H, generator=gen).to(dev),
-                (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev),
-                ragged_mask(B, T_FRAMES, gen, dev), torch.zeros(B, H, device=dev),
-                torch.zeros(B, H, device=dev),
-                *((torch.randn(H, generator=gen) * 0.1).to(dev) for _ in range(3)))
-        for name, fn in (("lstm_peep_fwd", kl.lstm_peep_recurrence),
-                         ("lstm_peep_fwd_train", kl.lstm_peep_recurrence_train)):
-            ms = cuda_ms(lambda: fn(*args))
-            traced, kernels = trace_device(lambda: fn(*args), 5)
-            out[f"{name} B={B}"] = dict(ms=ms, traced_ms=traced, device_ops=kernels)
-            print(f"{name} B={B} H={H}: kernel {ms:.4f} ms per call (event clock); traced "
-                  f"{traced:.4f} ms per call, {traced * 1e3 / T_FRAMES:.3f} us per step, "
-                  f"{kernels:.1f} device operations per call")
+    out.update(delta_ab(dev))
     cfg, training = oulu_4stream()
     params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 6), cfg, device=dev)
     server = make_server(params, cfg, device=dev)
@@ -1383,13 +1553,22 @@ def ab_run(dev):
     def train_step3():
         state3[:2] = step3(*state3, streams3, y3, mask, gen3)[:2]
 
+    raw1, raw_mask1 = raw[:1], raw_mask[:1]
     for label, fn, n in ((f"4-stream serve B={TRAIN_B}", lambda: server(streams, mask), 5),
                          (f"4-stream train B={TRAIN_B}", train_step, 3),
+                         ("flagship serve B=1", lambda: server3(raw1, raw_mask1), 5),
                          ("flagship serve B=8", lambda: server3(raw, raw_mask), 5),
                          (f"flagship train B={TRAIN_B}", train_step3, 3)):
-        events, busy = busy_share(traced(fn, n), n, None, label, rows=8)
+        median = host_median_ms(fn)
+        events, busy = busy_share(traced(fn, n), n, median, label, rows=8)
         kernels, calls = launch_counts(events, n, label, "this tree")
-        out[label] = dict(device_ms=busy, device_kernels=kernels, host_launch_calls=calls)
+        row2 = [e for e in events if e.device_type == DeviceType.CUDA and "delta" in e.key]
+        deltas = sum(e.count for e in row2) / n
+        delta_ms = sum(e.self_device_time_total for e in row2) / 1e3 / n
+        print(f"{label}: median {median:.3f} ms (host clock, 25 after 5); {deltas:g} row-2 "
+              f"launches each, {delta_ms:.4f} ms of row-2 device time each")
+        out[label] = dict(host_median_ms=median, device_ms=busy, device_kernels=kernels,
+                          host_launch_calls=calls, delta_launches=deltas, delta_ms=delta_ms)
     return out
 
 
@@ -1438,7 +1617,9 @@ def main() -> int:
         {"name": "delta", "route": "cuda", "source": "ip_avsr_torch/csrc/delta.cu",
          "replaces": "ip_avsr_tpu/ops/pallas/delta_kernel.py:56",
          "launches": launches["delta"], "max_abs_err": delta_err,
-         "shape": "B=8 T=29 D=50 W=9", **delta_rows[8], "library_ms": None},
+         "shape": "flagship group: 2 streams of B=8 T=29 D=50, W=9",
+         **{k: delta_rows[("flagship", 8)][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "traced_ms")}},
         {"name": "lstm_fwd", "route": "cuda", "source": fwd_src, "replaces": f"{pallas}:42",
          "launches": launches["lstm_fwd"], "max_abs_err": lstm_err,
          "shape": "B=8 T=29 H=500", **lstm_rows[8]},

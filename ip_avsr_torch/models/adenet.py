@@ -28,7 +28,7 @@ from ip_avsr_torch.models import encoder as encoder_mod
 from ip_avsr_torch.ops import fusion as fusion_ops
 from ip_avsr_torch.ops import initializers as inits
 from ip_avsr_torch.ops import lstm as lstm_ops
-from ip_avsr_torch.ops.delta import delta_layer
+from ip_avsr_torch.ops.delta import delta_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,23 +179,28 @@ def adenet_forward(params: dict, config: AdeNetConfig, inputs, mask: torch.Tenso
 
 def stream_prefix(params, config: AdeNetConfig, inputs, window=None, train=False,
                   generator=None) -> list:
-    """The frame-parallel part: per stream, encoder -> delta -> dropout."""
+    """The frame-parallel part: per stream, encoder -> delta -> dropout.  The
+    encoders run first, then one grouped delta over every stream with
+    ``use_delta`` (one kernel launch on CUDA), then dropout per stream in
+    stream order."""
     window = config.window if window is None else window
     B, T = inputs[0].shape[0], inputs[0].shape[1]
-    stream_feats = []
+    feats = []
     for i, spec in enumerate(config.streams):
-        sp = params["streams"][spec.name]
         x = inputs[i]
         if spec.encoder_shapes:
             enc = encoder_mod.encoder_forward(
-                sp["encoder"], x.reshape(B * T, spec.input_dim),
+                params["streams"][spec.name]["encoder"], x.reshape(B * T, spec.input_dim),
                 spec.encoder_nonlinearities)
             x = enc.reshape(B, T, -1)
-        if spec.use_delta:
-            x = delta_layer(x.contiguous(), window)
-        x = _dropout(x, spec.dropout, generator, train)
-        stream_feats.append(x)
-    return stream_feats
+        feats.append(x)
+    with_delta = [i for i, spec in enumerate(config.streams) if spec.use_delta]
+    if with_delta:
+        outs = delta_group([feats[i].contiguous() for i in with_delta], window)
+        for i, out in zip(with_delta, outs):
+            feats[i] = out
+    return [_dropout(x, spec.dropout, generator, train)
+            for x, spec in zip(feats, config.streams)]
 
 
 def head_forward(params, config: AdeNetConfig, stream_feats, mask, train=False,

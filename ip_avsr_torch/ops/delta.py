@@ -8,14 +8,16 @@ over a sequence edge-padded by W frames on each side (first/last frame
 repeated); the acceleration is the same filter applied to the delta, with its
 own edge padding; the output is [x, delta, accel] on the feature axis.
 
-:func:`append_delta_coeff` is the plain version.  :func:`delta_layer` is what
-the model calls: it goes through the kernel wrapper
-(``ops/kernels/delta.append_delta``), which runs the CUDA kernel for a CUDA
-tensor and this plain version for a CPU tensor.  Its gradient is the FIR's
-fixed transpose (ip_avsr_tpu/ops/pallas/delta_kernel.py::_append_delta_bwd),
-which the JAX package leaves to XLA outside any kernel: here it is the
-explicit (T, T) edge-clamped FIR matrix of :func:`fir_matrix`, applied on the
-time axis by ``torch.matmul``.
+:func:`append_delta_coeff` is the plain version.  :func:`delta_group` is what
+the model calls, once over all its delta streams: it goes through the kernel
+wrapper (``ops/kernels/delta.append_delta_group``), which runs one launch of
+the CUDA kernel for CUDA tensors and this plain version for CPU tensors;
+:func:`delta_layer` is a group of one.  The op is linear on the time axis,
+[x, delta, accel] = S x with S the (3T, T) matrix of :func:`delta_matrix`, so
+its gradient is the fixed transpose S^T g
+(ip_avsr_tpu/ops/pallas/delta_kernel.py::_append_delta_bwd, which the JAX
+package leaves to XLA outside any kernel): one ``torch.matmul`` per stream,
+with S built once per (T, window, device, dtype) and cached.
 """
 
 from __future__ import annotations
@@ -67,26 +69,73 @@ def fir_matrix(T: int, window: int, device=None, dtype=torch.float32) -> torch.T
     return F
 
 
-class _DeltaLayer(torch.autograd.Function):
-    """[x, delta, accel] through the kernel wrapper, with the FIR's transpose
-    as its backward: out = [x, F x, F F x], so dx = g_x + F^T (g_d + F^T g_a)."""
+# built matrices, by (T, window, device, dtype)
+_MATRICES: dict = {}
+
+
+def delta_matrix(T: int, window: int, device=None, dtype=torch.float32) -> torch.Tensor:
+    """The (3T, T) matrix S with ``append_delta_coeff(x, window)`` equal to
+    ``torch.matmul(S, x)`` viewed as (..., 3T, D): row 3t + k is row t of I,
+    F and F F (F of :func:`fir_matrix`, F F formed in float64, then cast).
+    Built once per (T, window, device, dtype) and cached; every build counts
+    in ``delta_matrix.builds``.  Callers must not write to it."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    key = (int(T), int(window), device, dtype)
+    S = _MATRICES.get(key)
+    if S is None:
+        F = fir_matrix(T, window, dtype=torch.float64)
+        S = torch.stack([torch.eye(T, dtype=torch.float64), F, F @ F], dim=1)
+        S = S.reshape(3 * T, T).to(device=device, dtype=dtype)
+        _MATRICES[key] = S
+        delta_matrix.builds += 1
+    return S
+
+
+delta_matrix.builds = 0
+
+
+class _DeltaGroup(torch.autograd.Function):
+    """[x, delta, accel] of every stream of a group through one call of the
+    kernel wrapper, with the transpose of the cached S as the backward of
+    each stream that needs a gradient: dx = S^T g, g viewed as (B, 3T, D).
+    A stream fed straight from the input (no encoder) needs none, and its
+    output needs none either."""
 
     @staticmethod
-    def forward(ctx, x, window):
+    def forward(ctx, window, *xs):
         from ip_avsr_torch.ops.kernels import delta as delta_kernel
 
         ctx.window = window
-        return delta_kernel.append_delta(x, window)
+        outs = tuple(delta_kernel.append_delta_group(xs, window))
+        # a stream that needs no gradient gives an output that needs none, so
+        # nothing downstream computes a gradient for it, and an output that
+        # gets none reaches the backward as None, not as a filled zero tensor
+        ctx.mark_non_differentiable(
+            *(o for o, needed in zip(outs, ctx.needs_input_grad[1:]) if not needed))
+        ctx.set_materialize_grads(False)
+        return outs
 
     @staticmethod
-    def backward(ctx, g):
-        D = g.shape[-1] // 3
-        g_x, g_d, g_a = g[..., :D], g[..., D: 2 * D], g[..., 2 * D:]
-        Ft = fir_matrix(g.shape[-2], ctx.window, g.device, g.dtype).T
-        return g_x + torch.matmul(Ft, g_d + torch.matmul(Ft, g_a)), None
+    def backward(ctx, *gs):
+        grads = []
+        for g, needed in zip(gs, ctx.needs_input_grad[1:]):
+            if g is None or not needed:
+                grads.append(None)
+                continue
+            B, T, D3 = g.shape
+            S = delta_matrix(T, ctx.window, g.device, g.dtype)
+            grads.append(torch.matmul(S.T, g.reshape(B, 3 * T, D3 // 3)))
+        return (None, *grads)
+
+
+def delta_group(xs, window: int) -> tuple:
+    """DeltaLayer forward of each (B, T, D_i) tensor of ``xs`` (sharing B, T)
+    -> (B, T, 3 D_i), one kernel launch for the group on CUDA,
+    differentiable."""
+    return _DeltaGroup.apply(int(window), *xs)
 
 
 def delta_layer(x: torch.Tensor, window: int) -> torch.Tensor:
     """DeltaLayer forward (B, T, D) -> (B, T, 3D) through the kernel wrapper,
-    differentiable."""
-    return _DeltaLayer.apply(x, int(window))
+    differentiable: a group of one."""
+    return delta_group([x], window)[0]

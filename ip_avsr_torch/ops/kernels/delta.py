@@ -1,9 +1,11 @@
-"""Wrapper of the fused delta kernel (``csrc/delta.cu``).
+"""Wrapper of the grouped delta kernel (``csrc/delta.cu``).
 
-Replaces ip_avsr_tpu/ops/pallas/delta_kernel.py::_delta_kernel.  The kernel
-is bound by bytes: it reads x once and writes [x, d, a] once, with both FIR
-orders computed in shared memory (see the source's header).  Its plain
-version is ``ops/delta.append_delta_coeff``.
+Replaces ip_avsr_tpu/ops/pallas/delta_kernel.py::_delta_kernel.  One launch
+computes [x, d, a] for every stream of a group that shares B, T and the
+window, each thread applying the composed (3T, T) matrix
+``ops/delta.delta_matrix`` to its x column (see the source's header: the
+kernel is bound by latency and launches, not bytes).  Its plain version is
+``ops/delta.append_delta_coeff``, per stream.
 """
 
 from __future__ import annotations
@@ -14,53 +16,103 @@ import functools
 import torch
 
 from ip_avsr_torch.ops.delta import append_delta_coeff as plain
+from ip_avsr_torch.ops.delta import delta_matrix
 from ip_avsr_torch.ops.kernels import _build
+
+# the streams one launch takes (csrc/delta.cu kMaxStreams)
+MAX_STREAMS = 16
 
 
 @functools.cache
 def _lib():
     lib = _build.load("delta")
-    lib.delta_forward.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_void_p]
-    lib.delta_forward.restype = ctypes.c_int
-    lib.delta_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.delta_smem_bytes.restype = ctypes.c_size_t
+    lib.delta_group_forward.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.delta_group_forward.restype = ctypes.c_int
     return lib
 
 
-def append_delta(x: torch.Tensor, window: int) -> torch.Tensor:
-    """(B, T, D) f32 -> (B, T, 3D) [x, delta, accel].
+@functools.cache
+def _launch_args(dev: torch.device, B: int, T: int, window: int, widths: tuple) -> tuple:
+    """What a launch over streams of ``widths`` at (B, T, window) on ``dev``
+    reuses from call to call: the pointer-array type, the widths array, the
+    output shapes and S."""
+    n = len(widths)
+    return (ctypes.c_void_p * n, (ctypes.c_int * n)(*widths),
+            [(B, T, 3 * D) for D in widths], delta_matrix(T, window, dev))
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts the launch in ``append_delta.launches``) or raises."""
-    if x.device.type == "cpu":
-        return plain(x, window)
-    if x.device.type != "cuda":
-        raise ValueError(f"append_delta: unsupported device {x.device}")
-    if x.dim() != 3:
-        raise ValueError(f"append_delta expects (B, T, D), got {tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"append_delta kernel takes float32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("append_delta kernel takes a contiguous tensor")
-    B, T, D = x.shape
-    if B == 0 or T == 0 or D == 0:
-        raise ValueError(f"append_delta: empty input {tuple(x.shape)}")
+
+def _check(xs, window) -> tuple:
+    """Raise unless ``xs`` is a group of 1 to :data:`MAX_STREAMS` contiguous
+    float32 (B, T, D_i) tensors, none empty, on one CPU or CUDA device, that
+    share B and T, and ``window`` an int.  Returns (B, T, widths)."""
+    if not isinstance(window, int):
+        raise TypeError(f"append_delta_group: one int window for the whole group, "
+                        f"got {window!r}")
+    if not 0 < len(xs) <= MAX_STREAMS:
+        raise ValueError(f"append_delta_group takes 1 to {MAX_STREAMS} tensors, "
+                         f"got {len(xs)}")
+    dev = xs[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"append_delta_group: unsupported device {dev}")
+    shape = xs[0].shape
+    if len(shape) != 3 or 0 in shape:
+        raise ValueError(f"append_delta_group expects non-empty (B, T, D) tensors, got "
+                         f"{tuple(shape)}")
+    B, T = shape[0], shape[1]
+    widths = []
+    for x in xs:
+        if x.dtype != torch.float32:
+            raise TypeError(f"append_delta_group takes float32, got {x.dtype}")
+        shape = x.shape
+        if (len(shape) != 3 or shape[0] != B or shape[1] != T or shape[2] == 0
+                or x.device != dev or not x.is_contiguous()):
+            raise ValueError(f"append_delta_group: the group must be contiguous, non-empty "
+                             f"(B, T, D_i) tensors on one device that share B and T, got "
+                             f"{[(tuple(y.shape), str(y.device), y.is_contiguous()) for y in xs]}")
+        widths.append(shape[2])
+    return B, T, tuple(widths)
+
+
+def append_delta_group(xs, window: int, outs=None) -> list:
+    """[x, delta, accel] of each (B, T, D_i) float32 tensor of ``xs``, as a
+    list of (B, T, 3 D_i).
+
+    CPU tensors take the plain version, one per tensor.  CUDA tensors take one
+    launch of the kernel over the whole group, counted in
+    ``append_delta.launches`` (its grid in ``append_delta.blocks``), or
+    raise; ``outs`` gives their output tensors (for tests), else they are
+    allocated."""
+    xs = list(xs)
+    B, T, widths = _check(xs, window)
+    if xs[0].device.type == "cpu":
+        return [plain(x, window) for x in xs]
+    dev = xs[0].device
+    ptrs, widths_arg, shapes, S = _launch_args(dev, B, T, window, widths)
+    if outs is None:
+        outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
+    elif [tuple(o.shape) for o in outs] != shapes or not all(
+            o.is_contiguous() and o.dtype == torch.float32 and o.device == dev
+            for o in outs):
+        raise ValueError("append_delta_group: outs must be contiguous float32 (B, T, 3 D_i) "
+                         "tensors on the inputs' device")
     lib = _lib()
-    window = int(window)
-    smem = lib.delta_smem_bytes(T, window)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(
-            f"append_delta: T={T} with window={window} needs {smem} bytes of "
-            f"shared memory per block, above the {_build.SMEM_LIMIT} a block may use")
-    out = torch.empty((B, T, 3 * D), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.delta_forward(x.data_ptr(), out.data_ptr(), B, T, D, window,
-                             stream)
-    _build.check(lib, "delta", code)
+    code = lib.delta_group_forward(
+        ptrs(*[x.data_ptr() for x in xs]), ptrs(*[o.data_ptr() for o in outs]), widths_arg,
+        len(xs), S.data_ptr(), B, T, window, torch.cuda.current_stream(dev).cuda_stream)
+    if code < 0:
+        _build.check(lib, "delta", -code)
     append_delta.launches += 1
-    return out
+    append_delta.blocks = code
+    return outs
 
 
+def append_delta(x: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, T, D) f32 -> (B, T, 3D) [x, delta, accel]: a group of one."""
+    return append_delta_group([x], window)[0]
+
+
+# the launches of both entry points, and the last launch's grid
 append_delta.launches = 0
+append_delta.blocks = 0
