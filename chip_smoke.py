@@ -68,7 +68,29 @@ Phases, each fatal on failure:
    other launch per step), hold the card's step against the CPU path, time
    and trace it (1 delta launch and 6 of each peephole chain kernel per
    step, none of the others);
-9. print the kernels line, then ``{"ok": true, "device": ...}`` last.
+9. train through ``train.trainer.Trainer.fit`` (``phase_fit``): the
+   flagship at full width with its dropout on configs/oulu_trimodal.ini's
+   ``[training]`` schedule (adadelta, lr 1.0, decay 0.1, batch 10, W = 9,
+   validation window 6) cut to 3 epochs of 4 steps with the decay from
+   epoch 2, on a seeded split of 40 / 20 / 20 utterances (T 5-29), a
+   checkpoint each epoch: every launch of the fit counted (5 training
+   recurrences and 5 backward chains per step, 5 inference recurrences per
+   evaluation forward, 1 delta per forward, no other), the host time per
+   step split into batch assembly, its pinned copy, the copy to the card
+   and the step, the epoch wall times, an epoch's device busy share, the
+   validation split's evaluation time and peak memory; a split of 600
+   evaluated in chunks of 512 (host and device-side) against one batch of
+   600 (rates within one utterance); at dropout 0 the
+   fit on the card against the CPU path, with device-resident data against
+   the host path, and resumed from its epoch-2 checkpoint on the card
+   against the CPU path's resume (costs within 1e-4 relative, class rates
+   within one utterance, best parameters within 1e-4); then the 4-stream
+   model of configs/oulu_4stream.ini through the same Trainer for 2 epochs
+   of 3 steps (6 peephole training recurrences and backward chains per
+   step, 6 peephole inference recurrences per evaluation forward);
+10. print the fit's numbers, the kernels line (each row's launches in the
+   fits and per fit epoch, beside its serve or train path's count), then
+   ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a CUDA device or without the package beside it.
 
@@ -1572,6 +1594,397 @@ def ab_run(dev):
     return out
 
 
+# configs/oulu_trimodal.ini's [training] schedule as phase_fit cuts it, and
+# the split it trains on: seeded features, lengths 5-29 (the first 29)
+TRIMODAL_INI = os.path.join("configs", "oulu_trimodal.ini")
+FIT_CUTS = {"num_epoch": 3, "epochsize": 4, "decay_start": 2}
+FIT_SPLIT = (40, 20, 20)
+# the 4-stream fit: configs/oulu_4stream.ini's [training] cut to 2 epochs of 3
+# steps, on 30 / 10 / 10 utterances
+FIT4_CUTS = {"num_epoch": 2, "epochsize": 3}
+FIT4_SPLIT = (30, 10, 10)
+# a split evaluated in chunks of eval_batchsize = 512
+FIT_BIG_SPLIT = 600
+# card vs the port's CPU path over a whole fit at dropout 0: each epoch's
+# costs relative, the best parameters relative to each leaf's max abs (twelve
+# adadelta steps carry the steps' float32 differences forward)
+FIT_COST_TOL = 1e-4
+FIT_PARAM_TOL = 1e-4
+
+
+def flagship(dropout=True):
+    """The flagship adenet_v3 at full width as phase_train builds it; without
+    ``dropout`` every rate is 0."""
+    import dataclasses
+
+    from ip_avsr_torch.models import zoo
+
+    cfg = zoo.adenet_v3(1144, 90, 1144, lstm_size=250, window=9, output_classes=10)
+    if dropout:
+        return cfg
+    return dataclasses.replace(cfg, agg_dropout=0.0, streams=[
+        dataclasses.replace(s, dropout=0.0) for s in cfg.streams])
+
+
+def trimodal_schedule():
+    """``[training]`` of configs/oulu_trimodal.ini as TrainOptions fields
+    (the CLI's adadelta), and the same with :data:`FIT_CUTS` applied."""
+    import configparser
+
+    cp = configparser.ConfigParser()
+    if not cp.read(os.path.join(ROOT, TRIMODAL_INI)):
+        raise FileNotFoundError(TRIMODAL_INI)
+    t = cp["training"]
+    full = dict(optimizer="adadelta", learning_rate=t.getfloat("learning_rate"),
+                decay_rate=t.getfloat("decay_rate"), decay_start=t.getint("decay_start"),
+                num_epoch=t.getint("num_epoch"), epochsize=t.getint("epochsize"),
+                batchsize=t.getint("batchsize"), window=t.getint("windowsize"),
+                validation_window=t.getint("validation_window"))
+    return full, {**full, **FIT_CUTS}
+
+
+def fit_split(dims, n, seed, classes):
+    """(frame-major streams, per-frame targets, lengths) of ``n`` seeded
+    utterances: normal features whose first ``classes`` columns carry a
+    class-dependent shift, lengths 5-29 with the first 29."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(5, T_FRAMES + 1, n)
+    lens[0] = T_FRAMES
+    y = rng.randint(0, classes, n)
+    frames = np.repeat(y, lens)
+    streams = []
+    for D in dims:
+        x = rng.randn(int(lens.sum()), D).astype(np.float32)
+        x[np.arange(len(frames)), frames % D] += 1.0
+        streams.append(x)
+    return streams, frames, lens
+
+
+def fit_splits(cfg, sizes, seed):
+    dims = [s.input_dim for s in cfg.streams]
+    return [fit_split(dims, n, seed + i, cfg.output_classes) for i, n in enumerate(sizes)]
+
+
+def fit_forwards(result, epochsize):
+    """(train steps, evaluation forwards) of a fit from its result: per epoch
+    the last batch's cost, the validation cost and the validation rate, plus
+    the test rate at every new best validation cost (or once at the end if
+    there was none)."""
+    best, improved = float("inf"), 0
+    for v in result.cost_val:
+        if v < best:
+            best, improved = v, improved + 1
+    return (result.epochs_run * epochsize,
+            3 * result.epochs_run + improved + (0 if improved else 1))
+
+
+class FitClock:
+    """Host times of a fit's parts on the card: batch assembly and its copy
+    into pinned host memory (both on the prefetch thread), the copy of a
+    training batch to the card (``_device_batch``), the step's host time
+    (``train_step``, which returns before the card finishes) and the start
+    of each copy, and the time of each log line (one per epoch)."""
+
+    def __init__(self, trainer, batchsize):
+        import numpy as np
+
+        self.assembly, self.pin, self.copy, self.step, self.starts, self.logs = (
+            [], [], [], [], [], [])
+        batches, host_batch, device_batch, train_step = (
+            trainer._infinite_batches, trainer._host_batch, trainer._device_batch,
+            trainer.train_step)
+
+        def timed_batches(*args):
+            it = batches(*args)
+            while True:
+                t0 = time.perf_counter()
+                item = next(it)
+                self.assembly.append(time.perf_counter() - t0)
+                yield item
+
+        def timed_pin(streams, y, mask):
+            t0 = time.perf_counter()
+            out = host_batch(streams, y, mask)
+            if isinstance(mask, np.ndarray) and len(mask) == batchsize:
+                self.pin.append(time.perf_counter() - t0)
+            return out
+
+        def timed_copy(streams, y, mask):
+            t0 = time.perf_counter()
+            out = device_batch(streams, y, mask)
+            if len(mask) == batchsize:
+                self.copy.append(time.perf_counter() - t0)
+                self.starts.append(t0)
+            return out
+
+        def timed_step(*args):
+            t0 = time.perf_counter()
+            out = train_step(*args)
+            self.step.append(time.perf_counter() - t0)
+            return out
+
+        trainer._infinite_batches = timed_batches
+        trainer._host_batch = timed_pin
+        trainer._device_batch = timed_copy
+        trainer.train_step = timed_step
+        trainer.options.log_fn = self.log
+
+    def log(self, line):
+        self.logs.append(time.perf_counter())
+        print(f"  fit: {line}")
+
+    def report(self, label, t_start, epochsize):
+        """Print and return per-epoch wall times, steps/s and the medians of
+        the host split per step (epochs after the first)."""
+        ms = lambda xs: statistics.median(xs[epochsize:] or xs) * 1e3  # noqa: E731
+        walls = [b - a for a, b in zip([t_start] + self.logs, self.logs)]
+        # gaps between consecutive batch copies inside an epoch: one step each
+        gaps = [b - a for e in range(len(self.starts) // epochsize)
+                for a, b in zip(self.starts[e * epochsize:(e + 1) * epochsize],
+                                self.starts[e * epochsize + 1:(e + 1) * epochsize])]
+        gaps = gaps[epochsize - 1:] or gaps
+        ms_gap = statistics.median(gaps) * 1e3
+        out = dict(epoch_s=walls, step_gap_ms=ms_gap, assembly_ms=ms(self.assembly),
+                   pin_ms=ms(self.pin), copy_ms=ms(self.copy), step_host_ms=ms(self.step),
+                   steps_per_s=1e3 / ms_gap)
+        print(f"{label}: epoch wall times {[round(w, 4) for w in walls]} s (the first with "
+              f"set-up and first calls; each later one with the previous epoch's checkpoint); "
+              f"per step, median after the first epoch: {ms_gap:.3f} ms between steps "
+              f"({out['steps_per_s']:.1f} steps/s); on the prefetch thread, batch assembly "
+              f"{out['assembly_ms']:.3f} ms and its pinned copy {out['pin_ms']:.3f} ms; on the "
+              f"main thread, copy to the card {out['copy_ms']:.3f} ms and step "
+              f"{out['step_host_ms']:.3f} ms (host time, the card runs on); "
+              f"{smi('name,power.limit')}")
+        return out
+
+
+def compare_fits(label, got, ref, n_val, cost_tol=FIT_COST_TOL, param_tol=FIT_PARAM_TOL,
+                 margins=None):
+    """Raise unless two fits agree: per-epoch costs within ``cost_tol``
+    relative, class rates within one utterance, the same epochs and rate,
+    best parameters within ``param_tol`` of each leaf's max abs.  Prints
+    the worst differences, and ``margins()`` where a rate differs."""
+    import numpy as np
+
+    from ip_avsr_torch.device import tree_map
+
+    rel = lambda a, b: float(np.max(np.abs(np.subtract(a, b)) / np.abs(b)))  # noqa: E731
+    cost = max(rel(got.cost_train, ref.cost_train), rel(got.cost_val, ref.cost_val))
+    flips = max(abs(a - b) * n_val for a, b in zip(got.class_rate, ref.class_rate))
+    errs = []
+    tree_map(lambda a, b: errs.append(max_err(a, b)[0] / max(b.abs().max().item(), 1e-30)),
+             got.best_params, ref.best_params)
+    print(f"{label}: costs {[round(float(c), 6) for c in got.cost_val]} (val) against "
+          f"{[round(float(c), 6) for c in ref.cost_val]}, worst relative difference "
+          f"{cost:.2e}; "
+          f"class rates {got.class_rate} against {ref.class_rate} ({flips:.0f} utterances "
+          f"apart at most); best parameters, worst of {len(errs)} relative to max abs "
+          f"{max(errs):.2e}")
+    if flips and margins is not None:
+        margins()
+    if not (len(got.cost_val) == len(ref.cost_val) and cost <= cost_tol and flips <= 1
+            and got.epochs_run == ref.epochs_run and got.final_lr == ref.final_lr
+            and max(errs) <= param_tol):
+        raise AssertionError(f"{label}: the fits disagree")
+
+
+def phase_fit(dev):
+    """The single-device Trainer on the card: the flagship through
+    ``Trainer.fit`` on configs/oulu_trimodal.ini's schedule (cut) with every
+    launch counted, its host split per step, an epoch's device busy share,
+    the evaluation time and peak memory; the same fit at dropout 0 on the
+    card against the CPU path, with device-resident data, and resumed from
+    its epoch-2 checkpoint; then the 4-stream model of configs/
+    oulu_4stream.ini through the same Trainer, its launches counted.
+    Returns ({row: launches}, epochs) of the flagship fit and of the
+    4-stream fit, and the fit's numbers."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch.data.datagen import PaddedDataset
+    from ip_avsr_torch.device import tree_to
+    from ip_avsr_torch.models import adenet
+    from ip_avsr_torch.train import trainer as trainer_lib
+
+    full, sched = trimodal_schedule()
+    cuts = {k: f"{full[k]} -> {v}" for k, v in FIT_CUTS.items()}
+    print(f"fit: flagship adenet_v3 full width, configs/oulu_trimodal.ini [training] "
+          f"{full}; cut: {cuts}; split {FIT_SPLIT} (train, val, test), T <= {T_FRAMES}")
+    cfg, cfg0 = flagship(), flagship(dropout=False)
+    data = fit_splits(cfg, FIT_SPLIT, SEED + 20)
+    n_val = FIT_SPLIT[1]
+    cpu = torch.device("cpu")
+    params0 = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 8), cfg,
+                                        device="cpu")
+    start = {"cpu": params0, dev.type: tree_to(params0, dev)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+
+    def make(config, device, **kw):
+        o = trainer_lib.TrainOptions(**{**sched, "seed": SEED, "log_fn": lambda s: None,
+                                        **kw})
+        t = trainer_lib.Trainer(config, o, device=device)
+        t.init_params = lambda generator, **_: start[t.device.type]
+        return t
+
+    try:
+        # warm-up: cuBLAS handles and the kernels' first calls, one step
+        make(cfg, dev, num_epoch=1, epochsize=1).fit(*data)
+        torch.cuda.synchronize()
+
+        main = make(cfg, dev, checkpoint_dir=os.path.join(tmp, "main"))
+        clock = FitClock(main, sched["batchsize"])
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = main.fit(*data)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        steps, evals = fit_forwards(result, sched["epochsize"])
+        print(f"fit, flagship with its dropout: {result.epochs_run} epochs, {steps} steps, "
+              f"{evals} evaluation forwards; final lr {result.final_lr}; launches {launches}; "
+              f"peak memory {peak:.0f} MiB; {smi('name,power.limit')}")
+        expect_launches(launches, lstm_fwd_train=5 * steps, lstm_bwd=5 * steps,
+                        lstm_fwd=5 * evals, delta=steps + evals)
+        finite = np.isfinite(result.cost_train + result.cost_val).all()
+        if not (finite and result.test_conf.sum() == FIT_SPLIT[2]):
+            raise AssertionError("fit: non-finite costs or a wrong confusion matrix")
+        timing = clock.report("fit, flagship", t0, sched["epochsize"])
+
+        # the evaluation of the validation split, as fit runs it each epoch
+        ev = make(cfg, dev)
+        best = tree_to(result.best_params, dev)
+        val_host = PaddedDataset(*data[1]).gather(np.arange(n_val))
+        val = ev._device_batch(*val_host)
+        for name, fn in (("evaluate", lambda: ev.evaluate(best, *val_host, dev=val)),
+                         ("eval_cost", lambda: float(ev.eval_cost(best, *val)))):
+            times = []
+            for _ in range(12):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            timing[f"val_{name}_ms"] = statistics.median(times[2:])
+            print(f"fit: {name} of the validation split (B={n_val}) "
+                  f"{timing[f'val_{name}_ms']:.3f} ms (host clock, median of 10); "
+                  f"{smi('name,power.limit')}")
+
+        # a split larger than eval_batchsize = 512: a chunk of 512 and one of 88
+        # padded to 512 with all-pad rows, against the whole split as one batch
+        # of 600, host and device-side evaluation
+        big = PaddedDataset(*fit_split([s.input_dim for s in cfg.streams], FIT_BIG_SPLIT,
+                                       SEED + 40, cfg.output_classes))
+        big_host = big.gather(np.arange(big.n))
+        reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        chunked = ev.evaluate(best, *big_host)
+        torch.cuda.synchronize()
+        timing["big_evaluate_ms"] = (time.perf_counter() - t1) * 1e3
+        chunk_launches = read_launches()
+        n_chunks = -(-big.n // 512)
+        expect_launches(chunk_launches, lstm_fwd=5 * n_chunks, delta=n_chunks)
+        whole = ev.evaluate(best, *big_host, eval_batchsize=2 * big.n)
+        on_card = make(cfg, dev, device_eval=True).evaluate(best, *big_host)
+        apart = max(abs(chunked[0] - whole[0]), abs(on_card[0] - whole[0])) * big.n
+        print(f"fit: evaluate {big.n} utterances in {n_chunks} chunks of 512 "
+              f"({timing['big_evaluate_ms']:.1f} ms, launches {chunk_launches}): rate "
+              f"{chunked[0]:.4f}, device-side {on_card[0]:.4f}, as one batch of {big.n} "
+              f"{whole[0]:.4f} ({apart:.0f} utterances apart at most)")
+        if not (apart <= 1 and chunked[1].sum() == on_card[1].sum() == big.n):
+            raise AssertionError("fit: chunked evaluation disagrees with one batch")
+
+        # one epoch's device busy share: a one-epoch fit timed, then traced
+        epoch = make(cfg, dev, num_epoch=1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        epoch.fit(*data)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        events, busy = busy_share(traced(lambda: make(cfg, dev, num_epoch=1).fit(*data), 1), 1,
+                                  wall, "fit, one flagship epoch", rows=16)
+        print(events.table(sort_by="self_cpu_time_total", row_limit=12))
+        timing.update(epoch_ms=wall, epoch_busy_ms=busy, epoch_busy_share=busy / wall,
+                      peak_mib=peak)
+        print(f"fit, one flagship epoch ({sched['epochsize']} steps and its evaluations): "
+              f"{wall:.1f} ms, device busy {busy:.1f} ms, share {busy / wall:.3f}; "
+              f"{smi('name,power.limit')}")
+
+        # dropout 0: the card against the CPU path, device-resident data, resume
+        host_dir = os.path.join(tmp, "host")
+        card = make(cfg0, dev, checkpoint_dir=host_dir).fit(*data)
+        cpu_fit = make(cfg0, cpu).fit(*data)
+
+        def margins():
+            probs = ev.predict(tree_to(cpu_fit.best_params, dev), val[0], val[2]).cpu()
+            ref = ev.predict(cpu_fit.best_params, tree_to(val[0], cpu), val[2].cpu())
+            top = ref.topk(2, dim=-1).values
+            flipped = (probs.argmax(-1) != ref.argmax(-1)).nonzero().flatten().tolist()
+            print(f"  flipped predictions at the CPU fit's best parameters: {flipped}, "
+                  f"top-two margins {[(top[i, 0] - top[i, 1]).item() for i in flipped]}")
+
+        compare_fits("fit dropout 0, card vs CPU path", card, cpu_fit, n_val, margins=margins)
+        reset_launches()
+        dd = make(cfg0, dev, device_data=True).fit(*data)
+        dd_launches = read_launches()
+        steps0, evals0 = fit_forwards(dd, sched["epochsize"])
+        expect_launches(dd_launches, lstm_fwd_train=5 * steps0, lstm_bwd=5 * steps0,
+                        lstm_fwd=5 * evals0, delta=steps0 + evals0)
+        compare_fits("fit dropout 0, device_data vs host path (card)", dd, card, n_val)
+        # the resumed epoch draws its batches from RandomState(seed + 2), as
+        # the JAX package's resume does: the card's resume is held against
+        # the CPU path's from the same checkpoint, its restored history and
+        # rate against the uninterrupted fit
+        resumed = {}
+        for name, device in (("card", dev), ("cpu", cpu)):
+            ck = os.path.join(tmp, f"resume_{name}")
+            shutil.copytree(os.path.join(host_dir, "step_2"), os.path.join(ck, "step_2"))
+            resumed[name] = make(cfg0, device, checkpoint_dir=ck, resume=True).fit(*data)
+        r = resumed["card"]
+        if not (r.cost_val[:2] == card.cost_val[:2] and r.cost_train[:2] == card.cost_train[:2]
+                and r.final_lr == card.final_lr and len(r.cost_val) == 3):
+            raise AssertionError("fit resume: the restored history or rate differs")
+        print(f"fit resume from epoch 2 (card): restored costs equal, final lr {r.final_lr} "
+              f"equal to the uninterrupted fit's")
+        compare_fits("fit resume, card vs CPU path", resumed["card"], resumed["cpu"], n_val)
+
+        # the 4-stream model through the same Trainer
+        cfg4, training = oulu_4stream()
+        o4 = dict(num_epoch=training.num_epoch, epochsize=training.epochsize,
+                  batchsize=training.batchsize, learning_rate=training.learning_rate,
+                  optimizer=training.optimizer, validation_window=training.validation_window,
+                  window=cfg4.window, decay_rate=training.decay_rate,
+                  decay_start=training.decay_start,
+                  bucket_boundaries=training.bucket_boundaries,
+                  grad_accum_steps=training.grad_accum_steps)
+        print(f"fit, 4-stream: configs/oulu_4stream.ini [training] {o4}; cut: "
+              f"{ {k: f'{o4[k]} -> {v}' for k, v in FIT4_CUTS.items()} }; split {FIT4_SPLIT}")
+        o4.update(FIT4_CUTS)
+        data4 = fit_splits(cfg4, FIT4_SPLIT, SEED + 30)
+        t4 = trainer_lib.Trainer(cfg4, trainer_lib.TrainOptions(
+            **o4, seed=SEED, log_fn=lambda s: print(f"  fit: {s}")), device=dev)
+        reset_launches()
+        r4 = t4.fit(*data4)
+        torch.cuda.synchronize()
+        launches4 = read_launches()
+        steps4, evals4 = fit_forwards(r4, o4["epochsize"])
+        print(f"fit, 4-stream: {r4.epochs_run} epochs, {steps4} steps, {evals4} evaluation "
+              f"forwards; launches {launches4}")
+        expect_launches(launches4, lstm_peep_fwd_train=6 * steps4, lstm_peep_bwd=6 * steps4,
+                        lstm_peep_fwd=6 * evals4, delta=steps4 + evals4)
+        if not np.isfinite(r4.cost_train + r4.cost_val).all():
+            raise AssertionError("fit, 4-stream: non-finite costs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, result.epochs_run, launches4, r4.epochs_run, timing
+
+
 def main() -> int:
     import torch
 
@@ -1609,6 +2022,8 @@ def main() -> int:
     train_launches, _ = phase_train(dev)
     launches4, _ = phase_serve_4stream(dev)
     train_launches4, _ = phase_train_4stream(dev)
+    fit_launches, fit_epochs, fit4_launches, fit4_epochs, fit_timing = phase_fit(dev)
+    print(json.dumps({"fit": fit_timing}))
 
     pallas = "ip_avsr_tpu/ops/pallas/lstm_kernel.py"
     fwd_src, bwd_src = "ip_avsr_torch/csrc/lstm_fwd.cu", "ip_avsr_torch/csrc/lstm_bwd.cu"
@@ -1643,6 +2058,14 @@ def main() -> int:
          "launches": train_launches4["lstm_peep_bwd"], "max_abs_err": peep_bwd_err,
          "shape": f"{peep_shape} clip=5", **peep_rows[TRAIN_B]["lstm_peep_bwd"]},
     ]
+    # launches: each row's count in the fits (the flagship's for rows 1-4 and
+    # the delta, the 4-stream model's for rows 5-7), and per fit epoch; the
+    # serve or train path's count above stays beside them
+    for row in kernels:
+        counts, epochs = ((fit4_launches, fit4_epochs) if row["name"].startswith("lstm_peep")
+                          else (fit_launches, fit_epochs))
+        row.update(path_launches=row["launches"], launches=counts[row["name"]],
+                   launches_per_fit_epoch=counts[row["name"]] / epochs)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

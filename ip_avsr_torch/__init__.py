@@ -1,19 +1,22 @@
 """PyTorch/CUDA port of ip_avsr_tpu for NVIDIA Hopper (H100).
 
 The package mirrors ``ip_avsr_tpu``'s layout (``ops/``, ``models/``,
-``serve.py``) and imports neither JAX nor ``ip_avsr_tpu``.  Entry points run
-on ``cuda`` unless the caller passes ``device="cpu"``; every hand-written
-kernel (``ops/kernels/``, sources in ``csrc/``) has a plain PyTorch version
-beside it that runs only for tensors on the CPU.
+``train/``, ``data/``, ``utils/``, ``serve.py``) and imports neither JAX
+nor ``ip_avsr_tpu``.  Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``; every hand-written kernel (``ops/kernels/``,
+sources in ``csrc/``) has a plain PyTorch version beside it that runs only
+for tensors on the CPU.
 
 The port covers the flagship trimodal AdeNet-v3 (inference from raw uint8
 ROI frames to class scores with ``serve.make_trimodal_server``) and the
 generic N-stream AdeNets with peephole LSTMs that INI configs such as
 ``configs/oulu_4stream.ini`` select (``train.config.load_config`` and
 ``build_model_config``; inference on preprocessed streams with
-``serve.make_server``), and the training step of both
-(``train.trainer.make_train_step``).  Every kernel of the JAX package's
-``ops/pallas/`` has its CUDA counterpart.
+``serve.make_server``), and their training: the bare step
+(``train.trainer.make_train_step``) and the single-device trainer
+(``train.trainer.Trainer``: fit, evaluation, checkpoints, every optimizer).
+Every kernel of the JAX package's ``ops/pallas/`` has its CUDA
+counterpart.
 """
 
 from ip_avsr_torch.device import resolve_device

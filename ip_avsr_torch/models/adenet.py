@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ip_avsr_torch.device import resolve_device, tree_to
@@ -102,34 +103,51 @@ def check_supported(config: AdeNetConfig) -> None:
     not cover yet, naming the ROADMAP item that brings each."""
     todo = []
     if config.fuse_scans:
-        todo.append("fuse_scans=True (Queue 1 item 6: lstm_forward_grouped)")
+        todo.append("fuse_scans=True (Queue 1 item 5: lstm_forward_grouped)")
     if config.matmul_dtype is not None:
         todo.append(f"matmul_dtype={config.matmul_dtype!r} (this slice serves "
                     "f32 only; bf16 W_hid comes with the faster LSTM kernel)")
     if any(s.use_batchnorm for s in config.streams):
-        todo.append("use_batchnorm (Queue 1 item 6: ops/normalization)")
+        todo.append("use_batchnorm (Queue 1 item 5: ops/normalization)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
 
 def init_adenet_params(generator: torch.Generator, config: AdeNetConfig,
-                       device=None) -> dict:
+                       device=None, pretrained_encoders: Optional[Sequence] = None,
+                       pretrained_stream_lstms: Optional[Sequence] = None) -> dict:
     """Build the parameter tree with the JAX package's keys and layouts,
     drawn from ``generator`` on the CPU and moved to ``device`` (default
-    ``cuda``)."""
+    ``cuda``).
+
+    ``pretrained_encoders[i]`` is None or ``(weights, biases)`` for stream
+    i (a DBN's layers); ``pretrained_stream_lstms[i]`` is None or an LSTM
+    parameter dict, given zero ``cell_init``/``hid_init`` where it has none.
+    A pretrained part draws nothing from the generator."""
     check_supported(config)
     device = resolve_device(device)
     w_init = inits.select_weight_init(config.w_init)
     params: dict = {"streams": {}}
-    for spec in config.streams:
+    for i, spec in enumerate(config.streams):
         sp: dict = {}
         if spec.encoder_shapes:
-            sp["encoder"] = encoder_mod.init_encoder_params(
-                generator, spec.input_dim, spec.encoder_shapes, w_init)
+            pre = pretrained_encoders[i] if pretrained_encoders else None
+            if pre is not None:
+                sp["encoder"] = encoder_mod.pretrained_encoder_params(pre[0], pre[1])
+            else:
+                sp["encoder"] = encoder_mod.init_encoder_params(
+                    generator, spec.input_dim, spec.encoder_shapes, w_init)
         if spec.use_lstm:
-            sp["lstm"] = lstm_ops.init_lstm_params(
-                generator, spec.feature_dim(), config.stream_lstm_size(spec), w_init,
-                config.use_peepholes)
+            pre_lstm = pretrained_stream_lstms[i] if pretrained_stream_lstms else None
+            H = config.stream_lstm_size(spec)
+            if pre_lstm is not None:
+                sp["lstm"] = {k: torch.as_tensor(np.asarray(v, np.float32))
+                              for k, v in pre_lstm.items()}
+                sp["lstm"].setdefault("cell_init", torch.zeros(1, H))
+                sp["lstm"].setdefault("hid_init", torch.zeros(1, H))
+            else:
+                sp["lstm"] = lstm_ops.init_lstm_params(
+                    generator, spec.feature_dim(), H, w_init, config.use_peepholes)
         params["streams"][spec.name] = sp
     if config.fusiontype == "adasum":
         params["adasum"] = fusion_ops.init_adasum_params(len(config.streams))

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ip_avsr_torch.ops import initializers as inits
@@ -30,6 +31,17 @@ def init_encoder_params(generator, input_dim: int, shapes: Sequence[int],
             "b": torch.zeros(int(units), dtype=dtype),
         }
         fan_in = int(units)
+    return params
+
+
+def pretrained_encoder_params(weights, biases, names=DEFAULT_NAMES) -> dict:
+    """Loaded (weights, biases) lists as the encoder's parameter tree on the
+    CPU, float32 (JAX ``encoder.pretrained_encoder_params``)."""
+    params = {}
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        name = names[i] if i < len(names) else f"fc{i + 1}"
+        params[name] = {"w": torch.as_tensor(np.asarray(w, np.float32)),
+                        "b": torch.as_tensor(np.asarray(b, np.float32)).reshape(-1)}
     return params
 
 

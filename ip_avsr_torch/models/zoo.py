@@ -5,7 +5,7 @@ port's entry points reach: the flagship trimodal ``adenet_v3``, the generic
 N-stream ``adenet_nstream`` (peephole LSTMs by default; ``configs/
 oulu_4stream.ini`` builds it) and the three single-stream builders that
 ``train/config.build_model_config`` calls.  The other zoo entries come with
-ROADMAP Queue 1 item 6.
+ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations

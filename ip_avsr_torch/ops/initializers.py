@@ -1,8 +1,7 @@
 """Weight initializers with Lasagne-compatible semantics, on a
 ``torch.Generator``.
 
-Mirrors ip_avsr_tpu/ops/initializers.py for the initializers this slice uses.
-Every initializer has the signature ``init(generator, shape, dtype)`` and
+Mirrors ip_avsr_tpu/ops/initializers.py.  Every initializer has the signature ``init(generator, shape, dtype)`` and
 draws on the CPU (a CPU generator cannot fill a CUDA tensor); the caller moves
 the finished parameters to their device.  Draws differ from JAX's for the same
 seed, so the tests check statistics, and parity tests carry JAX parameters
@@ -33,6 +32,14 @@ def normal(std=0.1, mean=0.0):
     return init
 
 
+def uniform(rng_range=0.01):
+    def init(generator, shape, dtype=torch.float32):
+        out = torch.empty(tuple(shape), dtype=dtype)
+        return out.uniform_(-rng_range, rng_range, generator=generator)
+
+    return init
+
+
 def orthogonal(generator, shape, dtype=torch.float32, gain=1.0):
     """Orthogonal init via SVD of a Gaussian (Lasagne init.Orthogonal).
     The SVD runs on the host in float64 NumPy: it is one-time work."""
@@ -44,9 +51,20 @@ def orthogonal(generator, shape, dtype=torch.float32, gain=1.0):
     return torch.as_tensor(gain * q.reshape(shape), dtype=dtype)
 
 
+def constant(value=0.0):
+    """Fills with ``value``; draws nothing from the generator."""
+
+    def init(generator, shape, dtype=torch.float32):
+        del generator
+        return torch.full(tuple(shape), value, dtype=dtype)
+
+    return init
+
+
 _REGISTRY = {
     "glorot": glorot_uniform,
     "norm": normal(0.1),
+    "uniform": uniform(),
     "ortho": orthogonal,
 }
 
@@ -55,8 +73,4 @@ def select_weight_init(name):
     """Config string -> initializer; a callable passes through."""
     if callable(name):
         return name
-    if name == "uniform":
-        raise NotImplementedError(
-            "w_init='uniform' is not ported yet (ROADMAP Queue 1 item 4: "
-            "optimizers and init)")
     return _REGISTRY[name]

@@ -15,23 +15,35 @@ from __future__ import annotations
 import torch
 
 
-def temporal_softmax_loss(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def temporal_softmax_loss(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                          return_parts: bool = False):
     """x (N, T, V) scores (in practice probabilities), y (N, T) int labels,
-    mask (N, T) 1 on valid frames -> the NLL averaged over valid frames."""
+    mask (N, T) 1 on valid frames -> the NLL averaged over valid frames.
+
+    ``return_parts=True`` returns ``(weighted_nll_sum, frame_count)`` in
+    place of their quotient: gradient accumulation sums the numerators over
+    microbatches and divides once by the global count."""
     N, T, V = x.shape
     mask_flat = mask.reshape(N * T).to(x.dtype)
     log_probs = torch.log_softmax(x.reshape(N * T, V), dim=1)
     nll = -log_probs.gather(1, y.reshape(N * T, 1).long())[:, 0]
-    return (mask_flat * nll).sum() / mask_flat.sum()
+    num = (mask_flat * nll).sum()
+    if return_parts:
+        return num, mask_flat.sum()
+    return num / mask_flat.sum()
 
 
 def categorical_crossentropy_masked(probs: torch.Tensor, y: torch.Tensor,
-                                    sample_weight: torch.Tensor) -> torch.Tensor:
+                                    sample_weight: torch.Tensor, return_parts: bool = False):
     """Weighted mean -log(probs[y]) over the batch; ``sample_weight`` zeroes
     batch-pad rows.  Where the weight is 0 the picked probability is clamped
     to 1, so a pad row whose probability underflows to 0 gives no 0 * log 0
-    NaN in the loss or its gradient."""
+    NaN in the loss or its gradient.  ``return_parts`` as in
+    :func:`temporal_softmax_loss`: ``(weighted sum, weight sum)``."""
     p = probs.gather(1, y[:, None].long())[:, 0]
     w = sample_weight.to(probs.dtype)
     p = torch.where(w > 0, p, torch.ones_like(p))
-    return -(w * torch.log(p)).sum() / torch.clamp(w.sum(), min=1.0)
+    num = -(w * torch.log(p)).sum()
+    if return_parts:
+        return num, w.sum()
+    return num / torch.clamp(w.sum(), min=1.0)

@@ -74,10 +74,10 @@ def make_server(params: dict, config: adenet.AdeNetConfig, vote: bool = True,
     ``streams[i]`` is (B, T, D_i) and ``mask`` (B, T), tensors or arrays.
     Scores are (B, C); a per-step head with ``vote=False`` returns its
     (B, T, C) probabilities.  ``mesh`` (data parallelism over several
-    devices) is not ported yet (ROADMAP Queue 1 item 11) and raises."""
+    devices) is not ported yet (ROADMAP Queue 1 item 10) and raises."""
     if mesh is not None:
         raise NotImplementedError("make_server(mesh=...) is not ported yet (ROADMAP "
-                                  "Queue 1 item 11: data parallelism)")
+                                  "Queue 1 item 10: data parallelism)")
     adenet.check_supported(config)
     device = resolve_device(device)
     params = tree_to(params, device)

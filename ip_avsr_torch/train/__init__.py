@@ -1,1 +1,2 @@
-"""Training of the port: optimizers and the training step."""
+"""Training of the port: INI configs, optimizers, the step, the trainer,
+evaluation and checkpoints."""

@@ -56,8 +56,9 @@ def test_initializers_statistics():
     # same seed, same draws
     torch.testing.assert_close(tinit.orthogonal(torch.Generator().manual_seed(3), (8, 8)),
                                tinit.orthogonal(torch.Generator().manual_seed(3), (8, 8)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tinit.select_weight_init("uniform")
+    u = tinit.select_weight_init("uniform")(g, (400, 400))
+    assert u.abs().max() <= 0.01 and u.abs().max() > 0.0099
+    assert abs(u.mean().item()) < 1e-4 and abs(u.std().item() - 0.01 / np.sqrt(3)) < 1e-4
 
 
 def test_encoder_matches_jax_and_keeps_layer_order():
@@ -179,7 +180,7 @@ def test_config_fields_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("w_init", "uniform"), ("fuse_scans", True), ("matmul_dtype", "bfloat16")])
+    ("fuse_scans", True), ("matmul_dtype", "bfloat16")])
 def test_unported_config_values_raise(field, value):
     cfg = dataclasses.replace(tzoo.adenet_v3(16, 4, 16, lstm_size=4), **{field: value})
     with pytest.raises(NotImplementedError, match="Queue|f32"):

@@ -231,7 +231,7 @@ def test_4stream_train_step_matches_jax():
 def test_make_server_rejects_mesh_and_defaults_to_cuda():
     _, tcfg = _tiny_configs()
     params = tadenet.init_adenet_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tserve.make_server(params, tcfg, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
