@@ -68,7 +68,31 @@ Phases, each fatal on failure:
    other launch per step), hold the card's step against the CPU path, time
    and trace it (1 delta launch and 6 of each peephole chain kernel per
    step, none of the others);
-9. train through ``train.trainer.Trainer.fit`` (``phase_fit``): the
+9. rows 1 and 5 with their final-cell output (``phase_lstm_state``, run
+   after the chunk checks of 3.): H = 500 at B = 1 and 8, H = 250 at B = 1
+   and 10, 3 forced row chunks at B = 64, T in {1, 2, 29, 32}, nonzero
+   initial states, into NaN-filled outputs, a fully padded row handing its
+   cell back bit for bit, the T = 32 call against chunks of 1 + 2 + 29
+   frames resumed from the carried state, and at B = 1 the traced time for
+   T = 1 and 32 beside the bound;
+10. streaming (``phase_stream``): ``serve.StreamingSession`` at B = 1 on
+   the full-width adenet_v4 (row 1, last-step head) and adenet_v2_4 (row 5,
+   per-step head with the vote), seeded weights, 4 utterances of 14-29
+   frames fed one frame per feed and one in chunks of 7: 3 launches of the
+   model's row per advance and none of any other row (the delta FIR runs
+   on the host), every frame against the CPU session and against the
+   card's one-shot ``make_server(vote=False)`` (every frame, or the last
+   for the last-step head) within 2e-5; the median host time of a one-frame
+   feed that emits a score, of ``finalize``, and the busy share;
+11. the bucketed and pipelined servers (``phase_serve_buckets``) on the
+   4-stream model at full width: ``make_bucketed_server`` with buckets
+   (1, 8, 32) x (32, 64) on B in {1, 3, 8, 40} x T in {14, 29} against the
+   same server on the CPU, launches counted; ``PipelinedServer`` over 64
+   requests of B = 1, T = 29 at depth 8, batch 1 and 4, in order and equal
+   to the synchronous server, requests/s against a synchronous loop and
+   against pageable uploads, in turns, and each loop's host time per
+   request split into upload, forward, packing and waiting;
+12. train through ``train.trainer.Trainer.fit`` (``phase_fit``): the
    flagship at full width with its dropout on configs/oulu_trimodal.ini's
    ``[training]`` schedule (adadelta, lr 1.0, decay 0.1, batch 10, W = 9,
    validation window 6) cut to 3 epochs of 4 steps with the decay from
@@ -88,9 +112,10 @@ Phases, each fatal on failure:
    model of configs/oulu_4stream.ini through the same Trainer for 2 epochs
    of 3 steps (6 peephole training recurrences and backward chains per
    step, 6 peephole inference recurrences per evaluation forward);
-10. print the fit's numbers, the kernels line (each row's launches in the
-   fits and per fit epoch, beside its serve or train path's count), then
-   ``{"ok": true, "device": ...}`` last.
+13. print the fit's numbers, the kernels line (each row's launches in the
+   fits and per fit epoch, beside its serve or train path's count; rows 1
+   and 5 also their launches in the streaming sessions and the state
+   output's error), then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a CUDA device or without the package beside it.
 
@@ -239,6 +264,12 @@ def lstm_train_cost(B, T, H, peep=False):
     # the inference recurrence's traffic plus the residuals cells and gates
     nbytes, flops = lstm_cost(B, T, H, peep)
     return nbytes + 4 * (B * T * H + B * T * 4 * H), flops
+
+
+def lstm_state_cost(B, T, H, peep=False):
+    # the inference recurrence's traffic plus the final cell written once
+    nbytes, flops = lstm_cost(B, T, H, peep)
+    return nbytes + 4 * B * H, flops
 
 
 def lstm_bwd_cost(B, T, H, peep=False):
@@ -712,22 +743,31 @@ def bwd_sweep(dev, peep):
 
 def traced(fn, n):
     """``key_averages()`` of a torch.profiler trace (host and card) of ``n``
-    calls of ``fn``, after one call outside the trace.  The traced calls
+    calls of ``fn``.  The profile's first step calls ``fn`` once and is
+    thrown away (the profiler's warm-up): on the H100 the first kernel after
+    tracing starts can be lost, late in a run every time (4 of 5 traced
+    chain launches, with 5 launch calls on the host).  The traced calls
     start and end 10 ms inside the trace: the trace's device clock can stand
     milliseconds off the host's, and a record that falls outside the trace
-    is lost (one run on the H100 traced 4 of 5 chain launches)."""
+    is lost.  The schedule's own ``ProfilerStep*`` records (one on the host,
+    one on the card) are left out."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    warm_up = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=warm_up) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         time.sleep(0.01)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         time.sleep(0.01)
-    return prof.key_averages()
+        prof.step()
+    events = prof.key_averages()
+    events[:] = [e for e in events if not e.key.startswith("ProfilerStep")]
+    return events
 
 
 def trace_chain(fn, label, row, steps, n=5):
@@ -750,7 +790,9 @@ def trace_chain(fn, label, row, steps, n=5):
           f"per call, {ms * 1e3 / steps:.3f} us per step (/ {steps}; the earlier "
           f"one-launch-per-step kernels took 5.2-8.0 us per step launch)")
     if launches != n or others:
-        raise AssertionError(f"{label}: expected {n} kernel launches and nothing else")
+        raise AssertionError(f"{label}: expected {n} kernel launches and nothing else, traced "
+                             f"{launches} launches, {others} other device ops and {host} "
+                             f"cooperative launch calls on the host")
     return ms
 
 
@@ -1172,6 +1214,429 @@ def phase_chunks(dev):
             ms = cuda_ms(call, iters=3, warmup=1)
             plan = kl.bwd_launch_plan(B, H, sm_count, chunks=chunks)
             hold(label, got, plain(*bargs, *vecs, 5.0), LSTM_BWD_TOL, ms, plan)
+
+
+# rows 1 and 5 with their final-cell output: row name -> (state wrapper,
+# plain version, peepholes, H of the streaming model, its batches)
+STATE_ROWS = {"lstm_fwd": ("lstm_recurrence_state", "lstm_recurrence_state_plain", False, 500,
+                           (1, 8)),
+              "lstm_peep_fwd": ("lstm_peep_recurrence_state", "lstm_peep_recurrence_state_plain",
+                                True, 250, (1, TRAIN_B))}
+STATE_T = (1, 2, T_FRAMES, 32)
+STATE_SPLIT = (1, 2, 29)  # time chunks of the T = 32 call
+
+
+def phase_lstm_state(dev):
+    """Rows 1 and 5 with their final-cell output (``lstm_recurrence_state``,
+    ``lstm_peep_recurrence_state``) against their plain versions: H = 500
+    at B = 1 and 8 (row 1), H = 250 at B = 1 and 10 (row 5), and 3 forced
+    row chunks at B = 64, each at T in {1, 2, 29, 32}, with nonzero
+    per-row initial states, ragged masks with a fully padded row, nonzero
+    peephole vectors; each call also into NaN-filled outputs (which must
+    come out bit-equal).  The T = 32 call against the same call cut into
+    chunks of 1 + 2 + 29 frames, each resumed from the last one's (cell_T,
+    hids[:, -1]).  At B = 1, T = 1 and 32: one traced launch per call, its
+    device time, the event time and the bound.  Returns {row: {"err": the
+    largest absolute error, "B1": {T: times}}}."""
+    import torch
+
+    from ip_avsr_torch.ops.kernels import lstm as kl
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    out = {}
+    for name, (wrapper, plain, peep, H, batches) in STATE_ROWS.items():
+        wrapper, plain = getattr(kl, wrapper), getattr(kl, plain)
+        err, times = 0.0, {}
+        for B in (*batches, 64):
+            chunks = 3 if B == 64 else None
+            w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev)
+            c0 = torch.randn(B, H, generator=gen).to(dev)
+            h0 = (torch.randn(B, H, generator=gen) * 0.5).to(dev)
+            vecs = tuple((torch.randn(H, generator=gen) * 0.5).to(dev)
+                         for _ in range(3 * peep))
+            whole = {}
+            for T in STATE_T:
+                x_proj = torch.randn(B, T, 4 * H, generator=gen).to(dev)
+                mask = ragged_mask(B, T, gen, "cpu")
+                if B > 2:
+                    mask[-1] = 0.0  # a fully padded row
+                args = (x_proj, w_hid, mask.to(dev), c0, h0)
+
+                def call(args=args):
+                    if chunks is None:
+                        return wrapper(*args, *vecs)
+                    return kl._run_fwd(name, args, False, peep=vecs, chunks=chunks, state=True)
+
+                got = call()
+                ref = plain(*args, *vecs)
+                nan = [torch.full_like(g, float("nan")) for g in got]
+                kl._run_fwd(name, args, False, peep=vecs, chunks=chunks, outs=nan, state=True)
+                same = all(torch.equal(a, b) for a, b in zip(nan, got))
+                errs = [max_err(a, r)[0] for a, r in zip(got, ref)]
+                rel = max(e / max(r.abs().max().item(), 1e-30) for e, r in zip(errs, ref))
+                kept = torch.equal(got[1][-1], c0[-1]) if B > 2 else True
+                print(f"{name} state B={B} H={H} T={T}"
+                      + (f" in {chunks} forced chunks" if chunks else "")
+                      + f": max_abs_err hids {errs[0]:.3e}, cell_T {errs[1]:.3e}, relative "
+                      f"{rel:.3e}; into NaN-filled outputs bit-equal {same}; fully padded "
+                      f"row keeps its cell bit for bit {kept}")
+                if not (same and kept and rel <= LSTM_TOL):
+                    raise AssertionError(f"{name} state kernel disagrees with its plain version")
+                err = max(err, *errs)
+                whole[T] = (args, got)
+            # one-shot against time chunks resumed from the carried state
+            (x_proj, w_hid, mask, _, _), (hids, cell_T) = whole[32]
+            state, pieces, s = (c0, h0), [], 0
+            for n in STATE_SPLIT:
+                part = (x_proj[:, s: s + n].contiguous(), w_hid,
+                        mask[:, s: s + n].contiguous(), *state)
+                if chunks is None:
+                    h_part, c_part = wrapper(*part, *vecs)
+                else:
+                    h_part, c_part = kl._run_fwd(name, part, False, peep=vecs, chunks=chunks,
+                                                 state=True)
+                pieces.append(h_part)
+                state = (c_part, h_part[:, -1].contiguous())
+                s += n
+            chunked = torch.cat(pieces, dim=1)
+            e_h, e_c = max_err(chunked, hids)[0], max_err(state[0], cell_T)[0]
+            bit = torch.equal(chunked, hids) and torch.equal(state[0], cell_T)
+            print(f"{name} state B={B} H={H}: T=32 one-shot vs chunks {STATE_SPLIT}: "
+                  f"|hids| {e_h:.3e}, |cell_T| {e_c:.3e}, bit-equal {bit}")
+            if not max(e_h, e_c) <= LSTM_TOL:
+                raise AssertionError(f"{name}: chunked state calls disagree with one-shot")
+            if B == 1:
+                for T in (1, 32):
+                    args = whole[T][0]
+                    traced_ms = trace_chain(lambda: wrapper(*args, *vecs),
+                                            f"{name} state B=1 H={H} T={T}", name, T)
+                    ms = cuda_ms(lambda: wrapper(*args, *vecs))
+                    plain_ms = cuda_ms(lambda: plain(*args, *vecs), iters=3, warmup=1)
+                    b_ms, by = bound(*lstm_state_cost(1, T, H, peep))
+                    print(f"{name} state B=1 H={H} T={T}: traced {traced_ms:.4f} ms, kernel "
+                          f"{ms:.4f} ms (event clock), plain {plain_ms:.4f} ms, bound "
+                          f"{b_ms:.6f} ms ({by})")
+                    times[T] = dict(traced_ms=traced_ms, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=b_ms, bound_by=by)
+        out[name] = {"err": err, "B1": times}
+    return out
+
+
+STREAM_UTTERANCES = 4
+STREAM_CHUNK = 7
+
+
+def stream_models():
+    """The two streaming models at full width: adenet_v4 (raw 1144 through
+    the sigmoid encoder with deltas, DCT 90 without; two non-peephole stream
+    LSTMs and a forward aggregator at H = 500, last-step head) and
+    adenet_v2_4 (raw and diff 1144 through ReLU encoders with deltas; two
+    peephole stream LSTMs and a forward aggregator at H = 250, per-step
+    head with the vote): name -> (config, row of its recurrences)."""
+    from ip_avsr_torch.models import zoo
+
+    return {"adenet_v4": (zoo.adenet_v4(1144, 90, output_classes=10), "lstm_fwd"),
+            "adenet_v2_4": (zoo.adenet_v2_4(1144, 1144, output_classes=10), "lstm_peep_fwd")}
+
+
+def phase_stream(dev):
+    """Streaming sessions (``serve.StreamingSession``, B = 1) of the two
+    streaming models at full width with seeded weights: 4 utterances of
+    14-29 frames fed one frame per ``feed``, then one fed in chunks of 7.
+    Every launch of those sessions is counted: 3 of the model's row per
+    advance (two stream LSTMs and the aggregator, each through the state
+    wrapper), none of any other row (the delta FIR runs on the host).  Every
+    emitted frame held against the CPU session on the same parameters, and
+    against the card's one-shot ``make_server(vote=False)``: every frame's
+    probabilities for adenet_v2_4 (whose vote must also match where no frame
+    is near a tie), the last frame's for adenet_v4, whose one-shot head is
+    last-step.  Prints the median host time of a one-frame feed that emits
+    a score (time to score) and of one that does not (the lookahead), the
+    time of ``finalize``, and the card's busy share over one utterance.
+    Returns {model: numbers}."""
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch.device import tree_to
+    from ip_avsr_torch.models import adenet
+    from ip_avsr_torch.ops.voting import masked_majority_vote
+    from ip_avsr_torch.serve import StreamingSession, make_server
+
+    result = {}
+    for idx, (name, (cfg, row)) in enumerate(stream_models().items()):
+        params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 30 + idx), cfg,
+                                           device=dev)
+        rng = np.random.RandomState(SEED + 30 + idx)
+        utts = [[rng.randn(1, T, s.input_dim).astype(np.float32) for s in cfg.streams]
+                for T in rng.randint(14, T_FRAMES + 1, STREAM_UTTERANCES)]
+        template = StreamingSession(params, cfg, device=dev)
+        cpu_template = StreamingSession(tree_to(params, torch.device("cpu")), cfg,
+                                        device="cpu")
+        advances = [0]
+        advance = template._advance
+
+        def counted(*a, advance=advance):
+            advances[0] += 1
+            return advance(*a)
+
+        template._advance = counted
+
+        def run(sess, xs, step, clock=None):
+            """Feed ``xs`` in chunks of ``step`` frames; returns (every
+            emitted frame (1, T, C), finalize's result)."""
+            got = []
+            for s in range(0, xs[0].shape[1], step):
+                t0 = time.perf_counter()
+                out = sess.feed([x[:, s: s + step] for x in xs])
+                if clock is not None:
+                    clock["score" if out else "lookahead"].append(time.perf_counter() - t0)
+                got += out
+            t0 = time.perf_counter()
+            tail, res = sess.finalize()
+            if clock is not None:
+                clock["finalize"].append(time.perf_counter() - t0)
+            return np.concatenate([np.stack(got, axis=1), tail], axis=1) if got else tail, res
+
+        run(template.fresh(), utts[0], 1)  # warm-up: cuBLAS handles, first launches
+        torch.cuda.synchronize()
+        clock = {"score": [], "lookahead": [], "finalize": []}
+        advances[0] = 0
+        reset_launches()
+        runs = [run(template.fresh(), xs, 1, clock) for xs in utts]
+        runs.append(run(template.fresh(), utts[-1], STREAM_CHUNK))
+        torch.cuda.synchronize()
+        launches, n_adv = read_launches(), advances[0]
+        print(f"{name} streaming: {STREAM_UTTERANCES} utterances frame by frame and one in "
+              f"chunks of {STREAM_CHUNK}, {n_adv} advances; launches {launches}")
+        expect_launches(launches, **{row: 3 * n_adv})
+
+        one_shot = make_server(params, cfg, vote=False, device=dev)
+        err_cpu = err_one = 0.0
+        for i, ((emitted, res), xs) in enumerate(zip(runs, utts + utts[-1:])):
+            T = xs[0].shape[1]
+            ref_cpu, _ = run(cpu_template.fresh(), xs, 1 if i < STREAM_UTTERANCES
+                             else STREAM_CHUNK)
+            with torch.inference_mode():
+                probs = one_shot([torch.from_numpy(x).to(dev) for x in xs],
+                                 torch.ones(1, T, device=dev)).cpu().numpy()
+            if emitted.shape != (1, T, cfg.output_classes) or not np.isfinite(emitted).all():
+                raise AssertionError(f"{name}: bad streamed scores {emitted.shape}")
+            e_cpu = float(np.abs(emitted - ref_cpu).max())
+            if cfg.output_mode == "per_step":
+                e_one = float(np.abs(emitted - probs).max())
+                top2 = np.sort(probs, axis=-1)[..., -2:]
+                gap = float((top2[..., 1] - top2[..., 0]).min())
+                vote = masked_majority_vote(probs, np.ones((1, T)))
+                if gap > 2 * SCORE_TOL and not np.array_equal(res, vote):
+                    raise AssertionError(f"{name}: streamed vote {res} != one-shot {vote}")
+                extra = f", vote {res} (one-shot {vote}, smallest top-2 gap {gap:.2e})"
+            else:
+                e_one = float(np.abs(res - probs).max())
+                extra = ""
+            print(f"{name} utterance {i} (T={T}): |card - CPU session| {e_cpu:.2e} over every "
+                  f"frame; |session - one-shot on the card| {e_one:.2e} over "
+                  f"{'every frame' if cfg.output_mode == 'per_step' else 'the last frame'}"
+                  f"{extra}")
+            if not max(e_cpu, e_one) <= SCORE_TOL:
+                raise AssertionError(f"{name}: streamed probabilities disagree")
+            err_cpu, err_one = max(err_cpu, e_cpu), max(err_one, e_one)
+
+        ms = {k: statistics.median(v) * 1e3 for k, v in clock.items()}
+        xs = utts[0]
+        t0 = time.perf_counter()
+        run(template.fresh(), xs, 1)
+        torch.cuda.synchronize()
+        utt_ms = (time.perf_counter() - t0) * 1e3
+        events, busy_ms = busy_share(traced(lambda: run(template.fresh(), xs, 1), 1), 1, utt_ms,
+                                     f"{name} streaming one utterance (T={xs[0].shape[1]}, "
+                                     f"frame by frame)")
+        print(f"{name} streaming (host clock): time to score, median one-frame feed that "
+              f"emits {ms['score']:.3f} ms ({len(clock['score'])} feeds); lookahead feed "
+              f"{ms['lookahead']:.3f} ms; finalize {ms['finalize']:.3f} ms; one utterance "
+              f"{utt_ms:.3f} ms, device busy {busy_ms:.3f} ms, share {busy_ms / utt_ms:.3f}")
+        result[name] = dict(row=row, launches=launches[row], advances=n_adv,
+                            score_ms=ms["score"], lookahead_ms=ms["lookahead"],
+                            finalize_ms=ms["finalize"], utterance_ms=utt_ms, busy_ms=busy_ms,
+                            busy_share=busy_ms / utt_ms, err_cpu=err_cpu, err_one_shot=err_one)
+    return result
+
+
+BUCKETS = ((1, 8, 32), (32, 64))
+BUCKET_REQUESTS = [(B, T) for B in (1, 3, 8, 40) for T in (14, T_FRAMES)]
+PIPE_REQUESTS = 64
+PIPE_DEPTH = 8
+
+
+def phase_serve_buckets(dev):
+    """``serve.make_bucketed_server`` on the 4-stream model of
+    configs/oulu_4stream.ini at full width, buckets (1, 8, 32) x (32, 64):
+    requests with B in {1, 3, 8, 40} and T in {14, 29} (lengths from T/2,
+    the first full; B = 40 runs as 32 + 8), every launch counted (1 delta
+    and 6 peephole recurrences per forward, nothing else), probabilities
+    (``vote=False``) held to the same server on the CPU within 2e-5 and the
+    voted scores where no frame is near a tie.  Then ``serve.
+    PipelinedServer`` over 64 requests of B = 1, T = 29 at depth 8 with
+    batch 1 and 4: results in submission order, equal to the synchronous
+    server, launches counted, and requests/s on the host clock against a
+    synchronous loop and against the pipelined loop with uploads from
+    pageable memory, in turns; then each loop's host time per request,
+    split (:func:`host_split`).  Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch.device import tree_map, tree_to
+    from ip_avsr_torch.models import adenet
+    from ip_avsr_torch.serve import PipelinedServer, make_bucketed_server, make_server
+
+    cfg, _ = oulu_4stream()
+    params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 40), cfg,
+                                       device=dev)
+    cpu_params = tree_to(params, torch.device("cpu"))
+    kw = dict(batch_buckets=BUCKETS[0], time_buckets=BUCKETS[1])
+    servers = {v: make_bucketed_server(params, cfg, vote=v, device=dev, **kw)
+               for v in (True, False)}
+    cpu_servers = {v: make_bucketed_server(cpu_params, cfg, vote=v, device="cpu", **kw)
+                   for v in (True, False)}
+    rng = np.random.RandomState(SEED + 40)
+    requests = []
+    for B, T in BUCKET_REQUESTS:
+        lens = rng.randint(T // 2, T + 1, B)
+        lens[0] = T
+        requests.append(([rng.randn(B, T, s.input_dim).astype(np.float32)
+                          for s in cfg.streams], lens))
+    servers[True](*requests[0])  # warm-up
+    torch.cuda.synchronize()
+    forwards = sum(-(-B // BUCKETS[0][-1]) for B, _ in BUCKET_REQUESTS)
+    reset_launches()
+    got = {v: [servers[v](*r) for r in requests] for v in (True, False)}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"bucketed 4-stream server, buckets {BUCKETS}: {len(requests)} requests x vote on "
+          f"and off, {2 * forwards} forwards; launches {launches}")
+    expect_launches(launches, delta=2 * forwards, lstm_peep_fwd=12 * forwards)
+    err = 0.0
+    for (B, T), r, probs, votes in zip(BUCKET_REQUESTS, requests, got[False], got[True]):
+        ref = cpu_servers[False](*r)
+        probs, votes = probs.cpu(), votes.cpu()
+        if probs.shape != (B, T, cfg.output_classes) or votes.shape != (B, cfg.output_classes):
+            raise AssertionError(f"bucketed B={B} T={T}: shapes {tuple(probs.shape)}, "
+                                 f"{tuple(votes.shape)}")
+        mask = torch.from_numpy(np.arange(T)[None] < r[1][:, None])
+        e = (probs - ref).abs().max().item()
+        top2 = ref.topk(2, dim=-1).values
+        gap = (top2[..., 0] - top2[..., 1])[mask].min().item()
+        e_vote = (votes - cpu_servers[True](*r)).abs().max().item()
+        print(f"bucketed B={B} T={T}: probabilities |card - CPU| {e:.2e}; voted |card - CPU| "
+              f"{e_vote:.2e} (smallest top-2 gap {gap:.2e})")
+        if not (e <= SCORE_TOL and (gap <= 2 * SCORE_TOL or e_vote <= SCORE_TOL)):
+            raise AssertionError(f"bucketed B={B} T={T} disagrees with the CPU server")
+        err = max(err, e)
+
+    sync = make_server(params, cfg, device=dev)
+    reqs = []
+    for _ in range(PIPE_REQUESTS):
+        lens = rng.randint(T_FRAMES // 2, T_FRAMES + 1)
+        reqs.append(([rng.randn(1, T_FRAMES, s.input_dim).astype(np.float32)
+                      for s in cfg.streams],
+                     (np.arange(T_FRAMES)[None] < lens).astype(np.float32)))
+    want = [sync(*r).cpu().numpy() for r in reqs]
+    pipe = {b: PipelinedServer(params, cfg, depth=PIPE_DEPTH, batch=b, device=dev)
+            for b in (1, 4)}
+    pipe_err = 0.0
+    for b, srv in pipe.items():
+        reset_launches()
+        out = list(srv.map(iter(reqs)))
+        torch.cuda.synchronize()
+        n_fwd = PIPE_REQUESTS // b
+        expect_launches(read_launches(), delta=n_fwd, lstm_peep_fwd=6 * n_fwd)
+        if [o.shape for o in out] != [w.shape for w in want]:
+            raise AssertionError(f"pipelined batch={b}: shapes or order differ")
+        e = max(float(np.abs(o - w).max()) for o, w in zip(out, want))
+        print(f"pipelined batch={b} depth={PIPE_DEPTH}: {PIPE_REQUESTS} results in order, "
+              f"|pipelined - synchronous| {e:.2e} ({n_fwd} forwards counted)")
+        if not e <= SCORE_TOL:
+            raise AssertionError(f"pipelined batch={b} disagrees with the synchronous server")
+        pipe_err = max(pipe_err, e)
+
+    # the pipelined loop with uploads from pageable memory, for comparison
+    pageable = PipelinedServer(params, cfg, depth=PIPE_DEPTH, device=dev)
+    pageable._upload = lambda args: (tree_map(lambda a: torch.as_tensor(a, device=dev), args),
+                                     [])
+    runs = {"sync": lambda: [sync(*r).cpu().numpy() for r in reqs],
+            1: lambda: list(pipe[1].map(iter(reqs))),
+            4: lambda: list(pipe[4].map(iter(reqs))),
+            "pageable": lambda: list(pageable.map(iter(reqs)))}
+    runs["pageable"]()
+    rates = {k: [] for k in runs}
+    for turn in (*runs, *reversed(runs)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[turn]()
+        torch.cuda.synchronize()
+        rates[turn].append(PIPE_REQUESTS / (time.perf_counter() - t0))
+    names = {"sync": "synchronous loop", 1: "pipelined batch=1", 4: "pipelined batch=4",
+             "pageable": "pipelined batch=1 with pageable uploads"}
+    print(f"requests/s over 64 requests of B=1 T=29 (host clock, two turns each, in turns "
+          f"{list(runs)} then back): " + "; ".join(
+              f"{names[k]} " + " / ".join(f"{r:.1f}" for r in v) for k, v in rates.items()))
+    split = host_split(pipe[1], sync, reqs)
+    print(f"host ms per request: {split}")
+    n_traced = 1
+    events, busy_ms = busy_share(traced(lambda: list(pipe[1].map(iter(reqs))), n_traced),
+                                 n_traced, PIPE_REQUESTS / max(rates[1]) * 1e3,
+                                 f"pipelined batch=1 over {PIPE_REQUESTS} requests")
+    return dict(err=err, pipe_err=pipe_err, rates={str(k): v for k, v in rates.items()},
+                pipe_busy_ms=busy_ms, host_split=split)
+
+
+def host_split(pipe, sync, reqs):
+    """Host time per request, on the host clock: the pipelined loop split
+    into staging the upload, issuing the forward, packing a block and
+    waiting for its copy home; the synchronous loop into issuing the
+    forward and copying its result home (which waits for the card)."""
+    import torch
+
+    acc = {"pipelined": dict(upload=0.0, forward=0.0, pack=0.0, wait=0.0),
+           "sync": dict(forward=0.0, copy_home=0.0)}
+
+    def timed(key, fn):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            acc["pipelined"][key] += time.perf_counter() - t0
+            return out
+        return call
+
+    saved = {k: getattr(pipe, k) for k in ("_upload", "_serve", "_pack", "_unpack")}
+    pipe._upload, pipe._serve, pipe._pack = (timed("upload", saved["_upload"]),
+                                             timed("forward", saved["_serve"]),
+                                             timed("pack", saved["_pack"]))
+
+    def unpack(packed):
+        t0 = time.perf_counter()
+        if packed[1] is not None:  # the block's event (none off the card)
+            packed[1].synchronize()
+        acc["pipelined"]["wait"] += time.perf_counter() - t0
+        return saved["_unpack"](packed)
+
+    pipe._unpack = unpack
+    t0 = time.perf_counter()
+    list(pipe.map(iter(reqs)))
+    acc["pipelined"]["wall"] = time.perf_counter() - t0
+    for k, v in saved.items():
+        setattr(pipe, k, v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        t1 = time.perf_counter()
+        out = sync(*r)
+        acc["sync"]["forward"] += time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out.cpu()
+        acc["sync"]["copy_home"] += time.perf_counter() - t1
+    acc["sync"]["wall"] = time.perf_counter() - t0
+    return {loop: {k: round(v * 1e3 / len(reqs), 4) for k, v in parts.items()}
+            for loop, parts in acc.items()}
 
 
 def oulu_4stream():
@@ -2018,10 +2483,14 @@ def main() -> int:
     peep_err = max(peep_err, sweep_err["lstm_peep_fwd"])
     peep_train_err = max(peep_train_err, sweep_err["lstm_peep_fwd_train"])
     phase_chunks(dev)
+    state = phase_lstm_state(dev)
     launches, _ = phase_serve(dev)
     train_launches, _ = phase_train(dev)
     launches4, _ = phase_serve_4stream(dev)
     train_launches4, _ = phase_train_4stream(dev)
+    stream = phase_stream(dev)
+    buckets = phase_serve_buckets(dev)
+    print(json.dumps({"lstm_state": state, "stream": stream, "serve_buckets": buckets}))
     fit_launches, fit_epochs, fit4_launches, fit4_epochs, fit_timing = phase_fit(dev)
     print(json.dumps({"fit": fit_timing}))
 
@@ -2066,6 +2535,12 @@ def main() -> int:
                           else (fit_launches, fit_epochs))
         row.update(path_launches=row["launches"], launches=counts[row["name"]],
                    launches_per_fit_epoch=counts[row["name"]] / epochs)
+        # rows 1 and 5 with their final-cell output: launches in the
+        # streaming sessions of their model, error against the plain version
+        if row["name"] in state:
+            row.update(state_launches=next(m["launches"] for m in stream.values()
+                                           if m["row"] == row["name"]),
+                       state_max_abs_err=state[row["name"]]["err"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -71,7 +71,10 @@
 // Layouts are batch-major, the port's public layout, so no transpose is
 // needed: x_proj (B, T, 4H), mask (B, T), out (B, T, H), and the residuals
 // cells (B, T, H) and gates (B, T, 4H).  Step t reads h_{t-1} from
-// out[:, t-1] (or hid0 at t = 0, row stride H) and writes out[:, t].
+// out[:, t-1] (or hid0 at t = 0, row stride H) and writes out[:, t].  The
+// inference entry points can also write the final cell carry (B, H) after
+// the t loop, for a streaming caller that resumes from (cell_T, out[:, T-1]);
+// the training ones pass null and write none.
 //
 // Where trouble is likely, and what the code does about it (marked below):
 // [stale] out is written and read inside one launch, so h_{t-1} is never
@@ -154,7 +157,9 @@ __device__ __forceinline__ void transpose_level(float (&v)[kPairs], int lane) {
 // The whole recurrence.  Shared memory as in the header.  cell0 and hid0 are
 // (B, H); with EmitResiduals cells (B, T, H) and gates (B, T, 4H) receive the
 // residuals, otherwise those pointers are unused; with Peephole w_ci, w_cf
-// and w_co are the (H,) peephole vectors, otherwise unused.
+// and w_co are the (H,) peephole vectors, otherwise unused.  cell_last (B, H),
+// when not null, receives the cell carry after step T - 1 (the carried hidden
+// state is out[:, T - 1]), so a caller can resume the recurrence from it.
 template <bool EmitResiduals, bool Peephole, int U>
 __global__ void __launch_bounds__(kChainThreads)
 lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const float* __restrict__ w_hid,
@@ -162,8 +167,9 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const float* __restrict_
                       const float* __restrict__ hid0,
                       float* out,  // [stale] written and read here: not const, not restrict
                       float* __restrict__ cells, float* __restrict__ gates,
-                      const float* __restrict__ w_ci, const float* __restrict__ w_cf,
-                      const float* __restrict__ w_co, int B, int T, int H) {
+                      float* __restrict__ cell_last, const float* __restrict__ w_ci,
+                      const float* __restrict__ w_cf, const float* __restrict__ w_co, int B,
+                      int T, int H) {
   constexpr int C = 4 * U;       // the block's gate columns, col = gate * U + unit
   constexpr int CP = padded_columns(U);
   constexpr int R = kPairs / C;  // rows of a warp tile
@@ -329,6 +335,14 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const float* __restrict_
     // [order] [uniform] every block's out[:, t] before any block's next product
     grid.sync();
   }
+  // the final cell carry of the block's units; the last grid.sync() ordered
+  // every gate-stage write of c_s before these reads by other threads
+  if (cell_last != nullptr) {
+    for (int q = tid; q < BU; q += kChainThreads) {
+      const int u = q % U;
+      if (u < nu) cell_last[static_cast<size_t>(q / U) * H + j0 + u] = c_s[q];
+    }
+  }
 }
 
 size_t chain_smem_bytes(int B, int H, int U) {
@@ -339,14 +353,15 @@ size_t chain_smem_bytes(int B, int H, int U) {
 template <bool EmitResiduals, bool Peephole, int U>
 cudaError_t launch_chain(const float* x_proj, const float* w_hid, const float* mask,
                          const float* cell0, const float* hid0, float* out, float* cells,
-                         float* gates, const float* w_ci, const float* w_cf, const float* w_co,
-                         int B, int T, int H, size_t smem, cudaStream_t stream) {
+                         float* gates, float* cell_last, const float* w_ci, const float* w_cf,
+                         const float* w_co, int B, int T, int H, size_t smem,
+                         cudaStream_t stream) {
   const auto kernel = lstm_fwd_chain_kernel<EmitResiduals, Peephole, U>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   void* args[] = {&x_proj, &w_hid, &mask, &cell0, &hid0, &out, &cells,
-                  &gates, &w_ci, &w_cf, &w_co, &B, &T, &H};
+                  &gates, &cell_last, &w_ci, &w_cf, &w_co, &B, &T, &H};
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                      dim3((H + U - 1) / U), dim3(kChainThreads), args, smem,
                                      stream);
@@ -354,11 +369,12 @@ cudaError_t launch_chain(const float* x_proj, const float* w_hid, const float* m
 
 // Runs the whole recurrence of one instantiation on `stream`; see the entry
 // points.  cells and gates are null without EmitResiduals, `peep` (w_ci,
-// w_cf, w_co) is null without Peephole.
+// w_cf, w_co) is null without Peephole, cell_last may be null.
 template <bool EmitResiduals, bool Peephole>
 int run_chain(const void* x_proj, const void* w_hid, const void* mask, const void* cell0,
-              const void* hid0, void* out, void* cells, void* gates, const void* const* peep,
-              int B, int T, int H, int units, size_t smem, void* stream) {
+              const void* hid0, void* out, void* cells, void* gates, void* cell_last,
+              const void* const* peep, int B, int T, int H, int units, size_t smem,
+              void* stream) {
   if (smem < chain_smem_bytes(B, H, units)) return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* v) { return static_cast<const float*>(v); };
   const void* p[3] = {nullptr, nullptr, nullptr};
@@ -367,8 +383,9 @@ int run_chain(const void* x_proj, const void* w_hid, const void* mask, const voi
   }
   const auto go = [&](auto launcher) {
     return launcher(f(x_proj), f(w_hid), f(mask), f(cell0), f(hid0), static_cast<float*>(out),
-                    static_cast<float*>(cells), static_cast<float*>(gates), f(p[0]), f(p[1]),
-                    f(p[2]), B, T, H, smem, static_cast<cudaStream_t>(stream));
+                    static_cast<float*>(cells), static_cast<float*>(gates),
+                    static_cast<float*>(cell_last), f(p[0]), f(p[1]), f(p[2]), B, T, H, smem,
+                    static_cast<cudaStream_t>(stream));
   };
   cudaError_t err;
   switch (units) {
@@ -386,14 +403,15 @@ int run_chain(const void* x_proj, const void* w_hid, const void* mask, const voi
 // Runs all T steps on `stream` in one cooperative launch of ceil(H / units)
 // blocks, units in {1, 2, 4, 8}, with `smem` bytes of dynamic shared memory
 // (at least 4 * padded_columns(units) * H + 8 * B * units + 1024).  cell0 and
-// hid0 (B, H) are the initial state; writes out (B, T, H).  Returns the first CUDA error
-// (0 on success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be
+// hid0 (B, H) are the initial state; writes out (B, T, H) and, when cell_last
+// is not null, the final cell (B, H).  Returns the first CUDA error (0 on
+// success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be
 // co-resident).
 extern "C" int lstm_fwd_forward(const void* x_proj, const void* w_hid, const void* mask,
-                                const void* cell0, const void* hid0, void* out, int B, int T,
-                                int H, int units, size_t smem, void* stream) {
+                                const void* cell0, const void* hid0, void* out, void* cell_last,
+                                int B, int T, int H, int units, size_t smem, void* stream) {
   return run_chain<false, false>(x_proj, w_hid, mask, cell0, hid0, out, nullptr, nullptr,
-                                 nullptr, B, T, H, units, smem, stream);
+                                 cell_last, nullptr, B, T, H, units, smem, stream);
 }
 
 // The training forward: as lstm_fwd_forward, and also writes the residuals
@@ -403,18 +421,19 @@ extern "C" int lstm_fwd_train_forward(const void* x_proj, const void* w_hid, con
                                       void* cells, void* gates, int B, int T, int H, int units,
                                       size_t smem, void* stream) {
   return run_chain<true, false>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates, nullptr,
-                                B, T, H, units, smem, stream);
+                                nullptr, B, T, H, units, smem, stream);
 }
 
-// The peephole recurrence: as lstm_fwd_forward, with the (H,) peephole
-// vectors w_ci, w_cf and w_co.
+// The peephole recurrence: as lstm_fwd_forward (cell_last included), with
+// the (H,) peephole vectors w_ci, w_cf and w_co.
 extern "C" int lstm_fwd_peep_forward(const void* x_proj, const void* w_hid, const void* mask,
                                      const void* cell0, const void* hid0, void* out,
-                                     const void* w_ci, const void* w_cf, const void* w_co, int B,
-                                     int T, int H, int units, size_t smem, void* stream) {
+                                     void* cell_last, const void* w_ci, const void* w_cf,
+                                     const void* w_co, int B, int T, int H, int units,
+                                     size_t smem, void* stream) {
   const void* peep[3] = {w_ci, w_cf, w_co};
-  return run_chain<false, true>(x_proj, w_hid, mask, cell0, hid0, out, nullptr, nullptr, peep,
-                                B, T, H, units, smem, stream);
+  return run_chain<false, true>(x_proj, w_hid, mask, cell0, hid0, out, nullptr, nullptr,
+                                cell_last, peep, B, T, H, units, smem, stream);
 }
 
 // The peephole training forward: as lstm_fwd_peep_forward, and also writes
@@ -427,8 +446,8 @@ extern "C" int lstm_fwd_peep_train_forward(const void* x_proj, const void* w_hid
                                            const void* w_co, int B, int T, int H, int units,
                                            size_t smem, void* stream) {
   const void* peep[3] = {w_ci, w_cf, w_co};
-  return run_chain<true, true>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates, peep, B, T,
-                               H, units, smem, stream);
+  return run_chain<true, true>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates, nullptr,
+                               peep, B, T, H, units, smem, stream);
 }
 
 extern "C" const char* lstm_fwd_error_string(int code) {

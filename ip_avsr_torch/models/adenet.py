@@ -4,7 +4,10 @@ Mirrors ip_avsr_tpu/models/adenet.py: per stream, (B, T, D) -> optional dense
 encoder on (B*T, D) frames -> optional DeltaLayer (dim x3) -> optional stream
 LSTM; then fusion {sum | adasum | concat}; then an aggregator of
 (bi)directional LSTM layers whose halves are summed; then a per-timestep
-softmax ("per_step") or a last-timestep classifier ("last_step").
+softmax ("per_step") or a last-timestep classifier ("last_step").  The
+streaming head (``check_streamable``, ``streaming_init_state``,
+``head_forward_streaming``) advances a forward-only head chunk by chunk,
+every recurrence carrying (cell, hid) in and out of a state dict.
 
 ``StreamSpec`` and ``AdeNetConfig`` carry the JAX dataclasses' fields, field
 for field.  Values this slice does not cover raise ``NotImplementedError``
@@ -249,3 +252,73 @@ def head_forward(params, config: AdeNetConfig, stream_feats, mask, train=False,
         last = lstm_ops.last_valid_step(agg, mask)
         return torch.softmax(last @ w + b, dim=-1)
     raise ValueError(f"unknown output_mode: {config.output_mode}")
+
+
+# ---------------------------------------------------------------------------
+# Streaming (stateful) head: online serving, serve.StreamingSession
+# ---------------------------------------------------------------------------
+
+def check_streamable(config: AdeNetConfig) -> None:
+    """Raise ``ValueError`` if the recurrent head cannot be advanced chunk
+    by chunk: a bidirectional aggregator's backward half consumes the whole
+    utterance.  last_step heads stream (the score appears at finalize)."""
+    if config.agg_layers > 0 and config.agg_bidirectional:
+        raise ValueError(
+            "streaming requires a forward-only recurrent head: set "
+            "agg_bidirectional=False or agg_layers=0 (a BLSTM aggregator's "
+            "backward half consumes the whole utterance)")
+
+
+def streaming_init_state(params, config: AdeNetConfig, batch: int) -> dict:
+    """The initial (cell, hid) carries of every recurrence in the head,
+    (batch, H) float32 each on the parameters' device, broadcast from the
+    learned cell_init/hid_init as the one-shot forward broadcasts them:
+    ``{"streams": {name: (cell, hid)}, "aggregator": [(cell, hid), ...]}``."""
+    def init(p):
+        H = lstm_ops.lstm_params_hidden_size(p)
+        return tuple(p[k].to(torch.float32).expand(batch, H).contiguous()
+                     for k in ("cell_init", "hid_init"))
+
+    state = {"streams": {}, "aggregator": []}
+    for spec in config.streams:
+        if spec.use_lstm:
+            state["streams"][spec.name] = init(params["streams"][spec.name]["lstm"])
+    for layer in range(config.agg_layers):
+        if config.agg_bidirectional:
+            raise ValueError("streaming state is forward-only (check_streamable)")
+        state["aggregator"].append(init(params["aggregator"][layer]["fwd"]))
+    return state
+
+
+def head_forward_streaming(params, config: AdeNetConfig, stream_feats, mask,
+                           state) -> tuple:
+    """One streaming chunk through the recurrent head: per-stream LSTMs ->
+    fusion -> forward aggregator stack -> per-frame softmax, with every
+    recurrence resuming from ``state`` and handing back its final (cell,
+    hid).
+
+    The one-shot :func:`head_forward`'s ops, restricted to the streamable
+    subset (:func:`check_streamable`) with dropout off; masked steps carry
+    the state, so zero-mask chunk padding is free.  Returns ``(probs (B, n,
+    C), new_state)``; a last_step caller takes the last valid frame's
+    probabilities at finalize."""
+    check_streamable(config)
+    B, n = stream_feats[0].shape[0], stream_feats[0].shape[1]
+    new_state = {"streams": {}, "aggregator": []}
+    stream_outs = list(stream_feats)
+    for i, spec in enumerate(config.streams):
+        if spec.use_lstm:
+            stream_outs[i], new_state["streams"][spec.name] = lstm_ops.lstm_forward(
+                params["streams"][spec.name]["lstm"], stream_feats[i], mask,
+                initial_state=state["streams"][spec.name], return_state=True)
+
+    agg = fusion_ops.fuse(stream_outs, config.fusiontype, params.get("adasum"))
+    for layer in range(config.agg_layers):
+        agg, st = lstm_ops.lstm_forward(params["aggregator"][layer]["fwd"], agg, mask,
+                                        initial_state=state["aggregator"][layer],
+                                        return_state=True)
+        new_state["aggregator"].append(st)
+
+    w, b = params["output"]["w"], params["output"]["b"]
+    probs = torch.softmax(agg.reshape(B * n, -1) @ w + b, dim=-1)
+    return probs.reshape(B, n, config.output_classes), new_state

@@ -3,12 +3,17 @@
 Mirrors ip_avsr_tpu/models/zoo.py field for field for the builders the
 port's entry points reach: the flagship trimodal ``adenet_v3``, the generic
 N-stream ``adenet_nstream`` (peephole LSTMs by default; ``configs/
-oulu_4stream.ini`` builds it) and the three single-stream builders that
-``train/config.build_model_config`` calls.  The other zoo entries come with
-ROADMAP Queue 1 item 5.
+oulu_4stream.ini`` builds it), the three single-stream builders that
+``train/config.build_model_config`` calls, and the builders streaming
+serves: ``lstm_classifier_baseline``, the bimodal ``adenet_v2``,
+``adenet_v2_1``, their forward-aggregator variants ``adenet_v2_3`` and
+``adenet_v2_4``, and ``adenet_v4``.  The other zoo entries come with ROADMAP
+Queue 1 item 5.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from typing import Optional, Sequence
 
@@ -63,6 +68,85 @@ def lstm_classifier_majority_vote(input_dim, lstm_size=250, output_classes=26,
         output_classes=output_classes, lstm_size=lstm_size,
         agg_layers=1, agg_bidirectional=use_blstm, output_mode="per_step",
         w_init=w_init, use_peepholes=use_peepholes,
+    )
+
+
+def lstm_classifier_baseline(input_dim, lstm_size=250, output_classes=26,
+                             w_init="glorot", use_peepholes=False) -> AdeNetConfig:
+    """Raw-feature BLSTM + last-step classifier."""
+    return AdeNetConfig(
+        streams=[StreamSpec(input_dim=input_dim, name="s1", use_delta=False, use_lstm=False)],
+        output_classes=output_classes, lstm_size=lstm_size,
+        agg_layers=1, agg_bidirectional=True, output_mode="last_step",
+        w_init=w_init, use_peepholes=use_peepholes,
+    )
+
+
+def adenet_v2(input_dim, dct_dim, encoder_shapes=None, encoder_nonlinearities=None,
+              lstm_size=250, window=9, output_classes=26, fusiontype="sum",
+              w_init="glorot", use_peepholes=False) -> AdeNetConfig:
+    """Canonical bimodal raw+DCT: encoder -> delta, delta(DCT), per-stream
+    LSTMs, fusion, BLSTM aggregator, per-timestep softmax."""
+    return AdeNetConfig(
+        streams=[
+            _encoder_stream(input_dim, "raw", encoder_shapes, encoder_nonlinearities),
+            StreamSpec(input_dim=dct_dim, name="dct"),
+        ],
+        output_classes=output_classes, lstm_size=lstm_size, window=window,
+        fusiontype=fusiontype, agg_layers=1, agg_bidirectional=True,
+        output_mode="per_step", w_init=w_init, use_peepholes=use_peepholes,
+    )
+
+
+def adenet_v2_1(input_dim, diff_dim, lstm_size=250, window=9, output_classes=26,
+                fusiontype="sum", w_init="glorot", use_peepholes=True) -> AdeNetConfig:
+    """Raw + diff-image with two ReLU encoders."""
+    nl, sh = RELU_ENCODER
+    return AdeNetConfig(
+        streams=[
+            _encoder_stream(input_dim, "raw", sh, nl),
+            _encoder_stream(diff_dim, "diff", sh, nl),
+        ],
+        output_classes=output_classes, lstm_size=lstm_size, window=window,
+        fusiontype=fusiontype, agg_layers=1, agg_bidirectional=True,
+        output_mode="per_step", w_init=w_init, use_peepholes=use_peepholes,
+    )
+
+
+def adenet_v2_3(input_dim, dct_dim, encoder_shapes=None, encoder_nonlinearities=None,
+                lstm_size=250, window=9, output_classes=26, fusiontype="sum",
+                w_init="glorot", use_peepholes=True) -> AdeNetConfig:
+    """adenet_v2 with a unidirectional LSTM aggregator."""
+    cfg = adenet_v2(input_dim, dct_dim, encoder_shapes, encoder_nonlinearities,
+                    lstm_size, window, output_classes, fusiontype, w_init, use_peepholes)
+    return dataclasses.replace(cfg, agg_bidirectional=False)
+
+
+def adenet_v2_4(input_dim, diff_dim, lstm_size=250, window=9, output_classes=26,
+                fusiontype="sum", w_init="glorot", use_peepholes=True) -> AdeNetConfig:
+    """Raw + diff with a unidirectional aggregator."""
+    cfg = adenet_v2_1(input_dim, diff_dim, lstm_size, window, output_classes,
+                      fusiontype, w_init, use_peepholes)
+    return dataclasses.replace(cfg, agg_bidirectional=False)
+
+
+def adenet_v4(input_dim, dct_dim, encoder_shapes=None, encoder_nonlinearities=None,
+              lstm_size=250, window=9, output_classes=26, fusiontype="sum",
+              w_init="glorot", use_peepholes=False) -> AdeNetConfig:
+    """Raw+DCT dropout variant: stream LSTMs sized 2*lstm with input dropout
+    (0.5 delta / 0.2 DCT), unidirectional aggregator 2*lstm after dropout,
+    last-step classifier."""
+    return AdeNetConfig(
+        streams=[
+            _encoder_stream(input_dim, "raw", encoder_shapes, encoder_nonlinearities,
+                            dropout=0.5, lstm_size=lstm_size * 2),
+            StreamSpec(input_dim=dct_dim, name="dct", use_delta=False, dropout=0.2,
+                       lstm_size=lstm_size * 2),
+        ],
+        output_classes=output_classes, lstm_size=lstm_size, window=window,
+        fusiontype=fusiontype, agg_layers=1, agg_bidirectional=False,
+        agg_size=lstm_size * 2, agg_dropout=0.5,
+        output_mode="last_step", w_init=w_init, use_peepholes=use_peepholes,
     )
 
 

@@ -4,7 +4,10 @@ They replace the seven-row kernel table's LSTM rows, in
 ip_avsr_tpu/ops/pallas/lstm_kernel.py:
 
 * :func:`lstm_recurrence`: ``_lstm_fwd_kernel`` as launched by ``lstm_pallas``
-  (inference, no residuals);
+  (inference, no residuals), and :func:`lstm_recurrence_state`, the same
+  launch taking a per-row initial state and also giving back the final
+  cell (a streaming caller's carry; the JAX package runs that case as its
+  plain scan, ip_avsr_tpu/ops/lstm.py:178-181);
 * :func:`lstm_recurrence_train`: the same body as launched by
   ``lstm_pallas_train`` (also writes the training residuals);
 * :func:`lstm_bwd_chain`: ``_lstm_bwd_kernel`` as launched by
@@ -13,7 +16,9 @@ ip_avsr_tpu/ops/pallas/lstm_kernel.py:
   :func:`lstm_peep_bwd_chain`: their peephole twins, ``_lstm_peep_fwd_kernel``
   as launched by ``lstm_pallas_peep`` and ``lstm_pallas_peep_train``, and
   ``_lstm_peep_bwd_kernel`` as launched by ``lstm_pallas_peep_bwd_chain``
-  (the same CUDA bodies, instantiated with peepholes).
+  (the same CUDA bodies, instantiated with peepholes), and
+  :func:`lstm_peep_recurrence_state`, the peephole twin of
+  :func:`lstm_recurrence_state`.
 
 Each is bound by its serial chain of T steps, each needing all of W_hid and
 an exchange of state across the card; the kernels partition the hidden units
@@ -93,6 +98,22 @@ def lstm_recurrence_train_plain(x_proj, w_hid, mask, cell0, hid0):
     residual contract of ip_avsr_tpu/ops/lstm.py::_lstm_core_fwd_impl in the
     port's batch-major layout."""
     return _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, None)
+
+
+def lstm_recurrence_state_plain(x_proj, w_hid, mask, cell0, hid0):
+    """The recurrence with its final state, in plain PyTorch: inputs as
+    :func:`lstm_recurrence_plain`, returns ``(hids, cell_T)`` with cell_T
+    (B, H) the cell after the last step (the hidden one is hids[:, -1])."""
+    hids, cells, _ = _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, None)
+    return hids, cells[:, -1]
+
+
+def lstm_peep_recurrence_state_plain(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
+    """The peephole recurrence with its final state, in plain PyTorch:
+    inputs as :func:`lstm_peep_recurrence_plain`, returns ``(hids,
+    cell_T)`` as :func:`lstm_recurrence_state_plain` does."""
+    hids, cells, _ = _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, (w_ci, w_cf, w_co))
+    return hids, cells[:, -1]
 
 
 def lstm_peep_recurrence_plain(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
@@ -191,11 +212,11 @@ def lstm_peep_bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid,
 def _lib():
     lib = _build.load("lstm_fwd")
     chain_tail = [ctypes.c_int] * 4 + [ctypes.c_size_t, ctypes.c_void_p]
-    lib.lstm_fwd_forward.argtypes = [ctypes.c_void_p] * 6 + chain_tail
+    lib.lstm_fwd_forward.argtypes = [ctypes.c_void_p] * 7 + chain_tail
     lib.lstm_fwd_forward.restype = ctypes.c_int
     lib.lstm_fwd_train_forward.argtypes = [ctypes.c_void_p] * 8 + chain_tail
     lib.lstm_fwd_train_forward.restype = ctypes.c_int
-    lib.lstm_fwd_peep_forward.argtypes = [ctypes.c_void_p] * 9 + chain_tail
+    lib.lstm_fwd_peep_forward.argtypes = [ctypes.c_void_p] * 10 + chain_tail
     lib.lstm_fwd_peep_forward.restype = ctypes.c_int
     lib.lstm_fwd_peep_train_forward.argtypes = [ctypes.c_void_p] * 11 + chain_tail
     lib.lstm_fwd_peep_train_forward.restype = ctypes.c_int
@@ -341,11 +362,14 @@ def _peep_shapes(peep, H):
     return {name: (v, (H,)) for name, v in zip(("w_ci", "w_cf", "w_co"), peep)}
 
 
-def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None):
+def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, state=False):
     """Check the inputs and launch csrc/lstm_fwd.cu's inference entry point
-    (returns hids) or its training one (returns hids, cells, gates), with
-    peepholes when ``peep`` holds (w_ci, w_cf, w_co): one cooperative launch
-    per row chunk planned by :func:`fwd_launch_plan`.  For measurement,
+    (returns hids, or with ``state`` the tuple (hids, cell_T), the final
+    cell (B, H) that the kernel writes after its last step) or its training
+    one (returns hids, cells, gates), with peepholes when ``peep`` holds
+    (w_ci, w_cf, w_co): one cooperative launch per row chunk planned by
+    :func:`fwd_launch_plan`, each writing its rows of every output.  For
+    measurement,
     ``units`` and ``chunks`` force the plan's units per block and row chunks,
     and ``outs`` gives the output tensors to write (contiguous float32 of
     the output shapes, for example NaN-filled, so a value the kernel does
@@ -362,7 +386,8 @@ def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None):
         **_peep_shapes(peep, H)})
     dev = x_proj.device
     plan = fwd_launch_plan(B, H, _sm_count(dev.index), units, chunks)
-    shapes = [(B, T, H), (B, T, H), (B, T, 4 * H)][:3 if train else 1]
+    shapes = ([(B, T, H), (B, T, H), (B, T, 4 * H)] if train
+              else [(B, T, H), (B, H)] if state else [(B, T, H)])
     if outs is None:
         outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
     elif len(outs) != len(shapes):
@@ -378,14 +403,16 @@ def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch(x_c, mask_c, cell0_c, hid0_c, *outs_c):
+        ptrs = [o.data_ptr() for o in outs_c]
+        if not (train or state):
+            ptrs.append(None)  # no cell_last
         code = entry(x_c.data_ptr(), w_hid.data_ptr(), mask_c.data_ptr(), cell0_c.data_ptr(),
-                     hid0_c.data_ptr(), *(o.data_ptr() for o in outs_c),
-                     *(v.data_ptr() for v in peep), x_c.shape[0], T, H, plan.units,
-                     plan.smem_bytes, stream)
+                     hid0_c.data_ptr(), *ptrs, *(v.data_ptr() for v in peep), x_c.shape[0], T,
+                     H, plan.units, plan.smem_bytes, stream)
         _build.check(lib, "lstm_fwd", code)
 
     map_chunks(launch, plan.chunks, x_proj, mask, cell0, hid0, *outs)
-    return tuple(outs) if train else outs[0]
+    return tuple(outs) if train or state else outs[0]
 
 
 def _on_cpu(args) -> bool:
@@ -408,6 +435,23 @@ def lstm_recurrence(x_proj, w_hid, mask, cell0, hid0):
 
 
 lstm_recurrence.launches = 0
+
+
+def lstm_recurrence_state(x_proj, w_hid, mask, cell0, hid0):
+    """The masked recurrence from a per-row initial state, giving back the
+    final one: inputs as :func:`lstm_recurrence`, returns ``(hids, cell_T)``
+    as :func:`lstm_recurrence_state_plain` does; hid_T is ``hids[:, -1]``.
+
+    CPU tensors take the plain version; CUDA tensors launch the same kernel
+    as :func:`lstm_recurrence` with its final-cell output (one cooperative
+    launch per row chunk, the call counted once in
+    ``lstm_recurrence.launches``: it is that table row) or raise."""
+    args = (x_proj, w_hid, mask, cell0, hid0)
+    if _on_cpu(args):
+        return lstm_recurrence_state_plain(*args)
+    out = _run_fwd("lstm_recurrence_state", args, train=False, state=True)
+    lstm_recurrence.launches += 1
+    return out
 
 
 def lstm_recurrence_train(x_proj, w_hid, mask, cell0, hid0):
@@ -447,6 +491,24 @@ def lstm_peep_recurrence(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
 
 
 lstm_peep_recurrence.launches = 0
+
+
+def lstm_peep_recurrence_state(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
+    """The peephole recurrence from a per-row initial state, giving back the
+    final one: inputs as :func:`lstm_peep_recurrence`, returns ``(hids,
+    cell_T)`` as :func:`lstm_peep_recurrence_state_plain` does.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    peephole instantiation with its final-cell output (one cooperative
+    launch per row chunk, the call counted once in
+    ``lstm_peep_recurrence.launches``) or raise."""
+    args = (x_proj, w_hid, mask, cell0, hid0)
+    peep = (w_ci, w_cf, w_co)
+    if _on_cpu((*args, *peep)):
+        return lstm_peep_recurrence_state_plain(*args, *peep)
+    out = _run_fwd("lstm_peep_recurrence_state", args, train=False, peep=peep, state=True)
+    lstm_peep_recurrence.launches += 1
+    return out
 
 
 def lstm_peep_recurrence_train(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):

@@ -1,9 +1,10 @@
 """Masked LSTM / BLSTM with Lasagne-compatible semantics.
 
 Mirrors ip_avsr_tpu/ops/lstm.py (``init_lstm_params``, ``init_blstm_params``,
-``lstm_forward``, ``_lstm_prep``, the custom-VJP cores ``_lstm_core`` and
+``lstm_forward`` with its streaming options ``initial_state`` and
+``return_state``, ``_lstm_prep``, the custom-VJP cores ``_lstm_core`` and
 ``_lstm_core_peep`` with their primals, forwards and backwards,
-``blstm_forward``, ``last_valid_step``):
+``blstm_forward``, ``last_valid_step``, ``lstm_params_hidden_size``):
 
   * gate stacking order (ingate, forgetgate, cell, outgate) in ``w_in (D, 4H)``,
     ``w_hid (H, 4H)``, ``b (4H,)``; sigmoid gates, tanh cell input and output;
@@ -33,6 +34,13 @@ all (B, T) rows.  Peephole layers take the ``lstm_peep_*`` twins of those
 kernels, through :class:`_LSTMCorePeep`.  Each kernel wrapper runs its CUDA
 kernel on the card and its plain loop on the CPU, so the CPU takes the same
 Function.
+
+A streaming caller passes a per-row ``initial_state`` (cell, hid) and asks
+for the final one with ``return_state``.  Without a gradient the
+recurrence then runs ``lstm_recurrence_state`` (the same kernel, which also
+writes the final cell); with one, the same Functions take the per-row
+state, return the last step of their cells residual as cell_T, and give
+the initial state its per-row gradients.
 """
 
 from __future__ import annotations
@@ -43,8 +51,9 @@ import torch
 
 from ip_avsr_torch.ops import initializers as inits
 from ip_avsr_torch.ops.kernels.lstm import (lstm_bwd_chain, lstm_peep_bwd_chain,
-                                            lstm_peep_recurrence, lstm_peep_recurrence_train,
-                                            lstm_recurrence, lstm_recurrence_train)
+                                            lstm_peep_recurrence, lstm_peep_recurrence_state,
+                                            lstm_peep_recurrence_train, lstm_recurrence,
+                                            lstm_recurrence_state, lstm_recurrence_train)
 
 _PEEPHOLE_KEYS = ("w_cell_to_ingate", "w_cell_to_forgetgate", "w_cell_to_outgate")
 
@@ -79,11 +88,15 @@ def init_blstm_params(generator, input_dim: int, hidden: int,
                                   dtype=dtype) for _ in range(2))
 
 
+def lstm_params_hidden_size(params) -> int:
+    return params["w_hid"].shape[0]
+
+
 def _prep(w_in, b, cell_init, hid_init, x, mask, backwards):
     """The prologue of ip_avsr_tpu/ops/lstm.py::_lstm_prep: time flip, the
-    hoisted input projection plus bias, broadcast initial states.  Returns
-    (x, mask, x_proj, cell0, hid0) with x and mask flipped when
-    ``backwards``."""
+    hoisted input projection plus bias, initial states broadcast from (1, H)
+    (or taken as they are when (B, H)).  Returns (x, mask, x_proj, cell0,
+    hid0) with x and mask flipped when ``backwards``."""
     B, T, D = x.shape
     H = cell_init.shape[-1]
     if backwards:
@@ -95,11 +108,13 @@ def _prep(w_in, b, cell_init, hid_init, x, mask, backwards):
     return x.contiguous(), mask.contiguous(), x_proj, cell0, hid0
 
 
-def _batched_grads(need, w_in, x, hids, hid0, dgates, dcell0, dhid0, backwards):
+def _batched_grads(need, w_in, x, hids, hid0, dgates, dcell0, dhid0, backwards, per_row):
     """The weight and input gradients after a backward chain, as single
     products over all (B, T) rows: ``(dw_in, dw_hid, db, dcell_init,
     dhid_init, dx)``, each None where ``need`` (six booleans in that order)
-    says it is not wanted."""
+    says it is not wanted.  The initial state's gradients are the chain's
+    per row when ``per_row`` (a (B, H) state), else summed over the rows
+    (the learned (1, H) ``cell_init``/``hid_init``)."""
     B, T, H = hids.shape
     D = x.shape[-1]
     dg = dgates.reshape(B * T, 4 * H)
@@ -112,9 +127,9 @@ def _batched_grads(need, w_in, x, hids, hid0, dgates, dcell0, dhid0, backwards):
     if need[2]:
         db = dg.sum(dim=0)
     if need[3]:
-        dcell_init = dcell0.sum(dim=0, keepdim=True)
+        dcell_init = dcell0 if per_row else dcell0.sum(dim=0, keepdim=True)
     if need[4]:
-        dhid_init = dhid0.sum(dim=0, keepdim=True)
+        dhid_init = dhid0 if per_row else dhid0.sum(dim=0, keepdim=True)
     if need[5]:
         dx = (dg @ w_in.T).reshape(B, T, D)
         if backwards:
@@ -122,12 +137,44 @@ def _batched_grads(need, w_in, x, hids, hid0, dgates, dcell0, dhid0, backwards):
     return dw_in, dw_hid, db, dcell_init, dhid_init, dx
 
 
-def _chain_inputs(ctx, g_out, cells, cell0):
-    """The upstream gradient in the recurrence's time order, and cells_prev."""
+# a gate pre-activation that saturates sigmoid to exactly 0 or 1 in float32
+_SATURATE = 1e4
+
+
+def _chain_inputs(ctx, g_out, g_state, hids, gates_pre, cells, cell0, mask):
+    """The backward chain's inputs ``(g_out, gates_pre, cells, cells_prev,
+    mask)`` in the recurrence's time order.
+
+    ``g_state`` holds the upstream gradient of cell_T when the forward
+    returned the state and cell_T is used.  The chain starts its cell carry
+    at zero, so that gradient enters through one pass-through step appended
+    at t = T: valid, its gates saturated to i = 0, f = o = 1 with c = 0,
+    its cell 0 and its upstream gradient the one of cell_T.  Its gate
+    cotangents are then exactly 0 and it hands the chain a dcell of exactly
+    that gradient (o (1 - tanh(0)^2) = 1, f = 1), whatever the peepholes;
+    the caller drops its dgates."""
+    if g_out is None:
+        g_out = torch.zeros_like(hids)
     if ctx.backwards:
         g_out = torch.flip(g_out, dims=(1,))
     cells_prev = torch.cat([cell0[:, None], cells[:, :-1]], dim=1)
-    return g_out.contiguous(), cells_prev
+    g_cell = g_state[0] if g_state else None
+    if g_cell is None:
+        return g_out.contiguous(), gates_pre, cells, cells_prev, mask
+    B, _, H = cells.shape
+    sat = torch.tensor([-_SATURATE, _SATURATE, 0.0, _SATURATE], dtype=cells.dtype,
+                       device=cells.device).repeat_interleave(H)
+    return (torch.cat([g_out, g_cell[:, None]], dim=1).contiguous(),
+            torch.cat([gates_pre, sat.expand(B, 1, 4 * H)], dim=1),
+            torch.cat([cells, torch.zeros_like(cells[:, :1])], dim=1),
+            torch.cat([cells_prev, cells[:, -1:]], dim=1),
+            torch.cat([mask, torch.ones_like(mask[:, :1])], dim=1))
+
+
+def _outputs(ctx, hids, cells, return_state):
+    ctx.set_materialize_grads(False)
+    out = torch.flip(hids, dims=(1,)) if ctx.backwards else hids
+    return (out, cells[:, -1].clone()) if return_state else out
 
 
 class _LSTMCore(torch.autograd.Function):
@@ -135,24 +182,25 @@ class _LSTMCore(torch.autograd.Function):
     ``_lstm_core_bwd`` (ip_avsr_tpu/ops/lstm.py:375-588), non-peephole."""
 
     @staticmethod
-    def forward(ctx, w_in, w_hid, b, cell_init, hid_init, x, mask, backwards, clip):
+    def forward(ctx, w_in, w_hid, b, cell_init, hid_init, x, mask, backwards, clip,
+                return_state):
         w_hid = w_hid.contiguous()
         x, mask, x_proj, cell0, hid0 = _prep(w_in, b, cell_init, hid_init, x, mask,
                                              backwards)
         hids, cells, gates_pre = lstm_recurrence_train(x_proj, w_hid, mask, cell0, hid0)
         ctx.save_for_backward(w_in, w_hid, x, mask, hids, cells, gates_pre, cell0, hid0)
-        ctx.backwards, ctx.clip = backwards, clip
-        return torch.flip(hids, dims=(1,)) if backwards else hids
+        ctx.backwards, ctx.clip, ctx.per_row = backwards, clip, cell_init.shape[0] != 1
+        return _outputs(ctx, hids, cells, return_state)
 
     @staticmethod
-    def backward(ctx, g_out):
+    def backward(ctx, g_out, *g_state):
         w_in, w_hid, x, mask, hids, cells, gates_pre, cell0, hid0 = ctx.saved_tensors
-        g_out, cells_prev = _chain_inputs(ctx, g_out, cells, cell0)
-        dgates, dcell0, dhid0 = lstm_bwd_chain(g_out, gates_pre, cells, cells_prev, mask,
-                                               w_hid, ctx.clip)
-        grads = _batched_grads(ctx.needs_input_grad[:6], w_in, x, hids, hid0, dgates,
-                               dcell0, dhid0, ctx.backwards)
-        return (*grads, None, None, None)
+        chain = _chain_inputs(ctx, g_out, g_state, hids, gates_pre, cells, cell0, mask)
+        dgates, dcell0, dhid0 = lstm_bwd_chain(*chain, w_hid, ctx.clip)
+        grads = _batched_grads(ctx.needs_input_grad[:6], w_in, x, hids, hid0,
+                               dgates[:, :hids.shape[1]], dcell0, dhid0, ctx.backwards,
+                               ctx.per_row)
+        return (*grads, None, None, None, None)
 
 
 class _LSTMCorePeep(torch.autograd.Function):
@@ -164,7 +212,7 @@ class _LSTMCorePeep(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, w_in, w_hid, b, cell_init, hid_init, w_ci, w_cf, w_co, x, mask,
-                backwards, clip):
+                backwards, clip, return_state):
         w_hid = w_hid.contiguous()
         peep = tuple(v.contiguous() for v in (w_ci, w_cf, w_co))
         x, mask, x_proj, cell0, hid0 = _prep(w_in, b, cell_init, hid_init, x, mask,
@@ -173,56 +221,85 @@ class _LSTMCorePeep(torch.autograd.Function):
                                                             *peep)
         ctx.save_for_backward(w_in, w_hid, *peep, x, mask, hids, cells, gates_pre, cell0,
                               hid0)
-        ctx.backwards, ctx.clip = backwards, clip
-        return torch.flip(hids, dims=(1,)) if backwards else hids
+        ctx.backwards, ctx.clip, ctx.per_row = backwards, clip, cell_init.shape[0] != 1
+        return _outputs(ctx, hids, cells, return_state)
 
     @staticmethod
-    def backward(ctx, g_out):
+    def backward(ctx, g_out, *g_state):
         (w_in, w_hid, w_ci, w_cf, w_co, x, mask, hids, cells, gates_pre, cell0,
          hid0) = ctx.saved_tensors
-        g_out, cells_prev = _chain_inputs(ctx, g_out, cells, cell0)
+        chain = _chain_inputs(ctx, g_out, g_state, hids, gates_pre, cells, cell0, mask)
         dgates, dcell0, dhid0, dw_ci, dw_cf, dw_co = lstm_peep_bwd_chain(
-            g_out, gates_pre, cells, cells_prev, mask, w_hid, w_ci, w_cf, w_co, ctx.clip)
+            *chain, w_hid, w_ci, w_cf, w_co, ctx.clip)
         need = ctx.needs_input_grad
         dw_in, dw_hid, db, dcell_init, dhid_init, dx = _batched_grads(
-            (*need[:5], need[8]), w_in, x, hids, hid0, dgates, dcell0, dhid0, ctx.backwards)
+            (*need[:5], need[8]), w_in, x, hids, hid0, dgates[:, :hids.shape[1]], dcell0,
+            dhid0, ctx.backwards, ctx.per_row)
         return (dw_in, dw_hid, db, dcell_init, dhid_init, dw_ci, dw_cf, dw_co, dx,
-                None, None, None)
+                None, None, None, None)
 
 
 def lstm_forward(params: dict, x: torch.Tensor,
                  mask: Optional[torch.Tensor] = None,
                  backwards: bool = False,
-                 grad_clipping: float = 5.0) -> torch.Tensor:
+                 grad_clipping: float = 5.0,
+                 initial_state=None,
+                 return_state: bool = False):
     """Run a masked LSTM over ``x`` (B, T, D); returns hidden states (B, T, H).
 
     Parameters with the three peephole vectors run the peephole recurrence.
-    When autograd is on and ``x`` or a parameter requires a gradient, the
-    call goes through :class:`_LSTMCore` (or :class:`_LSTMCorePeep`), whose
-    backward clips the gate pre-activation gradients to +-``grad_clipping``
-    (0 or None: no clip).  Otherwise it runs the inference recurrence, which
-    stores no residuals (as ``_lstm_core_primal_impl`` and
-    ``_lstm_core_peep_primal_impl`` do)."""
+    When autograd is on and ``x``, a parameter or the initial state requires
+    a gradient, the call goes through :class:`_LSTMCore` (or
+    :class:`_LSTMCorePeep`), whose backward clips the gate pre-activation
+    gradients to +-``grad_clipping`` (0 or None: no clip).  Otherwise it
+    runs the inference recurrence, which stores no residuals (as
+    ``_lstm_core_primal_impl`` and ``_lstm_core_peep_primal_impl`` do).
+
+    ``initial_state`` ((B, H) cell, (B, H) hid) replaces the learned
+    ``cell_init``/``hid_init`` broadcast, and ``return_state=True`` makes
+    the call return ``(out, (cell_T, hid_T))``: together they advance the
+    recurrence chunk by chunk with the one-shot result (masked steps carry
+    the state, so zero-mask chunk padding changes nothing).  Either option
+    with ``backwards=True`` raises ``ValueError``, as in the JAX package."""
     B, T, D = x.shape
+    stateful = initial_state is not None or return_state
+    if stateful and backwards:
+        raise ValueError("initial_state/return_state require a forward recurrence "
+                         "(backwards=True has no streamable carry)")
     if mask is None:
         mask = torch.ones((B, T), dtype=torch.float32, device=x.device)
     mask = mask.to(torch.float32)
-    keys = ("w_in", "w_hid", "b", "cell_init", "hid_init")
-    tensors = [params[k] for k in keys]
+    if initial_state is not None:
+        H = lstm_params_hidden_size(params)
+        cell0, hid0 = (s.to(torch.float32).contiguous() for s in initial_state)
+        if cell0.shape != (B, H) or hid0.shape != (B, H):
+            raise ValueError(f"initial_state must be two ({B}, {H}) tensors, got "
+                             f"{tuple(cell0.shape)} and {tuple(hid0.shape)}")
+    else:
+        cell0, hid0 = params["cell_init"], params["hid_init"]
+    tensors = [params["w_in"], params["w_hid"], params["b"], cell0, hid0]
     peep = [params[k] for k in _PEEPHOLE_KEYS] if _PEEPHOLE_KEYS[0] in params else []
     if torch.is_grad_enabled() and any(t.requires_grad for t in (*tensors, *peep, x)):
         core = _LSTMCorePeep if peep else _LSTMCore
-        return core.apply(*tensors, *peep, x, mask, bool(backwards),
-                          float(grad_clipping or 0.0))
-    _, mask, x_proj, cell0, hid0 = _prep(params["w_in"], params["b"], params["cell_init"],
-                                         params["hid_init"], x, mask, backwards)
-    w_hid = params["w_hid"].contiguous()
-    if peep:
-        out = lstm_peep_recurrence(x_proj, w_hid, mask, cell0, hid0,
-                                   *(v.contiguous() for v in peep))
+        res = core.apply(*tensors, *peep, x, mask, bool(backwards),
+                         float(grad_clipping or 0.0), bool(return_state))
     else:
-        out = lstm_recurrence(x_proj, w_hid, mask, cell0, hid0)
-    return torch.flip(out, dims=(1,)) if backwards else out
+        _, mask, x_proj, cell0, hid0 = _prep(params["w_in"], params["b"], cell0, hid0, x,
+                                             mask, backwards)
+        w_hid = params["w_hid"].contiguous()
+        peep = [v.contiguous() for v in peep]
+        if return_state:
+            state_fn = lstm_peep_recurrence_state if peep else lstm_recurrence_state
+            res = state_fn(x_proj, w_hid, mask, cell0, hid0, *peep)
+        else:
+            fn = lstm_peep_recurrence if peep else lstm_recurrence
+            out = fn(x_proj, w_hid, mask, cell0, hid0, *peep)
+            res = torch.flip(out, dims=(1,)) if backwards else out
+    if not return_state:
+        return res
+    out, cell_T = res
+    # the kernel reads hid0 with row stride H: hand on a contiguous copy
+    return out, (cell_T, out[:, -1].contiguous())
 
 
 def blstm_forward(fwd_params: dict, bwd_params: dict, x: torch.Tensor,
