@@ -112,10 +112,26 @@ Phases, each fatal on failure:
    model of configs/oulu_4stream.ini through the same Trainer for 2 epochs
    of 3 steps (6 peephole training recurrences and backward chains per
    step, 6 peephole inference recurrences per evaluation forward);
-13. print the fit's numbers, the kernels line (each row's launches in the
+13. export (``phase_export``): the full-width flagship raw-pixel server
+   (symbolic B and T) exported on the card and again on the CPU, the
+   full-width 4-stream server (symbolic; f32, and bf16 weights on per-step
+   probabilities), a pinned B = 8, T = 29 flagship artifact and an
+   adenet_v4 streaming artifact, each written to a temporary directory,
+   loaded onto the card and held against its live server (2e-5; bf16 2e-3
+   with the same argmax on frames whose top-2 gap exceeds 4e-3; the pinned
+   one refusing B = 1), also on requests with swapped axes (numpy and on
+   the card), with exactly 5 row-1 (flagship) or 6 row-5 (4-stream)
+   launches and 1 delta launch per artifact forward and 3 row-1 launches
+   per streaming advance; a traced artifact forward holds those kernels
+   and no host-to-device copy beyond the inputs' upload; export seconds,
+   artifact bytes, host medians of artifact and live server in turns, busy
+   shares; the operators' host cost, per kernel call and per live request
+   (through the operators against straight launches, in turns);
+14. print the fit's numbers, the kernels line (each row's launches in the
    fits and per fit epoch, beside its serve or train path's count; rows 1
    and 5 also their launches in the streaming sessions and the state
-   output's error), then ``{"ok": true, "device": ...}`` last.
+   output's error; rows 1, 2 and 5 their launches through the artifacts),
+   then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a CUDA device or without the package beside it.
 
@@ -137,6 +153,7 @@ turn its own process:
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -2059,6 +2076,414 @@ def ab_run(dev):
     return out
 
 
+EXPORT_SIZES = [(B, T) for B in (1, 8) for T in (T_FRAMES, 14)]
+# bf16-stored weights against the f32 live server (each weight rounded to
+# bf16 once) on per-step probabilities of about 0.1: 4.3x the largest
+# difference read at full width (4.64e-4, NVIDIA H100 80GB HBM3, 700 W); and
+# the top-2 gap of a frame on which the argmax must agree, fixed at twice
+# the limit (a frame within it may flip without any probability being off
+# by more than the limit)
+EXPORT_BF16_TOL = 2e-3
+EXPORT_CLEAR_GAP = 2 * EXPORT_BF16_TOL
+
+
+def export_requests(kind, cfg, sizes, seed):
+    """Seeded requests as a user hands them to a server: uint8 pixels
+    (``kind`` "raw") or float32 features per stream (numpy), ragged float32
+    masks (lengths 1..T, the first full) at each (B, T) of ``sizes``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for B, T in sizes:
+        lens = rng.randint(1, T + 1, B)
+        lens[0] = T
+        mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+        if kind == "raw":
+            x = rng.randint(0, 256, (B, T, IMAGE_SHAPE[0] * IMAGE_SHAPE[1])).astype(np.uint8)
+        else:
+            x = [rng.randn(B, T, s.input_dim).astype(np.float32) for s in cfg.streams]
+        out.append((x, mask))
+    return out
+
+
+def check_artifact(label, art, live, requests, row, per_forward, totals, tol=SCORE_TOL):
+    """Hold ``art`` (a loaded ``ExportedServer``) against ``live`` on each
+    request (within ``tol``; with ``tol`` above SCORE_TOL, the bf16 case on
+    per-step probabilities, also the same argmax on every valid frame whose
+    top-2 gap exceeds :data:`EXPORT_CLEAR_GAP`), counting the artifact's
+    launches: each forward must
+    add exactly ``per_forward`` of ``row`` and one grouped delta launch, and
+    nothing else; they are added to ``totals``.  Returns the largest
+    difference."""
+    import torch
+
+    live(*requests[0])  # warm-up
+    torch.cuda.synchronize()
+    err = 0.0
+    for req in requests:
+        want = live(*req)
+        reset_launches()
+        got = art(*req)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        expect_launches(launches, delta=1, **{row: per_forward})
+        for k, v in launches.items():
+            totals[k] += v
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: bad scores {tuple(got.shape)}")
+        e = (got - want).abs().max().item()
+        B, T = req[1].shape
+        flips = ""
+        if tol > SCORE_TOL:
+            top2 = want.topk(2, dim=-1).values
+            clear = ((top2[..., 0] - top2[..., 1]) > EXPORT_CLEAR_GAP) & (
+                torch.as_tensor(req[1]) > 0).to(want.device)
+            flipped = int((got.argmax(-1) != want.argmax(-1))[clear].sum())
+            flips = f"; argmax differs on {flipped} of {int(clear.sum())} clear frames"
+        else:
+            flipped = 0
+        print(f"{label} B={B} T={T}: |artifact - live server| {e:.2e}{flips}; launches "
+              f"{launches}")
+        if not e <= tol or flipped:
+            raise AssertionError(f"{label}: the artifact disagrees with the live server")
+        err = max(err, e)
+    return err
+
+
+def host_turns(label, fns, req):
+    """Host medians (``host_median_ms``: 25 calls after 5) of each of
+    ``fns`` (name -> server) on ``req``, in turns a, b, b, a."""
+    names = list(fns) + list(fns)[::-1]
+    times = {k: [] for k in fns}
+    for k in names:
+        times[k].append(host_median_ms(lambda: fns[k](*req)))
+    B, T = req[1].shape
+    print(f"{label} B={B} T={T}: host median per request (ms, in turns) "
+          + ", ".join(f"{k} {' / '.join(f'{t:.3f}' for t in v)}" for k, v in times.items()))
+    return times
+
+
+def trace_artifact(label, art, req, row, per_forward, median_ms):
+    """Trace five forwards of ``art``: ``per_forward`` launches of ``row``'s
+    instantiation and one of ``delta_group_kernel`` each, nothing of the
+    other rows, and no host-to-device copy beyond the request's own upload
+    (one per input array): a tensor the program left on the CPU would be
+    copied in each call.  Returns (busy ms, busy share of ``median_ms``, or
+    None without one)."""
+    from torch.autograd import DeviceType
+
+    n = 5
+    events, busy_ms = busy_share(traced(lambda: art(*req), n), n, median_ms, label, rows=10)
+    expect_traced(events, n, label, delta=1, **{row: per_forward})
+    htod = sum(e.count for e in events if e.device_type == DeviceType.CUDA
+               and e.key.startswith("Memcpy HtoD")) / n
+    inputs = 1 + (1 if art.input_kind == "raw" else len(art.stream_dims))
+    print(f"{label}: {htod:.1f} host-to-device copies per request ({inputs} input arrays)")
+    if htod != inputs:
+        raise AssertionError(f"{label}: {htod} host-to-device copies per request, expected "
+                             f"{inputs} (the inputs' upload)")
+    return busy_ms, busy_ms / median_ms if median_ms else None
+
+
+def op_host_us(dev):
+    """Host time of one row-1 call (B = 1, T = 29, H = 500) through its
+    operator ``ip_avsr::lstm_recurrence`` against the same launch made
+    straight through ``_run_fwd``, in turns (a, b, b, a), under
+    ``torch.inference_mode()`` as both served paths run: the dispatcher's
+    cost per kernel call, which the live and exported paths both pay."""
+    import torch
+
+    from ip_avsr_torch.ops.kernels import lstm as kl
+
+    gen = torch.Generator().manual_seed(SEED + 43)
+    H = 500
+    args = [t.to(dev) for t in (torch.randn(1, T_FRAMES, 4 * H, generator=gen),
+                                torch.randn(H, 4 * H, generator=gen) * 0.05,
+                                torch.ones(1, T_FRAMES), torch.zeros(1, H),
+                                torch.zeros(1, H))]
+    fns = {"operator": lambda: kl.lstm_recurrence(*args),
+           "direct": lambda: kl._run_fwd("lstm_recurrence", args, train=False)}
+    times = {k: [] for k in fns}
+    with torch.inference_mode():
+        for k in ("operator", "direct", "direct", "operator"):
+            times[k].append(host_us(fns[k]))
+    print("row 1 host time per call under inference_mode (us, median of 200 enqueues, in "
+          "turns): "
+          + ", ".join(f"{k} {' / '.join(f'{t:.1f}' for t in v)}" for k, v in times.items()))
+    return times
+
+
+@contextlib.contextmanager
+def direct_launches():
+    """Within it the live serve path makes its kernel calls straight through
+    the launches (``_run_fwd``, the delta's ``_check`` and ``_launch``),
+    counted as the operators count them, not through the ``ip_avsr::``
+    operators: a request as it would cost without the dispatcher."""
+    from ip_avsr_torch.ops import lstm as ops_lstm
+    from ip_avsr_torch.ops.kernels import delta as kd
+    from ip_avsr_torch.ops.kernels import lstm as kl
+
+    def recurrence(name, counter):
+        def call(x_proj, w_hid, mask, cell0, hid0, *peep):
+            out = kl._run_fwd(name, (x_proj, w_hid, mask, cell0, hid0), train=False, peep=peep)
+            counter.launches += 1
+            return out
+        return call
+
+    def delta_group(xs, window, outs=None):
+        xs = list(xs)
+        kd._check(xs, window)
+        return kd._launch(xs, window, outs)
+
+    saved = ops_lstm.lstm_recurrence, ops_lstm.lstm_peep_recurrence, kd.append_delta_group
+    ops_lstm.lstm_recurrence = recurrence("lstm_recurrence", kl.lstm_recurrence)
+    ops_lstm.lstm_peep_recurrence = recurrence("lstm_peep_recurrence", kl.lstm_peep_recurrence)
+    kd.append_delta_group = delta_group
+    try:
+        yield
+    finally:
+        ops_lstm.lstm_recurrence, ops_lstm.lstm_peep_recurrence, kd.append_delta_group = saved
+
+
+def ops_turns(label, live, req, row, per_forward, turns=8, calls=50):
+    """The live server's host median per request (``host_median_ms``,
+    ``calls`` after 5) with its kernel calls through the operators against
+    the same calls made straight (:func:`direct_launches`), in ``turns``
+    alternating turns (a, b, b, a, ...) in this process; both must give the
+    same scores and the same launches.  Returns {"operators": [ms],
+    "direct": [ms]}."""
+    import torch
+
+    outs, times = {}, {"operators": [], "direct": []}
+    order = [("operators", "direct", "direct", "operators")[i % 4] for i in range(turns)]
+    for k in ("operators", "direct") + tuple(order):
+        with direct_launches() if k == "direct" else contextlib.nullcontext():
+            if k not in outs:  # the first of each: its scores and launches
+                reset_launches()
+                outs[k] = live(*req)
+                torch.cuda.synchronize()
+                expect_launches(read_launches(), delta=1, **{row: per_forward})
+                continue
+            times[k].append(host_median_ms(lambda: live(*req), calls=calls))
+    if not torch.equal(outs["operators"], outs["direct"]):
+        raise AssertionError(f"{label}: the direct launches changed the scores")
+    B, T = req[1].shape
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"{label} B={B} T={T}: live server host median per request (ms, {turns} turns of "
+          f"{calls} calls): " + ", ".join(f"{k} {' / '.join(f'{t:.3f}' for t in v)}"
+                                          for k, v in times.items())
+          + f"; medians {med['operators']:.4f} / {med['direct']:.4f}, the operators' cost "
+          f"{(med['operators'] - med['direct']) * 1e3:.1f} us per request")
+    return times
+
+
+def check_strided(label, art, live, req, row, per_forward):
+    """Feed ``art`` the request as dense arrays with swapped axes (a
+    time-major array viewed as (B, T, .)), numpy and on the card, and hold
+    its scores against ``live``'s on the contiguous request: the artifact
+    must upload contiguous rows for the operators.  Returns the largest
+    difference."""
+    import numpy as np
+    import torch
+
+    def swapped(a):
+        return np.ascontiguousarray(np.swapaxes(a, 0, 1)).swapaxes(0, 1)
+
+    x, mask = req
+    want = live(x, mask)
+    err = 0.0
+    for kind, conv in (("numpy", swapped),
+                       ("cuda", lambda a: torch.from_numpy(np.ascontiguousarray(
+                           np.swapaxes(a, 0, 1))).to(want.device).transpose(0, 1))):
+        xs = conv(x) if isinstance(x, np.ndarray) else [conv(a) for a in x]
+        m = conv(mask)
+        leaves = [xs, m] if isinstance(x, np.ndarray) else [*xs, m]
+        if any((v.flags.c_contiguous if isinstance(v, np.ndarray) else v.is_contiguous())
+               for v in leaves if v.shape[0] > 1):
+            raise AssertionError(f"{label}: the strided request is contiguous")
+        reset_launches()
+        got = art(xs, m)
+        torch.cuda.synchronize()
+        expect_launches(read_launches(), delta=1, **{row: per_forward})
+        e = (got - want).abs().max().item()
+        print(f"{label} strided {kind} request B={mask.shape[0]} T={mask.shape[1]}: "
+              f"|artifact - live server on the contiguous request| {e:.2e}")
+        if not e <= SCORE_TOL:
+            raise AssertionError(f"{label}: a strided request changed the artifact's scores")
+        err = max(err, e)
+    return err
+
+
+def phase_export(dev):
+    """Export (``ip_avsr_torch.export``): five artifacts written to a
+    temporary directory and loaded onto the card, each held against the
+    live server it was traced from, with every launch counted.  The
+    full-width flagship raw-pixel server (symbolic B and T) traced on the
+    card and again on the CPU (then moved to the card by the loader); the
+    full-width 4-stream peephole server of configs/oulu_4stream.ini
+    (symbolic), with f32 and bf16 weights; a pinned B = 8, T = 29 flagship
+    artifact (which must refuse another shape); an adenet_v4 streaming
+    artifact against the live ``StreamingSession`` and the one-shot server.
+    The symbolic f32 artifacts also take requests with swapped axes
+    (:func:`check_strided`).  Prints each export's seconds and bytes, the
+    host medians of artifact and live server in turns, each traced
+    artifact's busy share, and the host cost of the operators per kernel
+    call (:func:`op_host_us`) and per live request (:func:`ops_turns`).
+    Returns
+    {numbers}, with the launches of each row through the artifacts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch import export as export_lib
+    from ip_avsr_torch.device import tree_to
+    from ip_avsr_torch.models import adenet, zoo
+    from ip_avsr_torch.serve import StreamingSession, make_server, make_trimodal_server
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    result = {"exports": {}, "err": {}, "host_ms": {}, "busy": {}, "op_host_us": op_host_us(dev),
+              "strided_err": {}, "ops_ms": {}}
+    totals = {row: 0 for row in KERNEL_COUNTERS}
+
+    def export(name, save, *args, **kw):
+        path = os.path.join(tmp, f"{name}.ipax")
+        t0 = time.perf_counter()
+        save(path, *args, **kw)
+        secs = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        print(f"export {name}: {secs:.2f} s, {size} bytes")
+        result["exports"][name] = {"s": secs, "bytes": size}
+        return path
+
+    try:
+        tri = dict(image_shape=IMAGE_SHAPE, dct_coeffs=DCT)
+        cfg = flagship()
+        params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 40), cfg,
+                                           device=dev)
+        live = make_trimodal_server(params, cfg, device=dev, **tri)
+        requests = export_requests("raw", cfg, EXPORT_SIZES, SEED + 40)
+        cpu = torch.device("cpu")
+        req8 = next(r for r in requests if r[1].shape == (8, T_FRAMES))
+        for name, trace_dev in (("flagship", dev), ("flagship_cpu_traced", cpu)):
+            # traced on the CPU from parameters there, moved by the loader
+            path = export(name, export_lib.save_artifact, tree_to(params, trace_dev), cfg,
+                          trimodal=tri, device=trace_dev)
+            art = export_lib.load_server(path, device=dev)
+            result["err"][name] = check_artifact(name, art, live, requests, "lstm_fwd", 5,
+                                                 totals)
+            median = None
+            if name == "flagship":
+                result["strided_err"][name] = check_strided(name, art, live, req8, "lstm_fwd",
+                                                            5)
+                for B in (1, 8):
+                    req = next(r for r in requests if r[1].shape == (B, T_FRAMES))
+                    result["host_ms"][f"{name} B={B}"] = host_turns(
+                        name, {"artifact": art, "live": live}, req)
+                    result["ops_ms"][f"{name} B={B}"] = ops_turns(name, live, req, "lstm_fwd",
+                                                                  5)
+                median = statistics.median(result["host_ms"][f"{name} B=8"]["artifact"])
+            result["busy"][name] = trace_artifact(f"{name} artifact B=8", art, req8,
+                                                  "lstm_fwd", 5, median)
+
+        path = export("flagship_pinned", export_lib.save_artifact, params, cfg, trimodal=tri,
+                      batch=8, time=T_FRAMES, device=dev)
+        art = export_lib.load_server(path, device=dev)
+        pinned = [r for r in requests if r[1].shape == (8, T_FRAMES)]
+        result["err"]["flagship_pinned"] = check_artifact("flagship_pinned", art, live, pinned,
+                                                          "lstm_fwd", 5, totals)
+        try:
+            art(*requests[1])
+        except Exception as e:  # the exported program's shape check
+            print(f"flagship_pinned refuses B=1 T={T_FRAMES}: {type(e).__name__}")
+        else:
+            raise AssertionError("the pinned artifact served another shape")
+
+        cfg4, _ = oulu_4stream()
+        params4 = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 41), cfg4,
+                                            device=dev)
+        live4 = make_server(params4, cfg4, device=dev)
+        live4_probs = make_server(params4, cfg4, vote=False, device=dev)
+        requests4 = export_requests("streams", cfg4, [(1, T_FRAMES), (1, 14),
+                                                      (TRAIN_B, T_FRAMES), (TRAIN_B, 14)],
+                                    SEED + 41)
+        # the bf16 artifact's per-step probabilities: a vote over near-uniform
+        # random-weight frames flips with any perturbation
+        for name, wd, tol, vote_live in (("4stream", None, SCORE_TOL, live4),
+                                         ("4stream_bf16", "bfloat16", EXPORT_BF16_TOL,
+                                          live4_probs)):
+            path = export(name, export_lib.save_artifact, params4, cfg4, weights_dtype=wd,
+                          vote=wd is None, device=dev)
+            art = export_lib.load_server(path, device=dev)
+            result["err"][name] = check_artifact(name, art, vote_live, requests4,
+                                                 "lstm_peep_fwd", 6, totals, tol)
+            if wd is None:
+                req = next(r for r in requests4 if r[1].shape == (TRAIN_B, T_FRAMES))
+                result["strided_err"][name] = check_strided(name, art, live4, req,
+                                                            "lstm_peep_fwd", 6)
+                for B in (1, TRAIN_B):
+                    req = next(r for r in requests4 if r[1].shape == (B, T_FRAMES))
+                    result["host_ms"][f"{name} B={B}"] = host_turns(
+                        name, {"artifact": art, "live": live4}, req)
+                    result["ops_ms"][f"{name} B={B}"] = ops_turns(name, live4, req,
+                                                                  "lstm_peep_fwd", 6)
+                median = statistics.median(result["host_ms"][f"{name} B={TRAIN_B}"]["artifact"])
+                req = next(r for r in requests4 if r[1].shape == (TRAIN_B, T_FRAMES))
+                result["busy"][name] = trace_artifact(f"{name} artifact B={TRAIN_B}", art, req,
+                                                      "lstm_peep_fwd", 6, median)
+
+        cfg_s = zoo.adenet_v4(1144, 90, output_classes=10)
+        params_s = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 42), cfg_s,
+                                             device=dev)
+        path = export("adenet_v4_streaming", export_lib.save_streaming_artifact, params_s,
+                      cfg_s, device=dev)
+        loaded = export_lib.load_streaming_artifact(path, device=dev)
+        advances = [0]
+        advance = loaded._advance
+
+        def counted(*a):
+            advances[0] += 1
+            return advance(*a)
+
+        loaded._advance = counted
+        template = StreamingSession(params_s, cfg_s, device=dev)
+        one_shot = make_server(params_s, cfg_s, vote=False, device=dev)
+        rng = np.random.RandomState(SEED + 42)
+        err = 0.0
+        for T in (T_FRAMES, 14):
+            xs = [rng.randn(1, T, s.input_dim).astype(np.float32) for s in cfg_s.streams]
+            frames = {}
+            for kind, sess in (("live", template.fresh()), ("artifact", loaded.new_session())):
+                advances[0] = 0
+                reset_launches()
+                got = [f for t in range(T) for f in sess.feed([x[:, t: t + 1] for x in xs])]
+                tail, last = sess.finalize()
+                torch.cuda.synchronize()
+                launches = read_launches()
+                if kind == "artifact":
+                    for row, n in launches.items():
+                        totals[row] += n
+                    expect_launches(launches, lstm_fwd=3 * advances[0])
+                frames[kind] = (np.concatenate([np.stack(got, axis=1), tail], axis=1)
+                                if got else tail, last)
+            (a, a_last), (b, _) = frames["artifact"], frames["live"]
+            ref = one_shot(xs, np.ones((1, T), np.float32)).cpu().numpy()
+            e_live = float(np.abs(a - b).max())
+            e_one = float(np.abs(a_last - ref).max())
+            print(f"adenet_v4 streaming artifact T={T}: {advances[0]} advances, launches "
+                  f"{launches}; |artifact - live session| {e_live:.2e} over every frame, "
+                  f"|last frame - one-shot server| {e_one:.2e}")
+            if a.shape != (1, T, 10) or not max(e_live, e_one) <= SCORE_TOL:
+                raise AssertionError("the streaming artifact disagrees")
+            err = max(err, e_live, e_one)
+        result["err"]["adenet_v4_streaming"] = err
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["launches"] = totals
+    return result
+
+
 # configs/oulu_trimodal.ini's [training] schedule as phase_fit cuts it, and
 # the split it trains on: seeded features, lengths 5-29 (the first 29)
 TRIMODAL_INI = os.path.join("configs", "oulu_trimodal.ini")
@@ -2493,6 +2918,8 @@ def main() -> int:
     print(json.dumps({"lstm_state": state, "stream": stream, "serve_buckets": buckets}))
     fit_launches, fit_epochs, fit4_launches, fit4_epochs, fit_timing = phase_fit(dev)
     print(json.dumps({"fit": fit_timing}))
+    export = phase_export(dev)
+    print(json.dumps({"export": export}))
 
     pallas = "ip_avsr_tpu/ops/pallas/lstm_kernel.py"
     fwd_src, bwd_src = "ip_avsr_torch/csrc/lstm_fwd.cu", "ip_avsr_torch/csrc/lstm_bwd.cu"
@@ -2541,6 +2968,9 @@ def main() -> int:
             row.update(state_launches=next(m["launches"] for m in stream.values()
                                            if m["row"] == row["name"]),
                        state_max_abs_err=state[row["name"]]["err"])
+        # rows 1, 2 and 5: their launches through the loaded artifacts
+        if row["name"] in ("delta", "lstm_fwd", "lstm_peep_fwd"):
+            row.update(export_launches=export["launches"][row["name"]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,8 @@ generic N-stream AdeNets with peephole LSTMs that INI configs such as
 ``serve.make_server``), and their training: the bare step
 (``train.trainer.make_train_step``) and the single-device trainer
 (``train.trainer.Trainer``: fit, evaluation, checkpoints, every optimizer).
-Every kernel of the JAX package's ``ops/pallas/`` has its CUDA
+``export`` ships a served program as one artifact through ``torch.export``
+(``cli.export_model``; the demo's ``--artifact`` serves it).  Every kernel of the JAX package's ``ops/pallas/`` has its CUDA
 counterpart.
 """
 

@@ -13,8 +13,9 @@ the predicted phrase.  Three serving modes:
   upload.
 
 Runs on ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
-versions).  ``--artifact`` (serving an exported program) raises until
-export is ported (ROADMAP Queue 1 item 7).
+versions).  ``--artifact`` serves an exported program
+(``cli.export_model``) in any of the three modes instead of rebuilding the
+model; ``--model`` is then not read.
 
 Usage:
     python -m ip_avsr_torch.cli.demo --config configs/synthetic_1stream.ini \\
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from ip_avsr_torch import bridge
+from ip_avsr_torch import export as export_lib
 from ip_avsr_torch import serve as serve_lib
 from ip_avsr_torch.cli import nstream
 from ip_avsr_torch.device import resolve_device
@@ -61,7 +63,9 @@ def parse_args(argv=None):
                          "(serve.StreamingSession; scores equal the batch server's with a "
                          "2*window-frame lookahead); needs use_blstm = false")
     ap.add_argument("--artifact", default=None,
-                    help="serve from an exported artifact (not ported yet)")
+                    help="serve from an exported .ipax artifact (cli.export_model) "
+                         "instead of rebuilding the model; --model is not read: the "
+                         "artifact's weights and traced program do the serving")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.streaming and args.pipelined:
@@ -72,9 +76,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.artifact:
-        raise NotImplementedError("--artifact is not ported yet (ROADMAP Queue 1 item 7: "
-                                  "export)")
     device = resolve_device(args.device)
     cp = config_lib.load_config(args.config)
     stream_cfgs = config_lib.parse_streams(cp)
@@ -83,7 +84,14 @@ def main(argv=None):
     # the builder the trainer uses, so a trained model is rebuilt as trained
     cfg = config_lib.build_model_config(stream_cfgs, clf)
 
-    if args.model:
+    params = artifact = None
+    if args.artifact:
+        if not args.streaming:
+            artifact = export_lib.load_server(args.artifact, device=device)
+            if artifact.input_kind != "streams":
+                raise SystemExit("demo serves preprocessed streams; the artifact was "
+                                 "exported for raw pixels")
+    elif args.model:
         params = bridge.params_from_jax(matio.load_model_params(args.model), device=device)
     else:
         print("no --model given: using random init (smoke mode)")
@@ -131,7 +139,12 @@ def main(argv=None):
         # one session per utterance, frames fed one by one; the per-frame
         # scores arrive with the 2*window delta lookahead and the final vote
         # equals the batch server's
-        new_session = serve_lib.StreamingSession(params, cfg, device=device).fresh
+        if args.artifact:
+            # loaded once; each session revives from the same programs
+            new_session = export_lib.load_streaming_artifact(args.artifact,
+                                                             device=device).new_session
+        else:
+            new_session = serve_lib.StreamingSession(params, cfg, device=device).fresh
         for i in range(n):
             sess = new_session()
             streams = utterance(i)
@@ -146,14 +159,14 @@ def main(argv=None):
         # home in blocks
         t_max = int(lens.max())
         pipe = serve_lib.PipelinedServer(params, cfg, vote=False, depth=args.depth,
-                                         batch=args.batch, device=device)
+                                         batch=args.batch, serve_fn=artifact, device=device)
 
         masks = [(np.arange(t_max)[None] < lens[i]).astype(np.float32) for i in range(n)]
         requests = ((utterance(i, t_max), masks[i]) for i in range(n))
         for i, probs in enumerate(pipe.map(requests)):
             correct = report(i, decide(probs, masks[i]), correct)
     else:
-        server = serve_lib.make_server(params, cfg, vote=False, device=device)
+        server = artifact or serve_lib.make_server(params, cfg, vote=False, device=device)
         for i in range(n):
             T = int(lens[i])
             probs = server(utterance(i), np.ones((1, T), np.float32)).cpu().numpy()

@@ -52,7 +52,10 @@ def dct_feature_basis(image_shape, no_coeff: int, device) -> torch.Tensor:
     return torch.as_tensor(basis, dtype=torch.float32, device=device)
 
 
-def compute_dct_features_device(X: torch.Tensor, image_shape, no_coeff: int = 30) -> torch.Tensor:
-    """(N, H*W) flattened images -> (N, no_coeff) zigzag DCT features."""
-    basis = dct_feature_basis(tuple(image_shape), int(no_coeff), X.device)
+def compute_dct_features_device(X: torch.Tensor, image_shape, no_coeff: int = 30,
+                                basis=None) -> torch.Tensor:
+    """(N, H*W) flattened images -> (N, no_coeff) zigzag DCT features, with
+    the given ``basis`` or the cached one."""
+    if basis is None:
+        basis = dct_feature_basis(tuple(image_shape), int(no_coeff), X.device)
     return torch.matmul(X, basis)

@@ -17,7 +17,9 @@ the CUDA kernel for CUDA tensors and this plain version for CPU tensors;
 its gradient is the fixed transpose S^T g
 (ip_avsr_tpu/ops/pallas/delta_kernel.py::_append_delta_bwd, which the JAX
 package leaves to XLA outside any kernel): one ``torch.matmul`` per stream,
-with S built once per (T, window, device, dtype) and cached.
+with S built once per (T, window, device, dtype) and cached.  Without a
+gradient to take, :func:`delta_group` calls the wrapper (the operator
+``ip_avsr::delta_group``) outside any autograd Function.
 """
 
 from __future__ import annotations
@@ -131,8 +133,13 @@ class _DeltaGroup(torch.autograd.Function):
 def delta_group(xs, window: int) -> tuple:
     """DeltaLayer forward of each (B, T, D_i) tensor of ``xs`` (sharing B, T)
     -> (B, T, 3 D_i), one kernel launch for the group on CUDA,
-    differentiable."""
-    return _DeltaGroup.apply(int(window), *xs)
+    differentiable.  Where no gradient is wanted the operator is called
+    straight, so an exported program holds it and no autograd Function."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return _DeltaGroup.apply(int(window), *xs)
+    from ip_avsr_torch.ops.kernels import delta as delta_kernel
+
+    return tuple(delta_kernel.append_delta_group(xs, int(window)))
 
 
 def delta_layer(x: torch.Tensor, window: int) -> torch.Tensor:

@@ -5,14 +5,15 @@ computes [x, d, a] for every stream of a group that shares B, T and the
 window, each thread applying the composed (3T, T) matrix
 ``ops/delta.delta_matrix`` to its x column (see the source's header: the
 kernel is bound by latency and launches, not bytes).  Its plain version is
-``ops/delta.append_delta_coeff``, per stream.
+``ops/delta.append_delta_coeff``, per stream.  The group is the operator
+``ip_avsr::delta_group`` (``torch.library``), so an exported
+program records it as one node and launches the kernel when it runs.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-
 import torch
 
 from ip_avsr_torch.ops.delta import append_delta_coeff as plain
@@ -75,19 +76,10 @@ def _check(xs, window) -> tuple:
     return B, T, tuple(widths)
 
 
-def append_delta_group(xs, window: int, outs=None) -> list:
-    """[x, delta, accel] of each (B, T, D_i) float32 tensor of ``xs``, as a
-    list of (B, T, 3 D_i).
-
-    CPU tensors take the plain version, one per tensor.  CUDA tensors take one
-    launch of the kernel over the whole group, counted in
-    ``append_delta.launches`` (its grid in ``append_delta.blocks``), or
-    raise; ``outs`` gives their output tensors (for tests), else they are
-    allocated."""
-    xs = list(xs)
-    B, T, widths = _check(xs, window)
-    if xs[0].device.type == "cpu":
-        return [plain(x, window) for x in xs]
+def _launch(xs, window: int, outs) -> list:
+    """One launch of the kernel over the checked CUDA group ``xs``, into
+    ``outs`` (allocated when None)."""
+    B, T, widths = xs[0].shape[0], xs[0].shape[1], tuple(x.shape[2] for x in xs)
     dev = xs[0].device
     ptrs, widths_arg, shapes, S = _launch_args(dev, B, T, window, widths)
     if outs is None:
@@ -106,6 +98,55 @@ def append_delta_group(xs, window: int, outs=None) -> list:
     append_delta.launches += 1
     append_delta.blocks = code
     return outs
+
+
+# the operator's registrations: a schema without alias annotations (fresh
+# outputs, nothing mutated), an implementation per device and a fake; plain
+# ``Library`` registration, which adds no Python layer to each call
+_LIB = torch.library.Library("ip_avsr", "FRAGMENT")
+_LIB.define("delta_group(Tensor[] xs, int window) -> Tensor[]")
+
+
+def _delta_group_cpu(xs, window):
+    """The group as an operator ``torch.export`` records as one opaque node:
+    the plain version per stream on the CPU."""
+    return [plain(x, window) for x in xs]
+
+
+def _delta_group_cuda(xs, window):
+    """The kernel's launch, after the wrapper's checks: an exported program
+    hands the operator its inputs with no wrapper around it, so a group
+    that is not contiguous float32 on one device raises here.  The
+    cached ctypes arguments and S are keyed by concrete shapes, which only
+    an implementation (not the traced wrapper) sees."""
+    xs = list(xs)
+    _check(xs, window)
+    return _launch(xs, window, None)
+
+
+def _delta_group_fake(xs, window):
+    return [x.new_empty((x.shape[0], x.shape[1], 3 * x.shape[2])) for x in xs]
+
+
+_LIB.impl("delta_group", _delta_group_cpu, "CPU")
+_LIB.impl("delta_group", _delta_group_cuda, "CUDA")
+torch.library.register_fake("ip_avsr::delta_group", _delta_group_fake, lib=_LIB)
+
+
+def append_delta_group(xs, window: int, outs=None) -> list:
+    """[x, delta, accel] of each (B, T, D_i) float32 tensor of ``xs``, as a
+    list of (B, T, 3 D_i): the operator ``ip_avsr::delta_group``.
+
+    CPU tensors take the plain version, one per tensor.  CUDA tensors take one
+    launch of the kernel over the whole group, counted in
+    ``append_delta.launches`` (its grid in ``append_delta.blocks``), or
+    raise; ``outs`` gives their output tensors (for tests; outside the
+    operator), else they are allocated."""
+    xs = list(xs)
+    _check(xs, window)
+    if outs is None or xs[0].device.type == "cpu":
+        return list(torch.ops.ip_avsr.delta_group(xs, window))
+    return _launch(xs, window, outs)
 
 
 def append_delta(x: torch.Tensor, window: int) -> torch.Tensor:

@@ -28,7 +28,12 @@ memory and a grid barrier between steps (:func:`fwd_launch_plan`,
 :func:`bwd_launch_plan`; see the sources' headers).  A batch whose carries do
 not fit one block's shared memory beside W_hid runs as near-equal row
 chunks, one launch each (:func:`map_chunks`).  The ``*_plain`` functions are
-their plain versions.  All sequence tensors are batch-major (B, T, .), the
+their plain versions.  The four inference wrappers call operators
+``ip_avsr::<name>`` (``torch.library``: the plain version on the
+CPU, the launch on CUDA, a fake for tracing), so ``torch.export`` records
+each as one opaque node; the training rows run only inside the autograd
+Functions of ``ops/lstm.py``, which no exported program reaches, and stay
+plain Python functions.  All sequence tensors are batch-major (B, T, .), the
 port's layout, where the JAX package keeps the training residuals time-major
 (T, B, .).
 """
@@ -103,9 +108,10 @@ def lstm_recurrence_train_plain(x_proj, w_hid, mask, cell0, hid0):
 def lstm_recurrence_state_plain(x_proj, w_hid, mask, cell0, hid0):
     """The recurrence with its final state, in plain PyTorch: inputs as
     :func:`lstm_recurrence_plain`, returns ``(hids, cell_T)`` with cell_T
-    (B, H) the cell after the last step (the hidden one is hids[:, -1])."""
+    (B, H) the cell after the last step (the hidden one is hids[:, -1]), a
+    fresh contiguous tensor as the kernel writes it."""
     hids, cells, _ = _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, None)
-    return hids, cells[:, -1]
+    return hids, cells[:, -1].clone(memory_format=torch.contiguous_format)
 
 
 def lstm_peep_recurrence_state_plain(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
@@ -113,7 +119,7 @@ def lstm_peep_recurrence_state_plain(x_proj, w_hid, mask, cell0, hid0, w_ci, w_c
     inputs as :func:`lstm_peep_recurrence_plain`, returns ``(hids,
     cell_T)`` as :func:`lstm_recurrence_state_plain` does."""
     hids, cells, _ = _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, (w_ci, w_cf, w_co))
-    return hids, cells[:, -1]
+    return hids, cells[:, -1].clone(memory_format=torch.contiguous_format)
 
 
 def lstm_peep_recurrence_plain(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
@@ -419,19 +425,48 @@ def _on_cpu(args) -> bool:
     return all(a.device.type == "cpu" for a in args)
 
 
+_OP_ARGS = "Tensor x_proj, Tensor w_hid, Tensor mask, Tensor cell0, Tensor hid0"
+# the operators' registrations: plain ``Library`` registration, which adds
+# no Python layer to each call
+_LIB = torch.library.Library("ip_avsr", "FRAGMENT")
+
+
+def _recurrence_op(name, plain, counter, peep, state):
+    """Register the inference recurrence ``ip_avsr::<name>`` as an operator
+    that ``torch.export`` records as one opaque node: ``plain`` on the CPU,
+    :func:`_run_fwd`'s launch on CUDA (counted in ``counter.launches`` when
+    it runs, so a run of an exported program counts as a live call does),
+    and a fake that gives the output shapes only.  The launch plan is made
+    inside the CUDA implementation from the concrete B, so a symbolic batch
+    axis needs no gate.  The schema has no alias annotations: the outputs
+    are fresh tensors and nothing is mutated."""
+    _LIB.define(f"{name}({_OP_ARGS}{', Tensor w_ci, Tensor w_cf, Tensor w_co' if peep else ''})"
+                f" -> {'(Tensor, Tensor)' if state else 'Tensor'}")
+
+    def _cuda(x_proj, w_hid, mask, cell0, hid0, *peep_args):
+        out = _run_fwd(name, (x_proj, w_hid, mask, cell0, hid0), train=False, peep=peep_args,
+                       state=state)
+        counter.launches += 1
+        return out
+
+    def _fake(x_proj, w_hid, *_):
+        B, T, H = x_proj.shape[0], x_proj.shape[1], w_hid.shape[0]
+        hids = x_proj.new_empty((B, T, H))
+        return (hids, x_proj.new_empty((B, H))) if state else hids
+
+    _LIB.impl(name, plain, "CPU")
+    _LIB.impl(name, _cuda, "CUDA")
+    torch.library.register_fake(f"ip_avsr::{name}", _fake, lib=_LIB)
+
+
 def lstm_recurrence(x_proj, w_hid, mask, cell0, hid0):
     """The masked recurrence: (B, T, 4H), (H, 4H), (B, T), (B, H), (B, H) ->
-    (B, T, H), all float32.
+    (B, T, H), all float32; the operator ``ip_avsr::lstm_recurrence``.
 
     CPU tensors take :func:`lstm_recurrence_plain`; CUDA tensors launch the
     kernel (one cooperative launch per row chunk, the call counted once in
     ``lstm_recurrence.launches``) or raise."""
-    args = (x_proj, w_hid, mask, cell0, hid0)
-    if _on_cpu(args):
-        return lstm_recurrence_plain(*args)
-    out = _run_fwd("lstm_recurrence", args, train=False)
-    lstm_recurrence.launches += 1
-    return out
+    return torch.ops.ip_avsr.lstm_recurrence(x_proj, w_hid, mask, cell0, hid0)
 
 
 lstm_recurrence.launches = 0
@@ -441,17 +476,13 @@ def lstm_recurrence_state(x_proj, w_hid, mask, cell0, hid0):
     """The masked recurrence from a per-row initial state, giving back the
     final one: inputs as :func:`lstm_recurrence`, returns ``(hids, cell_T)``
     as :func:`lstm_recurrence_state_plain` does; hid_T is ``hids[:, -1]``.
+    The operator ``ip_avsr::lstm_recurrence_state``.
 
     CPU tensors take the plain version; CUDA tensors launch the same kernel
     as :func:`lstm_recurrence` with its final-cell output (one cooperative
     launch per row chunk, the call counted once in
     ``lstm_recurrence.launches``: it is that table row) or raise."""
-    args = (x_proj, w_hid, mask, cell0, hid0)
-    if _on_cpu(args):
-        return lstm_recurrence_state_plain(*args)
-    out = _run_fwd("lstm_recurrence_state", args, train=False, state=True)
-    lstm_recurrence.launches += 1
-    return out
+    return torch.ops.ip_avsr.lstm_recurrence_state(x_proj, w_hid, mask, cell0, hid0)
 
 
 def lstm_recurrence_train(x_proj, w_hid, mask, cell0, hid0):
@@ -475,19 +506,15 @@ lstm_recurrence_train.launches = 0
 
 def lstm_peep_recurrence(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
     """The peephole recurrence: inputs as :func:`lstm_recurrence` plus the
-    (H,) peephole vectors; returns (B, T, H), all float32.
+    (H,) peephole vectors; returns (B, T, H), all float32; the operator
+    ``ip_avsr::lstm_peep_recurrence``.
 
     CPU tensors take :func:`lstm_peep_recurrence_plain`; CUDA tensors launch
     the kernel's peephole instantiation (one cooperative launch per row
     chunk, the call counted once in ``lstm_peep_recurrence.launches``) or
     raise."""
-    args = (x_proj, w_hid, mask, cell0, hid0)
-    peep = (w_ci, w_cf, w_co)
-    if _on_cpu((*args, *peep)):
-        return lstm_peep_recurrence_plain(*args, *peep)
-    out = _run_fwd("lstm_peep_recurrence", args, train=False, peep=peep)
-    lstm_peep_recurrence.launches += 1
-    return out
+    return torch.ops.ip_avsr.lstm_peep_recurrence(x_proj, w_hid, mask, cell0, hid0,
+                                                  w_ci, w_cf, w_co)
 
 
 lstm_peep_recurrence.launches = 0
@@ -496,19 +523,24 @@ lstm_peep_recurrence.launches = 0
 def lstm_peep_recurrence_state(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
     """The peephole recurrence from a per-row initial state, giving back the
     final one: inputs as :func:`lstm_peep_recurrence`, returns ``(hids,
-    cell_T)`` as :func:`lstm_peep_recurrence_state_plain` does.
+    cell_T)`` as :func:`lstm_peep_recurrence_state_plain` does; the operator
+    ``ip_avsr::lstm_peep_recurrence_state``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
     peephole instantiation with its final-cell output (one cooperative
     launch per row chunk, the call counted once in
     ``lstm_peep_recurrence.launches``) or raise."""
-    args = (x_proj, w_hid, mask, cell0, hid0)
-    peep = (w_ci, w_cf, w_co)
-    if _on_cpu((*args, *peep)):
-        return lstm_peep_recurrence_state_plain(*args, *peep)
-    out = _run_fwd("lstm_peep_recurrence_state", args, train=False, peep=peep, state=True)
-    lstm_peep_recurrence.launches += 1
-    return out
+    return torch.ops.ip_avsr.lstm_peep_recurrence_state(x_proj, w_hid, mask, cell0, hid0,
+                                                        w_ci, w_cf, w_co)
+
+
+_recurrence_op("lstm_recurrence", lstm_recurrence_plain, lstm_recurrence, False, False)
+_recurrence_op("lstm_recurrence_state", lstm_recurrence_state_plain, lstm_recurrence, False,
+               True)
+_recurrence_op("lstm_peep_recurrence", lstm_peep_recurrence_plain, lstm_peep_recurrence, True,
+               False)
+_recurrence_op("lstm_peep_recurrence_state", lstm_peep_recurrence_state_plain,
+               lstm_peep_recurrence, True, True)
 
 
 def lstm_peep_recurrence_train(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):

@@ -43,13 +43,17 @@ def featurewise_normalize(x: torch.Tensor, mean, std) -> torch.Tensor:
 
 
 def trimodal_streams(raw: torch.Tensor, mask: torch.Tensor, image_shape,
-                     dct_coeffs: int = 90, dct_mean=None, dct_std=None) -> tuple:
-    """Raw (B, T, D) float ROI batch -> (raw_norm, dct, diff_norm)."""
+                     dct_coeffs: int = 90, dct_mean=None, dct_std=None,
+                     dct_basis=None) -> tuple:
+    """Raw (B, T, D) float ROI batch -> (raw_norm, dct, diff_norm).
+
+    ``dct_basis`` is the (D, dct_coeffs) basis to use (a module's buffer,
+    which ``torch.export`` records as state), else the cached one."""
     B, T, D = raw.shape
     m = mask.to(raw.dtype)[..., None]
     diff = diff_images(raw)
-    dct = compute_dct_features_device(raw.reshape(B * T, D), image_shape,
-                                      dct_coeffs).reshape(B, T, dct_coeffs)
+    dct = compute_dct_features_device(raw.reshape(B * T, D), image_shape, dct_coeffs,
+                                      basis=dct_basis).reshape(B, T, dct_coeffs)
     dct = sequencewise_mean_subtract(dct, mask)
     if dct_mean is not None:
         dct = featurewise_normalize(dct, dct_mean, dct_std) * m

@@ -19,7 +19,6 @@ Mirrors ip_avsr_tpu/serve.py:
 from __future__ import annotations
 
 import collections
-import functools
 from typing import Optional
 
 import numpy as np
@@ -29,7 +28,91 @@ from ip_avsr_torch.device import resolve_device, tree_map, tree_to
 from ip_avsr_torch.models import adenet
 from ip_avsr_torch.models import encoder as encoder_mod
 from ip_avsr_torch.ops import pipeline
+from ip_avsr_torch.ops.dct import dct_feature_basis_np
 from ip_avsr_torch.ops.voting import majority_voting_layer_masked
+
+
+class _ParamBuffers(torch.nn.Module):
+    """A parameter tree held as buffers ``p0, p1, ...`` (leaves in
+    ``device.tree_map`` order), so ``.to(device)`` moves it and
+    ``torch.export`` records it as the program's state.  :meth:`tree`
+    gives the tree in float32: buffers stored narrower (an artifact's bf16
+    weights) are upcast before any op, so the kernels always see float32."""
+
+    def __init__(self, params: dict):
+        super().__init__()
+        leaves = []
+        self._skeleton = tree_map(lambda t: leaves.append(t) or len(leaves) - 1, params)
+        for i, t in enumerate(leaves):
+            self.register_buffer(f"p{i}", t)
+        self._tree = (None, None)
+
+    def tree(self) -> dict:
+        """The tree over the current buffers.  Where every buffer is float32
+        the tree holds the buffers themselves, and is built once for each
+        set of buffer objects (``.to()`` and the exporter's tracing swap
+        them) instead of on every call; an upcast tree is built anew each
+        call, so it never holds a stale copy."""
+        bufs = tuple(self._buffers.values())
+        held, tree = self._tree
+        if held is not None and len(held) == len(bufs) and all(
+                a is b for a, b in zip(held, bufs)):
+            return tree
+
+        def leaf(i):
+            t = getattr(self, f"p{i}")
+            return t if t.dtype == torch.float32 else t.to(torch.float32)
+
+        tree = tree_map(leaf, self._skeleton)
+        self._tree = ((bufs, tree) if all(b.dtype == torch.float32 for b in bufs)
+                      else (None, None))
+        return tree
+
+
+class Server(torch.nn.Module):
+    """The served forward of :func:`make_server` as a module: ``forward(
+    streams, mask) -> scores`` on float32 tensors of one device, the
+    parameters as buffers.  The closures of :func:`make_server` and the
+    exporter (``ip_avsr_torch.export``) both run it."""
+
+    def __init__(self, params: dict, config: adenet.AdeNetConfig, vote: bool = True):
+        super().__init__()
+        adenet.check_supported(config)
+        self.config = config
+        self.vote = bool(vote)
+        self.params = _ParamBuffers(params)
+
+    def forward(self, streams, mask):
+        return _scores(adenet.adenet_forward(self.params.tree(), self.config, list(streams),
+                                             mask), mask, self.config, self.vote)
+
+
+class TrimodalServer(Server):
+    """The served forward of :func:`make_trimodal_server` as a module:
+    ``forward(raw, mask) -> scores`` with raw (B, T, H*W) float32 pixels;
+    the DCT basis and, where given, the DCT mean and std are buffers too."""
+
+    def __init__(self, params: dict, config: adenet.AdeNetConfig, image_shape,
+                 dct_coeffs: Optional[int] = None, dct_mean=None, dct_std=None,
+                 vote: bool = True):
+        if (dct_mean is None) != (dct_std is None):
+            raise ValueError("dct_mean and dct_std must be given together "
+                             "(featurewise normalization needs both)")
+        super().__init__(params, config, vote)
+        self.image_shape = tuple(int(v) for v in image_shape)
+        self.dct_coeffs = int(dct_coeffs or config.streams[1].input_dim)
+        self.register_buffer("dct_basis", torch.as_tensor(
+            dct_feature_basis_np(self.image_shape, self.dct_coeffs), dtype=torch.float32))
+        stats = [None if v is None else torch.as_tensor(v, dtype=torch.float32)
+                 for v in (dct_mean, dct_std)]
+        self.register_buffer("dct_mean", stats[0])
+        self.register_buffer("dct_std", stats[1])
+
+    def forward(self, raw, mask):
+        streams = pipeline.trimodal_streams(raw, mask, self.image_shape, self.dct_coeffs,
+                                            self.dct_mean, self.dct_std,
+                                            dct_basis=self.dct_basis)
+        return super().forward(streams, mask)
 
 
 def make_trimodal_server(
@@ -43,30 +126,20 @@ def make_trimodal_server(
     device=None,
 ):
     """Returns ``serve(raw, mask) -> scores`` for a trimodal (raw, dct, diff)
-    model on ``device`` (default ``cuda``).
+    model on ``device`` (default ``cuda``): a :class:`TrimodalServer`.
 
     ``raw`` is (B, T, H*W) uint8 (or float) pixels and ``mask`` (B, T); both
     may be tensors or arrays.  Scores are (B, C); a per-step head with
     ``vote=False`` returns its (B, T, C) probabilities."""
-    if (dct_mean is None) != (dct_std is None):
-        raise ValueError("dct_mean and dct_std must be given together "
-                         "(featurewise normalization needs both)")
-    adenet.check_supported(config)
     device = resolve_device(device)
-    dct_coeffs = dct_coeffs or config.streams[1].input_dim
-    params = tree_to(params, device)
-    if dct_mean is not None:
-        dct_mean = torch.as_tensor(dct_mean, dtype=torch.float32, device=device)
-        dct_std = torch.as_tensor(dct_std, dtype=torch.float32, device=device)
+    program = TrimodalServer(params, config, image_shape, dct_coeffs, dct_mean, dct_std,
+                             vote).to(device)
 
     @torch.inference_mode()
     def serve(raw, mask):
         raw = torch.as_tensor(raw, device=device).to(torch.float32)
         mask = torch.as_tensor(mask, device=device).to(torch.float32)
-        streams = pipeline.trimodal_streams(raw, mask, image_shape, dct_coeffs,
-                                            dct_mean, dct_std)
-        return _scores(adenet.adenet_forward(params, config, list(streams), mask),
-                       mask, config, vote)
+        return program(raw, mask)
 
     return serve
 
@@ -82,7 +155,7 @@ def _scores(out, mask, config, vote):
 def make_server(params: dict, config: adenet.AdeNetConfig, vote: bool = True,
                 mesh=None, device=None):
     """Returns ``serve(streams, mask) -> scores`` for preprocessed streams on
-    ``device`` (default ``cuda``).
+    ``device`` (default ``cuda``): a :class:`Server`.
 
     ``streams[i]`` is (B, T, D_i) and ``mask`` (B, T), tensors or arrays.
     Scores are (B, C); a per-step head with ``vote=False`` returns its
@@ -91,16 +164,14 @@ def make_server(params: dict, config: adenet.AdeNetConfig, vote: bool = True,
     if mesh is not None:
         raise NotImplementedError("make_server(mesh=...) is not ported yet (ROADMAP "
                                   "Queue 1 item 10: data parallelism)")
-    adenet.check_supported(config)
     device = resolve_device(device)
-    params = tree_to(params, device)
+    program = Server(params, config, vote).to(device)
 
     @torch.inference_mode()
     def serve(streams, mask):
         streams = [torch.as_tensor(s, device=device).to(torch.float32) for s in streams]
         mask = torch.as_tensor(mask, device=device).to(torch.float32)
-        return _scores(adenet.adenet_forward(params, config, streams, mask),
-                       mask, config, vote)
+        return program(streams, mask)
 
     return serve
 
@@ -373,6 +444,69 @@ def _np_delta_fir(padded, window):
     return out
 
 
+class StreamPrep(torch.nn.Module):
+    """A streaming session's prep of one stream as a module: ``forward(x)``
+    maps (B, n, D) float32 to (B, n, E) through the stream's encoder, the
+    encoder's parameters as buffers."""
+
+    def __init__(self, encoder_params: dict, nonlinearities):
+        super().__init__()
+        self.nonlinearities = tuple(nonlinearities)
+        self.params = _ParamBuffers(encoder_params)
+
+    def forward(self, x):
+        B, n, D = x.shape
+        return encoder_mod.encoder_forward(self.params.tree(), x.reshape(B * n, D),
+                                           self.nonlinearities).reshape(B, n, -1)
+
+
+class StreamAdvance(torch.nn.Module):
+    """A streaming session's advance as a module: ``forward(feats, mask,
+    state) -> (probs, new_state)`` through
+    ``models/adenet.head_forward_streaming``, with the head's parameters
+    (every stream's LSTM, the fusion, the aggregator and the output layer,
+    no encoder) as buffers."""
+
+    def __init__(self, params: dict, config: adenet.AdeNetConfig):
+        super().__init__()
+        self.config = config
+        head = {**params, "streams": {name: {k: v for k, v in sp.items() if k != "encoder"}
+                                      for name, sp in params["streams"].items()}}
+        self.params = _ParamBuffers(head)
+
+    def forward(self, feats, mask, state):
+        return adenet.head_forward_streaming(self.params.tree(), self.config, list(feats),
+                                             mask, state)
+
+
+def _identity(x):
+    return x
+
+
+def numpy_prep(program, device):
+    """A session's prep callable over ``program`` (a :class:`StreamPrep` or
+    a loaded one): (B, n, D) float32 numpy uploaded to ``device``, the
+    (B, n, E) result left there."""
+    def prep(x):
+        with torch.inference_mode():
+            return program(torch.from_numpy(np.ascontiguousarray(x)).to(device))
+
+    return prep
+
+
+def numpy_advance(program, device):
+    """A session's advance callable over ``program`` (a
+    :class:`StreamAdvance` or a loaded one): the numpy features and mask
+    uploaded to ``device``, the state kept there."""
+    def advance(feats, mask, state):
+        with torch.inference_mode():
+            feats = tuple(torch.from_numpy(np.ascontiguousarray(f)).to(device) for f in feats)
+            return program(feats, torch.from_numpy(np.ascontiguousarray(mask)).to(device),
+                           state)
+
+    return advance
+
+
 class StreamingSession:
     """Online inference: feed frames as they arrive, get per-frame scores.
 
@@ -426,26 +560,14 @@ class StreamingSession:
         self._C = int(config.output_classes)
         self._reset_feed_state(adenet.streaming_init_state(params, config, self._B))
 
-        def prep(spec, x):
-            """(B, n, D) float32 numpy -> (B, n, E): the encoder on the
-            device (an encoder-less stream stays on the host)."""
-            if not spec.encoder_shapes:
-                return x
-            B, n = x.shape[0], x.shape[1]
-            with torch.inference_mode():
-                t = torch.from_numpy(x).to(device).reshape(B * n, spec.input_dim)
-                return encoder_mod.encoder_forward(
-                    params["streams"][spec.name]["encoder"], t,
-                    spec.encoder_nonlinearities).reshape(B, n, -1)
-
-        def advance(feats, mask, state):
-            with torch.inference_mode():
-                feats = [torch.from_numpy(np.ascontiguousarray(f)).to(device) for f in feats]
-                return adenet.head_forward_streaming(
-                    params, config, feats, torch.from_numpy(mask).to(device), state)
-
-        self._prep = [functools.partial(prep, spec) for spec in config.streams]
-        self._advance = advance
+        preps = [StreamPrep(params["streams"][spec.name]["encoder"],
+                            spec.encoder_nonlinearities).to(device)
+                 if spec.encoder_shapes else None for spec in config.streams]
+        advance = StreamAdvance(params, config).to(device)
+        # the modules, for the exporter; an encoder-less stream has no prep
+        self._programs = (preps, advance)
+        self._prep = [_identity if p is None else numpy_prep(p, device) for p in preps]
+        self._advance = numpy_advance(advance, device)
 
     @classmethod
     def _from_parts(cls, *, prep, advance, state0, window, lookahead,

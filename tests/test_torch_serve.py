@@ -92,3 +92,21 @@ def test_full_width_server_matches_jax():
                      init_cfg=dataclasses.replace(jcfg, w_init="glorot"))
     assert got.shape == (2, 10) and np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, **TOL)
+
+
+def test_param_buffers_tree_is_built_once_per_set_of_buffers():
+    """``_ParamBuffers.tree`` keeps its float32 tree while the buffers stay
+    the same objects, builds it anew after ``.to()`` swaps them, and upcasts
+    narrower buffers on every call (nothing stale is kept)."""
+    params = {"a": torch.ones(3), "b": [torch.zeros(2, 2), torch.arange(4.0)]}
+    held = tserve._ParamBuffers(params)
+    tree = held.tree()
+    assert held.tree() is tree and tree["b"][1] is held.p2
+    held.to(torch.float64).to(torch.float32)
+    again = held.tree()
+    assert again is not tree and again["b"][1] is held.p2
+    narrow = tserve._ParamBuffers({"a": torch.ones(3, dtype=torch.bfloat16)})
+    first = narrow.tree()
+    assert first["a"].dtype == torch.float32 and narrow.tree() is not first
+    narrow.p0.fill_(2)
+    assert narrow.tree()["a"].eq(2).all()
