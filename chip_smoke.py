@@ -112,7 +112,24 @@ Phases, each fatal on failure:
    model of configs/oulu_4stream.ini through the same Trainer for 2 epochs
    of 3 steps (6 peephole training recurrences and backward chains per
    step, 6 peephole inference recurrences per evaluation forward);
-13. export (``phase_export``): the full-width flagship raw-pixel server
+13. the training CLIs (``phase_cli``) from ``.mat`` and INI files: a seeded
+   corpus at OuluVS's widths written through the port's ``save_mat`` and
+   ``save_dbn_mat`` (26 x 44 uint8 pixels, DCT 90, MFCC 39 with other
+   lengths, 60 utterances over 10 subjects, subject files, two
+   1144-2000-1000-500-50 autoencoders), configs/oulu_trimodal.ini and
+   configs/oulu_4stream.ini pointed at it with ``[training]`` cut as in 12.;
+   ``cli.trimodal`` (the flagship from the autoencoders, its dropout on: 5
+   rows 3 and 4 per step, 5 row 1 per evaluation forward, 1 delta per
+   forward) and ``cli.nstream`` (peephole, adasum, force-aligned: 6 rows 6
+   and 7 per step, 6 row 5 per evaluation forward) in-process on the card,
+   then bucketed (``bucket_boundaries = auto``) and with
+   ``grad_accum_steps = 2`` (2 microbatches a step); each CLI again with
+   ``--device cpu`` (trimodal at dropout 0 on both), what reached
+   ``Trainer.fit`` equal bit for bit and the fits as in 12., the
+   accumulated fit against the unaccumulated one; the ``.mat`` load,
+   preprocessing, model build, fit and wall seconds of every run and the
+   card's host split per step;
+14. export (``phase_export``): the full-width flagship raw-pixel server
    (symbolic B and T) exported on the card and again on the CPU, the
    full-width 4-stream server (symbolic; f32, and bf16 weights on per-step
    probabilities), a pinned B = 8, T = 29 flagship artifact and an
@@ -127,10 +144,11 @@ Phases, each fatal on failure:
    artifact bytes, host medians of artifact and live server in turns, busy
    shares; the operators' host cost, per kernel call and per live request
    (through the operators against straight launches, in turns);
-14. print the fit's numbers, the kernels line (each row's launches in the
+15. print the fit's numbers, the kernels line (each row's launches in the
    fits and per fit epoch, beside its serve or train path's count; rows 1
    and 5 also their launches in the streaming sessions and the state
-   output's error; rows 1, 2 and 5 their launches through the artifacts),
+   output's error; rows 1, 2 and 5 their launches through the artifacts;
+   every row its launches through the CLIs' card runs),
    then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a CUDA device or without the package beside it.
@@ -155,6 +173,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib.util
+import io
 import json
 import os
 import re
@@ -2505,13 +2524,16 @@ FIT_PARAM_TOL = 1e-4
 def flagship(dropout=True):
     """The flagship adenet_v3 at full width as phase_train builds it; without
     ``dropout`` every rate is 0."""
-    import dataclasses
-
     from ip_avsr_torch.models import zoo
 
     cfg = zoo.adenet_v3(1144, 90, 1144, lstm_size=250, window=9, output_classes=10)
-    if dropout:
-        return cfg
+    return cfg if dropout else no_dropout(cfg)
+
+
+def no_dropout(cfg):
+    """``cfg`` with every dropout rate 0."""
+    import dataclasses
+
     return dataclasses.replace(cfg, agg_dropout=0.0, streams=[
         dataclasses.replace(s, dropout=0.0) for s in cfg.streams])
 
@@ -2622,7 +2644,8 @@ class FitClock:
         trainer.options.log_fn = self.log
 
     def log(self, line):
-        self.logs.append(time.perf_counter())
+        if line.startswith("Epoch"):
+            self.logs.append(time.perf_counter())
         print(f"  fit: {line}")
 
     def report(self, label, t_start, epochsize):
@@ -2640,7 +2663,8 @@ class FitClock:
                    pin_ms=ms(self.pin), copy_ms=ms(self.copy), step_host_ms=ms(self.step),
                    steps_per_s=1e3 / ms_gap)
         print(f"{label}: epoch wall times {[round(w, 4) for w in walls]} s (the first with "
-              f"set-up and first calls; each later one with the previous epoch's checkpoint); "
+              f"set-up and first calls; with checkpoints, each later one with the previous "
+              f"epoch's); "
               f"per step, median after the first epoch: {ms_gap:.3f} ms between steps "
               f"({out['steps_per_s']:.1f} steps/s); on the prefetch thread, batch assembly "
               f"{out['assembly_ms']:.3f} ms and its pinned copy {out['pin_ms']:.3f} ms; on the "
@@ -2663,15 +2687,24 @@ def compare_fits(label, got, ref, n_val, cost_tol=FIT_COST_TOL, param_tol=FIT_PA
     rel = lambda a, b: float(np.max(np.abs(np.subtract(a, b)) / np.abs(b)))  # noqa: E731
     cost = max(rel(got.cost_train, ref.cost_train), rel(got.cost_val, ref.cost_val))
     flips = max(abs(a - b) * n_val for a, b in zip(got.class_rate, ref.class_rate))
-    errs = []
-    tree_map(lambda a, b: errs.append(max_err(a, b)[0] / max(b.abs().max().item(), 1e-30)),
+    errs, scales = [], []
+    tree_map(lambda a, b: (errs.append(max_err(a, b)[0] / max(b.abs().max().item(), 1e-30)),
+                           scales.append(b.abs().max().item())),
              got.best_params, ref.best_params)
+    worst = int(np.argmax(errs))
+
+    def names(tree, path=""):
+        items = tree.items() if isinstance(tree, dict) else (
+            enumerate(tree) if isinstance(tree, (list, tuple)) else None)
+        return [path] if items is None else [
+            n for k, v in items for n in names(v, f"{path}/{k}")]
     print(f"{label}: costs {[round(float(c), 6) for c in got.cost_val]} (val) against "
           f"{[round(float(c), 6) for c in ref.cost_val]}, worst relative difference "
           f"{cost:.2e}; "
           f"class rates {got.class_rate} against {ref.class_rate} ({flips:.0f} utterances "
           f"apart at most); best parameters, worst of {len(errs)} relative to max abs "
-          f"{max(errs):.2e}")
+          f"{max(errs):.2e} (at {names(ref.best_params)[worst]}, max abs "
+          f"{scales[worst]:.3e})")
     if flips and margins is not None:
         margins()
     if not (len(got.cost_val) == len(ref.cost_val) and cost <= cost_tol and flips <= 1
@@ -2875,6 +2908,322 @@ def phase_fit(dev):
     return launches, result.epochs_run, launches4, r4.epochs_run, timing
 
 
+# phase_cli: the training CLIs run from .mat and INI files.  The corpus has
+# OuluVS's widths: 26 x 44 uint8 pixels, DCT 90, MFCC 39 whose lengths differ
+# from the video's by up to 2 frames (so force-align pads), 10 classes,
+# 1-based targets; 60 utterances of 5-29 frames over 10 subjects, split 6 / 2
+# / 2 by subject files; two 1144-2000-1000-500-50 autoencoders.
+CLI_CORPUS = dict(n=60, subjects=10, imagesize=IMAGE_SHAPE, dct=DCT, mfcc=39,
+                  ae=(2000, 1000, 500, 50), classes=10)
+CLI_SUBJECTS = {"train": "1,2,3,4,5,6", "val": "7,8", "test": "9,10"}
+
+
+def write_cli_corpus(root, corpus=None, seed=SEED):
+    """Write a seeded corpus through the port's ``save_mat`` and
+    ``save_dbn_mat`` into ``root``: ``images.mat`` (uint8 pixels, per-frame
+    targets, per-video subjects and lengths), ``dct.mat`` and ``mfcc.mat``
+    (float64 features in the same schema; the MFCC lengths differ), the
+    autoencoders ``ae.mat`` and ``ae_diff.mat`` (w1..w4, b1..b4) and the
+    subject files.  ``corpus`` overrides entries of :data:`CLI_CORPUS`.
+    Returns {name: path}."""
+    import numpy as np
+
+    from ip_avsr_torch.io import matio
+
+    c = {**CLI_CORPUS, **(corpus or {})}
+    rng = np.random.RandomState(seed)
+    n, classes = c["n"], c["classes"]
+    lens = rng.randint(5, T_FRAMES + 1, n)
+    lens[0] = T_FRAMES
+    y = rng.randint(1, classes + 1, n)
+    subjects = np.arange(n) % c["subjects"] + 1
+    mfcc_lens = np.clip(lens + rng.randint(-2, 3, n), 1, T_FRAMES)
+    pixels = c["imagesize"][0] * c["imagesize"][1]
+
+    def vectors(lengths):
+        return {"targetsVec": np.repeat(y, lengths).reshape(-1, 1),
+                "subjectsVec": subjects.reshape(-1, 1),
+                "videoLengthVec": lengths.reshape(-1, 1)}
+
+    def features(lengths, d, scale):
+        # normal features, the class's column shifted
+        cls = np.repeat(y - 1, lengths)
+        x = scale * rng.randn(len(cls), d)
+        x[np.arange(len(cls)), cls % d] += 2.0 * scale
+        return x
+
+    # uint8 pixels, a band of columns per class brighter
+    cls = np.repeat(y - 1, lens)
+    band = (np.arange(pixels)[None, :] * classes // pixels) == cls[:, None]
+    images = (rng.randint(0, 192, (len(cls), pixels)) + 63 * band).astype(np.uint8)
+    paths = {k: os.path.join(root, f"{k}.mat") for k in ("images", "dct", "mfcc", "ae",
+                                                         "ae_diff")}
+    matio.save_mat({"dataMatrix": images, **vectors(lens)}, paths["images"])
+    matio.save_mat({"dataMatrix": features(lens, c["dct"], 10.0), **vectors(lens)},
+                   paths["dct"])
+    matio.save_mat({"dataMatrix": features(mfcc_lens, c["mfcc"], 1.0),
+                    **vectors(mfcc_lens)}, paths["mfcc"])
+    for name in ("ae", "ae_diff"):
+        fan, weights, biases = pixels, [], []
+        for units in c["ae"]:
+            weights.append(rng.randn(fan, units) / np.sqrt(fan))
+            biases.append(0.1 * rng.randn(units))
+            fan = units
+        matio.save_dbn_mat(weights, biases, paths[name])
+    for part, ids in CLI_SUBJECTS.items():
+        paths[part] = os.path.join(root, f"{part}.txt")
+        with open(paths[part], "w") as f:
+            f.write(ids + "\n")
+    return paths
+
+
+def cli_sets(kind, paths, corpus=None):
+    """(section, key, value) settings that point a copy of
+    configs/oulu_trimodal.ini ("trimodal") or configs/oulu_4stream.ini
+    ("nstream") at a corpus of :func:`write_cli_corpus` (at OuluVS's widths
+    the widths are the files' own)."""
+    c = {**CLI_CORPUS, **(corpus or {})}
+    size = ",".join(str(v) for v in c["imagesize"])
+    split = [("training", f"{part}_subjects_file", paths[part]) for part in CLI_SUBJECTS]
+    if kind == "trimodal":
+        return [("data", "images", paths["images"]), ("data", "dct", paths["dct"]),
+                ("data", "imagesize", size), ("models", "ae_pretrained", paths["ae"]),
+                ("models", "ae_diff_pretrained", paths["ae_diff"])] + split
+    pixels = c["imagesize"][0] * c["imagesize"][1]
+    sets = []
+    for sec, ae in (("stream1", "ae"), ("stream2", "ae_diff")):
+        sets += [(sec, "data", paths["images"]), (sec, "model", paths[ae]),
+                 (sec, "imagesize", size), (sec, "input_dimensions", pixels),
+                 (sec, "shape", ",".join(str(u) for u in c["ae"])),
+                 (sec, "nonlinearities", ",".join(["sigmoid"] * (len(c["ae"]) - 1)
+                                                  + ["linear"]))]
+    return sets + [("stream3", "data", paths["dct"]), ("stream3", "input_dimensions", c["dct"]),
+                   ("stream4", "data", paths["mfcc"]),
+                   ("stream4", "input_dimensions", c["mfcc"])] + split
+
+
+def write_cli_ini(path, kind, sets):
+    """Copy configs/oulu_trimodal.ini ("trimodal") or configs/oulu_4stream.ini
+    ("nstream") to ``path`` with each (section, key, value) of ``sets``
+    set; returns the (section, key, old, new) of every value changed."""
+    import configparser
+
+    cp = configparser.ConfigParser()
+    src = TRIMODAL_INI if kind == "trimodal" else OULU_INI
+    if not cp.read(os.path.join(ROOT, src)):
+        raise FileNotFoundError(src)
+    changed = []
+    for sec, key, value in sets:
+        old = cp.get(sec, key, fallback=None)
+        if old != str(value):
+            changed.append((sec, key, old, str(value)))
+        cp.set(sec, key, str(value))
+    with open(path, "w") as f:
+        cp.write(f)
+    return changed
+
+
+def run_cli(main, argv):
+    """Run a CLI's ``main(argv)`` in-process and return (its result, a
+    record): the seconds in ``.mat`` loads (``matio.load_mat_file``), in
+    ``Trainer.init_params`` (building the model on its device), on the host
+    before ``Trainer.fit`` otherwise (preprocessing, split, normalisation:
+    ``prep_s``), in the fit and in the whole call; what reached the fit (the
+    data as numpy, the initial parameters as CPU tensors); and on the card
+    the fit's launches, counted from 0 at its start, and its ``FitClock``."""
+    import torch
+
+    from ip_avsr_torch.device import tree_map
+    from ip_avsr_torch.io import matio
+    from ip_avsr_torch.train.trainer import Trainer
+
+    rec = {"load_s": 0.0, "init_s": 0.0}
+    card = argv[argv.index("--device") + 1] == "cuda"
+    load, init, fit = matio.load_mat_file, Trainer.init_params, Trainer.fit
+
+    def sync(device):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed_load(path):
+        t = time.perf_counter()
+        out = load(path)
+        rec["load_s"] += time.perf_counter() - t
+        return out
+
+    def timed_init(self, *args, **kw):
+        t = time.perf_counter()
+        out = init(self, *args, **kw)
+        sync(self.device)
+        rec["init_s"] += time.perf_counter() - t
+        rec["params0"] = tree_map(lambda v: v.detach().cpu().clone(), out)
+        return out
+
+    def probed_fit(self, *data):
+        rec["fit_entry"] = time.perf_counter()
+        rec["data"] = data
+        if card:
+            rec["clock"] = FitClock(self, self.options.batchsize)
+            reset_launches()
+        result = fit(self, *data)
+        sync(self.device)
+        rec["fit_s"] = time.perf_counter() - rec["fit_entry"]
+        if card:
+            rec["launches"] = read_launches()
+        return result
+
+    matio.load_mat_file, Trainer.init_params, Trainer.fit = timed_load, timed_init, probed_fit
+    try:
+        t0 = time.perf_counter()
+        result = main(argv)
+        rec["wall_s"] = time.perf_counter() - t0
+    finally:
+        matio.load_mat_file, Trainer.init_params, Trainer.fit = load, init, fit
+    rec["prep_s"] = rec["fit_entry"] - t0 - rec["load_s"] - rec["init_s"]
+    return result, rec
+
+
+def same_fit_inputs(label, got, ref):
+    """Raise unless two :func:`run_cli` records handed ``Trainer.fit`` the
+    same data (arrays equal in dtype and value) and the same initial
+    parameters, bit for bit."""
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch.device import tree_map
+
+    def same(a, b):
+        if isinstance(b, (list, tuple)):
+            return len(a) == len(b) and all(same(x, z) for x, z in zip(a, b))
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+    leaves = []
+    tree_map(lambda a, b: leaves.append(torch.equal(a, b)), got["params0"], ref["params0"])
+    if not (same(got["data"], ref["data"]) and all(leaves)):
+        raise AssertionError(f"{label}: the inputs of Trainer.fit differ")
+    n = sum(int(np.asarray(split[2]).size) for split in ref["data"])
+    print(f"{label}: what reached Trainer.fit is equal bit for bit ({n} utterances in "
+          f"3 splits, {len(leaves)} initial parameter leaves)")
+
+
+def phase_cli(dev):
+    """The training CLIs on the card from .mat and INI files: a seeded corpus
+    at OuluVS's widths (:func:`write_cli_corpus`), configs/oulu_trimodal.ini
+    and configs/oulu_4stream.ini pointed at it with ``[training]`` cut as
+    phase_fit cuts it; ``cli.trimodal`` (the flagship from the two
+    autoencoders, its dropout on) and ``cli.nstream`` (the peephole 4-stream
+    model, force-aligned) with every launch counted; a bucketed and a
+    ``grad_accum_steps = 2`` nstream fit; each CLI again with
+    ``--device cpu`` (the trimodal one at dropout 0, on the card and on the
+    CPU), what reached ``Trainer.fit`` equal bit for bit and the fits within
+    FIT_COST_TOL and FIT_PARAM_TOL.  Returns ({row: launches} summed over
+    the phase's card runs, the phase's numbers)."""
+    import tempfile
+
+    import numpy as np
+
+    from ip_avsr_torch.cli import nstream, trimodal
+    from ip_avsr_torch.models import zoo
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    numbers, totals = {}, {name: 0 for name in KERNEL_COUNTERS}
+    try:
+        t0 = time.perf_counter()
+        paths = write_cli_corpus(tmp)
+        numbers["write_s"] = time.perf_counter() - t0
+        mb = sum(os.path.getsize(p) for p in paths.values()) / 1e6
+        print(f"cli: corpus {CLI_CORPUS}, subjects {CLI_SUBJECTS}, written in "
+              f"{numbers['write_s']:.2f} s ({mb:.1f} MB)")
+        inis = {}
+        for name, kind, cuts in (
+                ("trimodal", "trimodal", FIT_CUTS), ("nstream", "nstream", FIT4_CUTS),
+                ("buckets", "nstream", {**FIT4_CUTS, "bucket_boundaries": "auto"}),
+                ("accum", "nstream", {**FIT4_CUTS, "grad_accum_steps": 2})):
+            inis[name] = os.path.join(tmp, f"{name}.ini")
+            changed = write_cli_ini(inis[name], kind, cli_sets(kind, paths) + [
+                ("training", k, v) for k, v in cuts.items()])
+            print(f"cli: {name}.ini from {TRIMODAL_INI if kind == 'trimodal' else OULU_INI}, "
+                  f"[training] cut: {[c[1:] for c in changed if c[1] in cuts]}")
+
+        def run(label, main, ini, device, epochsize, per_step, per_eval):
+            """One CLI run; on the card its launches held to ``per_step``
+            per train step and ``per_eval`` per evaluation forward."""
+            out = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(out):
+                    result, rec = run_cli(main, ["--config", inis[ini], "--device", device])
+            finally:  # the CLI's report: the epoch lines and the final rates
+                for line in out.getvalue().splitlines():
+                    if any(k in line for k in ("Epoch", "CR:", "bucketed", "WARNING",
+                                               "Error", "Traceback")):
+                        print(f"  {label}, {device}: {line.strip()}")
+            timing = {k: rec[k] for k in ("load_s", "init_s", "prep_s", "fit_s", "wall_s")}
+            if device == "cuda":
+                steps, evals = fit_forwards(result, epochsize)
+                launches = rec["launches"]
+                print(f"cli, {label}: {result.epochs_run} epochs, {steps} steps, {evals} "
+                      f"evaluation forwards; launches {launches}")
+                expect_launches(launches, **{
+                    row: per_step.get(row, 0) * steps + per_eval.get(row, 0) * evals
+                    for row in {**per_step, **per_eval}})
+                for row, k in launches.items():
+                    totals[row] += k
+                timing.update(rec["clock"].report(f"cli, {label}", rec["fit_entry"],
+                                                  epochsize))
+            print(f"cli, {label} on {device}: .mat loads {timing['load_s']:.3f} s, "
+                  f"preprocessing and split {timing['prep_s']:.3f} s, model build "
+                  f"{timing['init_s']:.3f} s, fit {timing['fit_s']:.3f} s, CLI wall "
+                  f"{timing['wall_s']:.3f} s; {smi('name,power.limit')}")
+            if not np.isfinite(result.cost_train + result.cost_val).all():
+                raise AssertionError(f"cli, {label}: non-finite costs")
+            numbers[f"{label}, {device}"] = timing
+            return result, rec
+
+        ep3, ep4 = FIT_CUTS["epochsize"], FIT4_CUTS["epochsize"]
+        flagship_rows = (dict(lstm_fwd_train=5, lstm_bwd=5, delta=1),
+                         dict(lstm_fwd=5, delta=1))
+        peep_rows = (dict(lstm_peep_fwd_train=6, lstm_peep_bwd=6, delta=1),
+                     dict(lstm_peep_fwd=6, delta=1))
+        run("trimodal", trimodal.main, "trimodal", "cuda", ep3, *flagship_rows)
+        adenet_v3 = zoo.adenet_v3
+        zoo.adenet_v3 = lambda *a, **kw: no_dropout(adenet_v3(*a, **kw))
+        try:
+            card, card_rec = run("trimodal dropout 0", trimodal.main, "trimodal", "cuda",
+                                 ep3, *flagship_rows)
+            cpu, cpu_rec = run("trimodal dropout 0", trimodal.main, "trimodal", "cpu", ep3,
+                               {}, {})
+        finally:
+            zoo.adenet_v3 = adenet_v3
+        same_fit_inputs("cli, trimodal dropout 0, card vs CPU", card_rec, cpu_rec)
+        compare_fits("cli, trimodal dropout 0, card vs CPU", card, cpu,
+                     len(cpu_rec["data"][1][2]))
+
+        card, card_rec = run("4-stream", nstream.main, "nstream", "cuda", ep4, *peep_rows)
+        cpu, cpu_rec = run("4-stream", nstream.main, "nstream", "cpu", ep4, {}, {})
+        same_fit_inputs("cli, 4-stream, card vs CPU", card_rec, cpu_rec)
+        compare_fits("cli, 4-stream, card vs CPU", card, cpu, len(cpu_rec["data"][1][2]))
+        lens = np.asarray(card_rec["data"][0][2])
+        print(f"cli, 4-stream: force-aligned lengths {int(lens.min())}-{int(lens.max())}, "
+              f"{int(lens.sum())} training frames")
+
+        bucketed, b_rec = run("4-stream bucketed", nstream.main, "buckets", "cuda", ep4,
+                              *peep_rows)
+        bucketed_cpu, _ = run("4-stream bucketed", nstream.main, "buckets", "cpu", ep4, {}, {})
+        compare_fits("cli, 4-stream bucketed, card vs CPU", bucketed, bucketed_cpu,
+                     len(b_rec["data"][1][2]))
+        # two microbatches a step: two forwards and backwards each
+        accum, a_rec = run("4-stream grad_accum_steps=2", nstream.main, "accum", "cuda", ep4,
+                           {row: 2 * k for row, k in peep_rows[0].items()}, peep_rows[1])
+        # the accumulated gradient is the full batch's: the unaccumulated fit
+        compare_fits("cli, 4-stream grad_accum_steps=2 vs 1 (card)", accum, card,
+                     len(a_rec["data"][1][2]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"cli: launches over the phase's card runs {totals}")
+    return totals, numbers
+
+
 def main() -> int:
     import torch
 
@@ -2918,6 +3267,8 @@ def main() -> int:
     print(json.dumps({"lstm_state": state, "stream": stream, "serve_buckets": buckets}))
     fit_launches, fit_epochs, fit4_launches, fit4_epochs, fit_timing = phase_fit(dev)
     print(json.dumps({"fit": fit_timing}))
+    cli_launches, cli_numbers = phase_cli(dev)
+    print(json.dumps({"cli": cli_numbers}))
     export = phase_export(dev)
     print(json.dumps({"export": export}))
 
@@ -2971,6 +3322,8 @@ def main() -> int:
         # rows 1, 2 and 5: their launches through the loaded artifacts
         if row["name"] in ("delta", "lstm_fwd", "lstm_peep_fwd"):
             row.update(export_launches=export["launches"][row["name"]])
+        # every row: its launches through the training CLIs' card runs
+        row.update(cli_launches=cli_launches[row["name"]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

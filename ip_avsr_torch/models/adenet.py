@@ -13,10 +13,11 @@ every recurrence carrying (cell, hid) in and out of a state dict.
 for field.  Values this slice does not cover raise ``NotImplementedError``
 naming the ROADMAP item that brings them.  Dropout (``train=True``) follows
 Lasagne's DropoutLayer with its 1/(1-p) rescale, drawing from an explicit
-``torch.Generator``; its bits differ from JAX's.  ``lstm_impl``,
-``lstm_remat`` and ``lstm_residual_dtype`` select TPU backends or TPU memory
-levers and change no result here: the recurrences run the CUDA kernels
-whenever their tensors are on the card.
+``torch.Generator``; its bits differ from JAX's.  ``lstm_impl`` selects a
+TPU backend and changes no result here: the recurrences run the CUDA
+kernels whenever their tensors are on the card.  ``lstm_remat`` and
+``lstm_residual_dtype`` change the JAX package's training residuals, so
+they raise until the port stores its residuals the same way.
 """
 
 from __future__ import annotations
@@ -108,8 +109,14 @@ def check_supported(config: AdeNetConfig) -> None:
     if config.fuse_scans:
         todo.append("fuse_scans=True (Queue 1 item 5: lstm_forward_grouped)")
     if config.matmul_dtype is not None:
-        todo.append(f"matmul_dtype={config.matmul_dtype!r} (this slice serves "
-                    "f32 only; bf16 W_hid comes with the faster LSTM kernel)")
+        todo.append(f"matmul_dtype={config.matmul_dtype!r} (Queue 2 item 4: bf16 "
+                    "operands with f32 accumulation; the kernels take f32 only)")
+    if config.lstm_remat:
+        todo.append("lstm_remat=True (Queue 1 item 5: the LSTM backward rebuilding "
+                    "its gates)")
+    if config.lstm_residual_dtype is not None:
+        todo.append(f"lstm_residual_dtype={config.lstm_residual_dtype!r} (Queue 1 "
+                    "item 5: training residuals stored in that dtype)")
     if any(s.use_batchnorm for s in config.streams):
         todo.append("use_batchnorm (Queue 1 item 5: ops/normalization)")
     if todo:

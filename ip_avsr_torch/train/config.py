@@ -1,4 +1,4 @@
-"""INI configs of the generic schema, and the model they select.
+"""INI configs of both schemas, and the model they select.
 
 The port's own copy of ip_avsr_tpu/train/config.py (that module needs no
 JAX, but the port imports nothing of the JAX package).  Keys follow the
@@ -18,11 +18,16 @@ reference runners' schema (runners/*.py, e.g. runners/4stream.py:159-224):
                 bucket_boundaries, matmul_dtype, grad_accum_steps
   [lr_map]      optional: parameter-path prefixes -> per-layer learning rates
 
+Schema "legacy" ([data]/[models]/[training], oulu/trimodal_with_val.py:274-287)
+is read by :func:`parse_legacy_config` for the trimodal CLI.
+
 Every key is parsed as the JAX package parses it, so a file selects the same
 model config in both packages; :func:`build_model_config` is the one
-selection logic.  Keys of parts the port does not run yet (bucketing,
-gradient accumulation, ``lstm_remat``, ``lstm_residual_dtype``,
-``matmul_dtype``) are kept as fields and change nothing here.
+selection logic.  ``bucket_boundaries`` and ``grad_accum_steps`` reach the
+Trainer, which runs both.  ``lstm_remat``, ``lstm_residual_dtype`` and
+``matmul_dtype`` are kept as fields of the model config, and building its
+parameters refuses them (``models/adenet.check_supported``) until the port
+runs them.
 """
 
 from __future__ import annotations
@@ -196,6 +201,13 @@ def _parse_buckets(raw):
     if raw.lower() == "auto":
         return "auto"
     return sorted(set(int(b) for b in raw.split(",")))
+
+
+def parse_legacy_config(cp: configparser.ConfigParser) -> dict:
+    """[data]/[models]/[training] schema (oulu/trimodal_with_val.py:274-287):
+    each section as a dict of raw strings, empty where it is missing."""
+    return {name: dict(cp.items(name)) if cp.has_section(name) else {}
+            for name in ("data", "models", "training")}
 
 
 def build_model_config(stream_cfgs, clf: ClassifierConfig, encoders=None):

@@ -275,7 +275,11 @@ def test_trainer_modules_import_neither_jax_nor_the_jax_package():
         "import ip_avsr_torch.train.trainer, ip_avsr_torch.train.checkpoints, "
         "ip_avsr_torch.train.evaluation, ip_avsr_torch.train.optimizers, "
         "ip_avsr_torch.data.datagen, ip_avsr_torch.data.prefetch, "
-        "ip_avsr_torch.utils.data_structures, ip_avsr_torch.utils.regularization\n"
+        "ip_avsr_torch.utils.data_structures, ip_avsr_torch.utils.regularization, "
+        "ip_avsr_torch.io.matio, ip_avsr_torch.data.preprocessing, "
+        "ip_avsr_torch.cli.nstream, ip_avsr_torch.cli.trimodal, "
+        "ip_avsr_torch.cli.separate_train, ip_avsr_torch.cli.extract_weights, "
+        "ip_avsr_torch.cli.evaluate_delta_features\n"
         "import sys\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m.startswith('ip_avsr_tpu')]\n"
