@@ -126,9 +126,15 @@ Phases, each fatal on failure:
    ``grad_accum_steps = 2`` (2 microbatches a step); each CLI again with
    ``--device cpu`` (trimodal at dropout 0 on both), what reached
    ``Trainer.fit`` equal bit for bit and the fits as in 12., the
-   accumulated fit against the unaccumulated one; the ``.mat`` load,
-   preprocessing, model build, fit and wall seconds of every run and the
-   card's host split per step;
+   accumulated fit against the unaccumulated one; then ``cli.leave_one_out``
+   (adenet_v5 from the autoencoders on the trimodal INI, subject 3 held out
+   as validation and test, dropout 0: 5 rows 3 and 4 per step, 5 row 1 per
+   evaluation forward) and ``cli.audio_visual`` (the pixels through one
+   autoencoder and the MFCC stream, force-aligned, 2 epochs of 3 steps: 4
+   rows 6 and 7 per step, 4 row 5 per evaluation forward), each on the
+   card and with ``--device cpu``; the ``.mat`` load, preprocessing, model
+   build, fit and wall seconds of every run and the card's host split per
+   step;
 14. export (``phase_export``): the full-width flagship raw-pixel server
    (symbolic B and T) exported on the card and again on the CPU, the
    full-width 4-stream server (symbolic; f32, and bf16 weights on per-step
@@ -144,12 +150,31 @@ Phases, each fatal on failure:
    artifact bytes, host medians of artifact and live server in turns, busy
    shares; the operators' host cost, per kernel call and per live request
    (through the operators against straight launches, in turns);
-15. print the fit's numbers, the kernels line (each row's launches in the
+15. the rest of the model zoo (``phase_zoo``): deltanet, baseline_end2end,
+   adenet_v1, v1_1, v2_2, v2_nodelta, v5 (sum and adasum), v6 and avnet at
+   full width (1144 pixels, DCT 90, MFCC 39, the builders' own H, 10
+   classes), seeded weights and running statistics, each served at B = 8,
+   T = 29 with a ragged mask through ``serve.make_server``: its launches per
+   forward against :data:`ZOO_LAUNCHES`, its probabilities against the CPU
+   path within 2e-5, its device time per forward; adenet_v1 (batch norm)
+   stepped at B = 10 against the CPU path, fitted on the flagship's cut
+   schedule on the card and on the CPU (held to 4x the spread of two CPU
+   fits that differ in summation order), its running statistics moved,
+   and exported (an f32 artifact against its live server); the flagship
+   with ``fuse_scans`` served and stepped equal to unfused bit for bit;
+16. the residual levers (``phase_residuals``): the flagship and the 4-stream
+   model each take a train step under none, remat, bf16 residuals and
+   both, each against the CPU path for the same setting, remat against none
+   within 1e-4; for one step at B = 10 and T = 29 and 512, the memory the
+   forward holds for its backward and the step's peak beside the predicted
+   residual bytes;
+17. print the fit's numbers, the kernels line (each row's launches in the
    fits and per fit epoch, beside its serve or train path's count; rows 1
    and 5 also their launches in the streaming sessions and the state
    output's error; rows 1, 2 and 5 their launches through the artifacts;
-   every row its launches through the CLIs' card runs),
-   then ``{"ok": true, "device": ...}`` last.
+   every row its launches through the CLIs' card runs, through phase_zoo
+   and through phase_residuals), then ``{"ok": true, "device": ...}``
+   last.
 
 Exits non-zero without a CUDA device or without the package beside it.
 
@@ -1686,14 +1711,13 @@ def oulu_4stream():
     return cfg, config_lib.parse_training(cp)
 
 
-def stream_batch(cfg, B, seed, device):
-    """Seeded normal features (B, 29, D_i) per stream, lengths 14-29 (the
+def stream_batch(cfg, B, seed, device, T=T_FRAMES):
+    """Seeded normal features (B, T, D_i) per stream, lengths T/2-T (the
     first full), and labels."""
     import numpy as np
     import torch
 
     rng = np.random.RandomState(seed)
-    T = T_FRAMES
     streams = [torch.from_numpy(rng.randn(B, T, s.input_dim).astype(np.float32)).to(device)
                for s in cfg.streams]
     lens = rng.randint(T // 2, T + 1, B)
@@ -2519,6 +2543,14 @@ FIT_BIG_SPLIT = 600
 # adadelta steps carry the steps' float32 differences forward)
 FIT_COST_TOL = 1e-4
 FIT_PARAM_TOL = 1e-4
+# an Adam fit, card against CPU: the share of a leaf's entries that may
+# stand beyond FIT_PARAM_TOL, each within 2 lr per step (Adam's step is
+# about +-lr for any gradient above its epsilon, so an entry whose gradient
+# is float32 noise around zero moves lr either way on either side).  The
+# audio_visual fit's 6 steps left 0.006% to 0.06% of its encoder weights'
+# entries there and 2% of its visual LSTM bias (1000 entries), NVIDIA H100
+# 80GB HBM3, 700 W
+ADAM_NOISE_SHARE = 0.05
 
 
 def flagship(dropout=True):
@@ -2674,42 +2706,89 @@ class FitClock:
         return out
 
 
-def compare_fits(label, got, ref, n_val, cost_tol=FIT_COST_TOL, param_tol=FIT_PARAM_TOL,
-                 margins=None):
-    """Raise unless two fits agree: per-epoch costs within ``cost_tol``
-    relative, class rates within one utterance, the same epochs and rate,
-    best parameters within ``param_tol`` of each leaf's max abs.  Prints
-    the worst differences, and ``margins()`` where a rate differs."""
-    import numpy as np
+def named_leaves(tree, path=""):
+    """[(path, leaf)] of a nested dict/list/tuple tree, in ``tree_map``
+    order; paths as "/streams/raw/encoder/bottleneck/b"."""
+    items = tree.items() if isinstance(tree, dict) else (
+        enumerate(tree) if isinstance(tree, (list, tuple)) else None)
+    return [(path, tree)] if items is None else [
+        n for k, v in items for n in named_leaves(v, f"{path}/{k}")]
 
-    from ip_avsr_torch.device import tree_map
+
+def zero_grad_biases(cfg):
+    """The biases whose exact gradient is zero: each batch-norm stream's last
+    encoder layer's (batch norm removes any shift of its input).  Float32
+    gives them noise, which Adam turns into steps of about lr and adadelta
+    into steps of about lr times the noise."""
+    return [f"/streams/{s.name}/encoder/bottleneck/b" for s in cfg.streams
+            if s.use_batchnorm and s.encoder_shapes]
+
+
+def fit_gaps(got, ref, zero_grad=()):
+    """(worst per-epoch cost difference relative, class-rate difference,
+    [(path, best-parameter difference, leaf max abs)]) of two fits; the
+    difference is relative to the leaf's max abs, absolute for a leaf of
+    ``zero_grad`` (paths of :func:`named_leaves` whose exact gradient is
+    zero)."""
+    import numpy as np
 
     rel = lambda a, b: float(np.max(np.abs(np.subtract(a, b)) / np.abs(b)))  # noqa: E731
     cost = max(rel(got.cost_train, ref.cost_train), rel(got.cost_val, ref.cost_val))
-    flips = max(abs(a - b) * n_val for a, b in zip(got.class_rate, ref.class_rate))
-    errs, scales = [], []
-    tree_map(lambda a, b: (errs.append(max_err(a, b)[0] / max(b.abs().max().item(), 1e-30)),
-                           scales.append(b.abs().max().item())),
-             got.best_params, ref.best_params)
-    worst = int(np.argmax(errs))
+    rates = max(abs(a - b) for a, b in zip(got.class_rate, ref.class_rate))
+    params = []
+    for (path, a), (_, b) in zip(named_leaves(got.best_params), named_leaves(ref.best_params)):
+        top = b.abs().max().item()
+        params.append((path, max_err(a, b)[0] / (1.0 if path in zero_grad else max(top, 1e-30)),
+                       top))
+    return cost, rates, params
 
-    def names(tree, path=""):
-        items = tree.items() if isinstance(tree, dict) else (
-            enumerate(tree) if isinstance(tree, (list, tuple)) else None)
-        return [path] if items is None else [
-            n for k, v in items for n in names(v, f"{path}/{k}")]
+
+def adam_noise_entries(got, ref, path, param_tol, lr, steps):
+    """(entries of leaf ``path`` beyond ``param_tol`` of its max abs, all its
+    entries, whether each of those is within 2 lr steps): an Adam fit's
+    entries whose gradients sit within float32 noise of zero, which Adam
+    steps by about +-lr each way whatever the gradient's size."""
+    a = dict(named_leaves(got.best_params))[path]
+    b = dict(named_leaves(ref.best_params))[path]
+    diff = (a - b).abs()
+    beyond = diff > param_tol * b.abs().max()
+    return (int(beyond.sum()), diff.numel(),
+            bool((diff[beyond] <= 2 * lr * steps * (1 + 1e-3)).all()))
+
+
+def compare_fits(label, got, ref, n_val, cost_tol=FIT_COST_TOL, param_tol=FIT_PARAM_TOL,
+                 margins=None, zero_grad=(), adam=None):
+    """Raise unless two fits agree: per-epoch costs within ``cost_tol``
+    relative, class rates within one utterance, the same epochs and rate,
+    best parameters within ``param_tol`` of each leaf's max abs (absolute
+    for a leaf of ``zero_grad``, see :func:`fit_gaps`).  With ``adam`` =
+    (lr, steps), a leaf beyond that passes when at most ADAM_NOISE_SHARE of
+    its entries are (:func:`adam_noise_entries`), each within 2 lr steps.
+    Prints the worst differences, and ``margins()`` where a rate differs."""
+    cost, rates, params = fit_gaps(got, ref, zero_grad)
+    flips = rates * n_val
+    over = [path for path, e, _ in params if e > param_tol]
+    if adam is not None and over:
+        noise = {path: adam_noise_entries(got, ref, path, param_tol, *adam) for path in over}
+        print(f"{label}: Adam's steps on gradients within noise of zero (lr {adam[0]:g}, "
+              f"{adam[1]} steps): entries beyond {param_tol:g} of max abs "
+              f"{ {p: f'{n} of {m}' for p, (n, m, _) in noise.items()} }")
+        params = [(path, 0.0 if path in noise and noise[path][0] <= ADAM_NOISE_SHARE
+                   * noise[path][1] and noise[path][2] else e, top)
+                  for path, e, top in params]
+    worst_path, worst, top = max(params, key=lambda t: t[1])
     print(f"{label}: costs {[round(float(c), 6) for c in got.cost_val]} (val) against "
           f"{[round(float(c), 6) for c in ref.cost_val]}, worst relative difference "
           f"{cost:.2e}; "
           f"class rates {got.class_rate} against {ref.class_rate} ({flips:.0f} utterances "
-          f"apart at most); best parameters, worst of {len(errs)} relative to max abs "
-          f"{max(errs):.2e} (at {names(ref.best_params)[worst]}, max abs "
-          f"{scales[worst]:.3e})")
+          f"apart at most); best parameters, worst of {len(params)} relative to max abs "
+          f"{worst:.2e} (at {worst_path}, max abs {top:.3e}"
+          f"{'; absolute: its exact gradient is 0' if worst_path in zero_grad else ''})")
     if flips and margins is not None:
         margins()
     if not (len(got.cost_val) == len(ref.cost_val) and cost <= cost_tol and flips <= 1
             and got.epochs_run == ref.epochs_run and got.final_lr == ref.final_lr
-            and max(errs) <= param_tol):
+            and worst <= param_tol):
         raise AssertionError(f"{label}: the fits disagree")
 
 
@@ -2916,6 +2995,9 @@ def phase_fit(dev):
 CLI_CORPUS = dict(n=60, subjects=10, imagesize=IMAGE_SHAPE, dct=DCT, mfcc=39,
                   ae=(2000, 1000, 500, 50), classes=10)
 CLI_SUBJECTS = {"train": "1,2,3,4,5,6", "val": "7,8", "test": "9,10"}
+# cli.audio_visual's schedule (its own flags: Adam at lr 1e-4, batch 10,
+# W = 9, H = 250) cut to 2 epochs of 3 steps
+AV_CUTS = {"num_epoch": 2, "epochsize": 3}
 
 
 def write_cli_corpus(root, corpus=None, seed=SEED):
@@ -3114,16 +3196,19 @@ def phase_cli(dev):
     phase_fit cuts it; ``cli.trimodal`` (the flagship from the two
     autoencoders, its dropout on) and ``cli.nstream`` (the peephole 4-stream
     model, force-aligned) with every launch counted; a bucketed and a
-    ``grad_accum_steps = 2`` nstream fit; each CLI again with
-    ``--device cpu`` (the trimodal one at dropout 0, on the card and on the
-    CPU), what reached ``Trainer.fit`` equal bit for bit and the fits within
-    FIT_COST_TOL and FIT_PARAM_TOL.  Returns ({row: launches} summed over
-    the phase's card runs, the phase's numbers)."""
+    ``grad_accum_steps = 2`` nstream fit; ``cli.leave_one_out`` (adenet_v5
+    from the autoencoders on the trimodal INI, ``--test_subj 3``) and
+    ``cli.audio_visual`` (the pixels through one autoencoder and the MFCC
+    stream, force-aligned, 2 epochs of 3 steps); each CLI again with
+    ``--device cpu`` (trimodal and leave_one_out at dropout 0, on the card
+    and on the CPU), what reached ``Trainer.fit`` equal bit for bit and the
+    fits within FIT_COST_TOL and FIT_PARAM_TOL.  Returns ({row: launches}
+    summed over the phase's card runs, the phase's numbers)."""
     import tempfile
 
     import numpy as np
 
-    from ip_avsr_torch.cli import nstream, trimodal
+    from ip_avsr_torch.cli import audio_visual, leave_one_out, nstream, trimodal
     from ip_avsr_torch.models import zoo
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
@@ -3147,12 +3232,14 @@ def phase_cli(dev):
                   f"[training] cut: {[c[1:] for c in changed if c[1] in cuts]}")
 
         def run(label, main, ini, device, epochsize, per_step, per_eval):
-            """One CLI run; on the card its launches held to ``per_step``
-            per train step and ``per_eval`` per evaluation forward."""
+            """One CLI run (``ini`` a name of ``inis`` or the CLI's argument
+            list); on the card its launches held to ``per_step`` per train
+            step and ``per_eval`` per evaluation forward."""
+            args = ["--config", inis[ini]] if isinstance(ini, str) else list(ini)
             out = io.StringIO()
             try:
                 with contextlib.redirect_stdout(out):
-                    result, rec = run_cli(main, ["--config", inis[ini], "--device", device])
+                    result, rec = run_cli(main, args + ["--device", device])
             finally:  # the CLI's report: the epoch lines and the final rates
                 for line in out.getvalue().splitlines():
                     if any(k in line for k in ("Epoch", "CR:", "bucketed", "WARNING",
@@ -3218,9 +3305,498 @@ def phase_cli(dev):
         # the accumulated gradient is the full batch's: the unaccumulated fit
         compare_fits("cli, 4-stream grad_accum_steps=2 vs 1 (card)", accum, card,
                      len(a_rec["data"][1][2]))
+
+        # leave-one-out: adenet_v5 from the autoencoders on the trimodal INI,
+        # subject 3 held out as validation and test, at dropout 0 (card, CPU)
+        loo_args = ["--config", inis["trimodal"], "--test_subj", "3"]
+        adenet_v5 = zoo.adenet_v5
+        zoo.adenet_v5 = lambda *a, **kw: no_dropout(adenet_v5(*a, **kw))
+        try:
+            card, card_rec = run("leave_one_out dropout 0", leave_one_out.main, loo_args,
+                                 "cuda", ep3, *flagship_rows)
+            cpu, cpu_rec = run("leave_one_out dropout 0", leave_one_out.main, loo_args, "cpu",
+                               ep3, {}, {})
+        finally:
+            zoo.adenet_v5 = adenet_v5
+        same_fit_inputs("cli, leave_one_out dropout 0, card vs CPU", card_rec, cpu_rec)
+        compare_fits("cli, leave_one_out dropout 0, card vs CPU", card, cpu,
+                     len(cpu_rec["data"][1][2]))
+        print(f"cli, leave_one_out: {len(cpu_rec['data'][0][2])} training utterances, "
+              f"{len(cpu_rec['data'][2][2])} of subject 3 as validation and test")
+
+        # audio_visual: the pixels through one autoencoder, the MFCC stream
+        # force-aligned to them, the corpus's subject files, 2 epochs of 3 steps
+        av_args = ["--visual", paths["images"], "--audio", paths["mfcc"], "--encoder",
+                   paths["ae"], "--train_subjects_file", paths["train"],
+                   "--val_subjects_file", paths["val"], "--test_subjects_file", paths["test"],
+                   "--num_epoch", str(AV_CUTS["num_epoch"]),
+                   "--epochsize", str(AV_CUTS["epochsize"])]
+        avnet_rows = (dict(lstm_peep_fwd_train=4, lstm_peep_bwd=4, delta=1),
+                      dict(lstm_peep_fwd=4, delta=1))
+        card, card_rec = run("audio_visual", audio_visual.main, av_args, "cuda",
+                             AV_CUTS["epochsize"], *avnet_rows)
+        cpu, cpu_rec = run("audio_visual", audio_visual.main, av_args, "cpu",
+                           AV_CUTS["epochsize"], {}, {})
+        same_fit_inputs("cli, audio_visual, card vs CPU", card_rec, cpu_rec)
+        compare_fits("cli, audio_visual, card vs CPU", card, cpu, len(cpu_rec["data"][1][2]),
+                     adam=(1e-4, fit_forwards(card, AV_CUTS["epochsize"])[0]))
+        lens = np.asarray(card_rec["data"][0][2])
+        print(f"cli, audio_visual: force-aligned lengths {int(lens.min())}-{int(lens.max())}, "
+              f"{int(lens.sum())} training frames")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"cli: launches over the phase's card runs {totals}")
+    return totals, numbers
+
+
+# phase_zoo: the rest of the model zoo at full width (OuluVS's 1144 pixels,
+# DCT 90, MFCC 39, the builders' own H, 10 classes), each forward's
+# launches as predicted from its recurrences: row 1 or row 5 once per
+# LSTM (a BLSTM layer is two), row 2 once over every delta stream
+ZOO_B = 8
+ZOO_MFCC = 39
+# adenet_v1's fit, card against CPU: this many times the spread between two
+# CPU fits that differ only in float32 summation order (1 thread and all)
+BN_FIT_SPREAD = 4
+ZOO_LAUNCHES = {
+    "deltanet": dict(lstm_fwd=2, delta=1),
+    "baseline_end2end": dict(lstm_fwd=2),
+    "adenet_v1": dict(lstm_fwd=4, delta=1),
+    "adenet_v1_1": dict(lstm_fwd=4, delta=1),
+    "adenet_v2_2": dict(lstm_peep_fwd=4, delta=1),
+    "adenet_v2_nodelta": dict(lstm_peep_fwd=4),
+    "adenet_v5": dict(lstm_fwd=5, delta=1),
+    "adenet_v5 adasum": dict(lstm_fwd=5, delta=1),
+    "adenet_v6": dict(lstm_fwd=4, delta=1),
+    "avnet": dict(lstm_peep_fwd=4, delta=1),
+}
+
+
+def zoo_models():
+    """{label: full-width config} of the builders phase_zoo serves."""
+    from ip_avsr_torch.models import avnet, zoo
+
+    nl, sh = zoo.SIGMOID_ENCODER
+    px, C = IMAGE_SHAPE[0] * IMAGE_SHAPE[1], 10
+    return {
+        "deltanet": zoo.deltanet(px, sh, nl, output_classes=C),
+        "baseline_end2end": zoo.baseline_end2end(px, sh, nl, output_classes=C),
+        "adenet_v1": zoo.adenet_v1(px, DCT, output_classes=C),
+        "adenet_v1_1": zoo.adenet_v1_1(px, DCT, output_classes=C),
+        "adenet_v2_2": zoo.adenet_v2_2(px, px, output_classes=C),
+        "adenet_v2_nodelta": zoo.adenet_v2_nodelta(px, px, output_classes=C),
+        "adenet_v5": zoo.adenet_v5(px, DCT, px, output_classes=C),
+        "adenet_v5 adasum": zoo.adenet_v5(px, DCT, px, output_classes=C, use_adascale=True),
+        "adenet_v6": zoo.adenet_v6(px, px, output_classes=C),
+        "avnet": avnet.avnet_config([px, ZOO_MFCC], ["visual", "audio"], output_classes=C,
+                                    no_encoder_for=["audio"]),
+    }
+
+
+def move_bn_state(params, cfg, seed):
+    """Set each batch-norm stream's running statistics away from their init
+    (seeded: mean N(0, 0.3^2), var U(0.5, 1.5)), so that evaluation
+    normalizes; in place, returns ``params``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    for spec in cfg.streams:
+        if spec.use_batchnorm:
+            sp = params["streams"][spec.name]
+            d, device = spec.encoded_dim(), sp["bn"]["gamma"].device
+            sp["bn_state"] = {"mean": (0.3 * torch.randn(d, generator=gen)).to(device),
+                              "var": (0.5 + torch.rand(d, generator=gen)).to(device)}
+    return params
+
+
+def step_against_cpu(label, cfg, params, streams, y, mask, grad_tol=TRAIN_GRAD_TOL):
+    """The loss, gradients and one update of a dropout-free config on the
+    card against the port's CPU path from the same parameters and batch:
+    the loss within TRAIN_LOSS_TOL relative, each gradient within
+    ``grad_tol`` of its max abs (or TRAIN_GRAD_FLOOR), and the parameters
+    after one adadelta update at lr 1.0 (configs/oulu_trimodal.ini's
+    optimizer) with the running statistics merged, within TRAIN_PARAM_TOL.
+    Adadelta's first step is at most the gradient itself, so it carries the
+    gradients' float32 differences over unamplified (Adam's first step is
+    about +-lr whatever a gradient's size, so it turns the noise of an
+    entry whose gradient is near zero into a step of lr either way).  A
+    bias of :func:`zero_grad_biases` is held instead to a gradient under
+    1e-4 of its layer's weight gradient on both.  Returns (card gradients,
+    numbers)."""
+    import torch
+
+    from ip_avsr_torch.device import tree_to
+    from ip_avsr_torch.train import optimizers, trainer
+
+    cpu = torch.device("cpu")
+    c_params, c_streams, c_y, c_mask = (tree_to(params, cpu), tree_to(streams, cpu), y.cpu(),
+                                        mask.cpu())
+    opt = optimizers.adadelta(1.0)
+    updated = []
+    for p, batch in ((params, (streams, y, mask)), (c_params, (c_streams, c_y, c_mask))):
+        loss, grads, aux = trainer.loss_and_grads(p, cfg, *batch, return_aux=True)
+        new = trainer.merge_bn_state(opt.apply(p, grads, opt.init(p))[0], aux)
+        updated.append((loss, grads, new))
+    (loss_d, grads_d, p_d), (loss_c, grads_c, p_c) = updated
+    zero = zero_grad_biases(cfg)
+    g_d, g_c = dict(named_leaves(grads_d)), dict(named_leaves(grads_c))
+    pd, pc = dict(named_leaves(p_d)), dict(named_leaves(p_c))
+    loss_rel = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    grad_rel, bad = {}, []
+    for path, b in g_c.items():
+        e = max_err(g_d[path].cpu(), b)[0]
+        top = b.abs().max().item()
+        grad_rel[path] = e / max(top, 1e-30)
+        if path in zero:
+            weight = g_c[path[:-1] + "w"].abs().max().item()
+            noise = max(g_d[path].abs().max().item(), top)
+            if not noise <= 1e-4 * weight:
+                bad.append(f"{path} gradient {noise:.2e} against its weight's {weight:.2e}")
+        elif not e <= max(grad_tol * top, TRAIN_GRAD_FLOOR):
+            bad.append(f"{path} gradient {e:.2e} of max abs {top:.2e}")
+    param_abs = {path: max_err(pd[path].cpu(), b)[0] for path, b in pc.items()
+                 if path not in zero}
+    bad += [f"{path} parameter {e:.2e}" for path, e in param_abs.items()
+            if not e <= TRAIN_PARAM_TOL]
+    worst = max((e, path) for path, e in grad_rel.items() if path not in zero)
+    print(f"{label}, card vs CPU path: loss {float(loss_d):.7f} vs {float(loss_c):.7f} "
+          f"(relative {loss_rel:.2e}); gradients ({len(grad_rel)} tensors) relative to max abs "
+          f"worst {worst[0]:.2e} ({worst[1]}; held to {grad_tol:g}); parameters after one "
+          f"adadelta update max abs {max(param_abs.values()):.2e}"
+          + (f"; zero-gradient biases {zero} held to noise" if zero else ""))
+    if not loss_rel <= TRAIN_LOSS_TOL or bad:
+        raise AssertionError(f"{label}: the train step on the card disagrees with the CPU "
+                             f"path: {bad or f'loss {loss_rel:.2e}'}")
+    return grads_d, dict(loss_rel=loss_rel, grad_rel=worst[0],
+                         param_abs=max(param_abs.values()))
+
+
+def count_into(totals, launches):
+    for k, v in launches.items():
+        totals[k] += v
+
+
+def phase_zoo(dev):
+    """The rest of the model zoo on the card at full width: every builder
+    of :func:`zoo_models` from seeded weights (running statistics moved off
+    their init), served at B = 8, T = 29 with a ragged mask through
+    ``serve.make_server`` (launches per forward against
+    :data:`ZOO_LAUNCHES`, probabilities against the CPU path within
+    SCORE_TOL, device time per forward); adenet_v1 also trained (one step
+    at B = 10 against the CPU path; ``Trainer.fit`` on the flagship's
+    schedule cut as phase_fit cuts it, card against CPU, its running
+    statistics moved) and exported (an f32 artifact against its live
+    server); the flagship with ``fuse_scans`` served and stepped bit for bit
+    as unfused.  Returns ({row: launches} over the phase, its numbers)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch import export
+    from ip_avsr_torch.device import tree_map, tree_to
+    from ip_avsr_torch.models import adenet
+    from ip_avsr_torch.ops import fusion as fusion_ops
+    from ip_avsr_torch.serve import make_server
+    from ip_avsr_torch.train import trainer as trainer_lib
+
+    totals, numbers = {name: 0 for name in KERNEL_COUNTERS}, {}
+    cpu = torch.device("cpu")
+    models = zoo_models()
+    # adenet_v5 with sum fusion is the flagship's config: its parameters serve
+    # the adasum variant too (with the adasum coefficients) and the
+    # fuse_scans check below, which saves two orthogonal inits on the host
+    if models["adenet_v5"] != flagship():
+        raise AssertionError("zoo: adenet_v5 (sum) is no longer the flagship's config")
+    v5 = None
+    for i, (label, cfg) in enumerate(models.items()):
+        seed = SEED + 50 + i
+        if label == "adenet_v5 adasum":
+            params = {**v5, "adasum": {k: v.to(dev) for k, v in
+                                       fusion_ops.init_adasum_params(len(cfg.streams)).items()}}
+        else:
+            params = move_bn_state(adenet.init_adenet_params(
+                torch.Generator().manual_seed(seed), cfg, device=dev), cfg, seed)
+        if label == "adenet_v5":
+            v5 = params
+        streams, mask, _ = stream_batch(cfg, ZOO_B, seed, dev)
+        server = make_server(params, cfg, vote=False, device=dev)
+        server(streams, mask)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        probs = server(streams, mask)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        count_into(totals, launches)
+        got = {k: v for k, v in launches.items() if v}
+        expect_launches(launches, **ZOO_LAUNCHES[label])
+        ref = make_server(tree_to(params, cpu), cfg, vote=False, device="cpu")(
+            tree_to(streams, cpu), mask.cpu())
+        want_shape = ((ZOO_B, T_FRAMES, cfg.output_classes) if cfg.output_mode == "per_step"
+                      else (ZOO_B, cfg.output_classes))
+        probs = probs.cpu()
+        err = (probs - ref).abs().max().item()
+        row_err = (probs.sum(-1) - 1).abs().max().item()
+        ms = cuda_ms(lambda: server(streams, mask), iters=10)
+        H = sorted({cfg.stream_lstm_size(s) for s in cfg.streams if s.use_lstm}
+                   | set(cfg.aggregator_sizes()))
+        print(f"zoo, {label}: H {H}, {cfg.output_mode}, fusion {cfg.fusiontype}, peepholes "
+              f"{cfg.use_peepholes}; launches per forward {got} (predicted "
+              f"{ZOO_LAUNCHES[label]}); |card - CPU path| {err:.2e}, |row sum - 1| "
+              f"{row_err:.2e}; {ms:.3f} ms per forward (CUDA events, B={ZOO_B})")
+        if not (tuple(probs.shape) == want_shape and torch.isfinite(probs).all()
+                and err <= SCORE_TOL and row_err <= 1e-5):
+            raise AssertionError(f"zoo, {label}: bad probabilities {tuple(probs.shape)}, "
+                                 f"error {err:.2e}")
+        numbers[label] = dict(launches=got, err=err, ms=ms)
+        del params, server
+    print(f"zoo: launches per forward, measured against predicted: all "
+          f"{len(models)} equal; {smi('name,power.limit')}")
+
+    # adenet_v1: a train step, a fit, an artifact
+    cfg = models["adenet_v1"]
+    params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 60), cfg,
+                                       device=dev)
+    streams, mask, y = stream_batch(cfg, TRAIN_B, SEED + 60, dev)
+    opt, step = trainer_lib.make_train_step(cfg)
+    step(params, opt.init(params), streams, y, mask)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    p1 = step(params, opt.init(params), streams, y, mask)[0]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    count_into(totals, launches)
+    expect_launches(launches, lstm_fwd_train=4, lstm_bwd=4, delta=1)
+    moved = (p1["streams"]["raw"]["bn_state"]["var"] - 1).abs().max().item()
+    print(f"zoo, adenet_v1 train step B={TRAIN_B}: launches {launches}; running var moved "
+          f"{moved:.3e} from 1")
+    if not moved > 0:
+        raise AssertionError("zoo, adenet_v1: the train step left bn_state at its init")
+    _, numbers["adenet_v1 step"] = step_against_cpu("zoo, adenet_v1 train step", cfg, params,
+                                                    streams, y, mask)
+
+    full, sched = trimodal_schedule()
+    data = fit_splits(cfg, FIT_SPLIT, SEED + 61)
+    params0 = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 61), cfg,
+                                        device="cpu")
+    start = {"cpu": params0, dev.type: tree_to(params0, dev)}
+
+    def make(device):
+        t = trainer_lib.Trainer(cfg, trainer_lib.TrainOptions(
+            **{**sched, "seed": SEED, "log_fn": lambda s: None}), device=device)
+        t.init_params = lambda generator, **_: start[t.device.type]
+        return t
+
+    reset_launches()
+    t0 = time.perf_counter()
+    card = make(dev).fit(*data)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    count_into(totals, launches)
+    steps, evals = fit_forwards(card, sched["epochsize"])
+    print(f"zoo, adenet_v1 fit (configs/oulu_trimodal.ini's schedule cut to {FIT_CUTS}): "
+          f"{card.epochs_run} epochs, {steps} steps, {evals} evaluation forwards in "
+          f"{fit_s:.2f} s; launches {launches}")
+    expect_launches(launches, lstm_fwd_train=4 * steps, lstm_bwd=4 * steps,
+                    lstm_fwd=4 * evals, delta=steps + evals)
+    cpu_fit = make(cpu).fit(*data)
+    # batch norm divides its input's gradient by the encoder output's std
+    # (about 1e-2 at this init), so float32 summation order alone moves the
+    # fit: the same CPU fit on one thread gives the spread, and the card is
+    # held to BN_FIT_SPREAD times it where that exceeds the fit tolerances
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one_thread = make(cpu).fit(*data)
+    finally:
+        torch.set_num_threads(threads)
+    zero = zero_grad_biases(cfg)
+    cost_spread, _, spread = fit_gaps(one_thread, cpu_fit, zero)
+    param_spread = max(e for path, e, _ in spread if path not in zero)
+    cost_tol = max(FIT_COST_TOL, BN_FIT_SPREAD * cost_spread)
+    param_tol = max(FIT_PARAM_TOL, BN_FIT_SPREAD * param_spread)
+    print(f"zoo, adenet_v1 fit on the CPU, 1 against {threads} threads: costs "
+          f"{cost_spread:.2e}, best parameters {param_spread:.2e} (worst, relative); the card "
+          f"held to costs {cost_tol:.2e}, parameters {param_tol:.2e}")
+    compare_fits("zoo, adenet_v1 fit, card vs CPU path", card, cpu_fit, FIT_SPLIT[1],
+                 cost_tol=cost_tol, param_tol=param_tol, zero_grad=zero)
+    numbers["adenet_v1 fit"] = dict(cost_spread=cost_spread, param_spread=param_spread,
+                                    cost_tol=cost_tol, param_tol=param_tol)
+    bn = card.best_params["streams"]["raw"]["bn_state"]
+    moved = max(bn["mean"].abs().max().item(), (bn["var"] - 1).abs().max().item())
+    print(f"zoo, adenet_v1 fit: best parameters' running statistics {moved:.3e} from their "
+          f"init at most")
+    if not moved > 0:
+        raise AssertionError("zoo, adenet_v1 fit: bn_state did not move")
+    numbers["adenet_v1 fit_s"] = fit_s
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    try:
+        moved_params = move_bn_state(tree_map(lambda t: t.clone(), params), cfg, SEED + 62)
+        path = os.path.join(tmp, "adenet_v1.ipax")
+        export.save_artifact(path, moved_params, cfg, device=dev)
+        art = export.load_server(path, device=dev)
+        live = make_server(moved_params, cfg, device=dev)
+        reqs = export_requests("features", cfg, [(ZOO_B, T_FRAMES), (1, 14)], SEED + 62)
+        numbers["adenet_v1 artifact err"] = check_artifact(
+            "zoo, adenet_v1 f32 artifact", art, live, reqs, "lstm_fwd", 4, totals)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the flagship with fuse_scans: the grouped calls run their members in the
+    # unfused order, so the forward and the step are the unfused ones bit for bit
+    cfg = flagship()
+    fused = dataclasses.replace(cfg, fuse_scans=True)
+    params = v5
+    streams, mask, y = stream_batch(cfg, ZOO_B, SEED + 63, dev)
+    want = make_server(params, cfg, vote=False, device=dev)(streams, mask)
+    reset_launches()
+    got = make_server(params, fused, vote=False, device=dev)(streams, mask)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    count_into(totals, launches)
+    expect_launches(launches, lstm_fwd=5, delta=1)
+    streams, mask, y = stream_batch(cfg, TRAIN_B, SEED + 64, dev)
+    outs = []
+    for c in (cfg, fused):
+        opt, step = trainer_lib.make_train_step(c)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        reset_launches()
+        outs.append(step(params, opt.init(params), streams, y, mask, gen))
+        torch.cuda.synchronize()
+        step_launches = read_launches()
+        count_into(totals, step_launches)
+        expect_launches(step_launches, lstm_fwd_train=5, lstm_bwd=5, delta=1)
+    same = []
+    tree_map(lambda a, b: same.append(torch.equal(a, b)), outs[0][:2], outs[1][:2])
+    print(f"zoo, flagship fuse_scans=True: forward launches {launches}, probabilities equal "
+          f"to unfused: {torch.equal(got, want)}; train step (its dropout, the same draws) "
+          f"loss {float(outs[1][2]):.7f}, equal: {torch.equal(outs[0][2], outs[1][2])}, "
+          f"parameters and Adam state equal: {sum(same)}/{len(same)} leaves")
+    if not (torch.equal(got, want) and torch.equal(outs[0][2], outs[1][2]) and all(same)):
+        raise AssertionError("zoo: fuse_scans is not the unfused forward and step bit for bit")
+    print(f"zoo: launches over the phase {totals}")
+    return totals, numbers
+
+
+# phase_residuals: the LSTM residual levers on a train step.  Per LSTM layer
+# the training residuals held from forward to backward are the gates
+# (T B 4H) and the hids and cells (2 T B H), 4 bytes each, 2 in bf16;
+# remat keeps no gates (one layer's are rebuilt at a time in the backward)
+RESIDUAL_SETTINGS = {"none": {}, "remat": dict(lstm_remat=True),
+                     "bf16": dict(lstm_residual_dtype="bfloat16"),
+                     "remat+bf16": dict(lstm_remat=True, lstm_residual_dtype="bfloat16")}
+RESIDUAL_T = (T_FRAMES, 512)
+# remat against none on the card: the rebuilt gates are the same products in
+# another order, held as the train step's gradients are
+REMAT_TOL = 1e-4
+# bf16 residuals, card against CPU: each side rounds its own float32 stacks,
+# and an entry whose two float32 values straddle a bf16 rounding boundary
+# is stored one bf16 ulp (2^-8 relative) apart (about one entry in 4e4 of
+# a gate stack, some 15 a flagship step); 4.8x under the 2.42e-3 gap
+# between float32 and bf16-residual gradients (ROADMAP Queue 3)
+BF16_STEP_TOL = 5e-4
+
+
+def lstm_layer_sizes(cfg):
+    """H of every recurrence of a config (a BLSTM layer counts twice)."""
+    sizes = [cfg.stream_lstm_size(s) for s in cfg.streams if s.use_lstm]
+    for H in cfg.aggregator_sizes():
+        sizes += [H] * (2 if cfg.agg_bidirectional else 1)
+    return sizes
+
+
+def residual_bytes(cfg, B, T, setting):
+    """Predicted bytes of the LSTM residual stacks a train step holds between
+    its forward and its backward under ``setting``."""
+    item = 2 if "bf16" in setting else 4
+    return sum((0 if "remat" in setting else T * B * 4 * H * item) + 2 * T * B * H * item
+               for H in lstm_layer_sizes(cfg))
+
+
+def phase_residuals(dev):
+    """The flagship (dropout 0) and the peephole 4-stream model of
+    configs/oulu_4stream.ini each take a train step under the four residual
+    settings: each setting on the card against the CPU path for the same
+    setting (:func:`step_against_cpu`), remat against none on the card
+    within REMAT_TOL, bf16 against none printed; and for one step at B = 10
+    and T in RESIDUAL_T, the memory the forward holds for its backward and
+    the step's peak (``torch.cuda.max_memory_allocated``) beside the
+    predicted residual bytes.  Returns ({row: launches}, numbers)."""
+    import dataclasses
+
+    import torch
+
+    from ip_avsr_torch.device import tree_map
+    from ip_avsr_torch.models import adenet
+    from ip_avsr_torch.train import trainer
+
+    totals, numbers = {name: 0 for name in KERNEL_COUNTERS}, {}
+    cfg4, training4 = oulu_4stream()
+    models = (("flagship", flagship(dropout=False), 1e-4,
+               dict(lstm_fwd_train=5, lstm_bwd=5, delta=1)),
+              ("4-stream", cfg4, training4.learning_rate,
+               dict(lstm_peep_fwd_train=6, lstm_peep_bwd=6, delta=1)))
+    MiB = 2 ** 20
+    for k, (label, cfg, lr, per_step) in enumerate(models):
+        params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 70 + k), cfg,
+                                           device=dev)
+        streams, mask, y = stream_batch(cfg, TRAIN_B, SEED + 70 + k, dev)
+        grads = {}
+        for setting, fields in RESIDUAL_SETTINGS.items():
+            c = dataclasses.replace(cfg, **fields)
+            reset_launches()
+            grads[setting], numbers[f"{label} {setting}"] = step_against_cpu(
+                f"residuals, {label} {setting}", c, params, streams, y, mask,
+                grad_tol=BF16_STEP_TOL if "bf16" in setting else TRAIN_GRAD_TOL)
+            runs = 1  # the gradients of the comparison
+            opt, step = trainer.make_train_step(c, lr=lr)
+            mem = {}
+            for T in RESIDUAL_T:
+                batch = stream_batch(c, TRAIN_B, SEED + 72, dev, T=T)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                tracked = tree_map(lambda t: t.detach().requires_grad_(True), params)
+                loss = trainer.loss_fn(tracked, c, batch[0], batch[2], batch[1])
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated() - base
+                loss.backward()
+                del loss, tracked
+                torch.cuda.synchronize()
+                state = opt.init(params)
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                step(params, state, batch[0], batch[2], batch[1])
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                del state, batch
+                runs += 2
+                mem[T] = dict(predicted_mib=residual_bytes(c, TRAIN_B, T, setting) / MiB,
+                              held_mib=held / MiB, step_peak_mib=peak / MiB)
+            launches = read_launches()
+            count_into(totals, launches)
+            expect_launches(launches, **{r: n * runs for r, n in per_step.items()})
+            numbers[f"{label} {setting}"]["memory"] = mem
+            print(f"residuals, {label} {setting}: " + "; ".join(
+                f"T={T}: predicted residual stacks {m['predicted_mib']:.1f} MiB, held by the "
+                f"forward {m['held_mib']:.1f} MiB, step peak above the parameters "
+                f"{m['step_peak_mib']:.1f} MiB" for T, m in mem.items())
+                + f" (B={TRAIN_B}; {smi('name,power.limit')})")
+        for setting in ("remat", "bf16", "remat+bf16"):
+            rel = max(max_err(a, b)[0] / max(b.abs().max().item(), 1e-30)
+                      for (path, a), (_, b) in zip(named_leaves(grads[setting]),
+                                                   named_leaves(grads["none"]))
+                      if path not in zero_grad_biases(cfg))
+            numbers[f"{label} {setting}"]["vs_none"] = rel
+            print(f"residuals, {label}: {setting} against none on the card, gradients worst "
+                  f"{rel:.2e} of max abs")
+            if setting == "remat" and not rel <= REMAT_TOL:
+                raise AssertionError(f"residuals, {label}: remat moved the gradients {rel:.2e}")
+        del params, grads
+    print(f"residuals: launches over the phase {totals}")
     return totals, numbers
 
 
@@ -3271,6 +3847,10 @@ def main() -> int:
     print(json.dumps({"cli": cli_numbers}))
     export = phase_export(dev)
     print(json.dumps({"export": export}))
+    zoo_launches, zoo_numbers = phase_zoo(dev)
+    print(json.dumps({"zoo": zoo_numbers}))
+    residual_launches, residual_numbers = phase_residuals(dev)
+    print(json.dumps({"residuals": residual_numbers}))
 
     pallas = "ip_avsr_tpu/ops/pallas/lstm_kernel.py"
     fwd_src, bwd_src = "ip_avsr_torch/csrc/lstm_fwd.cu", "ip_avsr_torch/csrc/lstm_bwd.cu"
@@ -3322,8 +3902,12 @@ def main() -> int:
         # rows 1, 2 and 5: their launches through the loaded artifacts
         if row["name"] in ("delta", "lstm_fwd", "lstm_peep_fwd"):
             row.update(export_launches=export["launches"][row["name"]])
-        # every row: its launches through the training CLIs' card runs
-        row.update(cli_launches=cli_launches[row["name"]])
+        # every row: its launches through the training CLIs' card runs, the
+        # rest of the zoo's serving, training and export, and the residual
+        # levers' train steps
+        row.update(cli_launches=cli_launches[row["name"]],
+                   zoo_launches=zoo_launches[row["name"]],
+                   residual_launches=residual_launches[row["name"]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

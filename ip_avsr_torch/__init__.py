@@ -16,7 +16,10 @@ generic N-stream AdeNets with peephole LSTMs that INI configs such as
 (``train.trainer.make_train_step``) and the single-device trainer
 (``train.trainer.Trainer``: fit, evaluation, checkpoints, every optimizer).
 ``export`` ships a served program as one artifact through ``torch.export``
-(``cli.export_model``; the demo's ``--artifact`` serves it).  Every kernel of the JAX package's ``ops/pallas/`` has its CUDA
+(``cli.export_model``; the demo's ``--artifact`` serves it).  The whole
+model zoo builds (``models.zoo``, ``models.avnet``), batch norm, grouped
+recurrences (``fuse_scans``) and the LSTM residual levers included, and the
+training CLIs run from ``.mat`` files.  Every kernel of the JAX package's ``ops/pallas/`` has its CUDA
 counterpart.
 """
 

@@ -350,8 +350,9 @@ def save_streaming_artifact(
     artifact.
 
     Serializes the session's two device programs, traced on ``device``:
-    one ``prep_i`` per stream with an encoder (``serve.StreamPrep``; an
-    encoder-less stream's prep is the identity and has no entry) and the
+    one ``prep_i`` per stream with an encoder or batch norm
+    (``serve.StreamPrep``, batch norm in evaluation mode; any other
+    stream's prep is the identity and has no entry) and the
     stateful head advance (``serve.StreamAdvance``), both with a symbolic
     chunk axis ``n >= 1``, plus the initial recurrent state (``state0.npz``)
     and the scalar session contract (window, lookahead, per-stream delta

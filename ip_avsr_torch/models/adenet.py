@@ -1,28 +1,35 @@
 """The AdeNet composer.
 
 Mirrors ip_avsr_tpu/models/adenet.py: per stream, (B, T, D) -> optional dense
-encoder on (B*T, D) frames -> optional DeltaLayer (dim x3) -> optional stream
-LSTM; then fusion {sum | adasum | concat}; then an aggregator of
-(bi)directional LSTM layers whose halves are summed; then a per-timestep
-softmax ("per_step") or a last-timestep classifier ("last_step").  The
-streaming head (``check_streamable``, ``streaming_init_state``,
-``head_forward_streaming``) advances a forward-only head chunk by chunk,
-every recurrence carrying (cell, hid) in and out of a state dict.
+encoder on (B*T, D) frames -> optional batch norm -> optional DeltaLayer
+(dim x3) -> optional stream LSTM; then fusion {sum | adasum | concat}; then
+an aggregator of (bi)directional LSTM layers whose halves are summed; then a
+per-timestep softmax ("per_step") or a last-timestep classifier
+("last_step").  The streaming head (``check_streamable``,
+``streaming_init_state``, ``head_forward_streaming``) advances a
+forward-only head chunk by chunk, every recurrence carrying (cell, hid) in
+and out of a state dict.
 
 ``StreamSpec`` and ``AdeNetConfig`` carry the JAX dataclasses' fields, field
-for field.  Values this slice does not cover raise ``NotImplementedError``
-naming the ROADMAP item that brings them.  Dropout (``train=True``) follows
-Lasagne's DropoutLayer with its 1/(1-p) rescale, drawing from an explicit
-``torch.Generator``; its bits differ from JAX's.  ``lstm_impl`` selects a
-TPU backend and changes no result here: the recurrences run the CUDA
-kernels whenever their tensors are on the card.  ``lstm_remat`` and
-``lstm_residual_dtype`` change the JAX package's training residuals, so
-they raise until the port stores its residuals the same way.
+for field.  Batch norm (``use_batchnorm``) keeps its running statistics in
+``streams/<name>/bn_state``; a training forward with ``return_aux=True``
+hands the moved statistics back for the trainer to merge, as in the JAX
+package.  ``fuse_scans`` runs the stream LSTMs as one group and each BLSTM
+layer's halves as one group (``ops/lstm.lstm_forward_grouped``, member by
+member); ``lstm_remat`` and ``lstm_residual_dtype`` reach every training
+recurrence (``ops/lstm.lstm_forward``).  ``matmul_dtype`` raises
+``NotImplementedError`` naming its ROADMAP item, and ``bn_axis`` (batch-norm
+statistics over mesh axes) raises naming Queue 1 item 10.  Dropout
+(``train=True``) follows Lasagne's DropoutLayer with its 1/(1-p) rescale,
+drawing from an explicit ``torch.Generator``; its bits differ from JAX's.
+``lstm_impl`` selects a TPU backend and changes no result here: the
+recurrences run the CUDA kernels whenever their tensors are on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -33,6 +40,7 @@ from ip_avsr_torch.models import encoder as encoder_mod
 from ip_avsr_torch.ops import fusion as fusion_ops
 from ip_avsr_torch.ops import initializers as inits
 from ip_avsr_torch.ops import lstm as lstm_ops
+from ip_avsr_torch.ops import normalization as norm_ops
 from ip_avsr_torch.ops.delta import delta_group
 
 
@@ -105,22 +113,10 @@ class AdeNetConfig:
 def check_supported(config: AdeNetConfig) -> None:
     """Raise ``NotImplementedError`` for the config values the port does
     not cover yet, naming the ROADMAP item that brings each."""
-    todo = []
-    if config.fuse_scans:
-        todo.append("fuse_scans=True (Queue 1 item 5: lstm_forward_grouped)")
     if config.matmul_dtype is not None:
-        todo.append(f"matmul_dtype={config.matmul_dtype!r} (Queue 2 item 4: bf16 "
-                    "operands with f32 accumulation; the kernels take f32 only)")
-    if config.lstm_remat:
-        todo.append("lstm_remat=True (Queue 1 item 5: the LSTM backward rebuilding "
-                    "its gates)")
-    if config.lstm_residual_dtype is not None:
-        todo.append(f"lstm_residual_dtype={config.lstm_residual_dtype!r} (Queue 1 "
-                    "item 5: training residuals stored in that dtype)")
-    if any(s.use_batchnorm for s in config.streams):
-        todo.append("use_batchnorm (Queue 1 item 5: ops/normalization)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+        raise NotImplementedError(
+            f"not ported yet: matmul_dtype={config.matmul_dtype!r} (Queue 2 item 4: bf16 "
+            "operands with f32 accumulation; the kernels take f32 only)")
 
 
 def init_adenet_params(generator: torch.Generator, config: AdeNetConfig,
@@ -147,6 +143,8 @@ def init_adenet_params(generator: torch.Generator, config: AdeNetConfig,
             else:
                 sp["encoder"] = encoder_mod.init_encoder_params(
                     generator, spec.input_dim, spec.encoder_shapes, w_init)
+        if spec.use_batchnorm:
+            sp["bn"], sp["bn_state"] = norm_ops.init_batch_norm(spec.encoded_dim())
         if spec.use_lstm:
             pre_lstm = pretrained_stream_lstms[i] if pretrained_stream_lstms else None
             H = config.stream_lstm_size(spec)
@@ -191,65 +189,108 @@ def _dropout(x: torch.Tensor, rate: float, generator, train: bool) -> torch.Tens
 
 def adenet_forward(params: dict, config: AdeNetConfig, inputs, mask: torch.Tensor,
                    window: Optional[int] = None, train: bool = False,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None, return_aux: bool = False,
+                   bn_axis=None):
     """Run the model.  ``inputs[i]`` is (B, T, D_i); ``mask`` is (B, T).
 
     Returns (B, T, C) per-timestep probabilities ("per_step") or (B, C)
     probabilities ("last_step").  ``train=True`` applies dropout with draws
     from ``generator`` (default: a generator on the inputs' device seeded
-    with 0, as the JAX package defaults to ``PRNGKey(0)``)."""
+    with 0, as the JAX package defaults to ``PRNGKey(0)``) and normalizes
+    batch-norm streams with the batch's statistics.  ``return_aux=True``
+    returns ``(out, {"bn_state": {stream name: new running statistics}})``,
+    detached, for the trainer to merge into the parameters."""
     check_supported(config)
     if train and generator is None:
         generator = torch.Generator(device=inputs[0].device).manual_seed(0)
-    stream_feats = stream_prefix(params, config, inputs, window, train, generator)
-    return head_forward(params, config, stream_feats, mask, train, generator)
+    stream_feats, aux = stream_prefix(params, config, inputs, window, train, generator,
+                                      return_aux=True, bn_axis=bn_axis)
+    out = head_forward(params, config, stream_feats, mask, train, generator)
+    return (out, aux) if return_aux else out
 
 
 def stream_prefix(params, config: AdeNetConfig, inputs, window=None, train=False,
-                  generator=None) -> list:
-    """The frame-parallel part: per stream, encoder -> delta -> dropout.  The
-    encoders run first, then one grouped delta over every stream with
-    ``use_delta`` (one kernel launch on CUDA), then dropout per stream in
-    stream order."""
+                  generator=None, return_aux=False, bn_axis=None):
+    """The frame-parallel part: per stream, encoder -> batch norm -> delta ->
+    dropout.  The encoders (each followed by its stream's batch norm) run
+    first, then one grouped delta over every stream with ``use_delta`` (one
+    kernel launch on CUDA), then dropout per stream in stream order.
+    Returns the features, and with ``return_aux`` also the batch-norm aux
+    of :func:`adenet_forward`."""
     window = config.window if window is None else window
     B, T = inputs[0].shape[0], inputs[0].shape[1]
+    aux = {"bn_state": {}}
     feats = []
     for i, spec in enumerate(config.streams):
+        sp = params["streams"][spec.name]
         x = inputs[i]
         if spec.encoder_shapes:
-            enc = encoder_mod.encoder_forward(
-                params["streams"][spec.name]["encoder"], x.reshape(B * T, spec.input_dim),
-                spec.encoder_nonlinearities)
+            enc = encoder_mod.encoder_forward(sp["encoder"], x.reshape(B * T, spec.input_dim),
+                                              spec.encoder_nonlinearities)
             x = enc.reshape(B, T, -1)
+        if spec.use_batchnorm:
+            x, aux["bn_state"][spec.name] = norm_ops.batch_norm_forward(
+                sp["bn"], sp["bn_state"], x, train, axis_name=bn_axis)
         feats.append(x)
     with_delta = [i for i, spec in enumerate(config.streams) if spec.use_delta]
     if with_delta:
         outs = delta_group([feats[i].contiguous() for i in with_delta], window)
         for i, out in zip(with_delta, outs):
             feats[i] = out
-    return [_dropout(x, spec.dropout, generator, train)
-            for x, spec in zip(feats, config.streams)]
+    feats = [_dropout(x, spec.dropout, generator, train)
+             for x, spec in zip(feats, config.streams)]
+    return (feats, aux) if return_aux else feats
 
 
 def head_forward(params, config: AdeNetConfig, stream_feats, mask, train=False,
                  generator=None) -> torch.Tensor:
     """The recurrent part: per-stream LSTMs -> fusion -> aggregator
-    (B)LSTM stack (dropout before each layer) -> classifier head."""
+    (B)LSTM stack (dropout before each layer) -> classifier head.
+
+    With ``fuse_scans`` the stream LSTMs run as one group and each BLSTM
+    layer's two halves as one group, where ``can_group_lstms`` allows it.
+    Under training with ``lstm_remat`` or ``lstm_residual_dtype`` the
+    grouping yields to the residual levers, with the JAX package's
+    warning."""
     B, T = stream_feats[0].shape[0], stream_feats[0].shape[1]
+    remat, resd = config.lstm_remat, config.lstm_residual_dtype
+
+    def run_lstm(p, feats, backwards=False):
+        return lstm_ops.lstm_forward(p, feats, mask, backwards, remat=remat,
+                                     residual_dtype=resd)
+
+    fuse_ok = config.fuse_scans and not (train and (remat or resd))
+    if config.fuse_scans and not fuse_ok:
+        warnings.warn(
+            "fuse_scans is ignored under training when lstm_remat or "
+            "lstm_residual_dtype is set (the grouped scan stores full-f32 "
+            "residuals); running ungrouped LSTMs so the residual levers "
+            "apply", stacklevel=2)
+    lstm_idx = [i for i, s in enumerate(config.streams) if s.use_lstm]
+    lstm_params = [params["streams"][config.streams[i].name]["lstm"] for i in lstm_idx]
     stream_outs = list(stream_feats)
-    for i, spec in enumerate(config.streams):
-        if spec.use_lstm:
-            stream_outs[i] = lstm_ops.lstm_forward(
-                params["streams"][spec.name]["lstm"], stream_feats[i], mask)
+    if fuse_ok and lstm_ops.can_group_lstms(lstm_params):
+        grouped = lstm_ops.lstm_forward_grouped(
+            lstm_params, [stream_feats[i] for i in lstm_idx], mask, [False] * len(lstm_idx))
+        for i, out in zip(lstm_idx, grouped):
+            stream_outs[i] = out
+    else:
+        for i, p in zip(lstm_idx, lstm_params):
+            stream_outs[i] = run_lstm(p, stream_feats[i])
 
     agg = fusion_ops.fuse(stream_outs, config.fusiontype, params.get("adasum"))
     for layer in range(config.agg_layers):
         agg = _dropout(agg, config.agg_dropout, generator, train)
         lp = params["aggregator"][layer]
         if config.agg_bidirectional:
-            agg = lstm_ops.blstm_forward(lp["fwd"], lp["bwd"], agg, mask)
+            if fuse_ok and lstm_ops.can_group_lstms([lp["fwd"], lp["bwd"]]):
+                f, bwd = lstm_ops.lstm_forward_grouped([lp["fwd"], lp["bwd"]], [agg, agg],
+                                                       mask, [False, True])
+                agg = f + bwd
+            else:
+                agg = run_lstm(lp["fwd"], agg) + run_lstm(lp["bwd"], agg, backwards=True)
         else:
-            agg = lstm_ops.lstm_forward(lp["fwd"], agg, mask)
+            agg = run_lstm(lp["fwd"], agg)
 
     w, b = params["output"]["w"], params["output"]["b"]
     if config.output_mode == "per_step":

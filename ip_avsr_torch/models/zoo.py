@@ -1,14 +1,17 @@
 """Model zoo: reference-named AdeNet configurations.
 
-Mirrors ip_avsr_tpu/models/zoo.py field for field for the builders the
-port's entry points reach: the flagship trimodal ``adenet_v3``, the generic
-N-stream ``adenet_nstream`` (peephole LSTMs by default; ``configs/
-oulu_4stream.ini`` builds it), the three single-stream builders that
-``train/config.build_model_config`` calls, and the builders streaming
-serves: ``lstm_classifier_baseline``, the bimodal ``adenet_v2``,
-``adenet_v2_1``, their forward-aggregator variants ``adenet_v2_3`` and
-``adenet_v2_4``, and ``adenet_v4``.  The other zoo entries come with ROADMAP
-Queue 1 item 5.
+Mirrors ip_avsr_tpu/models/zoo.py builder for builder and field for field:
+the single-stream ``deltanet``, ``deltanet_v1``,
+``deltanet_majority_vote``, ``lstm_classifier_baseline``,
+``lstm_classifier_majority_vote`` and ``baseline_end2end``; the bimodal
+raw + DCT family ``adenet_v1`` and ``adenet_v1_1`` (batch-normalized
+encoder, feature concat into a two-layer BLSTM stack), ``adenet_v2``,
+``adenet_v2_1`` to ``adenet_v2_4``, ``adenet_v2_nodelta`` and
+``adenet_v4``; the trimodal flagship ``adenet_v3`` and ``adenet_v5`` (sum or
+adaptive sum), the raw + diff ``adenet_v6``; and the generic N-stream
+``adenet_nstream`` (peephole LSTMs by default; ``configs/oulu_4stream.ini``
+builds it).  ``models/avnet.avnet_config`` builds the audio-visual
+network.
 """
 
 from __future__ import annotations
@@ -31,6 +34,18 @@ def _encoder_stream(input_dim, name, shapes=None, nonlinearities=None, **kw) -> 
         encoder_shapes=tuple(shapes or sh),
         encoder_nonlinearities=tuple(nonlinearities or nl),
         **kw,
+    )
+
+
+def deltanet(input_dim, encoder_shapes, encoder_nonlinearities, lstm_size=250,
+             window=9, output_classes=26, w_init="glorot", use_peepholes=False) -> AdeNetConfig:
+    """Encoder + delta + BLSTM + last-step classifier."""
+    return AdeNetConfig(
+        streams=[_encoder_stream(input_dim, "s1", encoder_shapes, encoder_nonlinearities,
+                                 use_lstm=False)],
+        output_classes=output_classes, lstm_size=lstm_size, window=window,
+        fusiontype="sum", agg_layers=1, agg_bidirectional=True,
+        output_mode="last_step", w_init=w_init, use_peepholes=use_peepholes,
     )
 
 
@@ -82,6 +97,46 @@ def lstm_classifier_baseline(input_dim, lstm_size=250, output_classes=26,
     )
 
 
+def baseline_end2end(input_dim, encoder_shapes, encoder_nonlinearities, lstm_size=250,
+                     output_classes=26, w_init="glorot", use_peepholes=False) -> AdeNetConfig:
+    """Encoder + BLSTM (no delta) + last-step classifier."""
+    return AdeNetConfig(
+        streams=[_encoder_stream(input_dim, "s1", encoder_shapes, encoder_nonlinearities,
+                                 use_delta=False, use_lstm=False)],
+        output_classes=output_classes, lstm_size=lstm_size,
+        agg_layers=1, agg_bidirectional=True, output_mode="last_step",
+        w_init=w_init, use_peepholes=use_peepholes,
+    )
+
+
+def adenet_v1(input_dim, dct_dim, lstm_size=250, window=9, output_classes=26) -> AdeNetConfig:
+    """Raw encoder (sigmoid, 2000/1000/500/50) + batch norm -> delta, feature
+    concat with the DCT, a 2-layer BLSTM stack (sizes lstm, 2*lstm),
+    last-step classifier."""
+    return AdeNetConfig(
+        streams=[
+            _encoder_stream(input_dim, "raw", use_batchnorm=True, use_lstm=False),
+            StreamSpec(input_dim=dct_dim, name="dct", use_delta=False, use_lstm=False),
+        ],
+        output_classes=output_classes, lstm_size=lstm_size, window=window,
+        fusiontype="concat", agg_layers=2, agg_sizes=(lstm_size, lstm_size * 2),
+        agg_bidirectional=True, output_mode="last_step", w_init="glorot",
+    )
+
+
+def adenet_v1_1(input_dim, dct_dim, lstm_size=250, window=9, output_classes=26) -> AdeNetConfig:
+    """adenet_v1 with dropout 0.5 before both BLSTMs, both sized 2*lstm."""
+    return AdeNetConfig(
+        streams=[
+            _encoder_stream(input_dim, "raw", use_batchnorm=True, use_lstm=False),
+            StreamSpec(input_dim=dct_dim, name="dct", use_delta=False, use_lstm=False),
+        ],
+        output_classes=output_classes, lstm_size=lstm_size, window=window,
+        fusiontype="concat", agg_layers=2, agg_sizes=(lstm_size * 2, lstm_size * 2),
+        agg_dropout=0.5, agg_bidirectional=True, output_mode="last_step", w_init="glorot",
+    )
+
+
 def adenet_v2(input_dim, dct_dim, encoder_shapes=None, encoder_nonlinearities=None,
               lstm_size=250, window=9, output_classes=26, fusiontype="sum",
               w_init="glorot", use_peepholes=False) -> AdeNetConfig:
@@ -113,6 +168,24 @@ def adenet_v2_1(input_dim, diff_dim, lstm_size=250, window=9, output_classes=26,
     )
 
 
+def adenet_v2_2(s1_dim, s2_dim, s1_encoder=None, s2_encoder=None, lstm_size=250,
+                window=9, output_classes=26, fusiontype="sum", w_init="glorot",
+                use_peepholes=True) -> AdeNetConfig:
+    """Generic 2-stream with two ``(nonlinearities, shapes)`` encoders
+    (sigmoid 2000/1000/500/50 by default)."""
+    s1_nl, s1_sh = s1_encoder or SIGMOID_ENCODER
+    s2_nl, s2_sh = s2_encoder or SIGMOID_ENCODER
+    return AdeNetConfig(
+        streams=[
+            _encoder_stream(s1_dim, "s1", s1_sh, s1_nl),
+            _encoder_stream(s2_dim, "s2", s2_sh, s2_nl),
+        ],
+        output_classes=output_classes, lstm_size=lstm_size, window=window,
+        fusiontype=fusiontype, agg_layers=1, agg_bidirectional=True,
+        output_mode="per_step", w_init=w_init, use_peepholes=use_peepholes,
+    )
+
+
 def adenet_v2_3(input_dim, dct_dim, encoder_shapes=None, encoder_nonlinearities=None,
                 lstm_size=250, window=9, output_classes=26, fusiontype="sum",
                 w_init="glorot", use_peepholes=True) -> AdeNetConfig:
@@ -128,6 +201,23 @@ def adenet_v2_4(input_dim, diff_dim, lstm_size=250, window=9, output_classes=26,
     cfg = adenet_v2_1(input_dim, diff_dim, lstm_size, window, output_classes,
                       fusiontype, w_init, use_peepholes)
     return dataclasses.replace(cfg, agg_bidirectional=False)
+
+
+def adenet_v2_nodelta(s1_dim, s2_dim, s1_encoder=None, s2_encoder=None, lstm_size=250,
+                      output_classes=26, fusiontype="sum", w_init="glorot",
+                      use_peepholes=True) -> AdeNetConfig:
+    """The 2-stream ablation without DeltaLayers."""
+    s1_nl, s1_sh = s1_encoder or SIGMOID_ENCODER
+    s2_nl, s2_sh = s2_encoder or SIGMOID_ENCODER
+    return AdeNetConfig(
+        streams=[
+            _encoder_stream(s1_dim, "s1", s1_sh, s1_nl, use_delta=False),
+            _encoder_stream(s2_dim, "s2", s2_sh, s2_nl, use_delta=False),
+        ],
+        output_classes=output_classes, lstm_size=lstm_size,
+        fusiontype=fusiontype, agg_layers=1, agg_bidirectional=True,
+        output_mode="per_step", w_init=w_init, use_peepholes=use_peepholes,
+    )
 
 
 def adenet_v4(input_dim, dct_dim, encoder_shapes=None, encoder_nonlinearities=None,
@@ -168,6 +258,30 @@ def adenet_v3(input_dim, dct_dim, diff_dim, lstm_size=250, window=9,
         fusiontype=fusiontype, agg_layers=1, agg_bidirectional=True,
         agg_size=lstm_size * 2, agg_dropout=0.5,
         output_mode="last_step", w_init="ortho",
+    )
+
+
+def adenet_v5(input_dim, dct_dim, diff_dim, lstm_size=250, window=9,
+              output_classes=10, use_adascale=False) -> AdeNetConfig:
+    """Trimodal like adenet_v3, with adaptive-sum fusion when
+    ``use_adascale``."""
+    return adenet_v3(input_dim, dct_dim, diff_dim, lstm_size, window, output_classes,
+                     fusiontype="adasum" if use_adascale else "sum")
+
+
+def adenet_v6(input_dim, diff_dim, lstm_size=250, window=9, output_classes=10,
+              use_adascale=False) -> AdeNetConfig:
+    """Bimodal raw + diff (no DCT) with dropout 0.5 on both delta streams."""
+    big = int(lstm_size / (1 - 0.5))
+    return AdeNetConfig(
+        streams=[
+            _encoder_stream(input_dim, "raw", dropout=0.5, lstm_size=big),
+            _encoder_stream(diff_dim, "diff", dropout=0.5, lstm_size=big),
+        ],
+        output_classes=output_classes, lstm_size=lstm_size, window=window,
+        fusiontype="adasum" if use_adascale else "sum",
+        agg_layers=1, agg_bidirectional=True, agg_size=lstm_size * 2,
+        agg_dropout=0.5, output_mode="last_step", w_init="ortho",
     )
 
 

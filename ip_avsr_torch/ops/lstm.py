@@ -3,8 +3,10 @@
 Mirrors ip_avsr_tpu/ops/lstm.py (``init_lstm_params``, ``init_blstm_params``,
 ``lstm_forward`` with its streaming options ``initial_state`` and
 ``return_state``, ``_lstm_prep``, the custom-VJP cores ``_lstm_core`` and
-``_lstm_core_peep`` with their primals, forwards and backwards,
-``blstm_forward``, ``last_valid_step``, ``lstm_params_hidden_size``):
+``_lstm_core_peep`` with their primals, forwards and backwards and their
+residual levers ``remat`` and ``residual_dtype``, ``lstm_forward_grouped``,
+``can_group_lstms``, ``blstm_forward``, ``last_valid_step``,
+``lstm_params_hidden_size``):
 
   * gate stacking order (ingate, forgetgate, cell, outgate) in ``w_in (D, 4H)``,
     ``w_hid (H, 4H)``, ``b (4H,)``; sigmoid gates, tanh cell input and output;
@@ -34,6 +36,12 @@ all (B, T) rows.  Peephole layers take the ``lstm_peep_*`` twins of those
 kernels, through :class:`_LSTMCorePeep`.  Each kernel wrapper runs its CUDA
 kernel on the card and its plain loop on the CPU, so the CPU takes the same
 Function.
+
+Under ``remat`` the training recurrence still writes its gates (the
+transient buffer dies with the forward call) and the backward rebuilds them
+before the chain; with ``residual_dtype`` the stacks are cast after the
+kernel has written float32.  The grouped forward runs its members one after
+another, so a group of G costs G launches of the same rows.
 
 A streaming caller passes a per-row ``initial_state`` (cell, hid) and asks
 for the final one with ``return_state``.  Without a gradient the
@@ -177,57 +185,93 @@ def _outputs(ctx, hids, cells, return_state):
     return (out, cells[:, -1].clone()) if return_state else out
 
 
+def _save_residuals(ctx, hids, cells, gates_pre, remat, residual_dtype):
+    """The per-step residual stacks a core keeps for its backward: without
+    ``remat`` all three, with it hids and cells alone (the gates are rebuilt
+    in the backward); with ``residual_dtype`` each stored in that dtype,
+    cast after the kernel has written float32.  ``hids`` is the layer's
+    output: rounded, the stored copy is a new tensor and the output stays
+    float32."""
+    ctx.remat, ctx.residual_dtype = remat, residual_dtype
+    stacks = (hids, cells) if remat else (hids, cells, gates_pre)
+    if residual_dtype is not None:
+        stacks = tuple(t.to(residual_dtype) for t in stacks)
+    return stacks
+
+
+def _load_residuals(ctx, x, w_in, w_hid, b, hid0, stacks):
+    """``(hids, cells, gates_pre)`` in float32 for the backward: the stored
+    stacks upcast, and under ``remat`` the pre-activation gates rebuilt as
+    ``x W_in + b + hids_prev W_hid`` with two products over all (B, T)
+    rows, ``hids_prev`` being ``hid0`` then the stored (rounded) hids
+    shifted by one step."""
+    stacks = tuple(t.to(torch.float32) for t in stacks)
+    if not ctx.remat:
+        return stacks
+    hids, cells = stacks
+    B, T, H = hids.shape
+    D = x.shape[-1]
+    hids_prev = torch.cat([hid0[:, None], hids[:, :-1]], dim=1)
+    xp = torch.matmul(x.reshape(B * T, D), w_in).reshape(B, T, 4 * H) + b
+    rec = torch.matmul(hids_prev.reshape(B * T, H), w_hid).reshape(B, T, 4 * H)
+    return hids, cells, xp + rec
+
+
 class _LSTMCore(torch.autograd.Function):
     """The training core: counterpart of ``_lstm_core_fwd`` /
-    ``_lstm_core_bwd`` (ip_avsr_tpu/ops/lstm.py:375-588), non-peephole."""
+    ``_lstm_core_bwd`` (ip_avsr_tpu/ops/lstm.py:375-588), non-peephole,
+    with their residual levers ``remat`` and ``residual_dtype``."""
 
     @staticmethod
     def forward(ctx, w_in, w_hid, b, cell_init, hid_init, x, mask, backwards, clip,
-                return_state):
+                return_state, remat, residual_dtype):
         w_hid = w_hid.contiguous()
         x, mask, x_proj, cell0, hid0 = _prep(w_in, b, cell_init, hid_init, x, mask,
                                              backwards)
         hids, cells, gates_pre = lstm_recurrence_train(x_proj, w_hid, mask, cell0, hid0)
-        ctx.save_for_backward(w_in, w_hid, x, mask, hids, cells, gates_pre, cell0, hid0)
+        stacks = _save_residuals(ctx, hids, cells, gates_pre, remat, residual_dtype)
+        ctx.save_for_backward(w_in, w_hid, b, x, mask, cell0, hid0, *stacks)
         ctx.backwards, ctx.clip, ctx.per_row = backwards, clip, cell_init.shape[0] != 1
         return _outputs(ctx, hids, cells, return_state)
 
     @staticmethod
     def backward(ctx, g_out, *g_state):
-        w_in, w_hid, x, mask, hids, cells, gates_pre, cell0, hid0 = ctx.saved_tensors
+        w_in, w_hid, b, x, mask, cell0, hid0, *stacks = ctx.saved_tensors
+        hids, cells, gates_pre = _load_residuals(ctx, x, w_in, w_hid, b, hid0, stacks)
         chain = _chain_inputs(ctx, g_out, g_state, hids, gates_pre, cells, cell0, mask)
         dgates, dcell0, dhid0 = lstm_bwd_chain(*chain, w_hid, ctx.clip)
         grads = _batched_grads(ctx.needs_input_grad[:6], w_in, x, hids, hid0,
                                dgates[:, :hids.shape[1]], dcell0, dhid0, ctx.backwards,
                                ctx.per_row)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None, None)
 
 
 class _LSTMCorePeep(torch.autograd.Function):
     """The peephole training core: counterpart of ``_lstm_core_peep_fwd`` /
     ``_lstm_core_peep_bwd`` (ip_avsr_tpu/ops/lstm.py:629-832).  The forward
-    saves the pre-peephole gates; the backward chain recomputes the peephole
-    terms from the saved cells and also returns the three (H,) peephole
-    gradients."""
+    saves the pre-peephole gates (or, under ``remat``, nothing of them: the
+    rebuild needs only x and hids_prev); the backward chain recomputes the
+    peephole terms from the saved cells and also returns the three (H,)
+    peephole gradients."""
 
     @staticmethod
     def forward(ctx, w_in, w_hid, b, cell_init, hid_init, w_ci, w_cf, w_co, x, mask,
-                backwards, clip, return_state):
+                backwards, clip, return_state, remat, residual_dtype):
         w_hid = w_hid.contiguous()
         peep = tuple(v.contiguous() for v in (w_ci, w_cf, w_co))
         x, mask, x_proj, cell0, hid0 = _prep(w_in, b, cell_init, hid_init, x, mask,
                                              backwards)
         hids, cells, gates_pre = lstm_peep_recurrence_train(x_proj, w_hid, mask, cell0, hid0,
                                                             *peep)
-        ctx.save_for_backward(w_in, w_hid, *peep, x, mask, hids, cells, gates_pre, cell0,
-                              hid0)
+        stacks = _save_residuals(ctx, hids, cells, gates_pre, remat, residual_dtype)
+        ctx.save_for_backward(w_in, w_hid, b, *peep, x, mask, cell0, hid0, *stacks)
         ctx.backwards, ctx.clip, ctx.per_row = backwards, clip, cell_init.shape[0] != 1
         return _outputs(ctx, hids, cells, return_state)
 
     @staticmethod
     def backward(ctx, g_out, *g_state):
-        (w_in, w_hid, w_ci, w_cf, w_co, x, mask, hids, cells, gates_pre, cell0,
-         hid0) = ctx.saved_tensors
+        w_in, w_hid, b, w_ci, w_cf, w_co, x, mask, cell0, hid0, *stacks = ctx.saved_tensors
+        hids, cells, gates_pre = _load_residuals(ctx, x, w_in, w_hid, b, hid0, stacks)
         chain = _chain_inputs(ctx, g_out, g_state, hids, gates_pre, cells, cell0, mask)
         dgates, dcell0, dhid0, dw_ci, dw_cf, dw_co = lstm_peep_bwd_chain(
             *chain, w_hid, w_ci, w_cf, w_co, ctx.clip)
@@ -236,7 +280,17 @@ class _LSTMCorePeep(torch.autograd.Function):
             (*need[:5], need[8]), w_in, x, hids, hid0, dgates[:, :hids.shape[1]], dcell0,
             dhid0, ctx.backwards, ctx.per_row)
         return (dw_in, dw_hid, db, dcell_init, dhid_init, dw_ci, dw_cf, dw_co, dx,
-                None, None, None, None)
+                None, None, None, None, None, None)
+
+
+def _residual_dtype(residual_dtype) -> Optional[torch.dtype]:
+    """A dtype name ("bfloat16") or a torch dtype; None stays None."""
+    if residual_dtype is None or isinstance(residual_dtype, torch.dtype):
+        return residual_dtype
+    dtype = getattr(torch, str(residual_dtype), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown residual_dtype {residual_dtype!r}")
+    return dtype
 
 
 def lstm_forward(params: dict, x: torch.Tensor,
@@ -244,7 +298,9 @@ def lstm_forward(params: dict, x: torch.Tensor,
                  backwards: bool = False,
                  grad_clipping: float = 5.0,
                  initial_state=None,
-                 return_state: bool = False):
+                 return_state: bool = False,
+                 remat: bool = False,
+                 residual_dtype=None):
     """Run a masked LSTM over ``x`` (B, T, D); returns hidden states (B, T, H).
 
     Parameters with the three peephole vectors run the peephole recurrence.
@@ -260,12 +316,26 @@ def lstm_forward(params: dict, x: torch.Tensor,
     the call return ``(out, (cell_T, hid_T))``: together they advance the
     recurrence chunk by chunk with the one-shot result (masked steps carry
     the state, so zero-mask chunk padding changes nothing).  Either option
-    with ``backwards=True`` raises ``ValueError``, as in the JAX package."""
+    with ``backwards=True`` raises ``ValueError``, as in the JAX package.
+
+    ``remat`` and ``residual_dtype`` are the training residual levers: the
+    first keeps no (B, T, 4H) gate stack and rebuilds it at the start of
+    the backward from ``x`` and the stored hids (two products; the
+    recurrence is not run again), the second stores the hids, cells and
+    gates in that dtype (e.g. ``"bfloat16"``) and upcasts them in the
+    backward, which then computes from the rounded stacks.  Outputs and
+    gradients stay float32, and neither lever changes inference.  As in
+    the JAX package they do not combine with ``initial_state`` or
+    ``return_state`` (``ValueError``)."""
     B, T, D = x.shape
     stateful = initial_state is not None or return_state
     if stateful and backwards:
         raise ValueError("initial_state/return_state require a forward recurrence "
                          "(backwards=True has no streamable carry)")
+    if stateful and (remat or residual_dtype is not None):
+        raise ValueError("remat / residual_dtype are training residual levers of the "
+                         "stateless recurrence; initial_state/return_state take none")
+    residual_dtype = _residual_dtype(residual_dtype)
     if mask is None:
         mask = torch.ones((B, T), dtype=torch.float32, device=x.device)
     mask = mask.to(torch.float32)
@@ -282,7 +352,8 @@ def lstm_forward(params: dict, x: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (*tensors, *peep, x)):
         core = _LSTMCorePeep if peep else _LSTMCore
         res = core.apply(*tensors, *peep, x, mask, bool(backwards),
-                         float(grad_clipping or 0.0), bool(return_state))
+                         float(grad_clipping or 0.0), bool(return_state), bool(remat),
+                         residual_dtype)
     else:
         _, mask, x_proj, cell0, hid0 = _prep(params["w_in"], params["b"], cell0, hid0, x,
                                              mask, backwards)
@@ -314,6 +385,35 @@ def blstm_forward(fwd_params: dict, bwd_params: dict, x: torch.Tensor,
     if merge == "concat":
         return torch.cat([f, b], dim=-1)
     raise ValueError(f"unknown merge: {merge}")
+
+
+def can_group_lstms(params_list) -> bool:
+    """Whether LSTMs may run as one group: at least two, equal hidden sizes
+    and the same peephole setting."""
+    if len(params_list) < 2:
+        return False
+    H = lstm_params_hidden_size(params_list[0])
+    peep = _PEEPHOLE_KEYS[0] in params_list[0]
+    return all(lstm_params_hidden_size(p) == H and (_PEEPHOLE_KEYS[0] in p) == peep
+               for p in params_list)
+
+
+def lstm_forward_grouped(params_list, xs, mask: Optional[torch.Tensor], backwards_flags,
+                         grad_clipping: float = 5.0) -> list:
+    """G independent LSTMs over the same mask: the counterpart of the JAX
+    package's ``lstm_forward_grouped``, whose grouped scan is numerically
+    the separate recurrences.  The members run one after another through
+    :func:`lstm_forward` (on the card one recurrence launch each, and one
+    backward chain each under training); inputs may differ in width and
+    ``backwards_flags[g]`` flips member g in time.  Returns the (B, T, H)
+    outputs in input order."""
+    if not len(params_list) == len(xs) == len(backwards_flags):
+        raise ValueError(f"{len(params_list)} parameter sets, {len(xs)} inputs and "
+                         f"{len(backwards_flags)} direction flags")
+    if len(params_list) > 1 and not can_group_lstms(params_list):
+        raise ValueError("grouped LSTMs need equal hidden sizes and peephole settings")
+    return [lstm_forward(p, x, mask, bool(bwd), grad_clipping)
+            for p, x, bwd in zip(params_list, xs, backwards_flags)]
 
 
 def last_valid_step(outputs: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:

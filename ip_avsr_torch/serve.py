@@ -27,6 +27,7 @@ import torch
 from ip_avsr_torch.device import resolve_device, tree_map, tree_to
 from ip_avsr_torch.models import adenet
 from ip_avsr_torch.models import encoder as encoder_mod
+from ip_avsr_torch.ops import normalization as norm_ops
 from ip_avsr_torch.ops import pipeline
 from ip_avsr_torch.ops.dct import dct_feature_basis_np
 from ip_avsr_torch.ops.voting import majority_voting_layer_masked
@@ -446,18 +447,26 @@ def _np_delta_fir(padded, window):
 
 class StreamPrep(torch.nn.Module):
     """A streaming session's prep of one stream as a module: ``forward(x)``
-    maps (B, n, D) float32 to (B, n, E) through the stream's encoder, the
-    encoder's parameters as buffers."""
+    maps (B, n, D) float32 to (B, n, E) through the stream's encoder (where
+    it has one) and then its batch norm in evaluation mode (where it has
+    one: ``bn`` holds ``{"bn": ..., "bn_state": ...}``), as the JAX
+    session's prep does; the parameters are buffers."""
 
-    def __init__(self, encoder_params: dict, nonlinearities):
+    def __init__(self, encoder_params: Optional[dict], nonlinearities, bn: Optional[dict] = None):
         super().__init__()
-        self.nonlinearities = tuple(nonlinearities)
-        self.params = _ParamBuffers(encoder_params)
+        self.nonlinearities = tuple(nonlinearities or ())
+        self.params = _ParamBuffers({"encoder": encoder_params or {}, **(bn or {})})
+        self.has_encoder, self.has_bn = bool(encoder_params), bn is not None
 
     def forward(self, x):
         B, n, D = x.shape
-        return encoder_mod.encoder_forward(self.params.tree(), x.reshape(B * n, D),
-                                           self.nonlinearities).reshape(B, n, -1)
+        p = self.params.tree()
+        if self.has_encoder:
+            x = encoder_mod.encoder_forward(p["encoder"], x.reshape(B * n, D),
+                                            self.nonlinearities).reshape(B, n, -1)
+        if self.has_bn:
+            x, _ = norm_ops.batch_norm_forward(p["bn"], p["bn_state"], x, train=False)
+        return x
 
 
 class StreamAdvance(torch.nn.Module):
@@ -470,7 +479,8 @@ class StreamAdvance(torch.nn.Module):
     def __init__(self, params: dict, config: adenet.AdeNetConfig):
         super().__init__()
         self.config = config
-        head = {**params, "streams": {name: {k: v for k, v in sp.items() if k != "encoder"}
+        head = {**params, "streams": {name: {k: v for k, v in sp.items()
+                                             if k not in ("encoder", "bn", "bn_state")}
                                       for name, sp in params["streams"].items()}}
         self.params = _ParamBuffers(head)
 
@@ -560,11 +570,17 @@ class StreamingSession:
         self._C = int(config.output_classes)
         self._reset_feed_state(adenet.streaming_init_state(params, config, self._B))
 
-        preps = [StreamPrep(params["streams"][spec.name]["encoder"],
-                            spec.encoder_nonlinearities).to(device)
-                 if spec.encoder_shapes else None for spec in config.streams]
+        preps = []
+        for spec in config.streams:
+            sp = params["streams"][spec.name]
+            bn = ({"bn": sp["bn"], "bn_state": sp["bn_state"]} if spec.use_batchnorm
+                  else None)
+            preps.append(StreamPrep(sp.get("encoder"), spec.encoder_nonlinearities,
+                                    bn).to(device)
+                         if spec.encoder_shapes or bn is not None else None)
         advance = StreamAdvance(params, config).to(device)
-        # the modules, for the exporter; an encoder-less stream has no prep
+        # the modules, for the exporter; a stream with neither an encoder nor
+        # batch norm has no prep
         self._programs = (preps, advance)
         self._prep = [_identity if p is None else numpy_prep(p, device) for p in preps]
         self._advance = numpy_advance(advance, device)

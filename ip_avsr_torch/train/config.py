@@ -24,10 +24,11 @@ is read by :func:`parse_legacy_config` for the trimodal CLI.
 Every key is parsed as the JAX package parses it, so a file selects the same
 model config in both packages; :func:`build_model_config` is the one
 selection logic.  ``bucket_boundaries`` and ``grad_accum_steps`` reach the
-Trainer, which runs both.  ``lstm_remat``, ``lstm_residual_dtype`` and
-``matmul_dtype`` are kept as fields of the model config, and building its
-parameters refuses them (``models/adenet.check_supported``) until the port
-runs them.
+Trainer, which runs both; ``lstm_remat`` and ``lstm_residual_dtype`` reach
+every training recurrence of the model (``ops/lstm.lstm_forward``).
+``matmul_dtype`` is kept as a field of the model config, and building its
+parameters refuses it (``models/adenet.check_supported``, ROADMAP Queue 2
+item 4).
 """
 
 from __future__ import annotations

@@ -17,7 +17,13 @@ epoch loops, runners/4stream.py and oulu/trimodal_with_val.py):
     evaluates the test split; ``early_stop2`` over a window of validation
     costs ends training; the learning rate decays after ``decay_start``;
   * optional NaN recovery, NaN checks, a torch.profiler trace, and
-    checkpoint/resume of the whole train state.
+    checkpoint/resume of the whole train state;
+  * batch-norm streams keep their running statistics in the parameter tree
+    (``streams/<name>/bn_state``): they get zero gradients, so every
+    optimizer state keeps the JAX package's structure, and a training
+    step's moved statistics are merged after the update, as the JAX
+    trainer merges them; evaluation, checkpoints, the best-parameter
+    snapshot and NaN recovery carry them with the rest of the tree.
 
 Dropout draws from a ``torch.Generator`` on the trainer's device, seeded
 from ``TrainOptions.seed``; its bits differ from JAX's.  The trainer runs on
@@ -52,28 +58,33 @@ SCALE_OUT = "ROADMAP Queue 1 item 10: scale-out"
 
 
 def loss_fn(params, cfg, streams, y, mask, generator=None, train=True, parts=False,
-            window=None):
+            window=None, return_aux=False):
     """The loss of ``params`` on one batch: streams[i] (B, T, D_i), y (B,)
     int labels, mask (B, T).  Per-step heads take ``temporal_softmax_loss``,
     last-step heads ``categorical_crossentropy_masked`` with all-pad rows
-    weighted 0.  ``train`` turns dropout on (draws from ``generator``);
-    ``parts`` returns ``(numerator, count)``."""
-    out = adenet.adenet_forward(params, cfg, streams, mask, window=window, train=train,
-                                generator=generator)
+    weighted 0.  ``train`` turns dropout on (draws from ``generator``) and
+    normalizes batch-norm streams with the batch's statistics; ``parts``
+    returns ``(numerator, count)``; ``return_aux`` returns ``(loss, aux)``
+    with the forward's batch-norm aux (``models/adenet.adenet_forward``)."""
+    out, aux = adenet.adenet_forward(params, cfg, streams, mask, window=window, train=train,
+                                     generator=generator, return_aux=True)
     if out.dim() == 3:
         y2d = y[:, None].expand(-1, mask.shape[1])
-        return losses.temporal_softmax_loss(out, y2d, mask, return_parts=parts)
-    seq_weight = mask.sum(dim=1) > 0
-    return losses.categorical_crossentropy_masked(out, y, seq_weight, return_parts=parts)
+        loss = losses.temporal_softmax_loss(out, y2d, mask, return_parts=parts)
+    else:
+        seq_weight = mask.sum(dim=1) > 0
+        loss = losses.categorical_crossentropy_masked(out, y, seq_weight, return_parts=parts)
+    return (loss, aux) if return_aux else loss
 
 
 def loss_and_grads(params, cfg, streams, y, mask, generator=None, parts=False,
-                   window=None):
+                   window=None, return_aux=False):
     """``(loss, grads)``: the training loss of :func:`loss_fn` (dropout on)
     and its gradient with respect to every leaf of ``params``, as a tree of
     the same structure (a leaf the loss does not reach gets zeros, as
-    ``jax.grad`` gives).  With ``parts`` the loss is ``(numerator, count)``
-    and the gradient is the numerator's."""
+    ``jax.grad`` gives: the batch-norm running statistics among them).
+    With ``parts`` the loss is ``(numerator, count)`` and the gradient is
+    the numerator's; ``return_aux`` appends the forward's aux."""
     leaves = []
 
     def track(p):
@@ -82,7 +93,8 @@ def loss_and_grads(params, cfg, streams, y, mask, generator=None, parts=False,
         return leaf
 
     tracked = tree_map(track, params)
-    loss = loss_fn(tracked, cfg, streams, y, mask, generator, parts=parts, window=window)
+    loss, aux = loss_fn(tracked, cfg, streams, y, mask, generator, parts=parts, window=window,
+                        return_aux=True)
     num = loss[0] if parts else loss
     grads = iter(torch.autograd.grad(num, leaves, allow_unused=True))
 
@@ -91,19 +103,31 @@ def loss_and_grads(params, cfg, streams, y, mask, generator=None, parts=False,
         return torch.zeros_like(p) if g is None else g
 
     loss = tuple(v.detach() for v in loss) if parts else loss.detach()
-    return loss, tree_map(grad_of, params)
+    grads = tree_map(grad_of, params)
+    return (loss, grads, aux) if return_aux else (loss, grads)
+
+
+def merge_bn_state(params, aux):
+    """Write the moved batch-norm running statistics of a training
+    forward's ``aux`` into ``params`` (after the optimizer's update, as
+    the JAX trainer merges them) and return ``params``."""
+    for name, new_bn in aux["bn_state"].items():
+        params["streams"][name]["bn_state"] = new_bn
+    return params
 
 
 def make_train_step(cfg, lr=1e-4):
     """Returns ``(optimizer, train_step)`` with ``train_step(params,
     opt_state, streams, y, mask, generator) -> (params, opt_state, loss)``,
-    one step of loss, gradients and Adam update."""
+    one step of loss, gradients and Adam update, the batch-norm running
+    statistics merged after the update."""
     optimizer = opt_lib.adam(lr)
 
     def train_step(params, opt_state, streams, y, mask, generator=None):
-        loss, grads = loss_and_grads(params, cfg, streams, y, mask, generator)
+        loss, grads, aux = loss_and_grads(params, cfg, streams, y, mask, generator,
+                                          return_aux=True)
         params, opt_state = optimizer.apply(params, grads, opt_state)
-        return params, opt_state, loss
+        return merge_bn_state(params, aux), opt_state, loss
 
     return optimizer, train_step
 
@@ -226,7 +250,7 @@ class Trainer:
                 f"{', '.join(asked)}: the trainer runs on one device; meshes come "
                 f"with {SCALE_OUT}")
         if options.grad_accum_steps > 1:
-            if any(s.use_batchnorm for s in config.streams):
+            if self._has_bn:
                 raise ValueError(
                     "grad_accum_steps does not compose with batch-norm "
                     "streams: per-microbatch statistics would silently "
@@ -258,9 +282,16 @@ class Trainer:
 
     # -- steps ----------------------------------------------------------------
 
+    @property
+    def _has_bn(self):
+        return any(s.use_batchnorm for s in self.config.streams)
+
     def _loss(self, params, streams, y, mask, train, generator=None, parts=False):
+        """The loss, and under training with batch norm ``(loss, aux)``, as
+        the JAX trainer's ``_loss``."""
+        aux = train and self._has_bn
         return loss_fn(params, self.config, streams, y, mask, generator, train=train,
-                       parts=parts, window=self.options.window)
+                       parts=parts, window=self.options.window, return_aux=aux)
 
     def train_step(self, params, opt_state, streams, y, mask, generator, lr):
         """One step of loss, gradients and update at the rate ``lr`` ->
@@ -268,10 +299,10 @@ class Trainer:
         :meth:`train_step_accum`."""
         if self.options.grad_accum_steps > 1:
             return self.train_step_accum(params, opt_state, streams, y, mask, generator, lr)
-        loss, grads = loss_and_grads(params, self.config, streams, y, mask, generator,
-                                     window=self.options.window)
+        loss, grads, aux = loss_and_grads(params, self.config, streams, y, mask, generator,
+                                          window=self.options.window, return_aux=True)
         params, opt_state = self.optimizer.apply(params, grads, opt_state, learning_rate=lr)
-        return params, opt_state, loss
+        return merge_bn_state(params, aux), opt_state, loss
 
     def train_step_accum(self, params, opt_state, streams, y, mask, generator, lr):
         """K microbatches of B / K rows in order, each with its own draws of

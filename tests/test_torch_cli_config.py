@@ -1,13 +1,13 @@
-"""The port's config values it does not run, and the legacy INI schema.
+"""The config values of the LSTM levers and the legacy INI schema.
 
-``lstm_remat`` and ``lstm_residual_dtype`` change the JAX package's LSTM
-training residuals, so the port refuses them (naming ROADMAP Queue 1 item
-5) rather than train without them; ``matmul_dtype`` names Queue 2 item 4.
-Each is refused by ``models/adenet.check_supported`` and when an INI's
-``[lstm_classifier]`` (or ``[training]``) value reaches
-``init_adenet_params`` through ``train.config.build_model_config``.
-``parse_legacy_config`` reads the trimodal CLI's [data]/[models]/[training]
-schema as the JAX package reads it.
+``lstm_remat`` and ``lstm_residual_dtype`` are ported: an INI's
+``[lstm_classifier]`` value reaches the model config through
+``train.config.build_model_config``, the model builds, and its training
+gradients equal the JAX package's for the same setting.  ``matmul_dtype``
+is still refused, naming ROADMAP Queue 2 item 4, by
+``models/adenet.check_supported`` and when its ``[training]`` value reaches
+``init_adenet_params``.  ``parse_legacy_config`` reads the trimodal CLI's
+[data]/[models]/[training] schema as the JAX package reads it.
 """
 
 import dataclasses
@@ -40,23 +40,74 @@ def _ini_config(tmp_path, section, key, value):
     return dataclasses.replace(cfg, matmul_dtype=dtype) if dtype else cfg
 
 
+def _jax_ini_config(tmp_path, section, key, value):
+    """The same INI through the JAX package's build_model_config."""
+    cp = jconfig.load_config(str(tmp_path / "cfg.ini"))
+    return jconfig.build_model_config(jconfig.parse_streams(cp), jconfig.parse_classifier(cp))
+
+
+def _grads_match_jax(jcfg, tcfg):
+    """One training loss and gradient of both packages on the same
+    parameters and batch: loss 1e-5 relative, each gradient within 1e-5 of
+    its max abs (the levers' own tolerances: tests/test_torch_lstm_residuals
+    .py)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from ip_avsr_tpu.models import adenet as jadenet
+    from ip_avsr_tpu.train import trainer as jtr
+    from ip_avsr_torch import bridge
+    from ip_avsr_torch.train import trainer as ttr
+
+    jp = jadenet.init_adenet_params(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.RandomState(0)
+    streams = [rng.randn(3, 7, s.input_dim).astype(np.float32) for s in jcfg.streams]
+    mask = (np.arange(7)[None] < np.array([7, 5, 2])[:, None]).astype(np.float32)
+    y = np.array([0, 3, 1], np.int32)
+    jt = jtr.Trainer(jcfg, jtr.TrainOptions(log_fn=lambda s: None))
+    jloss, jg = jax.value_and_grad(jt._loss)(jp, [jnp.asarray(x) for x in streams],
+                                             jnp.asarray(y), jnp.asarray(mask), True,
+                                             jax.random.PRNGKey(0))
+    tp = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    tloss, tg = ttr.loss_and_grads(tp, tcfg, [torch.from_numpy(x) for x in streams],
+                                   torch.from_numpy(y).long(), torch.from_numpy(mask))
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    got = jax.tree_util.tree_leaves(jax.tree_util.tree_map(lambda t: t.numpy(), tg))
+    ref = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, jg))
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r, rtol=0, atol=1e-5 * max(np.abs(r).max(), 1e-3))
+
+
 @pytest.mark.parametrize("key,value,section,item", [
     ("lstm_remat", True, "lstm_classifier", "Queue 1 item 5"),
     ("lstm_residual_dtype", "bfloat16", "lstm_classifier", "Queue 1 item 5"),
     ("matmul_dtype", "bfloat16", "training", "Queue 2 item 4"),
 ])
 def test_unported_lstm_keys_raise(tmp_path, key, value, section, item):
+    """``matmul_dtype`` still raises naming its item; the two levers, which
+    ``item`` names as the ROADMAP item that brought them, now build from the
+    INI and train with JAX's gradients."""
     direct = dataclasses.replace(tzoo.adenet_v3(16, 4, 16, lstm_size=4), **{key: value})
-    with pytest.raises(NotImplementedError, match=f"{key}.*{item}"):
-        tadenet.check_supported(direct)
     cfg = _ini_config(tmp_path, section, key, value)
     assert getattr(cfg, key) == value  # the INI value reached the model config
-    with pytest.raises(NotImplementedError, match=f"{key}.*{item}"):
-        tadenet.init_adenet_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    # with the key at its default the same file builds
-    default = tadenet.AdeNetConfig.__dataclass_fields__[key].default
-    tadenet.init_adenet_params(torch.Generator().manual_seed(0),
-                               dataclasses.replace(cfg, **{key: default}), device="cpu")
+    if key == "matmul_dtype":
+        with pytest.raises(NotImplementedError, match=f"{key}.*{item}"):
+            tadenet.check_supported(direct)
+        with pytest.raises(NotImplementedError, match=f"{key}.*{item}"):
+            tadenet.init_adenet_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+        # with the key at its default the same file builds
+        default = tadenet.AdeNetConfig.__dataclass_fields__[key].default
+        tadenet.init_adenet_params(torch.Generator().manual_seed(0),
+                                   dataclasses.replace(cfg, **{key: default}), device="cpu")
+        return
+    assert item == "Queue 1 item 5"
+    tadenet.check_supported(direct)
+    tadenet.init_adenet_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    jcfg = _jax_ini_config(tmp_path, section, key, value)
+    assert getattr(jcfg, key) == value
+    _grads_match_jax(jcfg, cfg)
 
 
 @pytest.mark.parametrize("ini", ["oulu_trimodal.ini", "oulu_4stream.ini"])

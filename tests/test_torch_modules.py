@@ -179,26 +179,64 @@ def test_config_fields_match_jax():
     assert port.classifier_in_dim() == ref.classifier_in_dim()
 
 
+def _tiny_v3_pair(**fields):
+    """The tiny adenet_v3 of both zoos at dropout 0, with ``fields`` set,
+    JAX's parameters and the same ones in the port, and a ragged batch."""
+    cfgs = [dataclasses.replace(z.adenet_v3(16, 4, 16, lstm_size=4), agg_dropout=0.0,
+                                streams=[dataclasses.replace(s, dropout=0.0)
+                                         for s in z.adenet_v3(16, 4, 16, lstm_size=4).streams],
+                                **fields) for z in (jzoo, tzoo)]
+    jp = jadenet.init_adenet_params(jax.random.PRNGKey(0), cfgs[0])
+    tp = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    rng = _rng(5)
+    xs = [rng.randn(3, 6, s.input_dim).astype(np.float32) for s in cfgs[0].streams]
+    mask = (np.arange(6)[None] < np.array([6, 4, 1])[:, None]).astype(np.float32)
+    return cfgs, jp, tp, xs, mask
+
+
 @pytest.mark.parametrize("field,value", [
     ("fuse_scans", True), ("matmul_dtype", "bfloat16")])
 def test_unported_config_values_raise(field, value):
-    cfg = dataclasses.replace(tzoo.adenet_v3(16, 4, 16, lstm_size=4), **{field: value})
-    with pytest.raises(NotImplementedError, match="Queue|f32"):
-        tadenet.init_adenet_params(torch.Generator(), cfg, device="cpu")
+    """``matmul_dtype`` still raises, naming Queue 2 item 4; ``fuse_scans``
+    is ported: the same config builds and its forward equals JAX's."""
+    (jcfg, tcfg), jp, tp, xs, mask = _tiny_v3_pair(**{field: value})
+    if field == "matmul_dtype":
+        with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+            tadenet.init_adenet_params(torch.Generator(), tcfg, device="cpu")
+        return
+    tadenet.init_adenet_params(torch.Generator(), tcfg, device="cpu")
+    got = tadenet.adenet_forward(tp, tcfg, [torch.from_numpy(x) for x in xs],
+                                 torch.from_numpy(mask))
+    ref = jax.jit(lambda p, x, m: jadenet.adenet_forward(p, jcfg, x, m))(
+        jp, [jnp.asarray(x) for x in xs], jnp.asarray(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
 
 
 def test_batchnorm_and_train_raise():
-    cfg = tzoo.adenet_v3(16, 4, 16, lstm_size=4)
-    bn = dataclasses.replace(cfg, streams=[dataclasses.replace(cfg.streams[0],
-                                                               use_batchnorm=True),
-                                           *cfg.streams[1:]])
-    with pytest.raises(NotImplementedError, match="use_batchnorm"):
-        tadenet.check_supported(bn)
-    # training is ported: only the unported config value raises under it
-    with pytest.raises(NotImplementedError, match="use_batchnorm") as info:
-        tadenet.adenet_forward({}, bn, [], torch.ones(1, 1), train=True)
-    assert "train" not in str(info.value)
-    tadenet.check_supported(cfg)
+    """Batch norm is ported: the config passes ``check_supported``, and a
+    training forward with ``return_aux`` gives JAX's output and moved
+    running statistics; ``bn_axis`` (statistics over mesh axes) raises,
+    naming Queue 1 item 10."""
+    (jcfg, tcfg), _, _, xs, mask = _tiny_v3_pair()
+    jbn, tbn = (dataclasses.replace(c, streams=[
+        dataclasses.replace(c.streams[0], use_batchnorm=True), *c.streams[1:]])
+        for c in (jcfg, tcfg))
+    tadenet.check_supported(tbn)
+    jp = jadenet.init_adenet_params(jax.random.PRNGKey(0), jbn)
+    tp = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    assert set(tp["streams"]["raw"]) == {"encoder", "bn", "bn_state", "lstm"}
+    got, aux = tadenet.adenet_forward(tp, tbn, [torch.from_numpy(x) for x in xs],
+                                      torch.from_numpy(mask), train=True, return_aux=True)
+    ref, jaux = jadenet.adenet_forward(jp, jbn, [jnp.asarray(x) for x in xs],
+                                       jnp.asarray(mask), train=True, return_aux=True)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), atol=2e-5, rtol=0)
+    assert list(aux["bn_state"]) == list(jaux["bn_state"]) == ["raw"]
+    for k in ("mean", "var"):
+        np.testing.assert_allclose(aux["bn_state"]["raw"][k].numpy(),
+                                   np.asarray(jaux["bn_state"]["raw"][k]), atol=1e-5, rtol=0)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        tadenet.adenet_forward(tp, tbn, [torch.from_numpy(x) for x in xs],
+                               torch.from_numpy(mask), train=True, bn_axis="data")
 
 
 def test_init_adenet_params_has_jax_keys_and_shapes():

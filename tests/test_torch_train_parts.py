@@ -279,7 +279,11 @@ def test_trainer_modules_import_neither_jax_nor_the_jax_package():
         "ip_avsr_torch.io.matio, ip_avsr_torch.data.preprocessing, "
         "ip_avsr_torch.cli.nstream, ip_avsr_torch.cli.trimodal, "
         "ip_avsr_torch.cli.separate_train, ip_avsr_torch.cli.extract_weights, "
-        "ip_avsr_torch.cli.evaluate_delta_features\n"
+        "ip_avsr_torch.cli.evaluate_delta_features, ip_avsr_torch.cli.leave_one_out, "
+        "ip_avsr_torch.cli.audio_visual, ip_avsr_torch.models.avnet, "
+        "ip_avsr_torch.models.zoo, ip_avsr_torch.ops.normalization, "
+        "ip_avsr_torch.ops.pooling, ip_avsr_torch.ops.lcn, ip_avsr_torch.serve, "
+        "ip_avsr_torch.export\n"
         "import sys\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m.startswith('ip_avsr_tpu')]\n"

@@ -146,3 +146,18 @@ def assert_results_match(jr, tr):
     assert tr.epochs_run == jr.epochs_run
     assert tr.final_lr == jr.final_lr
     assert_params_close(tr.best_params, jr.best_params)
+
+
+def zoo_case(name):
+    """tests/zoo_cases.py's ZOO_CASES[name] built by the port's modules: the
+    case's builder runs with that file's ``zoo``, ``avnet`` and ``adenet``
+    bound to the port's."""
+    from ip_avsr_torch.models import adenet as tadenet, avnet as tavnet, zoo as tzoo
+    from tests import zoo_cases
+
+    held = zoo_cases.zoo, zoo_cases.avnet, zoo_cases.adenet
+    zoo_cases.zoo, zoo_cases.avnet, zoo_cases.adenet = tzoo, tavnet, tadenet
+    try:
+        return zoo_cases.ZOO_CASES[name]()
+    finally:
+        zoo_cases.zoo, zoo_cases.avnet, zoo_cases.adenet = held
