@@ -168,13 +168,29 @@ Phases, each fatal on failure:
    within 1e-4; for one step at B = 10 and T = 29 and 512, the memory the
    forward holds for its backward and the step's peak beside the predicted
    residual bytes;
-17. print the fit's numbers, the kernels line (each row's launches in the
+17. pretraining (``phase_pretrain``) at full width from a seeded corpus
+   of OuluVS's size (16763 frames of 26 x 44 uint8 pixels, and the same
+   utterances at 60 x 80): ``cli.pretrain_dbn`` on the reference's
+   schedule (1144-2000-1000-500-50, sigm and a linear top, 10 epochs of
+   168 CD-1 steps a layer, every epoch timed), ``cli.ae_finetuner`` on its
+   ``.mat`` (2 epochs), ``cli.trimodal`` from the finetuned ``.mat`` (one
+   autoencoder for the raw and the diff stream, cut as in 13.: rows 1-4
+   counted), ``cli.convae`` for the four variants (1 epoch each) and
+   ``pretrain.sde.train_sde`` (1 epoch a layer), every pretraining run
+   launching no ported row; a traced CD epoch of layer 1 (device kernels
+   and host launch calls per step, busy share, the step's bound), the AE
+   and conv-AE step times; then layer 1 on the card against the CPU path
+   with the same draws (one CD-1 step with its flipped states counted,
+   one epoch by its error), an AE-finetune epoch, and the conv-AE's
+   forward and training step (plain and batchnorm, rerouted pooling
+   windows counted); the peak memory and the phase's seconds;
+18. print the fit's numbers, the kernels line (each row's launches in the
    fits and per fit epoch, beside its serve or train path's count; rows 1
    and 5 also their launches in the streaming sessions and the state
    output's error; rows 1, 2 and 5 their launches through the artifacts;
-   every row its launches through the CLIs' card runs, through phase_zoo
-   and through phase_residuals), then ``{"ok": true, "device": ...}``
-   last.
+   every row its launches through the CLIs' card runs, through phase_zoo,
+   through phase_residuals and through phase_pretrain), then ``{"ok": true,
+   "device": ...}`` last.
 
 Exits non-zero without a CUDA device or without the package beside it.
 
@@ -3800,6 +3816,571 @@ def phase_residuals(dev):
     return totals, numbers
 
 
+# phase_pretrain: pretraining on the card at full width.  The corpus has
+# OuluVS's size at its pixel width: 26 x 44 = 1144 uint8 pixels, 20 subjects
+# x 10 phrases x 5 repetitions of 5-29 frames (about 17k frames, 78 MB as
+# float32), a band of columns per phrase brighter, iterVec the repetition
+# (1 and 2 train, as the reference's split); the conv-AE's corpus is the
+# same utterances at 60 x 80, so that cli.convae resizes them to 30 x 40.
+PRETRAIN_CORPUS = dict(subjects=20, phrases=10, repetitions=5)
+CONVAE_IMAGESIZE = (60, 80)
+# cli.pretrain_dbn on the reference's dbnParamsInit schedule, uncut
+DBN_HIDDEN = (2000, 1000, 500, 50)
+DBN_ARGS = ["--hidden", ",".join(str(h) for h in DBN_HIDDEN),
+            "--activations", "sigm,sigm,sigm,linear", "--epochs", "10", "--batchsize", "100"]
+# cli.ae_finetuner (8 layers, adadelta, batch 128) cut to 2 of its 30
+# epochs; cli.convae (batch 128) to 1 of its 25 per variant; train_sde to 1
+# of its 20 per layer
+AE_FT_EPOCHS = 2
+CONVAE_EPOCHS = 1
+SDE_EPOCHS = 1
+PRETRAIN_B = 128
+# card against the port's CPU path: one CD-1 step's state and velocity
+# (absolute; the step moves entries by about 1e-3) when no Bernoulli state
+# flipped; a CD epoch's mean error per sample, relative, after the states
+# that flipped let the runs diverge legitimately (a band: the reference
+# draws differ anyway); the conv-AE forward relative to max(1, max |ref|)
+CD_STEP_TOL = 1e-5
+CD_EPOCH_BAND = 1e-4
+CONVAE_FWD_TOL = 1e-4
+# a conv-AE step, card vs CPU, relative to each gradient's max abs: in
+# float64, the semantics (free of rounding); in float32, cuDNN's precision:
+# the algorithm it picks for conv3's weight gradient (5 x 5, 100 -> 150
+# channels) lay 3.4e-3 from its own float64 step, where PyTorch's CUDA
+# convolution without cuDNN lay 1.1e-6 and the CPU 2.1e-6 (B = 32, NVIDIA
+# H100 80GB HBM3, 700 W; convae_check prints these); a pooling window
+# rerouted by rounding moved a gradient 1.3e-3
+CONVAE_F64_TOL = 1e-10
+CUDNN_GRAD_TOL = 1e-2
+CONVAE_CHECK_B = 32
+
+
+def pretrain_utterances(seed=SEED):
+    """(lengths, subjects, phrases, repetitions) of the utterances of
+    :data:`PRETRAIN_CORPUS`, one per (subject, phrase, repetition)."""
+    import numpy as np
+
+    c = PRETRAIN_CORPUS
+    S, P, R = c["subjects"], c["phrases"], c["repetitions"]
+    lens = np.random.RandomState(seed).randint(5, T_FRAMES + 1, S * P * R)
+    subjects = np.repeat(np.arange(1, S + 1), P * R)
+    phrases = np.tile(np.repeat(np.arange(1, P + 1), R), S)
+    reps = np.tile(np.arange(1, R + 1), S * P)
+    return lens, subjects, phrases, reps
+
+
+def write_pretrain_corpus(path, imagesize, seed=SEED):
+    """Write the utterances of :func:`pretrain_utterances` as uint8 frames of
+    ``imagesize`` (a band of columns per phrase brighter) in the ``.mat``
+    schema with ``iterVec``; returns the frame count."""
+    import numpy as np
+
+    from ip_avsr_torch.io import matio
+
+    lens, subjects, phrases, reps = pretrain_utterances(seed)
+    pixels = imagesize[0] * imagesize[1]
+    cls = np.repeat(phrases - 1, lens)
+    rng = np.random.RandomState(seed + 1)
+    images = rng.randint(0, 192, (len(cls), pixels), dtype=np.uint8)
+    band = (np.arange(pixels)[None, :] * PRETRAIN_CORPUS["phrases"] // pixels) == cls[:, None]
+    np.add(images, 63, out=images, where=band)
+    matio.save_mat({"dataMatrix": images, "targetsVec": np.repeat(phrases, lens)[:, None],
+                    "subjectsVec": subjects[:, None], "videoLengthVec": lens[:, None],
+                    "iterVec": reps[:, None]}, path)
+    return len(cls)
+
+
+def run_main(label, main, argv, keep=("epoch", "saved", "Pretraining", "Error", "Traceback")):
+    """Run a CLI's ``main(argv)`` in-process with its launches counted from
+    0; print the report lines that hold a word of ``keep``; return (its
+    wall seconds, its launches)."""
+    import torch
+
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            main(argv)
+        torch.cuda.synchronize()
+    finally:
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            if any(k in line for k in keep):
+                print(f"  {label}: {line.strip()}")
+    return time.perf_counter() - t0, read_launches()
+
+
+def cd_step_cost(B, d, h):
+    """(bytes, operations) of one CD-1 step: reads the batch, the draw, W,
+    its velocity and the biases and theirs once, writes W, the velocity,
+    the biases and theirs once; five (B, d, h) products (up, down, up
+    again, the two outer products) and the updates' elementwise work."""
+    nbytes = 4 * (B * d + B * h + 2 * d * h + 2 * (d + h)) + 4 * (2 * d * h + 2 * (d + h) + 1)
+    flops = 5 * 2 * B * d * h + 10 * B * (d + h) + 6 * d * h
+    return nbytes, flops
+
+
+def cd_check(dev, x, numbers):
+    """Layer 1 on the card against the CPU path with the same draws, drawn
+    once on the CPU: one CD-1 step (B = 100, the flips counted, the update
+    held to CD_STEP_TOL with none), then one epoch in the same order (its
+    mean error held to CD_EPOCH_BAND)."""
+    import torch
+
+    from ip_avsr_torch.device import tree_to
+    from ip_avsr_torch.pretrain import rbm
+
+    hyper, h = rbm.RBMHyperParams(), DBN_HIDDEN[0]
+    lrs = hyper.rates_for("sigm", "sigm")
+    B, (n, d) = hyper.batchsize, x.shape
+    gen = torch.Generator().manual_seed(SEED + 90)
+    state = rbm.init_rbm(gen, d, h, "sigm", "sigm")
+    batch = x[:B]
+    u = torch.rand((B, h), generator=gen)
+    runs = {}
+    for where, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        s = tree_to({k: v.clone() for k, v in state.items()}, device)
+        vel = {k: torch.zeros_like(v) for k, v in s.items()}
+        probs = rbm.rbm_up(batch.to(device), s["weights"], s["hidbiases"], "sigm")[0].cpu()
+        err = rbm.cd1_step(s, vel, batch.to(device), hyper.init_momentum, lrs, vl_type="sigm",
+                           hl_type="sigm", cd_type=1, batchsize=B, noise=(u.to(device), None))
+        runs[where] = (probs, tree_to(s, "cpu"), tree_to(vel, "cpu"), err.item())
+    flips = int(((runs["card"][0] > u) != (runs["cpu"][0] > u)).sum())
+    gap = (runs["card"][0] - u).abs().min().item()
+    step_err = max(max_err(runs["card"][i][k], runs["cpu"][i][k])[0]
+                   for i in (1, 2) for k in state)
+    rel = abs(runs["card"][3] - runs["cpu"][3]) / runs["cpu"][3]
+    print(f"pretrain, CD-1 step card vs CPU (layer 1, B = {B}, {d} -> {h}, the same draws): "
+          f"{flips} of {B * h} hidden states flipped (smallest |probs - u| {gap:.3g}); state "
+          f"and velocity {step_err:.3g} apart (tolerance {CD_STEP_TOL:g} with no flip), error "
+          f"{rel:.3g} relative")
+    if flips == 0 and step_err > CD_STEP_TOL:
+        raise AssertionError(f"pretrain: the CD-1 step on the card is {step_err:.3g} from the "
+                             f"CPU path with no state flipped")
+    numbers["cd_step"] = dict(flips=flips, smallest_gap=gap, max_abs_err=step_err,
+                              err_rel=rel)
+
+    # one epoch in one order with one set of draws, each uploaded per step
+    order = torch.randperm(n, generator=gen)
+    draws = [torch.rand((min(B, n - s), h), generator=gen) for s in range(0, n, B)]
+    draw = rbm.draw_cd1_noise
+    epoch = {}
+    try:
+        for where, device in (("cpu", torch.device("cpu")), ("card", dev)):
+            feed = iter(draws)
+            rbm.draw_cd1_noise = lambda *a, _d=device, **kw: (next(feed).to(_d), None)
+            s = tree_to({k: v.clone() for k, v in state.items()}, device)
+            vel = {k: torch.zeros_like(v) for k, v in s.items()}
+            err = rbm.rbm_epoch(s, vel, x.to(device), order.to(device), hyper.init_momentum,
+                                lrs, None, vl_type="sigm", hl_type="sigm", cd_type=1,
+                                batchsize=B, weight_penalty_l2=hyper.weight_penalty_l2)
+            epoch[where] = (err.item() / n, s["weights"].cpu())
+    finally:
+        rbm.draw_cd1_noise = draw
+    rel = abs(epoch["card"][0] - epoch["cpu"][0]) / epoch["cpu"][0]
+    w_err = max_err(epoch["card"][1], epoch["cpu"][1])[0]
+    print(f"pretrain, a CD epoch card vs CPU (layer 1, {len(draws)} steps, the same order "
+          f"and draws): mean error {epoch['card'][0]:.6f} against {epoch['cpu'][0]:.6f}, "
+          f"{rel:.3g} relative (band {CD_EPOCH_BAND:g}); weights {w_err:.3g} apart at most")
+    if rel > CD_EPOCH_BAND:
+        raise AssertionError(f"pretrain: a CD epoch's error on the card is {rel:.3g} from the "
+                             f"CPU path's")
+    numbers["cd_epoch"] = dict(err_rel=rel, weights_max_abs=w_err, steps=len(draws))
+
+
+def ae_check(dev, weights, biases, x, numbers):
+    """One AE-finetune epoch (deterministic) of the finetuned 8-layer AE on
+    the card against the CPU path on the rows ``x`` (20 batches of 128, as
+    cli.ae_finetuner preprocesses them): the epoch's loss within
+    FIT_COST_TOL relative, every layer within FIT_PARAM_TOL of its max
+    abs."""
+    import torch
+
+    from ip_avsr_torch.pretrain import finetune
+
+    acts = ["sigmoid"] * 3 + ["linear"] + ["sigmoid"] * 3 + ["linear"]
+    runs = {}
+    for where, device in (("cpu", "cpu"), ("card", dev)):
+        logs = []
+        runs[where] = (finetune.finetune_autoencoder(weights, biases, acts, x, epochs=1,
+                                                     batchsize=PRETRAIN_B, log_fn=logs.append,
+                                                     device=device),
+                       float(logs[-1].rsplit("= ", 1)[1]))
+    loss_rel = abs(runs["card"][1] - runs["cpu"][1]) / runs["cpu"][1]
+    worst = max(float(abs(a - b).max() / abs(b).max())
+                for a, b in zip(runs["card"][0][0] + runs["card"][0][1],
+                                runs["cpu"][0][0] + runs["cpu"][0][1]))
+    print(f"pretrain, an AE-finetune epoch card vs CPU (8 layers, 20 steps of {PRETRAIN_B}): "
+          f"loss {runs['card'][1]:.6f} against {runs['cpu'][1]:.6f} ({loss_rel:.3g} relative, "
+          f"printed digits), worst layer {worst:.3g} of its max abs")
+    if loss_rel > FIT_COST_TOL or worst > FIT_PARAM_TOL:
+        raise AssertionError("pretrain: the AE-finetune epoch on the card disagrees with the "
+                             "CPU path")
+    numbers["ae_epoch"] = dict(loss_rel=loss_rel, worst_rel=worst)
+
+
+def convae_check(dev, images, numbers):
+    """The conv-AE, plain and batchnorm, on the card against the CPU path
+    from the same parameters and batch of CONVAE_CHECK_B images.  In float64
+    (the semantics, free of rounding): every gradient and adadelta update
+    within CONVAE_F64_TOL of its max abs.  In float32: the forward within
+    CONVAE_FWD_TOL, the loss within TRAIN_LOSS_TOL relative, every gradient
+    within CUDNN_GRAD_TOL of its max abs and the update (lr 0.8, whose first
+    step moves an entry by at most lr times its gradient's change) within
+    lr CUDNN_GRAD_TOL; each device's own float32 error against its float64
+    step is printed beside it, and so is the card's float32 error with
+    cuDNN switched off (PyTorch's own CUDA convolutions), for reference.
+    A bias that batch norm follows has an exact
+    gradient of zero and is held absolute (TRAIN_GRAD_TOL in float32).
+    Pooling windows that route a gradient to another input on the card than
+    on the CPU (a window's top two values within rounding) are counted
+    from the pooling indices."""
+    import torch
+    import torch.nn.functional as F
+
+    from ip_avsr_torch.device import tree_map, tree_to
+    from ip_avsr_torch.models import convae
+    from ip_avsr_torch.pretrain import finetune
+    from ip_avsr_torch.train import optimizers
+
+    lr = 0.8
+    x = torch.as_tensor(images[:CONVAE_CHECK_B])
+    pool = convae._maxpool
+    cpu, f32, f64 = torch.device("cpu"), torch.float32, torch.float64
+    for variant in ("plain", "batchnorm"):
+        cfg = convae.ConvAEConfig(use_batchnorm=variant == "batchnorm")
+        zero_grad = ({f"/{name}/b" for name in ("conv1", "conv3", "conv5", "dense7")}
+                     if cfg.use_batchnorm else set())
+        params = convae.init_convae_params(torch.Generator().manual_seed(SEED + 91), cfg)
+        runs = {}
+        for key in ((cpu, f32), (dev, f32), (cpu, f64), (dev, f64), ("no cudnn", f32)):
+            device, dtype = (dev, key[1]) if key[0] == "no cudnn" else key
+            indices = []
+
+            def recorded(h, pad_h=0, _indices=indices):
+                y, i = F.max_pool2d(h, 2, 2, padding=(pad_h, 0), return_indices=True)
+                _indices.append(i.cpu())
+                return y
+
+            p = tree_map(lambda v: v.to(device, dtype), params)
+            xb = x.to(device, dtype)
+            with torch.no_grad():
+                fwd = convae.convae_forward(p, cfg, xb).cpu()
+            convae._maxpool = recorded
+            torch.backends.cudnn.enabled = key[0] != "no cudnn"
+            try:
+                loss, grads = finetune.value_and_grad(finetune._convae_loss, p, xb, cfg, None)
+            finally:
+                convae._maxpool = pool
+                torch.backends.cudnn.enabled = True
+            opt = optimizers.adadelta(lr)
+            new, _ = opt.apply(p, grads, opt.init(p))
+            runs[key] = dict(fwd=fwd, loss=loss.item(), indices=indices,
+                             grads=dict(named_leaves(tree_to(grads, "cpu"))),
+                             new=dict(named_leaves(tree_to(new, "cpu"))))
+
+        def gaps(a, b, zero_tol):
+            """{path: (gradient gap, update gap)} of runs ``a`` against ``b``,
+            relative to the gradient's max abs in ``b`` (a zero-gradient
+            bias: absolute, over ``zero_tol``)."""
+            out = {}
+            for path, ref in b["grads"].items():
+                scale = zero_tol if path in zero_grad else max(ref.abs().max().item(), 1e-300)
+                out[path] = (max_err(a["grads"][path].double(), ref.double())[0] / scale,
+                             max_err(a["new"][path].double(), b["new"][path].double())[0]
+                             / (lr * scale))
+            return out
+
+        card, host = runs[(dev, f32)], runs[(cpu, f32)]
+        exact = gaps(runs[(dev, f64)], runs[(cpu, f64)], 1.0)
+        single = gaps(card, host, 1.0)
+        card_own = gaps(card, runs[(dev, f64)], 1.0)
+        host_own = gaps(host, runs[(cpu, f64)], 1.0)
+        native_own = gaps(runs[("no cudnn", f32)], runs[(dev, f64)], 1.0)
+        fwd_err = max_err(card["fwd"], host["fwd"])[1]
+        loss_rel = abs(card["loss"] - host["loss"]) / host["loss"]
+        reroutes = sum(int((a != b).sum()) for a, b in zip(card["indices"], host["indices"]))
+        worst = lambda d, i=0: max(d, key=lambda k: d[k][i])  # noqa: E731
+        w64, w32 = worst(exact), worst({k: v for k, v in single.items() if k not in zero_grad})
+        print(f"pretrain, conv-AE {variant} card vs CPU (B = {CONVAE_CHECK_B}): float64 "
+              f"gradients {exact[w64][0]:.3g} of their max abs (at {w64}), updates "
+              f"{max(v[1] for v in exact.values()):.3g}; float32 forward {fwd_err:.3g} "
+              f"(relative to max(1, max |ref|)), loss {loss_rel:.3g} relative, gradients "
+              f"{single[w32][0]:.3g} of their max abs at {w32} (the card's own float32 error "
+              f"there {card_own[w32][0]:.3g}, without cuDNN {native_own[w32][0]:.3g}, the "
+              f"CPU's {host_own[w32][0]:.3g}), updates "
+              f"{max(v[1] for v in single.values()):.3g}; zero-gradient biases "
+              f"{sorted(zero_grad)} at most {max([single[p][0] for p in zero_grad] or [0]):.3g} "
+              f"absolute; pooling windows routed apart: {reroutes}")
+        ok = (max(max(v) for v in exact.values()) <= CONVAE_F64_TOL
+              and fwd_err <= CONVAE_FWD_TOL and loss_rel <= TRAIN_LOSS_TOL
+              and all(max(v) <= (TRAIN_GRAD_TOL if k in zero_grad else CUDNN_GRAD_TOL)
+                      for k, v in single.items()))
+        if not ok:
+            raise AssertionError(f"pretrain: the conv-AE {variant} on the card disagrees with "
+                                 f"the CPU path")
+        numbers[f"convae_{variant}_check"] = dict(
+            f64_grad_rel=exact[w64][0], fwd_err=fwd_err, loss_rel=loss_rel,
+            f32_grad_rel=single[w32][0], f32_grad_at=w32, card_own_f32=card_own[w32][0],
+            no_cudnn_own_f32=native_own[w32][0], cpu_own_f32=host_own[w32][0],
+            reroutes=reroutes)
+
+
+def phase_pretrain(dev):
+    """Pretraining at full width on the card, through the CLIs a user runs:
+    ``cli.pretrain_dbn`` (RBM CD-1, greedy stacking, unfolding, the w1..w8
+    ``.mat``) on the frames of a corpus of OuluVS's size, ``cli.ae_finetuner``
+    on that ``.mat``, ``cli.trimodal`` trained from the finetuned ``.mat``
+    (one autoencoder serves the raw and the diff stream; rows 1-4 counted as
+    in phase_cli), ``cli.convae`` for the four variants on the same
+    utterances at 60 x 80, and ``pretrain.sde.train_sde``; every
+    pretraining run launches no ported row.  Then layer 1's CD-1 step and
+    epoch, an AE-finetune epoch and the conv-AE's forward and step on the
+    card against the CPU path; the times per CD epoch and layer, CD steps/s,
+    a traced CD epoch's host launch calls per step and busy share, the CD
+    step's bound, AE, conv-AE and SDE times and the peak memory.  Returns
+    ({row: launches}, numbers)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch.cli import ae_finetuner, pretrain_dbn, trimodal
+    from ip_avsr_torch.cli import convae as convae_cli
+    from ip_avsr_torch.data import preprocessing as pp
+    from ip_avsr_torch.device import tree_to
+    from ip_avsr_torch.io import matio
+    from ip_avsr_torch.models import convae
+    from ip_avsr_torch.pretrain import finetune, rbm, sde
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    numbers, totals = {}, {name: 0 for name in KERNEL_COUNTERS}
+    device = dev.type
+
+    def no_launches(label, launches):
+        expect_launches(launches)
+        print(f"pretrain, {label}: no ported row launched ({launches})")
+
+    try:
+        frames_mat, frames60_mat = (os.path.join(tmp, f"{k}.mat") for k in ("frames",
+                                                                          "frames60"))
+        t0 = time.perf_counter()
+        n = write_pretrain_corpus(frames_mat, IMAGE_SHAPE)
+        write_pretrain_corpus(frames60_mat, CONVAE_IMAGESIZE)
+        numbers["write_s"] = time.perf_counter() - t0
+        print(f"pretrain: corpus {PRETRAIN_CORPUS} ({n} frames of {IMAGE_SHAPE} and of "
+              f"{CONVAE_IMAGESIZE}), written in {numbers['write_s']:.2f} s "
+              f"({(os.path.getsize(frames_mat) + os.path.getsize(frames60_mat)) / 1e6:.1f} MB)")
+
+        # cli.pretrain_dbn, every CD epoch timed on the card
+        epochs, rbm_epoch = [], rbm.rbm_epoch
+
+        def timed_epoch(state, velocity, data, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = rbm_epoch(state, velocity, data, *a, **kw)
+            torch.cuda.synchronize()
+            epochs.append((tuple(state["weights"].shape), time.perf_counter() - t,
+                           -(-data.shape[0] // kw["batchsize"])))
+            return out
+
+        dbn_mat = os.path.join(tmp, "dbn.mat")
+        rbm.rbm_epoch = timed_epoch
+        try:
+            wall, launches = run_main("pretrain_dbn", pretrain_dbn.main, [
+                "--data", frames_mat, *DBN_ARGS, "--out", dbn_mat, "--device", device],
+                keep=("Pretraining", "epoch 10", "saved"))
+        finally:
+            rbm.rbm_epoch = rbm_epoch
+        no_launches("pretrain_dbn", launches)
+        layers = {}
+        for shape, seconds, steps in epochs:
+            layers.setdefault(shape, []).append((seconds, steps))
+        numbers["dbn"] = {"wall_s": wall, "layers": {}}
+        for shape, runs in layers.items():
+            secs = [s for s, _ in runs]
+            steps = runs[0][1]
+            numbers["dbn"]["layers"][f"{shape[0]}-{shape[1]}"] = dict(
+                epochs=len(runs), steps_per_epoch=steps, epoch_s=statistics.median(secs),
+                first_epoch_s=secs[0], steps_per_s=steps / statistics.median(secs))
+            print(f"pretrain, pretrain_dbn layer {shape[0]}-{shape[1]}: {len(runs)} epochs of "
+                  f"{steps} CD steps, median epoch {statistics.median(secs) * 1e3:.1f} ms "
+                  f"(first {secs[0] * 1e3:.1f} ms), {steps / statistics.median(secs):.0f} CD "
+                  f"steps/s")
+        print(f"pretrain, pretrain_dbn: CLI wall {wall:.2f} s; {smi('name,power.limit')}")
+
+        # a traced CD epoch of layer 1 (the first step's shapes: B = 100, 1144 -> 2000)
+        x = torch.as_tensor(matio.load_mat_file(frames_mat)["dataMatrix"].astype(np.float32))
+        x = torch.as_tensor(rbm.normalise_data("sigm", x.numpy())[0])
+        hyper, h1 = rbm.RBMHyperParams(), DBN_HIDDEN[0]
+        B, d = hyper.batchsize, x.shape[1]
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        state = tree_to(rbm.init_rbm(torch.Generator().manual_seed(SEED), d, h1, "sigm",
+                                     "sigm"), dev)
+        vel = {k: torch.zeros_like(v) for k, v in state.items()}
+        xd, order = x.to(dev), torch.randperm(n, device=dev, generator=gen)
+        lrs, steps = hyper.rates_for("sigm", "sigm"), -(-n // B)
+
+        def cd_epoch():
+            return rbm.rbm_epoch(state, vel, xd, order, hyper.init_momentum, lrs, gen,
+                                 vl_type="sigm", hl_type="sigm", cd_type=1, batchsize=B,
+                                 weight_penalty_l2=hyper.weight_penalty_l2)
+
+        epoch_ms = host_median_ms(cd_epoch, calls=3, warmup=1)
+        events = traced(cd_epoch, 1)
+        kernels, calls = launch_counts(events, steps, "pretrain, a CD epoch of layer 1, per "
+                                       "CD step", "no earlier count")
+        _, busy_ms = busy_share(events, 1, epoch_ms, "pretrain, a CD epoch of layer 1", rows=10)
+        nbytes, flops = cd_step_cost(B, d, h1)
+        bound_ms, bound_by = bound(nbytes, flops)
+        step_ms = epoch_ms / steps
+        print(f"pretrain, CD step of layer 1 (B = {B}, {d} -> {h1}): {step_ms:.4f} ms on the "
+              f"host clock ({epoch_ms:.1f} ms an epoch of {steps}), busy {busy_ms / steps:.4f} "
+              f"ms on the card; bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)")
+        numbers["cd_step_layer1"] = dict(
+            epoch_ms=epoch_ms, step_ms=step_ms, busy_share=busy_ms / epoch_ms,
+            device_ms_per_step=busy_ms / steps, kernels_per_step=kernels,
+            launch_calls_per_step=calls, bound_ms=bound_ms, bound_by=bound_by)
+
+        # cli.ae_finetuner on the unfolded DBN, then an AE step timed
+        ft_mat = os.path.join(tmp, "ae_finetuned.mat")
+        wall, launches = run_main("ae_finetuner", ae_finetuner.main, [
+            "--ae", dbn_mat, "--data", frames_mat, "--epochs", str(AE_FT_EPOCHS),
+            "--batchsize", str(PRETRAIN_B), "--out", ft_mat, "--device", device])
+        no_launches("ae_finetuner", launches)
+        weights, biases = matio.load_dbn_mat(ft_mat, n_layers=8)
+        acts = ["sigmoid"] * 3 + ["linear"] + ["sigmoid"] * 3 + ["linear"]
+        params = finetune.ae_params_from_lists(weights, biases, dev)
+        opt = finetune.opt_lib.adadelta()
+        opt_state = opt.init(params)
+        batch = xd[:PRETRAIN_B]
+
+        def ae_step():
+            _, grads = finetune.value_and_grad(finetune._ae_loss, params, batch, acts, 0.005)
+            opt.apply(params, grads, opt_state)
+
+        numbers["ae"] = dict(wall_s=wall, step_ms=host_median_ms(ae_step))
+        print(f"pretrain, ae_finetuner: {AE_FT_EPOCHS} epochs, CLI wall {wall:.2f} s; a step "
+              f"at B = {PRETRAIN_B} {numbers['ae']['step_ms']:.3f} ms (host clock)")
+
+        # cli.trimodal from the finetuned autoencoder, rows 1-4 counted
+        cli_dir = os.path.join(tmp, "cli")
+        os.makedirs(cli_dir)
+        paths = write_cli_corpus(cli_dir)
+        ini = os.path.join(tmp, "trimodal.ini")
+        write_cli_ini(ini, "trimodal", cli_sets("trimodal", paths) + [
+            ("models", "ae_pretrained", ft_mat), ("models", "ae_diff_pretrained", ft_mat)] + [
+            ("training", k, v) for k, v in FIT_CUTS.items()])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result, rec = run_cli(trimodal.main, ["--config", ini, "--device", device])
+        steps_fit, evals = fit_forwards(result, FIT_CUTS["epochsize"])
+        expect_launches(rec["launches"], lstm_fwd_train=5 * steps_fit, lstm_bwd=5 * steps_fit,
+                        lstm_fwd=5 * evals, delta=steps_fit + evals)
+        for row, k in rec["launches"].items():
+            totals[row] += k
+        enc = rec["params0"]["streams"]
+        for stream in ("raw", "diff"):
+            for i, name in enumerate(("fc1", "fc2", "fc3", "bottleneck")):
+                if not np.array_equal(enc[stream]["encoder"][name]["w"].numpy(), weights[i]):
+                    raise AssertionError(f"pretrain: the {stream} encoder's {name} is not the "
+                                         f"finetuned .mat's w{i + 1}")
+        if not np.isfinite(result.cost_train + result.cost_val).all():
+            raise AssertionError("pretrain: the trimodal fit's costs are not finite")
+        numbers["trimodal"] = {k: rec[k] for k in ("load_s", "init_s", "prep_s", "fit_s",
+                                                   "wall_s")}
+        print(f"pretrain, trimodal from the finetuned AE (one AE for the raw and the diff "
+              f"stream): {result.epochs_run} epochs, {steps_fit} steps, {evals} evaluation "
+              f"forwards, costs {[round(float(c), 4) for c in result.cost_val]} (val); "
+              f"launches {rec['launches']}; fit {rec['fit_s']:.2f} s, CLI wall "
+              f"{rec['wall_s']:.2f} s")
+
+        # cli.convae, the four variants from 60 x 80 frames, then their steps timed
+        numbers["convae"] = {}
+        train_X = None
+        for variant in ("plain", "batchnorm", "dropout", "bndrop"):
+            pkl = os.path.join(tmp, f"convae_{variant}.pkl")
+            wall, launches = run_main(f"convae {variant}", convae_cli.main, [
+                "--data", frames60_mat, "--model", variant, "--epochs", str(CONVAE_EPOCHS),
+                "--batchsize", str(PRETRAIN_B), "--out", pkl, "--device", device])
+            no_launches(f"convae {variant}", launches)
+            saved = matio.load_model(pkl)
+            if not np.isfinite(saved["history"]).all():
+                raise AssertionError(f"pretrain: convae {variant}'s loss is not finite")
+            cfg = convae.ConvAEConfig(**saved["config"])
+            if train_X is None:
+                data = matio.load_mat_file(frames60_mat)
+                split = pp.create_split_index(len(data["dataMatrix"]),
+                                              data["videoLengthVec"], data["iterVec"])
+                train_X = pp.normalize_input(pp.resize_images(
+                    data["dataMatrix"][split][:PRETRAIN_B]).astype(np.float32))
+            p = tree_to(convae.init_convae_params(torch.Generator().manual_seed(SEED), cfg),
+                        dev)
+            opt = finetune.opt_lib.adadelta(0.8)
+            opt_state, xb = opt.init(p), torch.as_tensor(train_X).to(dev)
+            g = torch.Generator(device=dev).manual_seed(SEED)
+
+            def convae_step():
+                _, grads = finetune.value_and_grad(finetune._convae_loss, p, xb, cfg, g)
+                opt.apply(p, grads, opt_state)
+
+            numbers["convae"][variant] = dict(wall_s=wall, loss=saved["history"][0],
+                                              step_ms=host_median_ms(convae_step, calls=10))
+            print(f"pretrain, convae {variant}: CLI wall {wall:.2f} s, epoch loss "
+                  f"{saved['history'][0]:.6f}; a step at B = {PRETRAIN_B} "
+                  f"{numbers['convae'][variant]['step_ms']:.3f} ms (host clock)")
+
+        # the stacked denoising AE, one epoch per layer timed
+        sde_times, layer = [], sde.train_denoising_layer
+
+        def timed_layer(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = layer(*a, **kw)
+            torch.cuda.synchronize()
+            sde_times.append(time.perf_counter() - t)
+            return out
+
+        sde.train_denoising_layer = timed_layer
+        reset_launches()
+        try:
+            logs = []
+            t0 = time.perf_counter()
+            sde_w, _ = sde.train_sde(SEED, x, DBN_HIDDEN, epochs=SDE_EPOCHS,
+                                     batchsize=PRETRAIN_B, log_fn=logs.append, device=dev)
+            sde_wall = time.perf_counter() - t0
+        finally:
+            sde.train_denoising_layer = layer
+        no_launches("train_sde", read_launches())
+        if not all(np.isfinite(w).all() for w in sde_w):
+            raise AssertionError("pretrain: the SDE weights are not finite")
+        numbers["sde"] = dict(wall_s=sde_wall, layer_epoch_s=sde_times)
+        print(f"pretrain, train_sde {x.shape[1]} -> {DBN_HIDDEN}: {SDE_EPOCHS} epoch per "
+              f"layer, {[round(t, 3) for t in sde_times]} s; last {logs[-1]}")
+
+        # the card against the CPU path
+        t0 = time.perf_counter()
+        cd_check(dev, x, numbers)
+        data = matio.load_mat_file(frames_mat)
+        split = pp.create_split_index(n, data["videoLengthVec"], data["iterVec"])
+        ae_check(dev, weights, biases, pp.normalize_input(
+            data["dataMatrix"][split][:20 * PRETRAIN_B].astype(np.float32)), numbers)
+        convae_check(dev, train_X, numbers)
+        numbers["checks_s"] = time.perf_counter() - t0
+        print(f"pretrain: the card against the CPU path took {numbers['checks_s']:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"pretrain: peak memory {numbers['peak_mib']:.0f} MiB; phase {numbers['phase_s']:.1f} "
+          f"s; launches {totals}; {smi('name,power.limit')}")
+    return totals, numbers
+
+
 def main() -> int:
     import torch
 
@@ -3851,6 +4432,8 @@ def main() -> int:
     print(json.dumps({"zoo": zoo_numbers}))
     residual_launches, residual_numbers = phase_residuals(dev)
     print(json.dumps({"residuals": residual_numbers}))
+    pretrain_launches, pretrain_numbers = phase_pretrain(dev)
+    print(json.dumps({"pretrain": pretrain_numbers}))
 
     pallas = "ip_avsr_tpu/ops/pallas/lstm_kernel.py"
     fwd_src, bwd_src = "ip_avsr_torch/csrc/lstm_fwd.cu", "ip_avsr_torch/csrc/lstm_bwd.cu"
@@ -3903,11 +4486,12 @@ def main() -> int:
         if row["name"] in ("delta", "lstm_fwd", "lstm_peep_fwd"):
             row.update(export_launches=export["launches"][row["name"]])
         # every row: its launches through the training CLIs' card runs, the
-        # rest of the zoo's serving, training and export, and the residual
-        # levers' train steps
+        # rest of the zoo's serving, training and export, the residual
+        # levers' train steps and the pretraining phase (its trimodal fit)
         row.update(cli_launches=cli_launches[row["name"]],
                    zoo_launches=zoo_launches[row["name"]],
-                   residual_launches=residual_launches[row["name"]])
+                   residual_launches=residual_launches[row["name"]],
+                   pretrain_launches=pretrain_launches[row["name"]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,10 @@ generic N-stream AdeNets with peephole LSTMs that INI configs such as
 (``cli.export_model``; the demo's ``--artifact`` serves it).  The whole
 model zoo builds (``models.zoo``, ``models.avnet``), batch norm, grouped
 recurrences (``fuse_scans``) and the LSTM residual levers included, and the
-training CLIs run from ``.mat`` files.  Every kernel of the JAX package's ``ops/pallas/`` has its CUDA
+training CLIs run from ``.mat`` files.  ``pretrain`` makes the encoders
+(RBM CD-1, the greedy DBN, unfolding, AE and conv-AE finetuning, the
+stacked denoising AE; ``cli.pretrain_dbn``, ``cli.ae_finetuner``,
+``cli.convae``).  Every kernel of the JAX package's ``ops/pallas/`` has its CUDA
 counterpart.
 """
 

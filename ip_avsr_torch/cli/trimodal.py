@@ -113,8 +113,9 @@ def main(argv=None):
             w2, b2 = matio.load_dbn_mat(diff_ae, n_layers=4)
             pretrained = [(w1, b1), None, (w2, b2)]
         if train_cfg.get("do_finetune", "").lower() in ("true", "1", "yes"):
-            print("note: do_finetune is the separate ae_finetuner CLI's work "
-                  "(ROADMAP Queue 1 item 9c); training proceeds with the given AEs")
+            print("note: do_finetune is handled by the separate ae_finetuner CLI "
+                  "(python -m ip_avsr_torch.cli.ae_finetuner); training proceeds with "
+                  "the given AEs")
 
     targets = raw["targetsVec"].reshape(-1).astype(np.int64) - 1
     subjects = raw["subjectsVec"].reshape(-1)

@@ -8,11 +8,15 @@ Mirrors ip_avsr_tpu/ops/losses.py:
   kept, because training dynamics depend on it.
 * ``categorical_crossentropy_masked``: the weighted mean -log p[y] of a
   last-step head, with batch-pad rows weighted 0.
+* ``squared_error`` and ``l2_regularization``: the autoencoders'
+  reconstruction objective and its weight penalty (pretraining).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ip_avsr_torch.device import tree_map
 
 
 def temporal_softmax_loss(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
@@ -47,3 +51,17 @@ def categorical_crossentropy_masked(probs: torch.Tensor, y: torch.Tensor,
     if return_parts:
         return num, w.sum()
     return num / torch.clamp(w.sum(), min=1.0)
+
+
+def squared_error(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean squared error (Lasagne ``squared_error().mean()``)."""
+    return ((pred - target) ** 2).mean()
+
+
+def l2_regularization(params, scale: float) -> torch.Tensor:
+    """``scale`` times the sum of squares of every leaf with ndim >= 2 of a
+    nested dict/list parameter tree: weight matrices and kernels are
+    penalised, biases are not (Lasagne ``regularize_network_params``)."""
+    leaves = []
+    tree_map(lambda leaf: leaves.append(leaf) if leaf.ndim >= 2 else None, params)
+    return scale * sum((leaf ** 2).sum() for leaf in leaves)

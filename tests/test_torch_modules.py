@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from ip_avsr_tpu import export as jexport
 from ip_avsr_tpu.data import preprocessing as jprep
@@ -179,13 +180,26 @@ def test_config_fields_match_jax():
     assert port.classifier_in_dim() == ref.classifier_in_dim()
 
 
+# adenet_v3 fixes its encoders at 2000-1000-500-50 whatever the input width;
+# the tiny pairs below narrow them, keeping the fc1..bottleneck tree
+NARROW_ENCODER = (12, 10, 8, 6)
+
+
+def _narrow_v3(zoo, **stream_fields):
+    """The tiny adenet_v3 of ``zoo`` with its encoders narrowed to
+    NARROW_ENCODER and ``stream_fields`` set on every stream."""
+    cfg = zoo.adenet_v3(16, 4, 16, lstm_size=4)
+    return dataclasses.replace(cfg, streams=[
+        dataclasses.replace(s, encoder_shapes=NARROW_ENCODER if s.encoder_shapes else None,
+                            **stream_fields) for s in cfg.streams])
+
+
 def _tiny_v3_pair(**fields):
-    """The tiny adenet_v3 of both zoos at dropout 0, with ``fields`` set,
-    JAX's parameters and the same ones in the port, and a ragged batch."""
-    cfgs = [dataclasses.replace(z.adenet_v3(16, 4, 16, lstm_size=4), agg_dropout=0.0,
-                                streams=[dataclasses.replace(s, dropout=0.0)
-                                         for s in z.adenet_v3(16, 4, 16, lstm_size=4).streams],
-                                **fields) for z in (jzoo, tzoo)]
+    """The tiny adenet_v3 of both zoos at dropout 0, narrow encoders, with
+    ``fields`` set, JAX's parameters and the same ones in the port, and a
+    ragged batch."""
+    cfgs = [dataclasses.replace(_narrow_v3(z, dropout=0.0), agg_dropout=0.0, **fields)
+            for z in (jzoo, tzoo)]
     jp = jadenet.init_adenet_params(jax.random.PRNGKey(0), cfgs[0])
     tp = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     rng = _rng(5)
@@ -240,10 +254,18 @@ def test_batchnorm_and_train_raise():
 
 
 def test_init_adenet_params_has_jax_keys_and_shapes():
+    """At adenet_v3's own widths (2000-1000-500-50 encoders); the JAX tree's
+    shapes come from ``jax.eval_shape``, which draws nothing.  JAX's
+    orthogonal initializer takes an SVD of concrete numpy arrays, which a
+    shape trace has not, so the JAX side traces the glorot initializer:
+    ``w_init`` picks values, never keys or shapes.  The port's SVDs run on
+    one BLAS thread: beside five other test workers, all cores each took
+    this test from 1.5 s to 24 s."""
     cfg_t = tzoo.adenet_v3(16, 4, 16, lstm_size=4)
-    cfg_j = jzoo.adenet_v3(16, 4, 16, lstm_size=4)
-    got = tadenet.init_adenet_params(torch.Generator().manual_seed(0), cfg_t, device="cpu")
-    ref = jadenet.init_adenet_params(jax.random.PRNGKey(0), cfg_j)
+    cfg_j = dataclasses.replace(jzoo.adenet_v3(16, 4, 16, lstm_size=4), w_init="glorot")
+    with threadpool_limits(1):
+        got = tadenet.init_adenet_params(torch.Generator().manual_seed(0), cfg_t, device="cpu")
+    ref = jax.eval_shape(lambda k: jadenet.init_adenet_params(k, cfg_j), jax.random.PRNGKey(0))
     shapes = lambda tree: jax.tree_util.tree_map(lambda a: tuple(a.shape), tree)  # noqa: E731
     assert shapes(got) == shapes(ref)
 
@@ -259,7 +281,7 @@ def test_bridge_keeps_structure_and_values():
 
 def test_entry_points_raise_without_cuda_unless_cpu_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = tzoo.adenet_v3(16, 4, 16, lstm_size=4)
+    cfg = _narrow_v3(tzoo)
     from ip_avsr_torch import serve as tserve
 
     with pytest.raises(RuntimeError, match="device='cpu'"):

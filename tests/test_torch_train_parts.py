@@ -283,7 +283,11 @@ def test_trainer_modules_import_neither_jax_nor_the_jax_package():
         "ip_avsr_torch.cli.audio_visual, ip_avsr_torch.models.avnet, "
         "ip_avsr_torch.models.zoo, ip_avsr_torch.ops.normalization, "
         "ip_avsr_torch.ops.pooling, ip_avsr_torch.ops.lcn, ip_avsr_torch.serve, "
-        "ip_avsr_torch.export\n"
+        "ip_avsr_torch.export, ip_avsr_torch.pretrain.rbm, ip_avsr_torch.pretrain.dbn, "
+        "ip_avsr_torch.pretrain.unfold, ip_avsr_torch.pretrain.finetune, "
+        "ip_avsr_torch.pretrain.sde, ip_avsr_torch.models.convae, "
+        "ip_avsr_torch.cli.pretrain_dbn, ip_avsr_torch.cli.ae_finetuner, "
+        "ip_avsr_torch.cli.convae\n"
         "import sys\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m.startswith('ip_avsr_tpu')]\n"
