@@ -6,8 +6,9 @@
 Phases, each fatal on failure:
 
 1. build every CUDA kernel of the serving and training paths from
-   ``ip_avsr_torch/csrc`` (one nvcc per source, started together) and print
-   the toolchain;
+   ``ip_avsr_torch/csrc`` (one nvcc per source, started together) and the
+   native ``.mat`` reader from ``ip_avsr_torch/native/matread.cc`` (g++),
+   and print the toolchain;
 2. print the card's name and power limit (nvidia-smi);
 3. with TF32 off, hold each kernel against its plain PyTorch version at the
    shapes of the paths below and time kernel, plain version and library
@@ -184,12 +185,28 @@ Phases, each fatal on failure:
    one epoch by its error), an AE-finetune epoch, and the conv-AE's
    forward and training step (plain and batchnorm, rerouted pooling
    windows counted); the peak memory and the phase's seconds;
-18. print the fit's numbers, the kernels line (each row's launches in the
+18. the last CLIs and the native ``.mat`` reader (``phase_tools``):
+   ``cli.parity_check --rehearse`` at AVLetters' full shape (780 utterances
+   of 30 x 40 pixels written as ``.mat`` files with a 1200-2000-1000-500-50
+   autoencoder, a BLSTM of H = 250, 26 classes) on
+   configs/avletters_1stream.ini's whole schedule (30 epochs of 20 steps at
+   batch 26, Adam): 2 rows 3 and 4 and 1 row 2 per step, 2 row 1 and 1 row
+   2 per evaluation forward, none of rows 5-7, its test rate above
+   REHEARSAL_CR_FLOOR; the same corpus for 2 epochs through ``cli.nstream``
+   on the card (best parameters saved), with the native reader off, and on
+   the CPU (inputs of the fit equal bit for bit, the fits as in 12.); the
+   native reader against ``scipy.io.loadmat`` bit for bit on that corpus
+   and on 13.'s, the readers timed in interleaved turns; then
+   ``cli.confusion_visualizer`` with the saved model on the card (one
+   forward over the 780 utterances: 2 row 1, 1 row 2) against the CPU path
+   (equal confusions and matrix);
+19. print the fit's numbers, the kernels line (each row's launches in the
    fits and per fit epoch, beside its serve or train path's count; rows 1
    and 5 also their launches in the streaming sessions and the state
    output's error; rows 1, 2 and 5 their launches through the artifacts;
    every row its launches through the CLIs' card runs, through phase_zoo,
-   through phase_residuals and through phase_pretrain), then ``{"ok": true,
+   through phase_residuals, through phase_pretrain and through phase_tools),
+   then ``{"ok": true,
    "device": ...}`` last.
 
 Exits non-zero without a CUDA device or without the package beside it.
@@ -409,6 +426,13 @@ def phase_build():
     t0 = time.perf_counter()
     paths = _build.build()
     print(f"built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
+    from ip_avsr_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"native .mat reader: {shutil.which(native.CXX) or native.CXX} "
+          f"{' '.join(native.CXX_FLAGS + native.LIBS)} -> {os.path.basename(lib)} in "
+          f"{time.perf_counter() - t0:.1f} s")
     for name in sorted(_build.build_logs):
         for line in _build.build_logs[name].splitlines():
             if any(k in line for k in ("entry function", "registers", "spill")):
@@ -3123,12 +3147,14 @@ def write_cli_ini(path, kind, sets):
 
 def run_cli(main, argv):
     """Run a CLI's ``main(argv)`` in-process and return (its result, a
-    record): the seconds in ``.mat`` loads (``matio.load_mat_file``), in
+    record): the seconds in ``.mat`` loads (``matio.load_mat_file`` and
+    ``load_mat_files``), in
     ``Trainer.init_params`` (building the model on its device), on the host
     before ``Trainer.fit`` otherwise (preprocessing, split, normalisation:
     ``prep_s``), in the fit and in the whole call; what reached the fit (the
     data as numpy, the initial parameters as CPU tensors); and on the card
-    the fit's launches, counted from 0 at its start, and its ``FitClock``."""
+    the fit's launches, counted from 0 at its start, and its ``FitClock``;
+    the fit's result (``result``)."""
     import torch
 
     from ip_avsr_torch.device import tree_map
@@ -3137,7 +3163,8 @@ def run_cli(main, argv):
 
     rec = {"load_s": 0.0, "init_s": 0.0}
     card = argv[argv.index("--device") + 1] == "cuda"
-    load, init, fit = matio.load_mat_file, Trainer.init_params, Trainer.fit
+    load, load_many = matio.load_mat_file, matio.load_mat_files
+    init, fit = Trainer.init_params, Trainer.fit
 
     def sync(device):
         if device.type == "cuda":
@@ -3146,6 +3173,12 @@ def run_cli(main, argv):
     def timed_load(path):
         t = time.perf_counter()
         out = load(path)
+        rec["load_s"] += time.perf_counter() - t
+        return out
+
+    def timed_load_many(paths, workers=None):
+        t = time.perf_counter()
+        out = load_many(paths, workers)
         rec["load_s"] += time.perf_counter() - t
         return out
 
@@ -3166,17 +3199,20 @@ def run_cli(main, argv):
         result = fit(self, *data)
         sync(self.device)
         rec["fit_s"] = time.perf_counter() - rec["fit_entry"]
+        rec["result"] = result
         if card:
             rec["launches"] = read_launches()
         return result
 
-    matio.load_mat_file, Trainer.init_params, Trainer.fit = timed_load, timed_init, probed_fit
+    matio.load_mat_file, matio.load_mat_files = timed_load, timed_load_many
+    Trainer.init_params, Trainer.fit = timed_init, probed_fit
     try:
         t0 = time.perf_counter()
         result = main(argv)
         rec["wall_s"] = time.perf_counter() - t0
     finally:
-        matio.load_mat_file, Trainer.init_params, Trainer.fit = load, init, fit
+        matio.load_mat_file, matio.load_mat_files = load, load_many
+        Trainer.init_params, Trainer.fit = init, fit
     rec["prep_s"] = rec["fit_entry"] - t0 - rec["load_s"] - rec["init_s"]
     return result, rec
 
@@ -4381,6 +4417,271 @@ def phase_pretrain(dev):
     return totals, numbers
 
 
+# phase_tools: cli.parity_check's rehearsal at AVLetters' full shape
+# (configs/avletters_1stream.ini: 780 utterances of 30 x 40 pixels, the
+# 1200-2000-1000-500-50 encoder, a BLSTM of H = 250, 26 classes) on the
+# INI's whole schedule (30 epochs of 20 steps at batch 26, Adam at lr 1e-4,
+# validation window 6); its fit launches per train step rows 3 and 4 once
+# per recurrence and row 2 once, per evaluation forward row 1 once per
+# recurrence and row 2 once
+AVLETTERS_INI = os.path.join("configs", "avletters_1stream.ini")
+# the card against the CPU path: 2 epochs of the same corpus and schedule
+TOOLS_CHECK_EPOCHS = 2
+# the full rehearsal's test rate must stand above this floor: chance is
+# 1/26 = 0.038, and the JAX package's own rehearsal test holds 0.15 at
+# scale 0.1 after 8 epochs (tests/test_cli_and_checkpoints.py)
+REHEARSAL_CR_FLOOR = 0.15
+# interleaved turns of the three readers over a corpus's files
+READER_TURNS = 5
+
+
+def same_as_scipy(path, got):
+    """Raise unless ``got`` (a native reader's dict) holds the arrays of
+    ``scipy.io.loadmat(path)`` bit for bit: names, dtypes, shapes, Fortran
+    order, values.  Returns the number of arrays."""
+    import numpy as np
+    import scipy.io as sio
+
+    ref = {k: v for k, v in sio.loadmat(path).items() if not k.startswith("__")}
+    got = {k: v for k, v in got.items() if not k.startswith("__")}
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"{path}: native keys {sorted(got)}, scipy {sorted(ref)}")
+    for k, r in ref.items():
+        g = got[k]
+        if not (g.dtype == r.dtype and g.shape == r.shape
+                and g.flags["F_CONTIGUOUS"] == r.flags["F_CONTIGUOUS"]
+                and np.array_equal(g, r)):
+            raise AssertionError(f"{path}: {k} native {g.dtype}{g.shape} against scipy "
+                                 f"{r.dtype}{r.shape}, or their values or order differ")
+    return len(ref)
+
+
+def reader_turns(label, paths):
+    """Hold the native reader to scipy on every file of ``paths``, then time
+    ``scipy.io.loadmat`` over the files one after another, the native
+    reader likewise, and ``matio.load_mat_files`` (the native reader in its
+    thread pool), in READER_TURNS interleaved turns in this process (the
+    files sit in the page cache).  Prints and returns the medians."""
+    import scipy.io as sio
+
+    from ip_avsr_torch import native
+    from ip_avsr_torch.io import matio
+
+    arrays = sum(same_as_scipy(p, native.load_mat_native(p)) for p in paths)
+    mb = sum(os.path.getsize(p) for p in paths) / 1e6
+    readers = {"scipy": lambda: [sio.loadmat(p) for p in paths],
+               "native": lambda: [native.load_mat_native(p) for p in paths],
+               "load_mat_files": lambda: matio.load_mat_files(paths)}
+    times = {k: [] for k in readers}
+    for turn in range(READER_TURNS):
+        for name in (list(readers) if turn % 2 == 0 else list(readers)[::-1]):
+            t0 = time.perf_counter()
+            readers[name]()
+            times[name].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"tools, .mat readers on {label} ({len(paths)} files, {arrays} arrays, {mb:.1f} MB; "
+          f"every array equal to scipy's bit for bit, Fortran order included): median of "
+          f"{READER_TURNS} interleaved turns, scipy {med['scipy']:.4f} s "
+          f"({mb / med['scipy']:.0f} MB/s), native {med['native']:.4f} s "
+          f"({mb / med['native']:.0f} MB/s), load_mat_files "
+          f"{med['load_mat_files']:.4f} s ({mb / med['load_mat_files']:.0f} MB/s), "
+          f"{os.cpu_count()} host cores; host clock, page cache warm; "
+          f"{smi('name,power.limit')}")
+    return dict(files=len(paths), arrays=arrays, mb=mb, seconds=med,
+                mb_per_s={k: mb / v for k, v in med.items()})
+
+
+def phase_tools(dev):
+    """The last CLIs and the native ``.mat`` reader on the card's machine:
+    ``cli.parity_check --rehearse`` at AVLetters' full shape on the INI's
+    whole schedule (every launch counted: rows 1-4 and 2, none of rows 5-7;
+    its test rate above REHEARSAL_CR_FLOOR); the same corpus for
+    TOOLS_CHECK_EPOCHS epochs through ``cli.nstream`` on the card (its best
+    parameters saved with ``--save_best``), again with the reader off
+    (``IP_AVSR_NATIVE=0``) and with ``--device cpu`` (what reached
+    ``Trainer.fit`` equal bit for bit, the fits within FIT_COST_TOL and
+    FIT_PARAM_TOL); the native reader against scipy on the rehearsal's
+    corpus, uncompressed and compressed, and on phase_cli's
+    (:func:`reader_turns`); then
+    ``cli.confusion_visualizer`` with the saved model and the resolved INI
+    on the card (one forward over the 780 utterances, its launches counted;
+    through ``main`` where the host has matplotlib, else through its device
+    part ``evaluate``) against the same with ``--device cpu``.  Returns
+    ({row: launches} summed over the phase's card runs, numbers)."""
+    import tempfile
+
+    import numpy as np
+    import scipy.io as sio
+    import torch
+
+    from ip_avsr_torch.cli import confusion_visualizer, nstream, parity_check
+    from ip_avsr_torch.train import config as config_lib
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    numbers, totals = {}, {name: 0 for name in KERNEL_COUNTERS}
+    try:
+        resolved = os.path.join(tmp, f"resolved_{os.path.basename(AVLETTERS_INI)}")
+        cp = config_lib.load_config(os.path.join(ROOT, AVLETTERS_INI))
+        recurrences = len(lstm_layer_sizes(config_lib.build_model_config(
+            config_lib.parse_streams(cp), config_lib.parse_classifier(cp))))
+        epochsize = config_lib.parse_training(cp).epochsize
+
+        def counted(label, rec, result):
+            """Hold a card fit's launches to the prediction; add them up."""
+            steps, evals = fit_forwards(result, epochsize)
+            expect_launches(rec["launches"], lstm_fwd_train=recurrences * steps,
+                            lstm_bwd=recurrences * steps, lstm_fwd=recurrences * evals,
+                            delta=steps + evals)
+            for row, k in rec["launches"].items():
+                totals[row] += k
+            print(f"tools, {label}: {result.epochs_run} epochs, {steps} steps, {evals} "
+                  f"evaluation forwards; launches {rec['launches']}: per step "
+                  f"{recurrences} row 3, {recurrences} row 4, 1 row 2; per evaluation "
+                  f"forward {recurrences} row 1, 1 row 2; rows 5-7 none")
+            return steps, evals
+
+        def quiet(fn, *args, keep=("Epoch", "CR:", "parity_check: writing", "WARNING",
+                                   "misclassified", "Error", "Traceback")):
+            out = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(out):
+                    return fn(*args)
+            finally:
+                for line in out.getvalue().splitlines():
+                    if any(k in line for k in keep):
+                        print(f"  {line.strip()}")
+
+        # 1. the full-scale rehearsal on the card, the INI's whole schedule
+        argv = ["--rehearse", "--rehearse-scale", "1.0", "--rehearse-dir", tmp,
+                "--config", os.path.join(ROOT, AVLETTERS_INI), "--out",
+                os.path.join(tmp, "parity_report.json"), "--device", "cuda"]
+        report, rec = quiet(run_cli, parity_check.run, argv)
+        result = rec["result"]
+        steps, evals = counted("parity_check --rehearse (full scale)", rec, result)
+        clock = rec["clock"].report("tools, parity_check --rehearse", rec["fit_entry"],
+                                    epochsize)
+        corpus = report["rehearsal_corpus"]
+        data_mat = os.path.join(tmp, "allData_mouthROIs.mat")
+        ae_mat = os.path.join(tmp, "avletters_ae_finetuned.mat")
+        frames = int(sum(np.asarray(split[2]).sum() for split in rec["data"][::2]))
+        numbers["rehearsal"] = dict(
+            corpus=corpus, frames=frames, mb={os.path.basename(p): os.path.getsize(p) / 1e6
+                                              for p in (data_mat, ae_mat)},
+            epochs=result.epochs_run, steps=steps, evals=evals, test_cr=report["test_cr"],
+            best_cr=report["best_cr"], best_val=report["best_val"],
+            launches=rec["launches"], wall_s=rec["wall_s"], load_s=rec["load_s"],
+            prep_s=rec["prep_s"], init_s=rec["init_s"], fit_s=rec["fit_s"], clock=clock)
+        print(f"tools, parity_check --rehearse: {corpus['n_utterances']} utterances "
+              f"({frames} frames of {corpus['dim']} pixels), encoder {corpus['encoder']}, "
+              f"{numbers['rehearsal']['mb']} MB; test_cr {report['test_cr']:.4f} (floor "
+              f"{REHEARSAL_CR_FLOOR}, chance {1 / 26:.4f}), best_cr {report['best_cr']:.4f}, "
+              f"best val cost {report['best_val']:.5f}; .mat loads {rec['load_s']:.3f} s, "
+              f"preprocessing and split {rec['prep_s']:.3f} s, model build "
+              f"{rec['init_s']:.3f} s, fit {rec['fit_s']:.3f} s, CLI wall "
+              f"{rec['wall_s']:.3f} s; {smi('name,power.limit')}")
+        if not np.isfinite(result.cost_train + result.cost_val).all():
+            raise AssertionError("tools: the rehearsal's costs are not finite")
+        if not report["test_cr"] > REHEARSAL_CR_FLOOR:
+            raise AssertionError(f"tools: the rehearsal's test_cr {report['test_cr']} is not "
+                                 f"above {REHEARSAL_CR_FLOOR}")
+
+        # 2. the same corpus, TOOLS_CHECK_EPOCHS epochs: the card (with the
+        # native reader, then without it) against the CPU path
+        best = os.path.join(tmp, "best.pkl")
+        check = ["--config", resolved, "--split", "itervec", "--num_epoch",
+                 str(TOOLS_CHECK_EPOCHS)]
+        fits = {}
+        for label, args, env in (("card", ["--save_best", best, "--device", "cuda"], "1"),
+                                 ("card, IP_AVSR_NATIVE=0", ["--device", "cuda"], "0"),
+                                 ("CPU", ["--device", "cpu"], "1")):
+            held = os.environ.get("IP_AVSR_NATIVE")
+            os.environ["IP_AVSR_NATIVE"] = env
+            try:
+                res, r = quiet(run_cli, nstream.main, check + args)
+            finally:
+                if held is None:
+                    del os.environ["IP_AVSR_NATIVE"]
+                else:
+                    os.environ["IP_AVSR_NATIVE"] = held
+            if label.startswith("card"):
+                counted(f"nstream {TOOLS_CHECK_EPOCHS} epochs, {label}", r, res)
+            fits[label] = (res, r)
+            numbers[f"check, {label}"] = {k: r[k] for k in ("load_s", "prep_s", "init_s",
+                                                            "fit_s", "wall_s")}
+            print(f"tools, nstream {TOOLS_CHECK_EPOCHS} epochs on the rehearsal corpus, "
+                  f"{label}: .mat loads {r['load_s']:.3f} s, preprocessing and split "
+                  f"{r['prep_s']:.3f} s, model build {r['init_s']:.3f} s, fit {r['fit_s']:.3f} "
+                  f"s, CLI wall {r['wall_s']:.3f} s; {smi('name,power.limit')}")
+        (card, card_rec), (cpu, cpu_rec) = fits["card"], fits["CPU"]
+        same_fit_inputs("tools, rehearsal corpus, card vs CPU", card_rec, cpu_rec)
+        same_fit_inputs("tools, rehearsal corpus, native reader vs scipy (card)",
+                        fits["card, IP_AVSR_NATIVE=0"][1], card_rec)
+        compare_fits("tools, rehearsal corpus, card vs CPU", card, cpu,
+                     len(cpu_rec["data"][1][2]),
+                     adam=(1e-4, fit_forwards(card, epochsize)[0]))
+
+        # 3. the native reader against scipy on the rehearsal's corpus and on
+        # phase_cli's, timed
+        cli_dir = os.path.join(tmp, "cli")
+        os.makedirs(cli_dir)
+        cli_paths = [p for p in write_cli_corpus(cli_dir).values() if p.endswith(".mat")]
+        numbers["readers"] = {"rehearsal": reader_turns("the rehearsal corpus",
+                                                        [data_mat, ae_mat]),
+                              "phase_cli": reader_turns("phase_cli's corpus", cli_paths)}
+        # savemat writes uncompressed; MATLAB's save (-v7) compresses with zlib
+        zipped = []
+        for path in (data_mat, ae_mat):
+            zipped.append(path.replace(".mat", "_zlib.mat"))
+            sio.savemat(zipped[-1], {k: v for k, v in sio.loadmat(path).items()
+                                     if not k.startswith("__")}, do_compression=True)
+        numbers["readers"]["rehearsal, compressed"] = reader_turns(
+            "the rehearsal corpus compressed (as MATLAB's save -v7 writes it)", zipped)
+
+        # 4. confusion_visualizer with the saved model on the card, then the CPU
+        viz = ["--config", resolved, "--model", best, "--outdir", os.path.join(tmp, "viz"),
+               "--max_renders", "2"]
+        plots = importlib.util.find_spec("matplotlib") is not None
+        print(f"tools, confusion_visualizer: matplotlib "
+              f"{'present: main runs and renders' if plots else 'absent: its device part evaluate() runs, nothing is rendered'}")
+        reset_launches()
+        t0 = time.perf_counter()
+        if plots:
+            confusions, conf_mat = quiet(confusion_visualizer.main, viz + ["--device", "cuda"])
+            pngs = sorted(os.listdir(os.path.join(tmp, "viz")))
+        else:
+            confusions, conf_mat, _ = quiet(confusion_visualizer.evaluate,
+                                            confusion_visualizer.parse_args(
+                                                viz + ["--device", "cuda"]))
+            pngs = []
+        torch.cuda.synchronize()
+        viz_s = time.perf_counter() - t0
+        launches = read_launches()
+        expect_launches(launches, lstm_fwd=recurrences, delta=1)
+        for row, k in launches.items():
+            totals[row] += k
+        cpu_conf, cpu_mat, _ = quiet(confusion_visualizer.evaluate,
+                                     confusion_visualizer.parse_args(viz + ["--device", "cpu"]))
+        if cpu_conf != confusions or not np.array_equal(cpu_mat, conf_mat):
+            raise AssertionError("tools: confusion_visualizer's confusions on the card differ "
+                                 "from the CPU path's")
+        numbers["confusion_visualizer"] = dict(
+            utterances=int(conf_mat.sum()), misclassified=len(confusions), wall_s=viz_s,
+            launches=launches, rendered=pngs)
+        print(f"tools, confusion_visualizer on the card: one forward over "
+              f"{int(conf_mat.sum())} utterances, launches {launches} ({recurrences} row 1, "
+              f"1 row 2); {len(confusions)} misclassified, the confusions and the 26 x 26 "
+              f"matrix equal to the CPU path's; {viz_s:.3f} s with the model load"
+              f"{' and ' + str(len(pngs)) + ' PNGs' if plots else ''}; "
+              f"{smi('name,power.limit')}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"tools: phase {numbers['phase_s']:.1f} s; launches {totals}; "
+          f"{smi('name,power.limit')}")
+    return totals, numbers
+
+
 def main() -> int:
     import torch
 
@@ -4434,6 +4735,8 @@ def main() -> int:
     print(json.dumps({"residuals": residual_numbers}))
     pretrain_launches, pretrain_numbers = phase_pretrain(dev)
     print(json.dumps({"pretrain": pretrain_numbers}))
+    tools_launches, tools_numbers = phase_tools(dev)
+    print(json.dumps({"tools": tools_numbers}))
 
     pallas = "ip_avsr_tpu/ops/pallas/lstm_kernel.py"
     fwd_src, bwd_src = "ip_avsr_torch/csrc/lstm_fwd.cu", "ip_avsr_torch/csrc/lstm_bwd.cu"
@@ -4487,11 +4790,13 @@ def main() -> int:
             row.update(export_launches=export["launches"][row["name"]])
         # every row: its launches through the training CLIs' card runs, the
         # rest of the zoo's serving, training and export, the residual
-        # levers' train steps and the pretraining phase (its trimodal fit)
+        # levers' train steps, the pretraining phase (its trimodal fit) and
+        # the tools phase (the rehearsal's fits, the confusion forward)
         row.update(cli_launches=cli_launches[row["name"]],
                    zoo_launches=zoo_launches[row["name"]],
                    residual_launches=residual_launches[row["name"]],
-                   pretrain_launches=pretrain_launches[row["name"]])
+                   pretrain_launches=pretrain_launches[row["name"]],
+                   tools_launches=tools_launches[row["name"]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

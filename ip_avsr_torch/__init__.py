@@ -22,8 +22,12 @@ recurrences (``fuse_scans``) and the LSTM residual levers included, and the
 training CLIs run from ``.mat`` files.  ``pretrain`` makes the encoders
 (RBM CD-1, the greedy DBN, unfolding, AE and conv-AE finetuning, the
 stacked denoising AE; ``cli.pretrain_dbn``, ``cli.ae_finetuner``,
-``cli.convae``).  Every kernel of the JAX package's ``ops/pallas/`` has its CUDA
-counterpart.
+``cli.convae``).  The last CLIs and host tools are ported too
+(``cli.parity_check``, ``cli.confusion_visualizer``, ``cli.prepare_data``,
+``cli.landmark``, ``cli.playvid``, ``utils.plotting``, ``utils.draw_net``),
+and ``.mat`` files are read by a native C++ reader (``native``, built by
+``g++`` at first use).  Every kernel of the JAX package's ``ops/pallas/``
+has its CUDA counterpart.
 """
 
 from ip_avsr_torch.device import resolve_device

@@ -12,11 +12,11 @@ Python training:
   * LSTM weight bundles: 12 keys per layer, ``{prefix}_{w,b}_{in,hid}_to_{gate}``
     (modelzoo/deltanet_majority_vote.py:158-196, custom/layers.py:28-52).
 
-All three are read and written through ``scipy.io``, which returns the
-storage dtypes in Fortran order, at least 2-D (the JAX package's fallback
-and its native reader's contract), so a file written by either package
-reads the same in the other.  The JAX package's native C++ reader is not
-copied (ROADMAP Queue 1 item 9e).
+All three are written through ``scipy.io`` and read by the native C++
+reader (``ip_avsr_torch/native``) where a file holds only the numeric
+arrays of that ABI, by ``scipy.io.loadmat`` otherwise; either way a read
+gives ``loadmat``'s dict (storage dtypes, Fortran order, at least 2-D), so
+a file written by either package reads the same in the other.
 
 A parameter file is a pickled tree of numpy arrays (dicts, lists, tuples),
 the format the JAX package's ``save_model_params`` writes; in the port it
@@ -31,6 +31,7 @@ import numpy as np
 import scipy.io as sio
 import torch
 
+from ip_avsr_torch import native
 from ip_avsr_torch.device import tree_map
 
 
@@ -41,13 +42,25 @@ def read_data_split_file(path, sep=","):
 
 
 def load_mat_file(path):
-    """Load a .mat file into a dict (utils/io.py:18-24)."""
+    """Load a .mat file into a dict (utils/io.py:18-24): through the native
+    reader, or ``scipy.io.loadmat`` for a file outside its numeric subset
+    (cell, char, struct, sparse, complex, logical, big-endian, corrupt) or
+    with ``IP_AVSR_NATIVE=0``.  A native reader that fails to build raises.
+    For many files prefer :func:`load_mat_files`."""
+    if native.available():
+        d = native.load_mat_native(path)
+        if d is not None:
+            return d
     return sio.loadmat(path)
 
 
-def load_mat_files(paths):
-    """Load many .mat files, in input order."""
-    return [load_mat_file(p) for p in paths]
+def load_mat_files(paths, workers=None):
+    """Load many .mat files, in input order: the native reader in a pool of
+    ``workers`` threads (default ``min(16, cpu_count)``; the C parse and the
+    zlib inflation run without the GIL), scipy for what it rejects."""
+    if not native.available():
+        return [sio.loadmat(p) for p in paths]
+    return native.load_many(paths, workers=workers)
 
 
 def save_mat(d, path):

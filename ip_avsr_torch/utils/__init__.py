@@ -1,1 +1,2 @@
-"""Host-side helpers of the trainer (numpy and Python only)."""
+"""Host-side helpers: the trainer's, plotting, the model's drawing, ffprobe
+(numpy and Python only)."""

@@ -79,27 +79,6 @@ def corpora(tmp_path_factory):
     return out
 
 
-class CarryInit:
-    """The JAX Trainer's ``init_params`` records each tree it returns; the
-    port Trainer's returns those trees, in order, as tensors."""
-
-    def __init__(self, monkeypatch):
-        self.trees, self.used = [], 0
-        jinit = jtr.Trainer.init_params
-
-        def jax_init(trainer, key, **kw):
-            out = jinit(trainer, key, **kw)
-            self.trees.append(jax.tree_util.tree_map(np.asarray, out))
-            return out
-
-        def port_init(trainer, generator, **kw):
-            self.used += 1
-            return bridge.params_from_jax(self.trees[self.used - 1], device=trainer.device)
-
-        monkeypatch.setattr(jtr.Trainer, "init_params", jax_init)
-        monkeypatch.setattr(ttr.Trainer, "init_params", port_init)
-
-
 def run(main, argv):
     """``main(argv)`` and its standard output."""
     out = io.StringIO()
@@ -201,7 +180,7 @@ def test_fit_inputs_match_jax_bit_for_bit(corpora, monkeypatch, tmp_path, case):
 
 
 def test_nstream_synthetic_fit_matches_jax(monkeypatch):
-    CarryInit(monkeypatch)
+    lib.CarryInit(monkeypatch)
     argv = ["--config", "configs/synthetic_1stream.ini", "--synthetic", "40",
             "--num_epoch", "2"]
     jr, jout = run(jnstream.main, argv)
@@ -213,7 +192,7 @@ def test_nstream_synthetic_fit_matches_jax(monkeypatch):
 
 def test_nstream_4stream_fit_matches_jax(corpora, monkeypatch, tmp_path):
     paths, ini = corpora["nstream"]
-    CarryInit(monkeypatch)
+    lib.CarryInit(monkeypatch)
     outs = {k: [str(tmp_path / f"{k}.csv"), str(tmp_path / f"{k}.pkl")]
             for k in ("jax", "port")}
     jr, _ = run(jnstream.main, ["--config", ini, "--write_results", outs["jax"][0],
@@ -235,7 +214,7 @@ def test_trimodal_dropout0_fit_matches_jax(corpora, monkeypatch):
     for zoo in (jzoo, tzoo):
         monkeypatch.setattr(zoo, "adenet_v3",
                             lambda *a, _f=zoo.adenet_v3, **kw: chip_smoke.no_dropout(_f(*a, **kw)))
-    CarryInit(monkeypatch)
+    lib.CarryInit(monkeypatch)
     jr, jout = run(jtrimodal.main, ["--config", ini])
     tr, tout = run(ttrimodal.main, ["--config", ini, "--device", "cpu"])
     assert tr.epochs_run == 2 and tr.final_lr == pytest.approx(0.9 ** 2, rel=1e-12)
@@ -254,7 +233,7 @@ def test_separate_train_matches_jax(monkeypatch):
     ref = jsep.encode_frames(weights, biases, nls, X)
     assert got.dtype == np.float32 and got.shape == (5000, 8)
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
-    CarryInit(monkeypatch)
+    lib.CarryInit(monkeypatch)
     argv = ["--synthetic", "24", "--num_epoch", "2"]
     jr, _ = run(jsep.main, argv)
     tr, _ = run(tsep.main, argv + ["--device", "cpu"])
@@ -295,7 +274,7 @@ def _ablation(report):
 
 
 def test_evaluate_delta_features_matches_jax(monkeypatch):
-    CarryInit(monkeypatch)
+    lib.CarryInit(monkeypatch)
     argv = ["--config", "configs/synthetic_1stream.ini", "--synthetic", "24",
             "--num_epoch", "2"]
     jres, jout = run(jedf.main, argv)

@@ -34,7 +34,7 @@ from ip_avsr_torch.cli import audio_visual as tav
 from ip_avsr_torch.cli import leave_one_out as tloo
 from ip_avsr_torch.models import zoo as tzoo
 from tests import torch_trainer_lib as lib
-from tests.test_torch_cli_train import CarryInit, assert_same, fit_inputs, run
+from tests.test_torch_cli_train import assert_same, fit_inputs, run
 
 torch.set_num_threads(1)
 
@@ -112,7 +112,7 @@ def test_leave_one_out_fit_and_results_line_match_jax(monkeypatch, tmp_path):
     for zoo in (jzoo, tzoo):
         monkeypatch.setattr(zoo, "adenet_v5",
                             lambda *a, _f=zoo.adenet_v5, **kw: chip_smoke.no_dropout(_f(*a, **kw)))
-    CarryInit(monkeypatch)
+    lib.CarryInit(monkeypatch)
     out = {k: str(tmp_path / f"{k}.csv") for k in ("jax", "port")}
     argv = ["--synthetic", "40", "--test_subj", "3", "--num_epoch", "2"]
     jr, jout = run(jloo.main, argv + ["--results", out["jax"]])
@@ -133,7 +133,7 @@ def _results(path):
 
 
 def test_audio_visual_fit_and_write_results_match_jax(monkeypatch, tmp_path):
-    CarryInit(monkeypatch)
+    lib.CarryInit(monkeypatch)
     out = {k: str(tmp_path / f"{k}.csv") for k in ("jax", "port")}
     argv = ["--synthetic", "40"]
     jr, jout = run(jav.main, argv + ["--write_results", out["jax"]])

@@ -287,7 +287,12 @@ def test_trainer_modules_import_neither_jax_nor_the_jax_package():
         "ip_avsr_torch.pretrain.unfold, ip_avsr_torch.pretrain.finetune, "
         "ip_avsr_torch.pretrain.sde, ip_avsr_torch.models.convae, "
         "ip_avsr_torch.cli.pretrain_dbn, ip_avsr_torch.cli.ae_finetuner, "
-        "ip_avsr_torch.cli.convae\n"
+        "ip_avsr_torch.cli.convae, ip_avsr_torch.native, ip_avsr_torch.utils.plotting, "
+        "ip_avsr_torch.utils.draw_net, ip_avsr_torch.utils.ffmpeg, "
+        "ip_avsr_torch.data.segmentation, ip_avsr_torch.data.dct_matlab, "
+        "ip_avsr_torch.data.landmarking, ip_avsr_torch.cli.confusion_visualizer, "
+        "ip_avsr_torch.cli.parity_check, ip_avsr_torch.cli.prepare_data, "
+        "ip_avsr_torch.cli.landmark, ip_avsr_torch.cli.playvid\n"
         "import sys\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m.startswith('ip_avsr_tpu')]\n"

@@ -148,6 +148,31 @@ def assert_results_match(jr, tr):
     assert_params_close(tr.best_params, jr.best_params)
 
 
+class CarryInit:
+    """The JAX Trainer's ``init_params`` records each tree it returns; the
+    port Trainer's returns those trees, in order, as tensors (monkeypatched
+    for one test)."""
+
+    def __init__(self, monkeypatch):
+        from ip_avsr_tpu.train import trainer as jtr
+        from ip_avsr_torch.train import trainer as ttr
+
+        self.trees, self.used = [], 0
+        jinit = jtr.Trainer.init_params
+
+        def jax_init(trainer, key, **kw):
+            out = jinit(trainer, key, **kw)
+            self.trees.append(jax.tree_util.tree_map(np.asarray, out))
+            return out
+
+        def port_init(trainer, generator, **kw):
+            self.used += 1
+            return bridge.params_from_jax(self.trees[self.used - 1], device=trainer.device)
+
+        monkeypatch.setattr(jtr.Trainer, "init_params", jax_init)
+        monkeypatch.setattr(ttr.Trainer, "init_params", port_init)
+
+
 def zoo_case(name):
     """tests/zoo_cases.py's ZOO_CASES[name] built by the port's modules: the
     case's builder runs with that file's ``zoo``, ``avnet`` and ``adenet``
