@@ -139,13 +139,13 @@ Phases, each fatal on failure:
 14. export (``phase_export``): the full-width flagship raw-pixel server
    (symbolic B and T) exported on the card and again on the CPU, the
    full-width 4-stream server (symbolic; f32, and bf16 weights on per-step
-   probabilities), a pinned B = 8, T = 29 flagship artifact and an
+   probabilities, whose bf16 w_hid runs row 5's bf16 instantiation), a pinned B = 8, T = 29 flagship artifact and an
    adenet_v4 streaming artifact, each written to a temporary directory,
    loaded onto the card and held against its live server (2e-5; bf16 2e-3
    with the same argmax on frames whose top-2 gap exceeds 4e-3; the pinned
    one refusing B = 1), also on requests with swapped axes (numpy and on
-   the card), with exactly 5 row-1 (flagship) or 6 row-5 (4-stream)
-   launches and 1 delta launch per artifact forward and 3 row-1 launches
+   the card), with exactly 5 row-1 (flagship) or 6 row-5 (4-stream; bf16
+   for the bf16 weights) launches and 1 delta launch per artifact forward and 3 row-1 launches
    per streaming advance; a traced artifact forward holds those kernels
    and no host-to-device copy beyond the inputs' upload; export seconds,
    artifact bytes, host medians of artifact and live server in turns, busy
@@ -200,14 +200,33 @@ Phases, each fatal on failure:
    ``cli.confusion_visualizer`` with the saved model on the card (one
    forward over the 780 utterances: 2 row 1, 1 row 2) against the CPU path
    (equal confusions and matrix);
-19. print the fit's numbers, the kernels line (each row's launches in the
+19. ``matmul_dtype="bfloat16"`` (``phase_bf16``, run right after 8., while
+   torch.profiler still records cooperative launches): the bf16-W_hid
+   instantiations of rows 1 and 3-7 against their plain versions (rows 1,
+   3, 4 at H = 500, B = 8 and 10; rows 5-7 at H = 250, B = 10; T = 1
+   within LSTM_TOL, T = 29 within BF16_CHAIN_TOL; the chains at clip 5 x1
+   and x100 and clip 0; the state variants of rows 1 and 5 at B = 1; rows
+   1 and 4 one batch above a bf16 launch's row cap), each timed in turns
+   with its f32 twin on the same inputs, traced (one launch per call) and
+   bounded (W_hid at 2 bytes a value), rows 1, 3 and 4 beside
+   ``torch.nn.LSTM`` in bf16; the full-width flagship at bf16 served (B =
+   1 and 8: 5 row-1 bf16 launches and 1 delta per forward) and trained
+   three steps (5 rows 3 and 4 bf16 per step), the 4-stream model at bf16
+   served and stepped (rows 5-7 bf16), each against the CPU path at bf16
+   with the float32 model's gap printed; ``cli.trimodal`` with
+   ``[training] matmul_dtype = bfloat16`` from ``.mat`` files, every launch
+   counted; a bf16-model artifact and a bf16-weight artifact of the f32
+   flagship against their live servers (5 row-1 bf16 launches per
+   forward); no f32 LSTM launch on any of these paths;
+20. print the fit's numbers, the kernels line (each row's launches in the
    fits and per fit epoch, beside its serve or train path's count; rows 1
    and 5 also their launches in the streaming sessions and the state
    output's error; rows 1, 2 and 5 their launches through the artifacts;
    every row its launches through the CLIs' card runs, through phase_zoo,
-   through phase_residuals, through phase_pretrain and through phase_tools),
-   then ``{"ok": true,
-   "device": ...}`` last.
+   through phase_residuals, through phase_pretrain and through phase_tools;
+   then the six bf16 rows, their launches on the bf16 serve and train
+   paths, through the bf16 CLI run and the two artifacts), then ``{"ok":
+   true, "device": ...}`` last.
 
 Exits non-zero without a CUDA device or without the package beside it.
 
@@ -246,10 +265,13 @@ T_FRAMES = 29
 IMAGE_SHAPE = (26, 44)
 DCT = 90
 SEED = 0
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32
-# FLOP/s outside the tensor cores (TF32 is off, so f32 work runs there).
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32
+# FLOP/s outside the tensor cores (TF32 is off, so f32 work runs there) and
+# the tensor cores' bf16 FLOP/s (bf16 operands, float32 sums: the products
+# of the bf16 instantiations, whatever cores they run on today)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 # kernel vs plain version on identical inputs, float32: the two differ only
 # in rounding (delta: the kernel applies the composed (3T, T) matrix, one
 # rounding per tap, where the plain version rounds d before its second FIR,
@@ -278,26 +300,38 @@ PEEP_BWD_FLOPS = 18
 # sums of terms that cancel, so their relative error is float32 noise)
 TRAIN_GRAD_FLOOR = 1e-8
 OULU_INI = os.path.join("configs", "oulu_4stream.ini")
-# the seven kernels' launch counters: name -> wrapper attribute
+# the six LSTM rows' wrappers, by the name of their float32 instantiation
+LSTM_WRAPPERS = {
+    "lstm_fwd": "lstm_recurrence",
+    "lstm_fwd_train": "lstm_recurrence_train",
+    "lstm_bwd": "lstm_bwd_chain",
+    "lstm_peep_fwd": "lstm_peep_recurrence",
+    "lstm_peep_fwd_train": "lstm_peep_recurrence_train",
+    "lstm_peep_bwd": "lstm_peep_bwd_chain",
+}
+# the thirteen kernels' launch counters: name -> (module, wrapper, counter);
+# each LSTM wrapper counts its float32 instantiation in ``launches`` and its
+# bf16 one (a bf16 W_hid, matmul_dtype="bfloat16") in ``launches_bf16``
 KERNEL_COUNTERS = {
-    "delta": ("delta", "append_delta"),
-    "lstm_fwd": ("lstm", "lstm_recurrence"),
-    "lstm_fwd_train": ("lstm", "lstm_recurrence_train"),
-    "lstm_bwd": ("lstm", "lstm_bwd_chain"),
-    "lstm_peep_fwd": ("lstm", "lstm_peep_recurrence"),
-    "lstm_peep_fwd_train": ("lstm", "lstm_peep_recurrence_train"),
-    "lstm_peep_bwd": ("lstm", "lstm_peep_bwd_chain"),
+    "delta": ("delta", "append_delta", "launches"),
+    **{row: ("lstm", fn, "launches") for row, fn in LSTM_WRAPPERS.items()},
+    **{f"{row}_bf16": ("lstm", fn, "launches_bf16") for row, fn in LSTM_WRAPPERS.items()},
 }
 # the persistent kernels' instantiations as a trace names them, by their
-# template arguments before the units per block: lstm_fwd_chain_kernel
-# <EmitResiduals, Peephole, U> and lstm_bwd_chain_kernel<Peephole, U>
+# template arguments: lstm_fwd_chain_kernel<EmitResiduals, Peephole, U, W>
+# and lstm_bwd_chain_kernel<Peephole, U, W>, W float or __nv_bfloat16
+# (regular expressions)
+_CHAIN_ARGS = {
+    "lstm_fwd": "lstm_fwd_chain_kernel<false, false, ",
+    "lstm_fwd_train": "lstm_fwd_chain_kernel<true, false, ",
+    "lstm_peep_fwd": "lstm_fwd_chain_kernel<false, true, ",
+    "lstm_peep_fwd_train": "lstm_fwd_chain_kernel<true, true, ",
+    "lstm_bwd": "lstm_bwd_chain_kernel<false, ",
+    "lstm_peep_bwd": "lstm_bwd_chain_kernel<true, ",
+}
 CHAIN_TRACE = {
-    "lstm_fwd": "lstm_fwd_chain_kernel<false, false,",
-    "lstm_fwd_train": "lstm_fwd_chain_kernel<true, false,",
-    "lstm_peep_fwd": "lstm_fwd_chain_kernel<false, true,",
-    "lstm_peep_fwd_train": "lstm_fwd_chain_kernel<true, true,",
-    "lstm_bwd": "lstm_bwd_chain_kernel<false,",
-    "lstm_peep_bwd": "lstm_bwd_chain_kernel<true,",
+    **{row: rf"{args}\d+, float\s*>" for row, args in _CHAIN_ARGS.items()},
+    **{f"{row}_bf16": rf"{args}\d+, \w*bfloat16\s*>" for row, args in _CHAIN_ARGS.items()},
 }
 # every kernel a path trace is checked for, as the trace names it
 TRACE_NAMES = {"delta": "delta_group_kernel", **CHAIN_TRACE}
@@ -334,9 +368,11 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, bf16_flops=0):
+    # flops at the float32 rate, bf16_flops (products of bf16 operands) at
+    # the bf16 rate
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = (flops / F32_FLOP_PER_S + bf16_flops / BF16_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -345,55 +381,65 @@ def delta_cost(B, T, D, W):
     return 4 * (B * T * D + 3 * B * T * D), 2 * B * T * D * 3 * max(W, 0)
 
 
-def lstm_cost(B, T, H, peep=False):
-    # with peepholes, also the three (H,) vectors and their multiply-adds
-    nbytes = 4 * (B * T * 4 * H + H * 4 * H + B * T + 2 * B * H + B * T * H
-                  + (3 * H if peep else 0))
-    flops = (2 * B * T * H * 4 * H + LSTM_GATE_FLOPS * B * T * H
-             + (PEEP_FLOPS * B * T * H if peep else 0))
-    return nbytes, flops
+def product_flops(flops, w_bytes):
+    # a recurrence's per-step product as (float32 operations, bf16
+    # operations): a bf16 W_hid (w_bytes 2) makes it a bf16-operand product
+    return (flops, 0) if w_bytes == 4 else (0, flops)
 
 
-def lstm_train_cost(B, T, H, peep=False):
+def lstm_cost(B, T, H, peep=False, w_bytes=4):
+    # with peepholes, also the three (H,) vectors and their multiply-adds;
+    # W_hid at w_bytes a value (2 for the bf16 instantiations), the rest f32;
+    # returns (bytes, float32 operations, bf16 operations)
+    nbytes = (4 * (B * T * 4 * H + B * T + 2 * B * H + B * T * H + (3 * H if peep else 0))
+              + w_bytes * H * 4 * H)
+    mm, mm_bf16 = product_flops(2 * B * T * H * 4 * H, w_bytes)
+    flops = mm + LSTM_GATE_FLOPS * B * T * H + (PEEP_FLOPS * B * T * H if peep else 0)
+    return nbytes, flops, mm_bf16
+
+
+def lstm_train_cost(B, T, H, peep=False, w_bytes=4):
     # the inference recurrence's traffic plus the residuals cells and gates
-    nbytes, flops = lstm_cost(B, T, H, peep)
-    return nbytes + 4 * (B * T * H + B * T * 4 * H), flops
+    nbytes, flops, bf16_flops = lstm_cost(B, T, H, peep, w_bytes)
+    return nbytes + 4 * (B * T * H + B * T * 4 * H), flops, bf16_flops
 
 
-def lstm_state_cost(B, T, H, peep=False):
+def lstm_state_cost(B, T, H, peep=False, w_bytes=4):
     # the inference recurrence's traffic plus the final cell written once
-    nbytes, flops = lstm_cost(B, T, H, peep)
-    return nbytes + 4 * B * H, flops
+    nbytes, flops, bf16_flops = lstm_cost(B, T, H, peep, w_bytes)
+    return nbytes + 4 * B * H, flops, bf16_flops
 
 
-def lstm_bwd_cost(B, T, H, peep=False):
+def lstm_bwd_cost(B, T, H, peep=False, w_bytes=4):
     # reads g_out, gates, cells, cells_prev, mask, W_hid; writes dgates,
     # dcell0, dhid0; the dgates @ W_hid^T chain and the gate backward; with
     # peepholes also reads the three vectors, writes their three gradients,
-    # and sums B (H,) partials into each
-    nbytes = 4 * (3 * B * T * H + B * T * 4 * H + B * T + H * 4 * H
-                  + B * T * 4 * H + 2 * B * H + (6 * H if peep else 0))
-    flops = (2 * B * T * 4 * H * H + LSTM_BWD_GATE_FLOPS * B * T * H
+    # and sums B (H,) partials into each; W_hid at w_bytes a value
+    nbytes = (4 * (3 * B * T * H + B * T * 4 * H + B * T + B * T * 4 * H + 2 * B * H
+                   + (6 * H if peep else 0)) + w_bytes * H * 4 * H)
+    mm, mm_bf16 = product_flops(2 * B * T * 4 * H * H, w_bytes)
+    flops = (mm + LSTM_BWD_GATE_FLOPS * B * T * H
              + (PEEP_BWD_FLOPS * B * T * H + 3 * B * H if peep else 0))
-    return nbytes, flops
+    return nbytes, flops, mm_bf16
 
 
 def counters():
-    """{name: wrapper} for the seven kernels' wrappers; each wrapper's
-    ``launches`` counts the calls that launched its kernel."""
+    """{name: (wrapper, counter attribute)} for the thirteen kernels; each
+    counter counts the calls that launched that kernel."""
     import importlib
 
-    return {name: getattr(importlib.import_module(f"ip_avsr_torch.ops.kernels.{mod}"), fn)
-            for name, (mod, fn) in KERNEL_COUNTERS.items()}
+    return {name: (getattr(importlib.import_module(f"ip_avsr_torch.ops.kernels.{mod}"), fn),
+                   attr)
+            for name, (mod, fn, attr) in KERNEL_COUNTERS.items()}
 
 
 def reset_launches():
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
 
 
 def expect_launches(got, **nonzero):
@@ -871,26 +917,32 @@ def traced(fn, n):
     return events
 
 
-def trace_chain(fn, label, row, steps, n=5):
+def trace_chain(fn, label, row, steps, n=5, lost_ok=False):
     """Trace ``n`` calls of a persistent kernel's wrapper with torch.profiler:
     each call must be exactly one launch of the instantiation of ``row``
     (:data:`CHAIN_TRACE`) and no other device work.  Prints and returns its
-    device time per call, and prints it per step over ``steps``."""
+    device time per call, and prints it per step over ``steps``.  With
+    ``lost_ok``, a trace that recorded fewer launches (at least one) passes
+    where the host made exactly ``n`` cooperative launch calls and no other
+    device op appears: late in a run the H100's profiler has dropped such
+    records even after :func:`traced`'s warm-up step (4 of 5; all of them
+    after phase_tools); the time is then per recorded launch."""
     from torch.autograd import DeviceType
 
     events = traced(fn, n)
     device = [e for e in events if e.device_type == DeviceType.CUDA]
-    ours = [e for e in device if CHAIN_TRACE[row] in e.key]
+    ours = [e for e in device if re.search(CHAIN_TRACE[row], e.key)]
     launches = sum(e.count for e in ours)
     others = sum(e.count for e in device) - launches
     host = sum(e.count for e in events if e.key == "cudaLaunchCooperativeKernel")
-    ms = sum(e.self_device_time_total for e in ours) / 1e3 / n
+    ms = sum(e.self_device_time_total for e in ours) / 1e3 / max(launches if lost_ok else n, 1)
     names = sorted({re.search(r"lstm_\w+_chain_kernel<[^>]*>", e.key).group(0) for e in ours})
     print(f"{label}: traced {n} calls, {launches} launches of {names} ({host} cooperative "
           f"launch calls on the host) and {others} other device ops; device time {ms:.4f} ms "
           f"per call, {ms * 1e3 / steps:.3f} us per step (/ {steps}; the earlier "
           f"one-launch-per-step kernels took 5.2-8.0 us per step launch)")
-    if launches != n or others:
+    lost = lost_ok and host == n and 1 <= launches < n
+    if (launches != n and not lost) or others:
         raise AssertionError(f"{label}: expected {n} kernel launches and nothing else, traced "
                              f"{launches} launches, {others} other device ops and {host} "
                              f"cooperative launch calls on the host")
@@ -997,7 +1049,7 @@ def expect_traced(events, n, label, **per_call):
 
     forbidden = "lstm_step_kernel"
     device = [e for e in events if e.device_type == DeviceType.CUDA]
-    got = {row: sum(e.count for e in device if name in e.key) / n
+    got = {row: sum(e.count for e in device if re.search(name, e.key)) / n
            for row, name in TRACE_NAMES.items()}
     want = {row: float(per_call.get(row, 0)) for row in TRACE_NAMES}
     bad = {e.key: e.count for e in device if forbidden in e.key}
@@ -2310,7 +2362,7 @@ def direct_launches():
     def recurrence(name, counter):
         def call(x_proj, w_hid, mask, cell0, hid0, *peep):
             out = kl._run_fwd(name, (x_proj, w_hid, mask, cell0, hid0), train=False, peep=peep)
-            counter.launches += 1
+            kl._count(counter, w_hid)
             return out
         return call
 
@@ -2493,14 +2545,17 @@ def phase_export(dev):
                                     SEED + 41)
         # the bf16 artifact's per-step probabilities: a vote over near-uniform
         # random-weight frames flips with any perturbation
+        # (the bf16-stored w_hid runs row 5's bf16 instantiation, which
+        # rounds h_{t-1} to bf16 as the JAX package's recurrence does)
         for name, wd, tol, vote_live in (("4stream", None, SCORE_TOL, live4),
                                          ("4stream_bf16", "bfloat16", EXPORT_BF16_TOL,
                                           live4_probs)):
             path = export(name, export_lib.save_artifact, params4, cfg4, weights_dtype=wd,
                           vote=wd is None, device=dev)
             art = export_lib.load_server(path, device=dev)
-            result["err"][name] = check_artifact(name, art, vote_live, requests4,
-                                                 "lstm_peep_fwd", 6, totals, tol)
+            row = "lstm_peep_fwd" if wd is None else "lstm_peep_fwd_bf16"
+            result["err"][name] = check_artifact(name, art, vote_live, requests4, row, 6,
+                                                 totals, tol)
             if wd is None:
                 req = next(r for r in requests4 if r[1].shape == (TRAIN_B, T_FRAMES))
                 result["strided_err"][name] = check_strided(name, art, live4, req,
@@ -4682,6 +4737,540 @@ def phase_tools(dev):
     return totals, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase_bf16: matmul_dtype="bfloat16", the six LSTM rows' bf16 instantiations
+# ---------------------------------------------------------------------------
+
+# the bf16 instantiations: kernels-line name -> (float32 row, TPU kernel line,
+# the row's shape on the main path as B, H)
+BF16_ROWS = {
+    "lstm_fwd_bf16": ("lstm_fwd", 42, 8, 500),
+    "lstm_fwd_train_bf16": ("lstm_fwd_train", 131, TRAIN_B, 500),
+    "lstm_bwd_bf16": ("lstm_bwd", 240, TRAIN_B, 500),
+    "lstm_peep_fwd_bf16": ("lstm_peep_fwd", 343, TRAIN_B, 250),
+    "lstm_peep_fwd_train_bf16": ("lstm_peep_fwd_train", 388, TRAIN_B, 250),
+    "lstm_peep_bwd_bf16": ("lstm_peep_bwd", 515, TRAIN_B, 250),
+}
+# bf16 kernels against their plain versions (the same bf16 W_hid on both
+# sides, TF32 off), relative to max(1, max |ref|).  At T = 1 both round the
+# same operands (the given hid0; dgates of elementwise math), so only the
+# float32 summation order differs: LSTM_TOL.  Over T = 29 steps an operand
+# within that order's difference of a bf16 rounding boundary rounds to the
+# neighbouring bf16 value on one side, and the one-ulp difference carries
+# through the rest of its row: a few entries differ by up to
+# BF16_CHAIN_TOL, of the size of the whole float32-vs-bf16 gap (1e-3 to
+# 3e-3), so the max cannot tell the two apart.  The mean can: the float32
+# instantiation on the same inputs (W_hid's bf16 values widened, nothing
+# else rounded) moves every entry, so the kernel's mean error must be within
+# BF16_CHAIN_MEAN_TOL and at most 1 / BF16_SEPARATION of that
+# instantiation's mean distance from the same reference.  Read on an NVIDIA
+# H100 80GB HBM3, 700 W, at the main path's shapes: max 9.9e-5 to 1.3e-3
+# (2.3e-3 at B = 1-64, H = 130-500); mean 7e-9 to 5.3e-5 against gaps of
+# 6.3e-5 to 3.5e-4, each at least 6.6 times its error.
+BF16_CHAIN_TOL = 3e-3
+BF16_CHAIN_MEAN_TOL = 1e-4
+BF16_SEPARATION = 3.0
+# the bf16 models on the card against the port's CPU path at bf16, each side
+# rounding its own operands (flips as above), beside the card's float32
+# model against the same CPU path, read on the same card: probabilities
+# absolute, max (read 2.3e-5 flagship, 1.06e-4 4-stream; float32 2.9e-4 to
+# 5.1e-4 away) and mean (read 5.2e-6 and 1.3e-5; float32 26 and 6.2 times
+# that); a train step's loss relative (read 2.4e-5 and 6.2e-7; float32 5.0e-5
+# and 3.0e-5 away: one scalar, which cannot tell them apart), its gradients
+# as one vector in relative norm (read 1.0e-3 and 1.1e-3; float32 3.4 and
+# 3.8 times that), and Adam's first moment after one step (the gradients
+# through the step function) in the same norm
+BF16_SCORE_TOL = 1.5e-4
+BF16_SCORE_MEAN_TOL = 2.5e-5
+BF16_LOSS_TOL = 4e-5
+BF16_GRAD_NORM_TOL = 1.5e-3
+
+
+def mean_err(got, ref):
+    """Mean abs difference over max(1, max |ref|)."""
+    return (got - ref).abs().mean().item() / max(1.0, ref.abs().max().item())
+
+
+def separated(label, err, gap, tol):
+    """Print ``err`` (bf16 against the bf16 reference) beside ``gap`` (the
+    float32 computation against the same reference) and raise unless err
+    is within ``tol`` and at most 1 / BF16_SEPARATION of the gap: the check
+    then fails a computation that stopped rounding."""
+    print(f"{label}: {err:.2e} (tol {tol:g}); float32 {gap:.2e} away, "
+          f"{gap / max(err, 1e-30):.1f} times the error (at least {BF16_SEPARATION:g})")
+    if not err <= tol:
+        raise AssertionError(f"{label}: bf16 disagrees with its reference ({err:.3e})")
+    if not err * BF16_SEPARATION <= gap:
+        raise AssertionError(f"{label}: the float32 computation lies {gap:.3e} from the bf16 "
+                             f"reference, too close to this error ({err:.3e}) to tell them "
+                             f"apart")
+
+
+def bf16_inputs(B, T, H, gen, dev, peep):
+    """Recurrence inputs at (B, T, H): x_proj, a bf16 W_hid (scaled
+    1/sqrt(H)), a ragged mask with a full first row, nonzero initial states,
+    and with ``peep`` the three (H,) vectors."""
+    import torch
+
+    x_proj = torch.randn(B, T, 4 * H, generator=gen).to(dev)
+    w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev).to(torch.bfloat16)
+    mask = ragged_mask(B, T, gen, dev)
+    c0 = torch.randn(B, H, generator=gen).to(dev)
+    h0 = (torch.randn(B, H, generator=gen) * 0.5).to(dev)
+    pv = tuple((torch.randn(H, generator=gen) * 0.3).to(dev) for _ in range(3)) if peep else ()
+    return (x_proj, w_hid, mask, c0, h0), pv
+
+
+def bf16_kernel_checks(dev):
+    """The six bf16 instantiations against their plain versions in bf16
+    (``launch`` straight, not counted): rows 1 and 3 at B = 8 and TRAIN_B, H
+    = 500, rows 5 and 6 at TRAIN_B, H = 250, into NaN-filled outputs; rows 4
+    and 7 on the chains of those recurrences, clip 5 at x1 and x100 and clip
+    0; T = 1 (LSTM_TOL) and T = 29 (BF16_CHAIN_TOL; the mean error against
+    BF16_CHAIN_MEAN_TOL beside the float32 instantiation's); the state variants of
+    rows 1 and 5 at B = 1; row 1 and row 4 one batch above a bf16 launch's
+    row cap (two chunks).  Returns {kernels-line name: worst error}."""
+    import torch
+
+    from ip_avsr_torch.ops.kernels import _build
+    from ip_avsr_torch.ops.kernels import lstm as kl
+
+    gen = torch.Generator().manual_seed(SEED + 60)
+    errs = {name: 0.0 for name in BF16_ROWS}
+
+    def hold(name, label, got, ref, tol, f32=None):
+        """``f32``: the float32 instantiation's outputs on the same inputs;
+        the mean error is then held by :func:`separated` against their mean
+        distance from ``ref``."""
+        torch.cuda.synchronize()
+        e = max(max_err(a, r)[1] for a, r in zip(got, ref))
+        nan = any(torch.isnan(a).any().item() for a in got)
+        print(f"bf16 {name} {label}: max error relative to max(1, |ref|) {e:.2e} (tol {tol:g})"
+              + ("" if f32 is None else
+                 f"; float32 instantiation {max(max_err(a, r)[1] for a, r in zip(f32, ref)):.2e}"
+                 f" away"))
+        if nan or not e <= tol:
+            raise AssertionError(f"bf16 {name} {label}: the kernel disagrees with its plain "
+                                 f"version ({e:.3e}, NaN {nan})")
+        if f32 is not None:
+            separated(f"bf16 {name} {label}: mean error",
+                      max(mean_err(a, r) for a, r in zip(got, ref)),
+                      max(mean_err(a, r) for a, r in zip(f32, ref)), BF16_CHAIN_MEAN_TOL)
+        errs[name] = max(errs[name], e)
+
+    def fwd(name, B, T, H, peep, train, state=False):
+        args, pv = bf16_inputs(B, T, H, gen, dev, peep)
+        shapes = ([(B, T, H), (B, T, H), (B, T, 4 * H)] if train
+                  else [(B, T, H), (B, H)] if state else [(B, T, H)])
+        outs = [torch.full(s, float("nan"), device=dev) for s in shapes]
+        got = kl._run_fwd(name, args, train, pv, outs=outs, state=state)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = getattr(kl, f"{name}_plain")(*args, *pv)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        tol = LSTM_TOL if T == 1 else BF16_CHAIN_TOL
+        f32 = None
+        if T == T_FRAMES:
+            f32 = kl._run_fwd(name, (args[0], args[1].float(), *args[2:]), train, pv,
+                              state=state)
+            f32 = f32 if isinstance(f32, tuple) else (f32,)
+        row = ("lstm_peep_fwd" if peep else "lstm_fwd") + ("_train" if train else "") + "_bf16"
+        hold(row, f"B={B} T={T} H={H}{' state' if state else ''}", got, ref, tol, f32)
+        return args, pv, got
+
+    def bwd(B, T, H, peep, clip, scale, fwd_out):
+        args, pv, (hids, cells, gates) = fwd_out
+        g = torch.randn(B, T, H, generator=gen).to(dev) * scale
+        c0 = args[3]
+        cells_prev = torch.cat([c0[:, None], cells[:, :-1]], dim=1)
+        chain = (g, gates, cells, cells_prev, args[2], args[1])
+        got = kl._run_bwd("bf16 check", chain, clip, pv)
+        ref = (kl.lstm_peep_bwd_chain_plain(*chain, *pv, clip) if peep
+               else kl.lstm_bwd_chain_plain(*chain, clip))
+        name = "lstm_peep_bwd_bf16" if peep else "lstm_bwd_bf16"
+        label = f"B={B} T={T} H={H} clip={clip} x{scale:g}"
+        if T > 1:
+            f32 = (kl._run_bwd("bf16 check", (*chain[:-1], chain[-1].float()), clip, pv)
+                   if T == T_FRAMES else None)
+            hold(name, label, got, ref, BF16_CHAIN_TOL, f32)
+            return
+        # one step: the gate backward is elementwise, held tight; its dgates
+        # may straddle a bf16 rounding boundary between the card's and the
+        # plain version's sigmoids, so dhid0 is held to the product of the
+        # kernel's own dgates, rounded to bf16, with W_hid^T
+        hold(name, f"{label} (dgates, dcell0, peephole sums)", [got[0], got[1], *got[3:]],
+             [ref[0], ref[1], *ref[3:]], LSTM_TOL)
+        m = args[2][:, :1]
+        dh = (kl.round_operand(got[0][:, 0], torch.bfloat16) @ args[1].float().T
+              + (1.0 - m) * g[:, 0])
+        hold(name, f"{label} (dhid0 from the kernel's dgates)", [got[2]], [dh], LSTM_TOL)
+
+    for T in (1, T_FRAMES):
+        fwd("lstm_recurrence", 8, T, 500, False, False)
+        out = fwd("lstm_recurrence_train", TRAIN_B, T, 500, False, True)
+        for clip, scale in ((5.0, 1.0), (5.0, 100.0), (0.0, 1.0)):
+            bwd(TRAIN_B, T, 500, False, clip, scale, out)
+        fwd("lstm_peep_recurrence", TRAIN_B, T, 250, True, False)
+        out = fwd("lstm_peep_recurrence_train", TRAIN_B, T, 250, True, True)
+        for clip, scale in ((5.0, 1.0), (5.0, 100.0), (0.0, 1.0)):
+            bwd(TRAIN_B, T, 250, True, clip, scale, out)
+    fwd("lstm_recurrence_state", 1, T_FRAMES, 500, False, False, state=True)
+    fwd("lstm_peep_recurrence_state", 1, T_FRAMES, 250, True, False, state=True)
+    sms = kl._sm_count(dev.index or 0)
+
+    def cap(plan, w_dtype):
+        """The most rows one launch of ``plan`` holds at H = 500."""
+        one = plan(1, 500, sms, w_dtype=w_dtype).smem_bytes
+        return 1 + (_build.SMEM_LIMIT - one) // (plan(2, 500, sms, w_dtype=w_dtype).smem_bytes
+                                                 - one)
+
+    for label, plan in (("fwd", kl.fwd_launch_plan), ("bwd", kl.bwd_launch_plan)):
+        B = cap(plan, torch.bfloat16) + 1
+        print(f"bf16 {label} launch plan at H=500: one launch holds {B - 1} rows (float32: "
+              f"{cap(plan, torch.float32)}); B={B} runs as "
+              f"{plan(B, 500, sms, w_dtype=torch.bfloat16).chunks} launches")
+        if label == "fwd":
+            fwd("lstm_recurrence", B, 3, 500, False, False)
+        else:
+            bwd(B, 3, 500, False, 5.0, 1.0, fwd("lstm_recurrence_train", B, 3, 500, False, True))
+    return errs
+
+
+def bf16_timings(dev):
+    """Each bf16 row at its main-path shape: its time on the card (events)
+    beside the float32 instantiation's on the same inputs (in turns: f32,
+    bf16, bf16, f32), the plain version's, its traced device time per call
+    and per step (one launch per call), its bound (W_hid at 2 bytes a value,
+    the per-step product's operations at the bf16 rate, the gate math's at
+    the float32 rate), and for rows 1, 3 and 4 ``torch.nn.LSTM`` in bf16
+    (cuDNN, which rounds every operand and state to bf16: not the same
+    function).
+    Returns {kernels-line name: numbers}."""
+    import torch
+
+    from ip_avsr_torch.ops.kernels import lstm as kl
+
+    gen = torch.Generator().manual_seed(SEED + 61)
+    rows = {}
+    for name, (row, _, B, H) in BF16_ROWS.items():
+        peep = "peep" in row
+        args, pv = bf16_inputs(B, T_FRAMES, H, gen, dev, peep)
+        args32 = (args[0], args[1].float(), *args[2:])
+        if row.endswith("bwd"):
+            train = kl.lstm_peep_recurrence_train if peep else kl.lstm_recurrence_train
+            _, cells, gates = train(*args, *pv)
+            cells_prev = torch.cat([args[3][:, None], cells[:, :-1]], dim=1)
+            g = torch.randn(B, T_FRAMES, H, generator=gen).to(dev)
+            chain = (g, gates, cells, cells_prev, args[2])
+            fn = kl.lstm_peep_bwd_chain if peep else kl.lstm_bwd_chain
+            plain = kl.lstm_peep_bwd_chain_plain if peep else kl.lstm_bwd_chain_plain
+
+            def call(w, fn=fn, chain=chain):
+                return fn(*chain, w, *pv, 5.0)
+
+            def plain_call(plain=plain, chain=chain):
+                return plain(*chain, args[1], *pv, 5.0)
+            steps = T_FRAMES + 1
+            cost = lstm_bwd_cost
+        else:
+            fn = getattr(kl, LSTM_WRAPPERS[row])
+            plain = getattr(kl, f"{LSTM_WRAPPERS[row]}_plain")
+
+            def call(w, fn=fn):
+                return fn(args[0], w, *args[2:], *pv)
+
+            def plain_call(plain=plain):
+                return plain(*args, *pv)
+            steps = T_FRAMES
+            cost = lstm_train_cost if row.endswith("train") else lstm_cost
+        turns = {"f32": [], "bf16": []}
+        for kind in ("f32", "bf16", "bf16", "f32"):
+            w = args32[1] if kind == "f32" else args[1]
+            turns[kind].append(cuda_ms(lambda w=w: call(w)))
+        ms = statistics.mean(turns["bf16"])
+        f32_ms = statistics.mean(turns["f32"])
+        plain_ms = cuda_ms(plain_call, iters=3, warmup=1)
+        for attempt in range(3):  # a trace whose every record was lost is taken again
+            try:
+                traced_ms = trace_chain(lambda: call(args[1]), f"{name} B={B} H={H}", name,
+                                        steps, lost_ok=True)
+                break
+            except AssertionError:
+                if attempt == 2:
+                    raise
+        b_ms, by = bound(*cost(B, T_FRAMES, H, peep, w_bytes=2))
+        lib_ms = None
+        if not peep:
+            # yardstick only (the port never calls it): cuDNN's LSTM in bf16
+            # at the stream LSTM's shape, all-valid mask, with its 150-wide
+            # input projection
+            cudnn = torch.nn.LSTM(150, H, batch_first=True).to(dev).to(torch.bfloat16)
+            xin = torch.randn(B, T_FRAMES, 150, generator=gen).to(dev).to(torch.bfloat16)
+            if row == "lstm_fwd":
+                with torch.inference_mode():
+                    lib_ms = cuda_ms(lambda: cudnn(xin))
+            else:
+                xin.requires_grad_(True)
+                if row == "lstm_fwd_train":
+                    lib_ms = cuda_ms(lambda: cudnn(xin))
+                else:
+                    out, _ = cudnn(xin)
+                    gy = torch.randn_like(out)
+                    wts = [xin, *cudnn.parameters()]
+                    lib_ms = cuda_ms(lambda: torch.autograd.grad(out, wts, gy,
+                                                                 retain_graph=True))
+        print(f"{name} B={B} T={T_FRAMES} H={H}: kernel {ms:.4f} ms (float32 instantiation "
+              f"{f32_ms:.4f} ms, in turns {turns}; bf16 / f32 {ms / f32_ms:.3f}), plain "
+              f"{plain_ms:.4f} ms, traced {traced_ms:.4f} ms ({traced_ms * 1e3 / steps:.3f} "
+              f"us per step), bound {b_ms:.5f} ms ({by}), cuDNN nn.LSTM bf16 "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; {smi('name,power.limit')}")
+        rows[name] = dict(ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                          library_ms=lib_ms, traced_ms=traced_ms,
+                          us_per_step=traced_ms * 1e3 / steps, shape=f"B={B} T=29 H={H}")
+    return rows
+
+
+def bf16_step_against_cpu(label, cfg, params, streams, y, mask, lr=1e-4):
+    """One train step of ``cfg`` (bf16) on the card against the port's CPU
+    path on the same parameters and batch, each beside the card's float32
+    model; raises past the BF16_* tolerances.  Returns the numbers."""
+    import dataclasses
+
+    import torch
+
+    from ip_avsr_torch.device import tree_map, tree_to
+    from ip_avsr_torch.train import trainer
+
+    cpu = torch.device("cpu")
+    f32_cfg = dataclasses.replace(cfg, matmul_dtype=None)
+    c_params, c_streams = tree_to(params, cpu), tree_to(streams, cpu)
+    loss_d, grads_d = trainer.loss_and_grads(params, cfg, streams, y, mask)
+    loss_c, grads_c = trainer.loss_and_grads(c_params, cfg, c_streams, y.cpu(), mask.cpu())
+    loss_f, grads_f = trainer.loss_and_grads(params, f32_cfg, streams, y, mask)
+    moments = []
+    for c, p, s, yy, mm in ((cfg, params, streams, y, mask),
+                            (cfg, c_params, c_streams, y.cpu(), mask.cpu()),
+                            (f32_cfg, params, streams, y, mask)):
+        opt, step = trainer.make_train_step(c, lr=lr)
+        moments.append(step(p, opt.init(p), s, yy, mm)[1]["m"])
+
+    def flat(tree):
+        leaves = []
+        tree_map(lambda t: leaves.append(t.detach().double().cpu().reshape(-1)), tree)
+        return torch.cat(leaves)
+
+    def rel_norms(trees):
+        d, c, f = (flat(t) for t in trees)
+        return (d - c).norm().item() / c.norm().item(), (f - c).norm().item() / c.norm().item()
+
+    grad_err, grad_gap = rel_norms((grads_d, grads_c, grads_f))
+    m_err, m_gap = rel_norms(moments)
+    loss_rel = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    loss_gap = abs(float(loss_f) - float(loss_c)) / abs(float(loss_c))
+    print(f"{label}, card vs CPU path at bf16: loss relative {loss_rel:.2e} (tol "
+          f"{BF16_LOSS_TOL:g}; the card's float32 model {loss_gap:.2e} away)")
+    if not loss_rel <= BF16_LOSS_TOL:
+        raise AssertionError(f"{label}: the bf16 loss on the card disagrees with the CPU path")
+    separated(f"{label}: gradients, relative norm", grad_err, grad_gap, BF16_GRAD_NORM_TOL)
+    separated(f"{label}: Adam's first moment after one step, relative norm", m_err, m_gap,
+              BF16_GRAD_NORM_TOL)
+    return dict(loss_rel=loss_rel, loss_f32_gap=loss_gap, grad_norm_err=grad_err,
+                grad_f32_gap=grad_gap, moment_err=m_err, moment_f32_gap=m_gap)
+
+
+def bf16_serve_check(label, server, cpu_server, f32_server, requests, n_rows):
+    """Serve ``requests`` on the card with every launch counted (0 before,
+    read after), hold the scores against the CPU path at bf16 and print the
+    card's float32 model beside them.  Returns (launches, worst error,
+    worst float32 gap)."""
+    import torch
+
+    reset_launches()
+    scores = [server(*req) for req in requests]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    n = len(requests)
+    print(f"{label}: served {n} requests at bf16, launches {launches}")
+    expect_launches(launches, delta=n, **{row: k * n for row, k in n_rows.items()})
+    err = gap = 0.0
+    for req, s in zip(requests, scores):
+        s = s.cpu()
+        ref = cpu_server(*req).cpu()
+        f32 = f32_server(*req).cpu()
+        if not torch.isfinite(s).all() or s.shape != ref.shape:
+            raise AssertionError(f"{label}: bad scores {tuple(s.shape)}")
+        e = (s - ref).abs().max().item()
+        g = (f32 - ref).abs().max().item()
+        print(f"{label} B={s.shape[0]}: |card - CPU path| at bf16 {e:.2e} (tol "
+              f"{BF16_SCORE_TOL:g}); the card's float32 model {g:.2e} from it")
+        if not e <= BF16_SCORE_TOL:
+            raise AssertionError(f"{label}: bf16 scores disagree with the CPU path")
+        separated(f"{label} B={s.shape[0]}: mean |card - CPU path| at bf16",
+                  (s - ref).abs().mean().item(), (f32 - ref).abs().mean().item(),
+                  BF16_SCORE_MEAN_TOL)
+        err, gap = max(err, e), max(gap, g)
+    return launches, err, gap
+
+
+def phase_bf16(dev):
+    """``matmul_dtype="bfloat16"`` on the card, TF32 off: the six bf16
+    instantiations against their plain versions (:func:`bf16_kernel_checks`)
+    and timed (:func:`bf16_timings`); the full-width flagship at bf16
+    served (B = 1 and 8, raw uint8: 5 row-1 bf16 launches and 1 delta
+    launch per forward) and trained three steps at TRAIN_B (5 rows 3 and 4
+    bf16 and 1 delta per step), the oulu_4stream.ini model at bf16 served at
+    TRAIN_B (6 row-5 bf16 per forward) and stepped twice at the ini's batch
+    and lr (6 rows 6 and 7 bf16 per step), each against the port's CPU path
+    at bf16 with the card's float32 gap printed; ``cli.trimodal`` from
+    ``.mat`` files with ``[training] matmul_dtype = bfloat16`` (every launch
+    of its fit counted); a bf16-model artifact and a bf16-weight artifact of
+    the float32 flagship, each against its live server (5 row-1 bf16
+    launches per forward).  No float32 LSTM row may launch on these paths.
+    Returns ({kernels-line name: numbers}, {path: launches})."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch import export as export_lib
+    from ip_avsr_torch.cli import trimodal
+    from ip_avsr_torch.device import tree_map, tree_to
+    from ip_avsr_torch.models import adenet
+    from ip_avsr_torch.serve import make_server, make_trimodal_server
+    from ip_avsr_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    errs = bf16_kernel_checks(dev)
+    rows = bf16_timings(dev)
+    for name in rows:
+        rows[name]["max_abs_err"] = errs[name]
+    paths, numbers = {}, {}
+    cpu = torch.device("cpu")
+    bf16 = {"matmul_dtype": "bfloat16"}
+
+    # the flagship at full width, served
+    cfg = dataclasses.replace(flagship(), **bf16)
+    params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 62), cfg,
+                                       device=dev)
+    tri = dict(image_shape=IMAGE_SHAPE, dct_coeffs=DCT)
+    server = make_trimodal_server(params, cfg, device=dev, **tri)
+    cpu_server = make_trimodal_server(tree_to(params, cpu), cfg, device="cpu", **tri)
+    f32_server = make_trimodal_server(params, flagship(), device=dev, **tri)
+    requests = export_requests("raw", cfg, [(1, T_FRAMES), (8, T_FRAMES)], SEED + 62)
+    server(*requests[0])  # warm-up
+    torch.cuda.synchronize()
+    paths["serve"], numbers["serve_err"], numbers["serve_f32_gap"] = bf16_serve_check(
+        "bf16 flagship", server, cpu_server, f32_server, requests, {"lstm_fwd_bf16": 5})
+    for B, req in ((1, requests[0]), (8, requests[1])):
+        numbers[f"serve_ms B={B}"] = host_median_ms(lambda req=req: server(*req), calls=10)
+        numbers[f"serve_f32_ms B={B}"] = host_median_ms(lambda req=req: f32_server(*req),
+                                                        calls=10)
+        print(f"bf16 flagship serve B={B}: median request {numbers[f'serve_ms B={B}']:.3f} ms, "
+              f"float32 {numbers[f'serve_f32_ms B={B}']:.3f} ms (host clock)")
+
+    # the flagship trained
+    streams, mask, y = stream_batch(cfg, TRAIN_B, SEED + 63, dev)
+    opt, step = trainer.make_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    state = opt.init(params)
+    step(params, state, streams, y, mask, gen)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    p, st, losses = params, state, []
+    for _ in range(3):
+        p, st, loss = step(p, st, streams, y, mask, gen)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    paths["train"] = read_launches()
+    print(f"bf16 flagship train 3 steps at B={TRAIN_B}: losses {losses}, launches "
+          f"{paths['train']}")
+    expect_launches(paths["train"], lstm_fwd_train_bf16=15, lstm_bwd_bf16=15, delta=3)
+    finite = []
+    tree_map(lambda t: finite.append(bool(torch.isfinite(t).all())), (p, st["m"], st["v"]))
+    if not (all(finite) and np.isfinite(losses).all()):
+        raise AssertionError("bf16 flagship training: non-finite loss or parameters")
+    numbers["train"] = bf16_step_against_cpu("bf16 flagship dropout 0", no_dropout(cfg),
+                                             params, streams, y, mask)
+    numbers["train_ms"] = host_median_ms(lambda: step(params, state, streams, y, mask, gen),
+                                         calls=10)
+    print(f"bf16 flagship train B={TRAIN_B}: median step {numbers['train_ms']:.3f} ms "
+          f"(host clock)")
+
+    # the 4-stream model of configs/oulu_4stream.ini, served and stepped
+    cfg4, training = oulu_4stream()
+    cfg4 = dataclasses.replace(cfg4, **bf16)
+    params4 = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 64), cfg4,
+                                        device=dev)
+    server4 = make_server(params4, cfg4, vote=False, device=dev)
+    cpu4 = make_server(tree_to(params4, cpu), cfg4, vote=False, device="cpu")
+    f32_4 = make_server(params4, dataclasses.replace(cfg4, matmul_dtype=None), vote=False,
+                        device=dev)
+    requests4 = [stream_batch(cfg4, TRAIN_B, SEED + 65 + i, dev)[:2] for i in range(2)]
+    server4(*requests4[0])
+    torch.cuda.synchronize()
+    paths["serve_4stream"], numbers["serve4_err"], numbers["serve4_f32_gap"] = bf16_serve_check(
+        "bf16 4-stream", server4, cpu4, f32_4, requests4, {"lstm_peep_fwd_bf16": 6})
+    streams4, mask4, y4 = stream_batch(cfg4, training.batchsize, SEED + 67, dev)
+    opt4, step4 = trainer.make_train_step(cfg4, lr=training.learning_rate)
+    step4(params4, opt4.init(params4), streams4, y4, mask4)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    p4, st4 = params4, opt4.init(params4)
+    for _ in range(2):
+        p4, st4, _ = step4(p4, st4, streams4, y4, mask4)
+    torch.cuda.synchronize()
+    paths["train_4stream"] = read_launches()
+    print(f"bf16 4-stream train 2 steps: launches {paths['train_4stream']}")
+    expect_launches(paths["train_4stream"], lstm_peep_fwd_train_bf16=12, lstm_peep_bwd_bf16=12,
+                    delta=2)
+    numbers["train4"] = bf16_step_against_cpu("bf16 4-stream", cfg4, params4, streams4, y4,
+                                              mask4, lr=training.learning_rate)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    try:
+        # cli.trimodal from .mat files, [training] matmul_dtype = bfloat16
+        files = write_cli_corpus(tmp)
+        ini = os.path.join(tmp, "trimodal_bf16.ini")
+        write_cli_ini(ini, "trimodal", cli_sets("trimodal", files) + [
+            ("training", k, v) for k, v in {**FIT_CUTS, "matmul_dtype": "bfloat16"}.items()])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result, rec = run_cli(trimodal.main, ["--config", ini, "--device", "cuda"])
+        steps, evals = fit_forwards(result, FIT_CUTS["epochsize"])
+        paths["cli"] = rec["launches"]
+        print(f"bf16 cli.trimodal: {result.epochs_run} epochs, {steps} steps, {evals} "
+              f"evaluation forwards, costs {list(np.round(result.cost_train, 5))}; launches "
+              f"{paths['cli']}; fit {rec['fit_s']:.2f} s, CLI wall {rec['wall_s']:.2f} s")
+        expect_launches(paths["cli"], lstm_fwd_train_bf16=5 * steps, lstm_bwd_bf16=5 * steps,
+                        lstm_fwd_bf16=5 * evals, delta=steps + evals)
+        if not np.isfinite(result.cost_train + result.cost_val).all():
+            raise AssertionError("bf16 cli.trimodal: non-finite costs")
+        numbers["cli_fit_s"] = rec["fit_s"]
+
+        # artifacts: the bf16 flagship, and the float32 flagship stored with
+        # bf16 weights (its bf16 w_hid runs row 1's bf16 instantiation)
+        totals = {row: 0 for row in KERNEL_COUNTERS}
+        f32_params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 68),
+                                               flagship(), device=dev)
+        for name, a_params, a_cfg, wd in (
+                ("flagship_bf16_model", params, cfg, None),
+                ("flagship_bf16_weights", f32_params, flagship(), "bfloat16")):
+            path = os.path.join(tmp, f"{name}.ipax")
+            export_lib.save_artifact(path, a_params, a_cfg, trimodal=tri, weights_dtype=wd,
+                                     device=dev)
+            art = export_lib.load_server(path, device=dev)
+            live = make_trimodal_server(export_lib._cast_weights(a_params, wd), a_cfg,
+                                        device=dev, **tri)
+            numbers[f"{name}_err"] = check_artifact(name, art, live, requests, "lstm_fwd_bf16",
+                                                    5, totals)
+        paths["export"] = totals
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"bf16: phase {numbers['phase_s']:.1f} s")
+    return rows, paths, numbers
+
+
 def main() -> int:
     import torch
 
@@ -4720,6 +5309,11 @@ def main() -> int:
     train_launches, _ = phase_train(dev)
     launches4, _ = phase_serve_4stream(dev)
     train_launches4, _ = phase_train_4stream(dev)
+    # the bf16 paths beside the f32 ones: on this card torch.profiler has
+    # lost every device record of a cooperative launch when traced after
+    # phase_tools, so the phase that traces them runs here
+    bf16_rows, bf16_paths, bf16_numbers = phase_bf16(dev)
+    print(json.dumps({"bf16": bf16_numbers}))
     stream = phase_stream(dev)
     buckets = phase_serve_buckets(dev)
     print(json.dumps({"lstm_state": state, "stream": stream, "serve_buckets": buckets}))
@@ -4797,6 +5391,21 @@ def main() -> int:
                    residual_launches=residual_launches[row["name"]],
                    pretrain_launches=pretrain_launches[row["name"]],
                    tools_launches=tools_launches[row["name"]])
+    # the six bf16 instantiations: launches on their bf16 main path (the
+    # flagship's serve and train steps for rows 1, 3 and 4, the 4-stream
+    # model's for rows 5-7), beside the bf16 CLI's and the artifacts'
+    for name, (row, line, _, _) in BF16_ROWS.items():
+        path = ("serve" if row.endswith("fwd") else "train") + (
+            "_4stream" if "peep" in row else "")
+        numbers = bf16_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": bwd_src if row.endswith("bwd") else fwd_src,
+            "replaces": f"{pallas}:{line}", "launches": bf16_paths[path][name],
+            "max_abs_err": numbers["max_abs_err"], "shape": numbers["shape"],
+            **{k: numbers[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "traced_ms", "us_per_step", "f32_ms")},
+            "cli_launches": bf16_paths["cli"][name],
+            "export_launches": bf16_paths["export"][name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-// Reverse-time backward chain of the masked LSTM for Hopper, f32, with or
-// without peepholes: one persistent cooperative launch per call.
+// Reverse-time backward chain of the masked LSTM for Hopper, with or without
+// peepholes, with W_hid in float32 or bf16: one persistent cooperative launch
+// per call.
 //
 // Replaces the TPU kernels ip_avsr_tpu/ops/pallas/lstm_kernel.py::
 // _lstm_bwd_kernel as launched by lstm_pallas_bwd_chain and
@@ -56,11 +57,24 @@
 //   card holds the two within 1e-5 of each output's max abs.
 // Shared memory (dynamic, one layout for both instantiations): W_hid rows
 // U x 4H, then dh_next, dc, pass and the three dw partials, B x U each, then
-// the block reduction kWarps x kPairs; 16UH + 24BU + 1024 bytes in all, so
-// one launch holds up to 2077 rows at H = 500.  Rows are independent: a
+// the block reduction kWarps x kPairs; 16UH + 24BU + 1024 bytes in all for
+// f32 (8UH + 24BU + 1024 for bf16), so one launch holds up to 2077 rows at H
+// = 500 (2244 for bf16).  Rows are independent: a
 // larger batch runs as several launches over near-equal row chunks, each a
 // pointer offset into the batch-major tensors, and the chunks' (3, H)
 // peephole gradients are added in chunk order (ops/kernels/lstm.py).
+//
+// bf16 W_hid (matmul_dtype="bfloat16"): every instantiation also exists with
+// W of storage type __nv_bfloat16 (template parameter WT), as
+// _lstm_bwd_kernel is generic over W_hid's dtype: dh <- bf16(dgates[t]) @
+// W_hid^T with f32 accumulation, as jnp.dot(dgates.astype(bf16), w_hid_t,
+// preferred_element_type=f32) computes it (lstm_kernel.py:227-230).  The
+// product rounds each clipped dgate to bf16 (__float2bfloat16_rn) as it reads
+// it; the stored dgates, the carries, the gate math and every output stay
+// f32.  The block's W_hid rows sit in shared memory as bf16 (16,000 B at H =
+// 500, U = 4), read as 8-byte words of four values and widened by a shift.
+// The all-zero dgates of a pass-through step (ops/lstm.py::_chain_inputs)
+// round to exactly 0.
 //
 // Where trouble is likely, and what the code does about it (marked below):
 // [stale] dgates is written and read inside this launch, so it is never read
@@ -82,6 +96,7 @@
 // linearly with B; a tensor-core product per step for large-B training is
 // later work.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -95,6 +110,49 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPairs = 32;
 
 __device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// the two bf16 halves of a 32-bit word as floats (element 0 in the low half)
+__device__ __forceinline__ float bf16_lo(unsigned int w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned int w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename WT>
+__device__ __forceinline__ WT from_f32(float v) {
+  if constexpr (sizeof(WT) == 2) {
+    return __float2bfloat16_rn(v);
+  } else {
+    return v;
+  }
+}
+
+// Clipped dgates as the product's operand for a W of type WT: f32 as they
+// are, rounded to bf16 (to nearest even) for a bf16 W.
+template <typename WT>
+__device__ __forceinline__ float4 round_operand(float4 v) {
+  if constexpr (sizeof(WT) == 2) {
+    return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)),
+                       __bfloat162float(__float2bfloat16_rn(v.y)),
+                       __bfloat162float(__float2bfloat16_rn(v.z)),
+                       __bfloat162float(__float2bfloat16_rn(v.w)));
+  } else {
+    return v;
+  }
+}
+
+// Four consecutive W values (columns 4c .. 4c + 3 of a row) as a float4: one
+// 16-byte read for f32, one 8-byte read for bf16.
+template <typename WT>
+__device__ __forceinline__ float4 load4(const WT* row, int c) {
+  if constexpr (sizeof(WT) == 4) {
+    return reinterpret_cast<const float4*>(row)[c];
+  } else {
+    const uint2 q = reinterpret_cast<const uint2*>(row)[c];
+    return make_float4(bf16_lo(q.x), bf16_hi(q.x), bf16_lo(q.y), bf16_hi(q.y));
+  }
+}
 
 // One level of the warp's transposing reduction: of the 2 * O values a lane
 // holds, it keeps the half its lane bit O selects and adds its partner's copy
@@ -121,16 +179,16 @@ __device__ __forceinline__ void transpose_level(float (&v)[kPairs], int lane) {
 // are batched: every load of a (tile, pass) chunk is issued before any of
 // its products (16 float4 per thread at U >= 2), and the next chunk's loads
 // go out before this tile's reduction, so they overlap it.  Ends with a
-// __syncthreads, so dh_next is visible to the whole block.
-template <int U>
-__device__ void product(const float* dg, size_t row_stride, const float* w_s, float* dh_next,
+// __syncthreads, so dh_next is visible to the whole block.  For a bf16 W the
+// dgates are rounded to bf16 as they are loaded.
+template <int U, typename WT>
+__device__ void product(const float* dg, size_t row_stride, const WT* w_s, float* dh_next,
                         float* red, int B, int H) {
   constexpr int R = kPairs / U;
   constexpr int kRounds = U >= 2 ? U / 2 : 1;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const float4* w4 = reinterpret_cast<const float4*>(w_s);
   // [converge] the chunk loop's trip count is the same for every thread and
   // the ragged edges are masked inside: a loop whose trip count differed
   // between the lanes of a warp, followed by the shuffles below, gave wrong
@@ -148,7 +206,8 @@ __device__ void product(const float* dg, size_t row_stride, const float* w_s, fl
       for (int r = 0; r < R; ++r) {
         // [stale] dgates of this launch: L2 only, never __ldg or L1
         d[k][r] = c < H && b0 + r < B
-                      ? __ldcg(reinterpret_cast<const float4*>(dg + (b0 + r) * row_stride) + c)
+                      ? round_operand<WT>(__ldcg(
+                            reinterpret_cast<const float4*>(dg + (b0 + r) * row_stride) + c))
                       : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
@@ -166,7 +225,10 @@ __device__ void product(const float* dg, size_t row_stride, const float* w_s, fl
       const int c = pass * kRounds * kThreads + k * kThreads + tid;
       float4 w[U];
 #pragma unroll
-      for (int u = 0; u < U; ++u) w[u] = c < H ? w4[u * H + c] : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int u = 0; u < U; ++u) {
+        w[u] = c < H ? load4(w_s + static_cast<size_t>(u) * 4 * H, c)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
 #pragma unroll
@@ -235,12 +297,13 @@ __device__ __forceinline__ GateIn load_gate(const float* __restrict__ g_out,
 
 // The whole chain.  All sequence tensors are batch-major (B, T, .).  dw is
 // (3, H) (dw_ci, dw_cf, dw_co) with Peephole; without it the peephole
-// pointers and dw are unused.  Shared memory as in the header.
-template <bool Peephole, int U>
+// pointers and dw are unused.  Shared memory as in the header.  w_hid holds
+// WT values (float or __nv_bfloat16).
+template <bool Peephole, int U, typename WT>
 __global__ void __launch_bounds__(kThreads)
 lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__ gates_pre,
                       const float* __restrict__ cells, const float* __restrict__ cells_prev,
-                      const float* __restrict__ mask, const float* __restrict__ w_hid,
+                      const float* __restrict__ mask, const WT* __restrict__ w_hid,
                       const float* __restrict__ w_ci, const float* __restrict__ w_cf,
                       const float* __restrict__ w_co,
                       float* dgates,  // [stale] written and read here: not const, not restrict
@@ -249,8 +312,8 @@ lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__
   extern __shared__ float4 smem4[];
   const size_t H4 = static_cast<size_t>(4) * H;
   const int BU = B * U;
-  float* w_s = reinterpret_cast<float*>(smem4);  // (U, 4H)
-  float* dh_next = w_s + U * H4;                 // (B * U) each, from here on
+  WT* w_s = reinterpret_cast<WT*>(smem4);        // (U, 4H)
+  float* dh_next = reinterpret_cast<float*>(w_s + U * H4);  // (B * U) each, from here on
   float* dc_s = dh_next + BU;
   float* pass_s = dc_s + BU;
   float* dw_s = pass_s + BU;                     // (3, B * U)
@@ -264,7 +327,7 @@ lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__
   // [ragged] dead units' rows are zero.
   for (size_t i = tid; i < U * H4; i += kThreads) {
     const bool live = static_cast<int>(i / H4) < nu;
-    w_s[i] = live ? __ldg(w_hid + j0 * H4 + i) : 0.f;
+    w_s[i] = from_f32<WT>(live ? to_f32(__ldg(w_hid + j0 * H4 + i)) : 0.f);
   }
   for (int i = tid; i < 5 * BU; i += kThreads) dc_s[i] = 0.f;  // dc, pass, dw
   __syncthreads();
@@ -278,7 +341,7 @@ lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__
     if (tid < BU && tid % U < nu)
       first = load_gate<Peephole>(g_out, gates_pre, cells, cells_prev, mask, w_ci, w_cf, w_co,
                                   tid / U, j0 + tid % U, T, H, t);
-    if (has_next) product<U>(dgates + (t + 1) * H4, row_stride, w_s, dh_next, red, B, H);
+    if (has_next) product<U, WT>(dgates + (t + 1) * H4, row_stride, w_s, dh_next, red, B, H);
 
     for (int q = tid; q < BU; q += kThreads) {
       const int b = q / U;
@@ -334,7 +397,7 @@ lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__
   }
 
   // dh after step 0: one more product, then the block's outputs
-  product<U>(dgates, row_stride, w_s, dh_next, red, B, H);
+  product<U, WT>(dgates, row_stride, w_s, dh_next, red, B, H);
   for (int q = tid; q < BU; q += kThreads) {
     const int u = q % U;
     if (u >= nu) continue;
@@ -356,18 +419,19 @@ lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__
   }
 }
 
+template <typename WT>
 size_t smem_bytes(int B, int H, int U) {
-  return (static_cast<size_t>(4) * U * H + static_cast<size_t>(6) * B * U + kWarps * kPairs) *
-         sizeof(float);
+  return static_cast<size_t>(4) * U * H * sizeof(WT) +
+         (static_cast<size_t>(6) * B * U + kWarps * kPairs) * sizeof(float);
 }
 
-template <bool Peephole, int U>
+template <bool Peephole, int U, typename WT>
 cudaError_t launch(const float* g_out, const float* gates_pre, const float* cells,
-                   const float* cells_prev, const float* mask, const float* w_hid,
+                   const float* cells_prev, const float* mask, const WT* w_hid,
                    const float* w_ci, const float* w_cf, const float* w_co, float* dgates,
                    float* dcell0, float* dhid0, float* dw, float clip, int B, int T, int H,
                    size_t smem, cudaStream_t stream) {
-  const auto kernel = lstm_bwd_chain_kernel<Peephole, U>;
+  const auto kernel = lstm_bwd_chain_kernel<Peephole, U, WT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -379,12 +443,12 @@ cudaError_t launch(const float* g_out, const float* gates_pre, const float* cell
 
 // Runs the whole chain of one instantiation on `stream`; see the entry
 // points.  `peep` holds w_ci, w_cf, w_co, dw or is null.
-template <bool Peephole>
-int run_chain(const void* g_out, const void* gates_pre, const void* cells,
-              const void* cells_prev, const void* mask, const void* w_hid, void* dgates,
-              void* dcell0, void* dhid0, void* const* peep, float clip, int B, int T, int H,
-              int units, size_t smem, void* stream) {
-  if (smem < smem_bytes(B, H, units)) return static_cast<int>(cudaErrorInvalidValue);
+template <bool Peephole, typename WT>
+int run_chain_w(const void* g_out, const void* gates_pre, const void* cells,
+                const void* cells_prev, const void* mask, const void* w_hid, void* dgates,
+                void* dcell0, void* dhid0, void* const* peep, float clip, int B, int T, int H,
+                int units, size_t smem, void* stream) {
+  if (smem < smem_bytes<WT>(B, H, units)) return static_cast<int>(cudaErrorInvalidValue);
   const float* p[3] = {nullptr, nullptr, nullptr};
   float* dw = nullptr;
   if constexpr (Peephole) {
@@ -393,36 +457,52 @@ int run_chain(const void* g_out, const void* gates_pre, const void* cells,
   }
   const auto f = [](const void* v) { return static_cast<const float*>(v); };
   const auto go = [&](auto launcher) {
-    return launcher(f(g_out), f(gates_pre), f(cells), f(cells_prev), f(mask), f(w_hid), p[0],
+    return launcher(f(g_out), f(gates_pre), f(cells), f(cells_prev), f(mask),
+                    static_cast<const WT*>(w_hid), p[0],
                     p[1], p[2], static_cast<float*>(dgates), static_cast<float*>(dcell0),
                     static_cast<float*>(dhid0), dw, clip, B, T, H, smem,
                     static_cast<cudaStream_t>(stream));
   };
   cudaError_t err;
   switch (units) {
-    case 1: err = go(launch<Peephole, 1>); break;
-    case 2: err = go(launch<Peephole, 2>); break;
-    case 4: err = go(launch<Peephole, 4>); break;
-    case 8: err = go(launch<Peephole, 8>); break;
+    case 1: err = go(launch<Peephole, 1, WT>); break;
+    case 2: err = go(launch<Peephole, 2, WT>); break;
+    case 4: err = go(launch<Peephole, 4, WT>); break;
+    case 8: err = go(launch<Peephole, 8, WT>); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// run_chain_w with W of type __nv_bfloat16 when w_bf16, else float.
+template <bool Peephole>
+int run_chain(const void* g_out, const void* gates_pre, const void* cells,
+              const void* cells_prev, const void* mask, const void* w_hid, void* dgates,
+              void* dcell0, void* dhid0, void* const* peep, float clip, int w_bf16, int B, int T,
+              int H, int units, size_t smem, void* stream) {
+  return w_bf16 ? run_chain_w<Peephole, __nv_bfloat16>(g_out, gates_pre, cells, cells_prev,
+                                                        mask, w_hid, dgates, dcell0, dhid0,
+                                                        peep, clip, B, T, H, units, smem, stream)
+                : run_chain_w<Peephole, float>(g_out, gates_pre, cells, cells_prev, mask, w_hid,
+                                               dgates, dcell0, dhid0, peep, clip, B, T, H, units,
+                                               smem, stream);
 }
 
 }  // namespace
 
 // Runs the whole chain on `stream` in one cooperative launch of ceil(H /
 // units) blocks, units in {1, 2, 4, 8}, with `smem` bytes of dynamic shared
-// memory (at least 16 * units * H + 24 * B * units + 1024).  Writes dgates
-// (B, T, 4H), dcell0 and dhid0 (B, H).  Returns the first CUDA error (0 on
+// memory (at least 4 * units * H * sizeof(W) + 24 * B * units + 1024).  w_hid
+// is (H, 4H) bf16 when w_bf16 is not 0, else f32; every other tensor is f32.
+// Writes dgates (B, T, 4H), dcell0 and dhid0 (B, H).  Returns the first CUDA error (0 on
 // success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be
 // co-resident).
 extern "C" int lstm_bwd_chain(const void* g_out, const void* gates_pre, const void* cells,
                               const void* cells_prev, const void* mask, const void* w_hid,
-                              void* dgates, void* dcell0, void* dhid0, float clip, int B, int T,
-                              int H, int units, size_t smem, void* stream) {
+                              void* dgates, void* dcell0, void* dhid0, float clip, int w_bf16,
+                              int B, int T, int H, int units, size_t smem, void* stream) {
   return run_chain<false>(g_out, gates_pre, cells, cells_prev, mask, w_hid, dgates, dcell0,
-                          dhid0, nullptr, clip, B, T, H, units, smem, stream);
+                          dhid0, nullptr, clip, w_bf16, B, T, H, units, smem, stream);
 }
 
 // The peephole chain: as lstm_bwd_chain, with the (H,) peephole vectors
@@ -431,12 +511,12 @@ extern "C" int lstm_bwd_peep_chain(const void* g_out, const void* gates_pre, con
                                    const void* cells_prev, const void* mask,
                                    const void* w_hid, const void* w_ci, const void* w_cf,
                                    const void* w_co, void* dgates, void* dcell0, void* dhid0,
-                                   void* dw, float clip, int B, int T, int H, int units,
-                                   size_t smem, void* stream) {
+                                   void* dw, float clip, int w_bf16, int B, int T, int H,
+                                   int units, size_t smem, void* stream) {
   void* peep[4] = {const_cast<void*>(w_ci), const_cast<void*>(w_cf), const_cast<void*>(w_co),
                    dw};
   return run_chain<true>(g_out, gates_pre, cells, cells_prev, mask, w_hid, dgates, dcell0,
-                         dhid0, peep, clip, B, T, H, units, smem, stream);
+                         dhid0, peep, clip, w_bf16, B, T, H, units, smem, stream);
 }
 
 extern "C" const char* lstm_bwd_error_string(int code) {

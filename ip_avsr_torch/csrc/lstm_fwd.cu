@@ -1,4 +1,5 @@
-// Masked LSTM recurrence for Hopper, f32, with or without peepholes.
+// Masked LSTM recurrence for Hopper, with or without peepholes, with W_hid in
+// float32 or bf16.
 //
 // Replaces the TPU kernels of ip_avsr_tpu/ops/pallas/lstm_kernel.py in all
 // four of their launches: _lstm_fwd_kernel as lstm_pallas (inference) and
@@ -28,7 +29,7 @@
 // what a step costs is the exchange.
 //
 // One design serves all four rows: lstm_fwd_chain_kernel<EmitResiduals,
-// Peephole, U>, one persistent cooperative launch per call (per row chunk,
+// Peephole, U, WT>, one persistent cooperative launch per call (per row chunk,
 // see below), which loops over t itself.
 // - The grid is ceil(H / U) blocks, U the smallest of 1, 2, 4, 8 whose grid
 //   fits the card's SMs (ops/kernels/lstm.py::fwd_launch_plan), so every
@@ -60,13 +61,28 @@
 //   shared the tile, in a fixed order.  A round is up to 8 tiles, one per
 //   warp or several warps per tile, so B <= 8 R rows (16 at U = 4) take one
 //   round and one __syncthreads per step.
-// Shared memory (dynamic): W H x (4U + 4) (H x 4 at U = 1), then the cell and
-// h carries B x U each, then the warps' partial sums 8 x 32; 4 (4U + 4) H +
-// 8BU + 1024 bytes (ops/kernels/lstm.py::fwd_launch_plan).  Rows are
+// Shared memory (dynamic): W H x (4U + 4) f32 (H x 4 at U = 1; bf16: see
+// below), then the cell and h carries B x U each, then the warps' partial
+// sums 8 x 32; 4 (4U + 4) H + 8BU + 1024 bytes for f32
+// (ops/kernels/lstm.py::fwd_launch_plan).  Rows are
 // independent, so a batch whose carries do not fit beside W_hid runs as
 // several launches over near-equal row chunks, each a pointer offset into
 // the batch-major tensors (the plan's `chunks`; the wrapper launches them in
 // order on one stream).
+//
+// bf16 W_hid (matmul_dtype="bfloat16" and a bf16-weight artifact): every
+// instantiation also exists with W of storage type __nv_bfloat16 (template
+// parameter WT), as each Pallas body is generic over W_hid's dtype.  There
+// gates = x_proj[:, t] + bf16(h_{t-1}) @ W_hid with f32 accumulation, as
+// jnp.dot(hid_prev.astype(bf16), w_hid_bf16, preferred_element_type=f32)
+// computes it (lstm_kernel.py:67-70): h_{t-1} is rounded to bf16 with
+// __float2bfloat16_rn as it is read, each bf16 x bf16 product is exact in
+// f32, and the sums stay f32.  The carries, the mask carry's h_{t-1}, the
+// gate math, x_proj, the peepholes and every output stay f32.  W sits in
+// shared memory as bf16, rows of padded_columns<bf16>(U) values (24 at U =
+// 4: 24,000 B at H = 500 instead of 40,000), read as 8- or 16-byte words and
+// widened by a shift (a bf16 is the upper half of an f32).  The bound is the
+// same serial chain: a step costs the exchange, not the product.
 //
 // Layouts are batch-major, the port's public layout, so no transpose is
 // needed: x_proj (B, T, 4H), mask (B, T), out (B, T, H), and the residuals
@@ -101,6 +117,7 @@
 // __syncthreads and an L2 round trip that the previous round does not hide;
 // a tensor-core product for large B is later work.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -134,10 +151,84 @@ constexpr int kWarps = kChainThreads / 32;
 // accumulator each per lane, reduced across the warp in 31 shuffles
 constexpr int kPairs = 32;
 
-// Floats per k row of the block's W_hid columns in shared memory: 4U, padded
-// so that the 8 lanes of each phase of a float4 read (neighbouring k) hit
-// distinct banks (rows of 20 floats at U = 4).  U = 1 needs no padding.
-__host__ __device__ constexpr int padded_columns(int U) { return U == 1 ? 4 : 4 * U + 4; }
+// Values per k row of the block's W_hid columns in shared memory: 4U, padded
+// so that the 8 lanes of each phase of a 16-byte read (neighbouring k) hit
+// distinct banks, that is so that a row is an odd number of 16-byte words:
+// f32 rows of 20 floats at U = 4 (U = 1 needs no padding); bf16 rows of 24
+// values at U = 4 and 40 at U = 8 (U = 2 is one 16-byte word, and U = 1 one
+// 8-byte word, read in half-warp phases without conflict).
+template <typename WT>
+__host__ __device__ constexpr int padded_columns(int U) {
+  if constexpr (sizeof(WT) == 2) return U <= 2 ? 4 * U : 4 * U + 8;
+  return U == 1 ? 4 : 4 * U + 4;
+}
+
+// the two bf16 halves of a 32-bit word as floats (element 0 in the low half)
+__device__ __forceinline__ float bf16_lo(unsigned int w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned int w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// A W element as f32, and f32 as a W element (exact for values read from a
+// W of that type).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename WT>
+__device__ __forceinline__ WT from_f32(float v) {
+  if constexpr (sizeof(WT) == 2) {
+    return __float2bfloat16_rn(v);
+  } else {
+    return v;
+  }
+}
+
+// The product's operand h_{t-1} (or a clipped dgate) for a W of type WT: f32
+// as it is, rounded to bf16 (to nearest even) for a bf16 W.
+template <typename WT>
+__device__ __forceinline__ float round_operand(float v) {
+  if constexpr (sizeof(WT) == 2) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
+
+// The C weights of one k row of w_s as floats: C / 4 float4 reads for f32;
+// for bf16 one 8-byte read at C = 4, else C / 8 16-byte reads.
+template <typename WT, int C>
+__device__ __forceinline__ void load_row(const WT* row, float (&w)[C]) {
+  if constexpr (sizeof(WT) == 4) {
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+#pragma unroll
+    for (int c4 = 0; c4 < C / 4; ++c4) {
+      const float4 q = r4[c4];
+      w[4 * c4] = q.x;
+      w[4 * c4 + 1] = q.y;
+      w[4 * c4 + 2] = q.z;
+      w[4 * c4 + 3] = q.w;
+    }
+  } else if constexpr (C == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(row);
+    w[0] = bf16_lo(q.x);
+    w[1] = bf16_hi(q.x);
+    w[2] = bf16_lo(q.y);
+    w[3] = bf16_hi(q.y);
+  } else {
+    const uint4* r4 = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+    for (int c8 = 0; c8 < C / 8; ++c8) {
+      const uint4 q = r4[c8];
+      w[8 * c8] = bf16_lo(q.x);
+      w[8 * c8 + 1] = bf16_hi(q.x);
+      w[8 * c8 + 2] = bf16_lo(q.y);
+      w[8 * c8 + 3] = bf16_hi(q.y);
+      w[8 * c8 + 4] = bf16_lo(q.z);
+      w[8 * c8 + 5] = bf16_hi(q.z);
+      w[8 * c8 + 6] = bf16_lo(q.w);
+      w[8 * c8 + 7] = bf16_hi(q.w);
+    }
+  }
+}
 
 // One level of the warp's transposing reduction: of the 2 * O values a lane
 // holds, it keeps the half its lane bit O selects and adds its partner's copy
@@ -160,9 +251,10 @@ __device__ __forceinline__ void transpose_level(float (&v)[kPairs], int lane) {
 // and w_co are the (H,) peephole vectors, otherwise unused.  cell_last (B, H),
 // when not null, receives the cell carry after step T - 1 (the carried hidden
 // state is out[:, T - 1]), so a caller can resume the recurrence from it.
-template <bool EmitResiduals, bool Peephole, int U>
+// w_hid holds WT values (float or __nv_bfloat16).
+template <bool EmitResiduals, bool Peephole, int U, typename WT>
 __global__ void __launch_bounds__(kChainThreads)
-lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const float* __restrict__ w_hid,
+lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const WT* __restrict__ w_hid,
                       const float* __restrict__ mask, const float* __restrict__ cell0,
                       const float* __restrict__ hid0,
                       float* out,  // [stale] written and read here: not const, not restrict
@@ -171,13 +263,13 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const float* __restrict_
                       const float* __restrict__ w_cf, const float* __restrict__ w_co, int B,
                       int T, int H) {
   constexpr int C = 4 * U;       // the block's gate columns, col = gate * U + unit
-  constexpr int CP = padded_columns(U);
+  constexpr int CP = padded_columns<WT>(U);
   constexpr int R = kPairs / C;  // rows of a warp tile
   constexpr int KI = kPairs / R; // k steps per batch of loads: R * KI = 32 in flight
   extern __shared__ float4 smem4[];
   const int BU = B * U;
-  float* w_s = reinterpret_cast<float*>(smem4);  // (H, CP): row k holds the C weights
-  float* c_s = w_s + CP * H;                     // (B * U) each, from here on
+  WT* w_s = reinterpret_cast<WT*>(smem4);        // (H, CP): row k holds the C weights
+  float* c_s = reinterpret_cast<float*>(w_s + CP * H);  // (B * U) each, from here on
   float* h_s = c_s + BU;
   float* red = h_s + BU;                         // (kWarps, kPairs)
   const int tid = threadIdx.x;
@@ -200,12 +292,13 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const float* __restrict_
       const int col = i % C;
       const int u = col % U;
       v[l] = i < C * H && u < nu
-                 ? __ldg(w_hid + k * H4 + static_cast<size_t>(col / U) * H + j0 + u) : 0.f;
+                 ? to_f32(__ldg(w_hid + k * H4 + static_cast<size_t>(col / U) * H + j0 + u))
+                 : 0.f;
     }
 #pragma unroll
     for (int l = 0; l < kLoadW; ++l) {
       const int i = i0 + l * kChainThreads + tid;
-      if (i < C * H) w_s[i / C * CP + i % C] = v[l];
+      if (i < C * H) w_s[i / C * CP + i % C] = from_f32<WT>(v[l]);
     }
   }
   for (int q = tid; q < BU; q += kChainThreads) {
@@ -267,9 +360,10 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const float* __restrict_
           const int k = (s0 + i) * stride + ks * 32 + lane;
 #pragma unroll
           for (int r = 0; r < R; ++r) {
-            // [stale] h of this launch: L2 only, never __ldg or L1
+            // [stale] h of this launch: L2 only, never __ldg or L1; rounded
+            // to bf16 as the product's operand for a bf16 W
             hv[i][r] = s0 + i < steps && k < H && b0 + r < B
-                           ? __ldcg(h + (b0 + r) * h_stride + k) : 0.f;
+                           ? round_operand<WT>(__ldcg(h + (b0 + r) * h_stride + k)) : 0.f;
           }
         }
 #pragma unroll
@@ -277,16 +371,8 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const float* __restrict_
           if (s0 + i >= steps) break;  // warp-uniform
           const int k = (s0 + i) * stride + ks * 32 + lane;
           // one address per k; past H, hv is 0 and row H - 1 stands in
-          const float4* wk = reinterpret_cast<const float4*>(w_s + min(k, H - 1) * CP);
           float w[C];
-#pragma unroll
-          for (int c4 = 0; c4 < C / 4; ++c4) {
-            const float4 q = wk[c4];
-            w[4 * c4] = q.x;
-            w[4 * c4 + 1] = q.y;
-            w[4 * c4 + 2] = q.z;
-            w[4 * c4 + 3] = q.w;
-          }
+          load_row<WT, C>(w_s + min(k, H - 1) * CP, w);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
 #pragma unroll
@@ -345,18 +431,19 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const float* __restrict_
   }
 }
 
+template <typename WT>
 size_t chain_smem_bytes(int B, int H, int U) {
-  return (static_cast<size_t>(padded_columns(U)) * H + static_cast<size_t>(2) * B * U +
-          kWarps * kPairs) * sizeof(float);
+  return static_cast<size_t>(padded_columns<WT>(U)) * H * sizeof(WT) +
+         (static_cast<size_t>(2) * B * U + kWarps * kPairs) * sizeof(float);
 }
 
-template <bool EmitResiduals, bool Peephole, int U>
-cudaError_t launch_chain(const float* x_proj, const float* w_hid, const float* mask,
+template <bool EmitResiduals, bool Peephole, int U, typename WT>
+cudaError_t launch_chain(const float* x_proj, const WT* w_hid, const float* mask,
                          const float* cell0, const float* hid0, float* out, float* cells,
                          float* gates, float* cell_last, const float* w_ci, const float* w_cf,
                          const float* w_co, int B, int T, int H, size_t smem,
                          cudaStream_t stream) {
-  const auto kernel = lstm_fwd_chain_kernel<EmitResiduals, Peephole, U>;
+  const auto kernel = lstm_fwd_chain_kernel<EmitResiduals, Peephole, U, WT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -370,58 +457,75 @@ cudaError_t launch_chain(const float* x_proj, const float* w_hid, const float* m
 // Runs the whole recurrence of one instantiation on `stream`; see the entry
 // points.  cells and gates are null without EmitResiduals, `peep` (w_ci,
 // w_cf, w_co) is null without Peephole, cell_last may be null.
-template <bool EmitResiduals, bool Peephole>
-int run_chain(const void* x_proj, const void* w_hid, const void* mask, const void* cell0,
-              const void* hid0, void* out, void* cells, void* gates, void* cell_last,
-              const void* const* peep, int B, int T, int H, int units, size_t smem,
-              void* stream) {
-  if (smem < chain_smem_bytes(B, H, units)) return static_cast<int>(cudaErrorInvalidValue);
+template <bool EmitResiduals, bool Peephole, typename WT>
+int run_chain_w(const void* x_proj, const void* w_hid, const void* mask, const void* cell0,
+                const void* hid0, void* out, void* cells, void* gates, void* cell_last,
+                const void* const* peep, int B, int T, int H, int units, size_t smem,
+                void* stream) {
+  if (smem < chain_smem_bytes<WT>(B, H, units)) return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* v) { return static_cast<const float*>(v); };
   const void* p[3] = {nullptr, nullptr, nullptr};
   if constexpr (Peephole) {
     for (int k = 0; k < 3; ++k) p[k] = peep[k];
   }
   const auto go = [&](auto launcher) {
-    return launcher(f(x_proj), f(w_hid), f(mask), f(cell0), f(hid0), static_cast<float*>(out),
+    return launcher(f(x_proj), static_cast<const WT*>(w_hid), f(mask), f(cell0), f(hid0),
+                    static_cast<float*>(out),
                     static_cast<float*>(cells), static_cast<float*>(gates),
                     static_cast<float*>(cell_last), f(p[0]), f(p[1]), f(p[2]), B, T, H, smem,
                     static_cast<cudaStream_t>(stream));
   };
   cudaError_t err;
   switch (units) {
-    case 1: err = go(launch_chain<EmitResiduals, Peephole, 1>); break;
-    case 2: err = go(launch_chain<EmitResiduals, Peephole, 2>); break;
-    case 4: err = go(launch_chain<EmitResiduals, Peephole, 4>); break;
-    case 8: err = go(launch_chain<EmitResiduals, Peephole, 8>); break;
+    case 1: err = go(launch_chain<EmitResiduals, Peephole, 1, WT>); break;
+    case 2: err = go(launch_chain<EmitResiduals, Peephole, 2, WT>); break;
+    case 4: err = go(launch_chain<EmitResiduals, Peephole, 4, WT>); break;
+    case 8: err = go(launch_chain<EmitResiduals, Peephole, 8, WT>); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// run_chain_w with W of type __nv_bfloat16 when w_bf16, else float.
+template <bool EmitResiduals, bool Peephole>
+int run_chain(const void* x_proj, const void* w_hid, const void* mask, const void* cell0,
+              const void* hid0, void* out, void* cells, void* gates, void* cell_last,
+              const void* const* peep, int w_bf16, int B, int T, int H, int units, size_t smem,
+              void* stream) {
+  return w_bf16 ? run_chain_w<EmitResiduals, Peephole, __nv_bfloat16>(
+                      x_proj, w_hid, mask, cell0, hid0, out, cells, gates, cell_last, peep, B,
+                      T, H, units, smem, stream)
+                : run_chain_w<EmitResiduals, Peephole, float>(
+                      x_proj, w_hid, mask, cell0, hid0, out, cells, gates, cell_last, peep, B,
+                      T, H, units, smem, stream);
 }
 
 }  // namespace
 
 // Runs all T steps on `stream` in one cooperative launch of ceil(H / units)
 // blocks, units in {1, 2, 4, 8}, with `smem` bytes of dynamic shared memory
-// (at least 4 * padded_columns(units) * H + 8 * B * units + 1024).  cell0 and
-// hid0 (B, H) are the initial state; writes out (B, T, H) and, when cell_last
-// is not null, the final cell (B, H).  Returns the first CUDA error (0 on
-// success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be
-// co-resident).
+// (at least padded_columns<WT>(units) * H * sizeof(WT) + 8 * B * units +
+// 1024).  w_hid is (H, 4H) bf16 when w_bf16 is not 0, else f32; every other
+// tensor is f32.  cell0 and hid0 (B, H) are the initial state; writes out
+// (B, T, H) and, when cell_last is not null, the final cell (B, H).  Returns
+// the first CUDA error (0 on success; cudaErrorCooperativeLaunchTooLarge when
+// the grid cannot be co-resident).
 extern "C" int lstm_fwd_forward(const void* x_proj, const void* w_hid, const void* mask,
                                 const void* cell0, const void* hid0, void* out, void* cell_last,
-                                int B, int T, int H, int units, size_t smem, void* stream) {
+                                int w_bf16, int B, int T, int H, int units, size_t smem,
+                                void* stream) {
   return run_chain<false, false>(x_proj, w_hid, mask, cell0, hid0, out, nullptr, nullptr,
-                                 cell_last, nullptr, B, T, H, units, smem, stream);
+                                 cell_last, nullptr, w_bf16, B, T, H, units, smem, stream);
 }
 
 // The training forward: as lstm_fwd_forward, and also writes the residuals
 // cells (B, T, H) and gates (B, T, 4H).
 extern "C" int lstm_fwd_train_forward(const void* x_proj, const void* w_hid, const void* mask,
                                       const void* cell0, const void* hid0, void* out,
-                                      void* cells, void* gates, int B, int T, int H, int units,
-                                      size_t smem, void* stream) {
+                                      void* cells, void* gates, int w_bf16, int B, int T, int H,
+                                      int units, size_t smem, void* stream) {
   return run_chain<true, false>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates, nullptr,
-                                nullptr, B, T, H, units, smem, stream);
+                                nullptr, w_bf16, B, T, H, units, smem, stream);
 }
 
 // The peephole recurrence: as lstm_fwd_forward (cell_last included), with
@@ -429,11 +533,11 @@ extern "C" int lstm_fwd_train_forward(const void* x_proj, const void* w_hid, con
 extern "C" int lstm_fwd_peep_forward(const void* x_proj, const void* w_hid, const void* mask,
                                      const void* cell0, const void* hid0, void* out,
                                      void* cell_last, const void* w_ci, const void* w_cf,
-                                     const void* w_co, int B, int T, int H, int units,
-                                     size_t smem, void* stream) {
+                                     const void* w_co, int w_bf16, int B, int T, int H,
+                                     int units, size_t smem, void* stream) {
   const void* peep[3] = {w_ci, w_cf, w_co};
   return run_chain<false, true>(x_proj, w_hid, mask, cell0, hid0, out, nullptr, nullptr,
-                                cell_last, peep, B, T, H, units, smem, stream);
+                                cell_last, peep, w_bf16, B, T, H, units, smem, stream);
 }
 
 // The peephole training forward: as lstm_fwd_peep_forward, and also writes
@@ -443,11 +547,11 @@ extern "C" int lstm_fwd_peep_train_forward(const void* x_proj, const void* w_hid
                                            const void* mask, const void* cell0,
                                            const void* hid0, void* out, void* cells,
                                            void* gates, const void* w_ci, const void* w_cf,
-                                           const void* w_co, int B, int T, int H, int units,
-                                           size_t smem, void* stream) {
+                                           const void* w_co, int w_bf16, int B, int T, int H,
+                                           int units, size_t smem, void* stream) {
   const void* peep[3] = {w_ci, w_cf, w_co};
   return run_chain<true, true>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates, nullptr,
-                               peep, B, T, H, units, smem, stream);
+                               peep, w_bf16, B, T, H, units, smem, stream);
 }
 
 extern "C" const char* lstm_fwd_error_string(int code) {

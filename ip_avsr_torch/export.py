@@ -107,9 +107,12 @@ def _dtype_name(weights_dtype) -> str:
 def _cast_weights(params, weights_dtype):
     """The artifact's size lever: store the float32 weights in a narrower
     dtype (bf16 halves the artifact).  The served program upcasts them to
-    float32 before any op (``serve._ParamBuffers.tree``), so the kernels
-    stay float32; the JAX package's dots promote bf16 weights against f32
-    activations to f32 likewise.  None is a no-op."""
+    float32 before any op (``serve._ParamBuffers.tree``), as the JAX
+    package's dots promote bf16 weights against f32 activations, except
+    each LSTM's bf16 ``w_hid``, which the recurrences take as it is: their
+    kernels' bf16 instantiations round h_{t-1} to bf16 before the product,
+    as the JAX package's recurrence does with a bf16 ``w_hid``.  None is a
+    no-op."""
     if weights_dtype is None:
         return params
     wd = _dtype(weights_dtype)

@@ -17,9 +17,11 @@ hands the moved statistics back for the trainer to merge, as in the JAX
 package.  ``fuse_scans`` runs the stream LSTMs as one group and each BLSTM
 layer's halves as one group (``ops/lstm.lstm_forward_grouped``, member by
 member); ``lstm_remat`` and ``lstm_residual_dtype`` reach every training
-recurrence (``ops/lstm.lstm_forward``).  ``matmul_dtype`` raises
-``NotImplementedError`` naming its ROADMAP item, and ``bn_axis`` (batch-norm
-statistics over mesh axes) raises naming Queue 1 item 10.  Dropout
+recurrence (``ops/lstm.lstm_forward``).  ``matmul_dtype="bfloat16"``
+rounds the operands of every encoder product, input projection and
+recurrent product to bf16 with float32 sums (the recurrences through the
+kernels' bf16 instantiations), and ``bn_axis`` (batch-norm statistics over
+mesh axes) raises naming Queue 1 item 10.  Dropout
 (``train=True``) follows Lasagne's DropoutLayer with its 1/(1-p) rescale,
 drawing from an explicit ``torch.Generator``; its bits differ from JAX's.
 ``lstm_impl`` selects a TPU backend and changes no result here: the
@@ -112,11 +114,15 @@ class AdeNetConfig:
 
 def check_supported(config: AdeNetConfig) -> None:
     """Raise ``NotImplementedError`` for the config values the port does
-    not cover yet, naming the ROADMAP item that brings each."""
-    if config.matmul_dtype is not None:
+    not cover, naming the ROADMAP item: a ``matmul_dtype`` other than
+    None, float32 and bfloat16, the only operand types the LSTM kernels
+    are instantiated for (``ops/lstm.matmul_dtype_of``)."""
+    try:
+        lstm_ops.matmul_dtype_of(config.matmul_dtype)
+    except ValueError as e:
         raise NotImplementedError(
-            f"not ported yet: matmul_dtype={config.matmul_dtype!r} (Queue 2 item 4: bf16 "
-            "operands with f32 accumulation; the kernels take f32 only)")
+            f"not ported: matmul_dtype={config.matmul_dtype!r} (Queue 2 item 4 ported "
+            "float32 and bfloat16 operands, the LSTM kernels' instantiations)") from e
 
 
 def init_adenet_params(generator: torch.Generator, config: AdeNetConfig,
@@ -226,7 +232,8 @@ def stream_prefix(params, config: AdeNetConfig, inputs, window=None, train=False
         x = inputs[i]
         if spec.encoder_shapes:
             enc = encoder_mod.encoder_forward(sp["encoder"], x.reshape(B * T, spec.input_dim),
-                                              spec.encoder_nonlinearities)
+                                              spec.encoder_nonlinearities,
+                                              matmul_dtype=config.matmul_dtype)
             x = enc.reshape(B, T, -1)
         if spec.use_batchnorm:
             x, aux["bn_state"][spec.name] = norm_ops.batch_norm_forward(
@@ -253,11 +260,11 @@ def head_forward(params, config: AdeNetConfig, stream_feats, mask, train=False,
     grouping yields to the residual levers, with the JAX package's
     warning."""
     B, T = stream_feats[0].shape[0], stream_feats[0].shape[1]
-    remat, resd = config.lstm_remat, config.lstm_residual_dtype
+    remat, resd, mm = config.lstm_remat, config.lstm_residual_dtype, config.matmul_dtype
 
     def run_lstm(p, feats, backwards=False):
         return lstm_ops.lstm_forward(p, feats, mask, backwards, remat=remat,
-                                     residual_dtype=resd)
+                                     residual_dtype=resd, matmul_dtype=mm)
 
     fuse_ok = config.fuse_scans and not (train and (remat or resd))
     if config.fuse_scans and not fuse_ok:
@@ -271,7 +278,8 @@ def head_forward(params, config: AdeNetConfig, stream_feats, mask, train=False,
     stream_outs = list(stream_feats)
     if fuse_ok and lstm_ops.can_group_lstms(lstm_params):
         grouped = lstm_ops.lstm_forward_grouped(
-            lstm_params, [stream_feats[i] for i in lstm_idx], mask, [False] * len(lstm_idx))
+            lstm_params, [stream_feats[i] for i in lstm_idx], mask, [False] * len(lstm_idx),
+            matmul_dtype=mm)
         for i, out in zip(lstm_idx, grouped):
             stream_outs[i] = out
     else:
@@ -285,7 +293,7 @@ def head_forward(params, config: AdeNetConfig, stream_feats, mask, train=False,
         if config.agg_bidirectional:
             if fuse_ok and lstm_ops.can_group_lstms([lp["fwd"], lp["bwd"]]):
                 f, bwd = lstm_ops.lstm_forward_grouped([lp["fwd"], lp["bwd"]], [agg, agg],
-                                                       mask, [False, True])
+                                                       mask, [False, True], matmul_dtype=mm)
                 agg = f + bwd
             else:
                 agg = run_lstm(lp["fwd"], agg) + run_lstm(lp["bwd"], agg, backwards=True)
@@ -358,13 +366,14 @@ def head_forward_streaming(params, config: AdeNetConfig, stream_feats, mask,
         if spec.use_lstm:
             stream_outs[i], new_state["streams"][spec.name] = lstm_ops.lstm_forward(
                 params["streams"][spec.name]["lstm"], stream_feats[i], mask,
-                initial_state=state["streams"][spec.name], return_state=True)
+                initial_state=state["streams"][spec.name], return_state=True,
+                matmul_dtype=config.matmul_dtype)
 
     agg = fusion_ops.fuse(stream_outs, config.fusiontype, params.get("adasum"))
     for layer in range(config.agg_layers):
         agg, st = lstm_ops.lstm_forward(params["aggregator"][layer]["fwd"], agg, mask,
                                         initial_state=state["aggregator"][layer],
-                                        return_state=True)
+                                        return_state=True, matmul_dtype=config.matmul_dtype)
         new_state["aggregator"].append(st)
 
     w, b = params["output"]["w"], params["output"]["b"]

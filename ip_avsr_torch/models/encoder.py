@@ -4,6 +4,11 @@ Mirrors ip_avsr_tpu/models/encoder.py: a chain of dense layers named
 fc1, fc2, fc3, bottleneck (then fc5, fc6, ...) with per-layer
 nonlinearities, applied to (B*T, D) flattened frames.  The dense products are
 ``torch.matmul``: the JAX package has no Pallas kernel for them either.
+Under ``matmul_dtype="bfloat16"`` each product takes bf16-rounded operands
+and sums in float32.  Autograd of the casts rounds each operand's cotangent
+to bf16 (the backward of ``.to(float32)`` from bf16 casts the gradient to
+bf16), which is what JAX's autodiff of that product gives:
+``da = bf16(g bf16(b)^T)`` and ``db = bf16(bf16(a)^T g)``.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ import numpy as np
 import torch
 
 from ip_avsr_torch.ops import initializers as inits
+from ip_avsr_torch.ops.kernels.lstm import round_operand
+from ip_avsr_torch.ops.lstm import matmul_dtype_of
 from ip_avsr_torch.ops.nonlinearities import select_nonlinearity
 
 DEFAULT_NAMES = ("fc1", "fc2", "fc3", "bottleneck")
@@ -45,9 +52,19 @@ def pretrained_encoder_params(weights, biases, names=DEFAULT_NAMES) -> dict:
     return params
 
 
+def product(a: torch.Tensor, b: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
+    """``a @ b`` (a (N, K), b (K, M)), with bf16 operands and float32 sums
+    under a bf16 ``matmul_dtype``: the float32 product of the rounded
+    operands, exact per term, as JAX's ``jnp.dot(a.astype(bf16),
+    b.astype(bf16), preferred_element_type=f32)``."""
+    mm = matmul_dtype_of(matmul_dtype)
+    return torch.matmul(round_operand(a, mm), round_operand(b, mm))
+
+
 def encoder_forward(params: dict, x: torch.Tensor, nonlinearities: Sequence,
-                    names=None) -> torch.Tensor:
-    """Apply the dense stack to (..., D) inputs."""
+                    names=None, matmul_dtype=None) -> torch.Tensor:
+    """Apply the dense stack to (..., D) inputs; ``matmul_dtype`` None,
+    float32 or bfloat16 (ip_avsr_tpu/models/encoder.py:66-73)."""
     names = names or sorted(params.keys(), key=_layer_sort_key)
     if len(nonlinearities) != len(names):
         raise ValueError(
@@ -56,7 +73,7 @@ def encoder_forward(params: dict, x: torch.Tensor, nonlinearities: Sequence,
     out = x
     for name, nl in zip(names, nonlinearities):
         out = select_nonlinearity(nl)(
-            torch.matmul(out, params[name]["w"]) + params[name]["b"])
+            product(out, params[name]["w"], matmul_dtype) + params[name]["b"])
     return out
 
 

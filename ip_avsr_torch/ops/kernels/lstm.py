@@ -36,6 +36,15 @@ Functions of ``ops/lstm.py``, which no exported program reaches, and stay
 plain Python functions.  All sequence tensors are batch-major (B, T, .), the
 port's layout, where the JAX package keeps the training residuals time-major
 (T, B, .).
+
+Every kernel has two instantiations by W_hid's dtype, as each Pallas body is
+generic over it: float32, and bfloat16 for ``matmul_dtype="bfloat16"`` (and
+a bf16-weight artifact's recurrences), where W_hid sits in shared memory as
+bf16, the product's other operand (h_{t-1}, or the clipped dgates in the
+backward chains) is rounded to bf16 as it is read, and the product sums in
+float32.  Every other tensor, and every output, stays float32.  A wrapper
+counts a launch of its float32 instantiation in ``.launches`` and of its
+bf16 one in ``.launches_bf16``.
 """
 
 from __future__ import annotations
@@ -49,14 +58,40 @@ import torch
 from ip_avsr_torch.ops.kernels import _build
 
 
-def _plain_step(x_proj_t, w_hid, m, cell, hid, peep=None):
+# the dtypes W_hid may have: float32, or bfloat16 for the kernels' bf16
+# instantiations (``matmul_dtype="bfloat16"``, a bf16-weight artifact)
+W_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def round_operand(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` (float32) as the operand of a product whose other operand has
+    ``dtype``: rounded to bfloat16 and widened back for a bfloat16 product,
+    else ``x`` itself.  A bf16 x bf16 product is exact in float32, so a
+    float32 product of rounded operands, summed in float32, is the bf16
+    product with float32 accumulation that the JAX package computes
+    (``jnp.dot(a.astype(bf16), b, preferred_element_type=f32)``)."""
+    if dtype == torch.bfloat16:
+        return x.to(torch.bfloat16).to(torch.float32)
+    return x
+
+
+def _w_operand(w_hid: torch.Tensor) -> torch.Tensor:
+    """W_hid widened to float32 for the plain versions' products; raises
+    ``TypeError`` for a dtype the kernels have no instantiation of."""
+    if w_hid.dtype not in W_DTYPES:
+        raise TypeError(f"w_hid must be one of {W_DTYPES}, got {w_hid.dtype}")
+    return w_hid.to(torch.float32)
+
+
+def _plain_step(x_proj_t, w_hid, m, cell, hid, peep=None, w_dtype=torch.float32):
     """One masked step: returns the new (hid, cell) and the pre-activation
     gates (B, 4H), before any peephole term.  Where ``m`` (B, 1) is 0 both
     states carry over.  ``peep`` is None or the (H,) vectors (w_ci, w_cf,
     w_co): c_{t-1} feeds the in and forget gates, the new cell the out
-    gate."""
+    gate.  ``w_hid`` is float32 (widened); with ``w_dtype`` bfloat16 the
+    product's operand h_{t-1} is rounded to bf16, the carry is not."""
     H = w_hid.shape[0]
-    gates = x_proj_t + hid @ w_hid
+    gates = x_proj_t + round_operand(hid, w_dtype) @ w_hid
     z_i, z_f, z_c, z_o = gates[:, :H], gates[:, H: 2 * H], gates[:, 2 * H: 3 * H], gates[:, 3 * H:]
     if peep is not None:
         z_i = z_i + cell * peep[0]
@@ -73,11 +108,15 @@ def _plain_step(x_proj_t, w_hid, m, cell, hid, peep=None):
 
 
 def _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, peep):
-    """All T steps: (hids, post-mask cells, gates) stacked batch-major."""
+    """All T steps: (hids, post-mask cells, gates) stacked batch-major.
+    W_hid is float32 or bfloat16 (then h_{t-1} is rounded to bf16 before
+    each product, and the product accumulates in float32)."""
+    w_dtype, w = w_hid.dtype, _w_operand(w_hid)
     cell, hid = cell0, hid0
     hids, cells, gates_all = [], [], []
     for t in range(x_proj.shape[1]):
-        hid, cell, gates = _plain_step(x_proj[:, t], w_hid, mask[:, t: t + 1], cell, hid, peep)
+        hid, cell, gates = _plain_step(x_proj[:, t], w, mask[:, t: t + 1], cell, hid, peep,
+                                       w_dtype)
         hids.append(hid)
         cells.append(cell)
         gates_all.append(gates)
@@ -90,7 +129,11 @@ def lstm_recurrence_plain(x_proj, w_hid, mask, cell0, hid0):
 
     x_proj (B, T, 4H) (input projection plus bias), w_hid (H, 4H), mask
     (B, T), cell0/hid0 (B, H) -> hids (B, T, H).  Masked steps carry both
-    the cell and the hidden state (Lasagne semantics)."""
+    the cell and the hidden state (Lasagne semantics).  Every tensor is
+    float32 except w_hid, which may be bfloat16: then h_{t-1} is rounded to
+    bf16 as the product's operand and the product sums in float32, as
+    ``_lstm_fwd_kernel`` does with a bf16 W_hid; the carries and outputs
+    stay float32."""
     return _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, None)[0]
 
 
@@ -142,6 +185,7 @@ def _bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip, pee
     """The reverse-time chain; with ``peep`` (w_ci, w_cf, w_co) also the
     peephole routes and the (B, H) per-row partial sums of their gradients."""
     B, T, H = cells.shape
+    w_dtype, w_hid = w_hid.dtype, _w_operand(w_hid)
     dcell = torch.zeros((B, H), dtype=cells.dtype, device=cells.device)
     dhid = torch.zeros_like(dcell)
     dw = [torch.zeros_like(dcell) for _ in range(3)] if peep is not None else None
@@ -174,7 +218,9 @@ def _bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip, pee
                            dim=-1)
         if clip:
             dgates = torch.clamp(dgates, -clip, clip)
-        dhid = dgates @ w_hid.T + (1.0 - m) * dhid_total
+        # the clipped dgates as the product's operand (bf16-rounded with a
+        # bf16 W_hid); the stored dgates stay unrounded
+        dhid = round_operand(dgates, w_dtype) @ w_hid.T + (1.0 - m) * dhid_total
         dcell_prev = dcell_cand * f + (1.0 - m) * dcell
         if peep is not None:
             # the peephole routes take the cotangents before the clip
@@ -195,7 +241,9 @@ def lstm_bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip)
     layer); w_hid (H, 4H).  Returns ``(dgates (B, T, 4H), dcell0 (B, H),
     dhid0 (B, H))``.  dgates are clipped to +-``clip`` after the gate
     backward and before the W_hid^T product, and not clipped when ``clip``
-    is 0 (ip_avsr_tpu/ops/lstm.py::_lstm_core_bwd, back_step)."""
+    is 0 (ip_avsr_tpu/ops/lstm.py::_lstm_core_bwd, back_step).  With a
+    bfloat16 w_hid the clipped dgates are rounded to bf16 as the product's
+    operand (``_lstm_bwd_kernel``); the dgates returned are not rounded."""
     return _bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip, None)[:3]
 
 
@@ -217,7 +265,8 @@ def lstm_peep_bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid,
 @functools.cache
 def _lib():
     lib = _build.load("lstm_fwd")
-    chain_tail = [ctypes.c_int] * 4 + [ctypes.c_size_t, ctypes.c_void_p]
+    # w_bf16, B, T, H, units, smem, stream
+    chain_tail = [ctypes.c_int] * 5 + [ctypes.c_size_t, ctypes.c_void_p]
     lib.lstm_fwd_forward.argtypes = [ctypes.c_void_p] * 7 + chain_tail
     lib.lstm_fwd_forward.restype = ctypes.c_int
     lib.lstm_fwd_train_forward.argtypes = [ctypes.c_void_p] * 8 + chain_tail
@@ -251,12 +300,12 @@ CHAIN_UNITS = (1, 2, 4, 8)
 _RED_BYTES = 8 * 32 * 4
 
 
-def _chain_plan(name, B, H, sm_count, units, chunks, row_floats, carry_floats) -> ChainPlan:
+def _chain_plan(name, B, H, sm_count, units, chunks, row_bytes, carry_floats) -> ChainPlan:
     """The cooperative launch needs every block resident at once, one block
     per SM, so ``units`` is the smallest of :data:`CHAIN_UNITS` whose grid
     ``ceil(H / units)`` fits ``sm_count`` (or the one given, which must
-    fit).  A block keeps its ``units`` units' W_hid (``row_floats(units)``
-    floats per element of H) and ``carry_floats`` per row and unit in shared
+    fit).  A block keeps its ``units`` units' W_hid (``row_bytes(units)``
+    bytes per element of H) and ``carry_floats`` per row and unit in shared
     memory, beside the 1 KB of partial sums.  Rows are independent, so B
     runs in the fewest near-equal chunks whose carries fit beside W_hid (or
     in ``chunks``, for measurement, which must be at least that many and at
@@ -271,7 +320,7 @@ def _chain_plan(name, B, H, sm_count, units, chunks, row_floats, carry_floats) -
     if units not in CHAIN_UNITS or grid > sm_count:
         raise ValueError(f"{name}: {units} units per block at H={H} is not one of "
                          f"{CHAIN_UNITS} with a grid of at most {sm_count} blocks")
-    fixed = 4 * row_floats(units) * H + _RED_BYTES
+    fixed = row_bytes(units) * H + _RED_BYTES
     per_row = 4 * carry_floats * units
     cap = (_build.SMEM_LIMIT - fixed) // per_row
     if cap < 1:
@@ -288,31 +337,50 @@ def _chain_plan(name, B, H, sm_count, units, chunks, row_floats, carry_floats) -
     return ChainPlan(units, grid, fixed + per_row * rows, H - (grid - 1) * units, rows, chunks)
 
 
-def fwd_launch_plan(B: int, H: int, sm_count: int, units=None, chunks=None) -> ChainPlan:
+def fwd_launch_plan(B: int, H: int, sm_count: int, units=None, chunks=None,
+                    w_dtype=torch.float32) -> ChainPlan:
     """Units per block, grid, shared memory and row chunks of the recurrence
-    (all four instantiations) at batch ``B`` and width ``H`` on a card with
-    ``sm_count`` SMs: the block's 4 * units columns of W_hid as rows of
-    :func:`fwd_row_floats` floats, and two carries per row and unit (cell
-    and hidden state); see :func:`_chain_plan`."""
-    return _chain_plan("recurrence", B, H, sm_count, units, chunks, fwd_row_floats,
-                       carry_floats=2)
+    (all four instantiations, with W_hid of ``w_dtype``) at batch ``B`` and
+    width ``H`` on a card with ``sm_count`` SMs: the block's 4 * units
+    columns of W_hid as rows of :func:`fwd_row_bytes` bytes, and two carries
+    per row and unit (cell and hidden state); see :func:`_chain_plan`.  A
+    bf16 W_hid halves the block's weights, so one launch holds more rows:
+    6482 at H = 500 where float32 holds 5982."""
+    return _chain_plan("recurrence", B, H, sm_count, units, chunks,
+                       lambda u: fwd_row_bytes(u, w_dtype), carry_floats=2)
 
 
 def fwd_row_floats(units: int) -> int:
-    """Floats per k row of a recurrence block's W_hid columns in shared
-    memory: 4 * units, padded by 4 above one unit so that neighbouring rows'
-    float4 reads hit distinct banks (csrc/lstm_fwd.cu::padded_columns)."""
+    """Floats per k row of a float32 recurrence block's W_hid columns in
+    shared memory: 4 * units, padded by 4 above one unit so that
+    neighbouring rows' float4 reads hit distinct banks
+    (csrc/lstm_fwd.cu::padded_columns)."""
     return 4 if units == 1 else 4 * units + 4
 
 
-def bwd_launch_plan(B: int, H: int, sm_count: int, units=None, chunks=None) -> ChainPlan:
+def fwd_row_bytes(units: int, w_dtype=torch.float32) -> int:
+    """Bytes per k row of a recurrence block's W_hid columns in shared
+    memory.  float32: :func:`fwd_row_floats` floats.  bfloat16: 4 * units
+    values (8 or 16 bytes, one 8- or 16-byte read per row at 1 and 2 units),
+    padded by 8 values at 4 and 8 units so that a row is an odd number of
+    16-byte words and the 8 lanes of a 16-byte read phase hit distinct banks
+    (csrc/lstm_fwd.cu::padded_columns)."""
+    if w_dtype == torch.bfloat16:
+        return 2 * (4 * units if units <= 2 else 4 * units + 8)
+    return 4 * fwd_row_floats(units)
+
+
+def bwd_launch_plan(B: int, H: int, sm_count: int, units=None, chunks=None,
+                    w_dtype=torch.float32) -> ChainPlan:
     """Units per block, grid, shared memory and row chunks of the backward
     chain at batch ``B`` and width ``H`` on a card with ``sm_count`` SMs:
-    the block's units rows of W_hid and six carries per row and unit
-    (dh_next, dc, the pass-through and three peephole partials); see
-    :func:`_chain_plan`."""
-    return _chain_plan("backward chain", B, H, sm_count, units, chunks, lambda u: 4 * u,
-                       carry_floats=6)
+    the block's units rows of W_hid (4H values of ``w_dtype`` each) and six
+    carries per row and unit (dh_next, dc, the pass-through and three
+    peephole partials); see :func:`_chain_plan`.  A bf16 W_hid raises one
+    launch's rows at H = 500 from 2077 to 2244."""
+    size = torch.finfo(w_dtype).bits // 8
+    return _chain_plan("backward chain", B, H, sm_count, units, chunks,
+                       lambda u: 4 * size * u, carry_floats=6)
 
 
 def chunk_spans(B: int, chunks: int) -> list:
@@ -338,7 +406,8 @@ def _sm_count(index: int) -> int:
 @functools.cache
 def _bwd_lib():
     lib = _build.load("lstm_bwd")
-    tail = [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_size_t, ctypes.c_void_p]
+    # clip, w_bf16, B, T, H, units, smem, stream
+    tail = [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_size_t, ctypes.c_void_p]
     lib.lstm_bwd_chain.argtypes = [ctypes.c_void_p] * 9 + tail
     lib.lstm_bwd_chain.restype = ctypes.c_int
     lib.lstm_bwd_peep_chain.argtypes = [ctypes.c_void_p] * 13 + tail
@@ -346,15 +415,22 @@ def _bwd_lib():
     return lib
 
 
-def _check_cuda(name, args, shapes):
-    """Raise unless ``args`` are contiguous float32 tensors on one CUDA
-    device with the ``shapes`` given (name -> (tensor, shape))."""
+def _check_cuda(name, args, shapes, w_hid=None):
+    """Raise unless ``args`` are contiguous tensors on one CUDA device with
+    the ``shapes`` given (name -> (tensor, shape)), all float32 but
+    ``w_hid`` (one of ``args``), which may also be bfloat16 (the kernels'
+    bf16 instantiations).  The dtypes are checked first, so any other W_hid
+    dtype, or a bf16 tensor anywhere else, raises ``TypeError`` wherever the
+    tensors lie."""
+    if w_hid is not None and w_hid.dtype not in W_DTYPES:
+        raise TypeError(f"{name} kernel takes a w_hid of {W_DTYPES}, got {w_hid.dtype}")
+    if any(a.dtype != torch.float32 for a in args if a is not w_hid):
+        raise TypeError(f"{name} kernel takes float32 inputs besides w_hid, got "
+                        f"{[a.dtype for a in args]}")
     dev = args[0].device
     if any(a.device != dev for a in args) or dev.type != "cuda":
         raise ValueError(f"{name}: inputs must all be on one CUDA device (or all "
                          f"on the CPU), got {[str(a.device) for a in args]}")
-    if any(a.dtype != torch.float32 for a in args):
-        raise TypeError(f"{name} kernel takes float32 inputs, got {[a.dtype for a in args]}")
     if any(0 in a.shape for a in args):
         raise ValueError(f"{name}: empty input {[tuple(a.shape) for a in args]}")
     for arg, (a, shape) in shapes.items():
@@ -389,9 +465,9 @@ def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, sta
     _check_cuda(name, (*args, *peep), {
         "x_proj": (x_proj, (B, T, 4 * H)), "w_hid": (w_hid, (H, 4 * H)),
         "mask": (mask, (B, T)), "cell0": (cell0, (B, H)), "hid0": (hid0, (B, H)),
-        **_peep_shapes(peep, H)})
+        **_peep_shapes(peep, H)}, w_hid)
     dev = x_proj.device
-    plan = fwd_launch_plan(B, H, _sm_count(dev.index), units, chunks)
+    plan = fwd_launch_plan(B, H, _sm_count(dev.index), units, chunks, w_hid.dtype)
     shapes = ([(B, T, H), (B, T, H), (B, T, 4 * H)] if train
               else [(B, T, H), (B, H)] if state else [(B, T, H)])
     if outs is None:
@@ -400,21 +476,23 @@ def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, sta
         raise ValueError(f"{name}: expected {len(shapes)} output tensors, got {len(outs)}")
     else:
         _check_cuda(name, (*args, *outs), {f"out {i}": (o, s)
-                                           for i, (o, s) in enumerate(zip(outs, shapes))})
+                                           for i, (o, s) in enumerate(zip(outs, shapes))},
+                    w_hid)
     lib = _lib()
     if peep:
         entry = lib.lstm_fwd_peep_train_forward if train else lib.lstm_fwd_peep_forward
     else:
         entry = lib.lstm_fwd_train_forward if train else lib.lstm_fwd_forward
     stream = torch.cuda.current_stream(dev).cuda_stream
+    w_bf16 = int(w_hid.dtype == torch.bfloat16)
 
     def launch(x_c, mask_c, cell0_c, hid0_c, *outs_c):
         ptrs = [o.data_ptr() for o in outs_c]
         if not (train or state):
             ptrs.append(None)  # no cell_last
         code = entry(x_c.data_ptr(), w_hid.data_ptr(), mask_c.data_ptr(), cell0_c.data_ptr(),
-                     hid0_c.data_ptr(), *ptrs, *(v.data_ptr() for v in peep), x_c.shape[0], T,
-                     H, plan.units, plan.smem_bytes, stream)
+                     hid0_c.data_ptr(), *ptrs, *(v.data_ptr() for v in peep), w_bf16,
+                     x_c.shape[0], T, H, plan.units, plan.smem_bytes, stream)
         _build.check(lib, "lstm_fwd", code)
 
     map_chunks(launch, plan.chunks, x_proj, mask, cell0, hid0, *outs)
@@ -423,6 +501,16 @@ def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, sta
 
 def _on_cpu(args) -> bool:
     return all(a.device.type == "cpu" for a in args)
+
+
+def _count(counter, w_hid) -> None:
+    """One launch of ``counter``'s row: its float32 instantiation counts in
+    ``counter.launches``, its bf16 one (a bf16 W_hid) in
+    ``counter.launches_bf16``."""
+    if w_hid.dtype == torch.bfloat16:
+        counter.launches_bf16 += 1
+    else:
+        counter.launches += 1
 
 
 _OP_ARGS = "Tensor x_proj, Tensor w_hid, Tensor mask, Tensor cell0, Tensor hid0"
@@ -434,8 +522,9 @@ _LIB = torch.library.Library("ip_avsr", "FRAGMENT")
 def _recurrence_op(name, plain, counter, peep, state):
     """Register the inference recurrence ``ip_avsr::<name>`` as an operator
     that ``torch.export`` records as one opaque node: ``plain`` on the CPU,
-    :func:`_run_fwd`'s launch on CUDA (counted in ``counter.launches`` when
-    it runs, so a run of an exported program counts as a live call does),
+    :func:`_run_fwd`'s launch on CUDA (counted in ``counter.launches``, or
+    ``counter.launches_bf16`` for a bf16 W_hid, when it runs, so a run of an
+    exported program counts as a live call does),
     and a fake that gives the output shapes only.  The launch plan is made
     inside the CUDA implementation from the concrete B, so a symbolic batch
     axis needs no gate.  The schema has no alias annotations: the outputs
@@ -446,7 +535,7 @@ def _recurrence_op(name, plain, counter, peep, state):
     def _cuda(x_proj, w_hid, mask, cell0, hid0, *peep_args):
         out = _run_fwd(name, (x_proj, w_hid, mask, cell0, hid0), train=False, peep=peep_args,
                        state=state)
-        counter.launches += 1
+        _count(counter, w_hid)
         return out
 
     def _fake(x_proj, w_hid, *_):
@@ -461,7 +550,8 @@ def _recurrence_op(name, plain, counter, peep, state):
 
 def lstm_recurrence(x_proj, w_hid, mask, cell0, hid0):
     """The masked recurrence: (B, T, 4H), (H, 4H), (B, T), (B, H), (B, H) ->
-    (B, T, H), all float32; the operator ``ip_avsr::lstm_recurrence``.
+    (B, T, H), float32 (w_hid float32 or bfloat16); the operator
+    ``ip_avsr::lstm_recurrence``.
 
     CPU tensors take :func:`lstm_recurrence_plain`; CUDA tensors launch the
     kernel (one cooperative launch per row chunk, the call counted once in
@@ -470,6 +560,7 @@ def lstm_recurrence(x_proj, w_hid, mask, cell0, hid0):
 
 
 lstm_recurrence.launches = 0
+lstm_recurrence.launches_bf16 = 0
 
 
 def lstm_recurrence_state(x_proj, w_hid, mask, cell0, hid0):
@@ -497,16 +588,18 @@ def lstm_recurrence_train(x_proj, w_hid, mask, cell0, hid0):
     if _on_cpu(args):
         return lstm_recurrence_train_plain(*args)
     out = _run_fwd("lstm_recurrence_train", args, train=True)
-    lstm_recurrence_train.launches += 1
+    _count(lstm_recurrence_train, w_hid)
     return out
 
 
 lstm_recurrence_train.launches = 0
+lstm_recurrence_train.launches_bf16 = 0
 
 
 def lstm_peep_recurrence(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
     """The peephole recurrence: inputs as :func:`lstm_recurrence` plus the
-    (H,) peephole vectors; returns (B, T, H), all float32; the operator
+    (H,) peephole vectors; returns (B, T, H), float32 (w_hid float32 or
+    bfloat16); the operator
     ``ip_avsr::lstm_peep_recurrence``.
 
     CPU tensors take :func:`lstm_peep_recurrence_plain`; CUDA tensors launch
@@ -518,6 +611,7 @@ def lstm_peep_recurrence(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
 
 
 lstm_peep_recurrence.launches = 0
+lstm_peep_recurrence.launches_bf16 = 0
 
 
 def lstm_peep_recurrence_state(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
@@ -558,11 +652,12 @@ def lstm_peep_recurrence_train(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_c
     if _on_cpu((*args, *peep)):
         return lstm_peep_recurrence_train_plain(*args, *peep)
     out = _run_fwd("lstm_peep_recurrence_train", args, train=True, peep=peep)
-    lstm_peep_recurrence_train.launches += 1
+    _count(lstm_peep_recurrence_train, w_hid)
     return out
 
 
 lstm_peep_recurrence_train.launches = 0
+lstm_peep_recurrence_train.launches_bf16 = 0
 
 
 def _run_bwd(name, args, clip, peep=(), units=None, chunks=None):
@@ -579,18 +674,19 @@ def _run_bwd(name, args, clip, peep=(), units=None, chunks=None):
     _check_cuda(name, (*args, *peep), {
         "g_out": (g_out, (B, T, H)), "gates_pre": (gates_pre, (B, T, 4 * H)),
         "cells_prev": (cells_prev, (B, T, H)), "mask": (mask, (B, T)),
-        "w_hid": (w_hid, (H, 4 * H)), **_peep_shapes(peep, H)})
+        "w_hid": (w_hid, (H, 4 * H)), **_peep_shapes(peep, H)}, w_hid)
     dev = cells.device
-    plan = bwd_launch_plan(B, H, _sm_count(dev.index), units, chunks)
+    plan = bwd_launch_plan(B, H, _sm_count(dev.index), units, chunks, w_hid.dtype)
     lib = _bwd_lib()
     dgates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
     dcell0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dhid0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    w_bf16 = int(w_hid.dtype == torch.bfloat16)
 
     def launch(*views):
         ptrs = [a.data_ptr() for a in views]
-        tail = (clip, views[0].shape[0], T, H, plan.units, plan.smem_bytes, stream)
+        tail = (clip, w_bf16, views[0].shape[0], T, H, plan.units, plan.smem_bytes, stream)
         if peep:
             dw = torch.empty((3, H), dtype=torch.float32, device=dev)
             code = lib.lstm_bwd_peep_chain(*ptrs[:5], w_hid.data_ptr(),
@@ -621,7 +717,8 @@ def _check_clip(name, clip) -> float:
 
 def lstm_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip):
     """The reverse-time backward chain: inputs and outputs as
-    :func:`lstm_bwd_chain_plain`, all float32, ``clip >= 0``.
+    :func:`lstm_bwd_chain_plain`, float32 (w_hid float32 or bfloat16),
+    ``clip >= 0``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (one
     cooperative launch per row chunk, the call counted once in
@@ -631,17 +728,19 @@ def lstm_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip):
     if _on_cpu(args):
         return lstm_bwd_chain_plain(*args, clip)
     out = _run_bwd("lstm_bwd_chain", args, clip)
-    lstm_bwd_chain.launches += 1
+    _count(lstm_bwd_chain, w_hid)
     return out
 
 
 lstm_bwd_chain.launches = 0
+lstm_bwd_chain.launches_bf16 = 0
 
 
 def lstm_peep_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, w_ci, w_cf, w_co,
                         clip):
     """The peephole backward chain: inputs and outputs as
-    :func:`lstm_peep_bwd_chain_plain`, all float32, ``clip >= 0``.
+    :func:`lstm_peep_bwd_chain_plain`, float32 (w_hid float32 or
+    bfloat16), ``clip >= 0``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
     peephole instantiation (one cooperative launch per row chunk, which also
@@ -653,8 +752,9 @@ def lstm_peep_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, w_ci, 
     if _on_cpu((*args, *peep)):
         return lstm_peep_bwd_chain_plain(*args, *peep, clip)
     out = _run_bwd("lstm_peep_bwd_chain", args, clip, peep)
-    lstm_peep_bwd_chain.launches += 1
+    _count(lstm_peep_bwd_chain, w_hid)
     return out
 
 
 lstm_peep_bwd_chain.launches = 0
+lstm_peep_bwd_chain.launches_bf16 = 0

@@ -43,6 +43,13 @@ before the chain; with ``residual_dtype`` the stacks are cast after the
 kernel has written float32.  The grouped forward runs its members one after
 another, so a group of G costs G launches of the same rows.
 
+Under ``matmul_dtype="bfloat16"`` every product takes bf16-rounded operands
+and sums in float32, as the JAX package's ``matmul_dtype`` does: the input
+projection and the batched gradients as float32 ``torch.matmul`` of rounded
+operands (a bf16 x bf16 product is exact in float32, so this is the bf16
+product with float32 accumulation), the recurrences and chains through the
+kernels' bf16 instantiations, which take W_hid as bf16.
+
 A streaming caller passes a per-row ``initial_state`` (cell, hid) and asks
 for the final one with ``return_state``.  Without a gradient the
 recurrence then runs ``lstm_recurrence_state`` (the same kernel, which also
@@ -61,7 +68,8 @@ from ip_avsr_torch.ops import initializers as inits
 from ip_avsr_torch.ops.kernels.lstm import (lstm_bwd_chain, lstm_peep_bwd_chain,
                                             lstm_peep_recurrence, lstm_peep_recurrence_state,
                                             lstm_peep_recurrence_train, lstm_recurrence,
-                                            lstm_recurrence_state, lstm_recurrence_train)
+                                            lstm_recurrence_state, lstm_recurrence_train,
+                                            round_operand)
 
 _PEEPHOLE_KEYS = ("w_cell_to_ingate", "w_cell_to_forgetgate", "w_cell_to_outgate")
 
@@ -100,38 +108,70 @@ def lstm_params_hidden_size(params) -> int:
     return params["w_hid"].shape[0]
 
 
-def _prep(w_in, b, cell_init, hid_init, x, mask, backwards):
+def matmul_dtype_of(matmul_dtype) -> Optional[torch.dtype]:
+    """The products' operand dtype: None (float32 operands) for None and
+    float32, ``torch.bfloat16`` for bfloat16 (a name or a torch dtype);
+    ``ValueError`` for any other, which no kernel instantiation takes."""
+    if matmul_dtype is None:
+        return None
+    dtype = matmul_dtype if isinstance(matmul_dtype, torch.dtype) else getattr(
+        torch, str(matmul_dtype), None)
+    if dtype == torch.float32:
+        return None
+    if dtype != torch.bfloat16:
+        raise ValueError(f"matmul_dtype must be None, float32 or bfloat16, got "
+                         f"{matmul_dtype!r}")
+    return dtype
+
+
+def _w_mm(w_hid, mm):
+    """W_hid as the recurrence kernels take it: bf16 under a bf16
+    ``matmul_dtype`` (a bf16 W_hid, as a bf16-weight artifact holds it,
+    stays bf16 either way), contiguous."""
+    return (w_hid.to(mm) if mm is not None else w_hid).contiguous()
+
+
+def _prep(w_in, b, cell_init, hid_init, x, mask, backwards, mm=None):
     """The prologue of ip_avsr_tpu/ops/lstm.py::_lstm_prep: time flip, the
     hoisted input projection plus bias, initial states broadcast from (1, H)
     (or taken as they are when (B, H)).  Returns (x, mask, x_proj, cell0,
-    hid0) with x and mask flipped when ``backwards``."""
+    hid0) with x and mask flipped when ``backwards``.  With ``mm`` bfloat16
+    the projection's operands x and W_in are rounded to bf16 and the
+    product sums in float32 (x_proj stays float32)."""
     B, T, D = x.shape
     H = cell_init.shape[-1]
     if backwards:
         x = torch.flip(x, dims=(1,))
         mask = torch.flip(mask, dims=(1,))
-    x_proj = torch.matmul(x.reshape(B * T, D), w_in).reshape(B, T, 4 * H) + b
+    x_proj = torch.matmul(round_operand(x, mm).reshape(B * T, D),
+                          round_operand(w_in, mm)).reshape(B, T, 4 * H) + b
     cell0 = cell_init.expand(B, H).contiguous()
     hid0 = hid_init.expand(B, H).contiguous()
     return x.contiguous(), mask.contiguous(), x_proj, cell0, hid0
 
 
-def _batched_grads(need, w_in, x, hids, hid0, dgates, dcell0, dhid0, backwards, per_row):
+def _batched_grads(need, w_in, x, hids, hid0, dgates, dcell0, dhid0, backwards, per_row,
+                   mm=None):
     """The weight and input gradients after a backward chain, as single
     products over all (B, T) rows: ``(dw_in, dw_hid, db, dcell_init,
     dhid_init, dx)``, each None where ``need`` (six booleans in that order)
     says it is not wanted.  The initial state's gradients are the chain's
     per row when ``per_row`` (a (B, H) state), else summed over the rows
-    (the learned (1, H) ``cell_init``/``hid_init``)."""
+    (the learned (1, H) ``cell_init``/``hid_init``).  With ``mm`` bfloat16
+    every product's operands are rounded to bf16 and the products sum in
+    float32, as ip_avsr_tpu/ops/lstm.py:559-568 computes dW_hid = bf16(
+    hids_prev)^T bf16(dg), dW_in = bf16(x)^T bf16(dg) and dx = bf16(dg)
+    bf16(W_in)^T; db stays the float32 sum of the unrounded dg."""
     B, T, H = hids.shape
     D = x.shape[-1]
     dg = dgates.reshape(B * T, 4 * H)
+    dg_mm = round_operand(dg, mm)
     dw_in = dw_hid = db = dcell_init = dhid_init = dx = None
     if need[0]:
-        dw_in = x.reshape(B * T, D).T @ dg
+        dw_in = round_operand(x.reshape(B * T, D), mm).T @ dg_mm
     if need[1]:
         hids_prev = torch.cat([hid0[:, None], hids[:, :-1]], dim=1)
-        dw_hid = hids_prev.reshape(B * T, H).T @ dg
+        dw_hid = round_operand(hids_prev.reshape(B * T, H), mm).T @ dg_mm
     if need[2]:
         db = dg.sum(dim=0)
     if need[3]:
@@ -139,7 +179,7 @@ def _batched_grads(need, w_in, x, hids, hid0, dgates, dcell0, dhid0, backwards, 
     if need[4]:
         dhid_init = dhid0 if per_row else dhid0.sum(dim=0, keepdim=True)
     if need[5]:
-        dx = (dg @ w_in.T).reshape(B, T, D)
+        dx = (dg_mm @ round_operand(w_in, mm).T).reshape(B, T, D)
         if backwards:
             dx = torch.flip(dx, dims=(1,))
     return dw_in, dw_hid, db, dcell_init, dhid_init, dx
@@ -204,34 +244,42 @@ def _load_residuals(ctx, x, w_in, w_hid, b, hid0, stacks):
     stacks upcast, and under ``remat`` the pre-activation gates rebuilt as
     ``x W_in + b + hids_prev W_hid`` with two products over all (B, T)
     rows, ``hids_prev`` being ``hid0`` then the stored (rounded) hids
-    shifted by one step."""
+    shifted by one step; under a bf16 ``ctx.mm`` both products take
+    bf16-rounded operands and sum in float32 (ip_avsr_tpu/ops/lstm.py:
+    497-503)."""
     stacks = tuple(t.to(torch.float32) for t in stacks)
     if not ctx.remat:
         return stacks
     hids, cells = stacks
     B, T, H = hids.shape
     D = x.shape[-1]
+    mm = ctx.mm
     hids_prev = torch.cat([hid0[:, None], hids[:, :-1]], dim=1)
-    xp = torch.matmul(x.reshape(B * T, D), w_in).reshape(B, T, 4 * H) + b
-    rec = torch.matmul(hids_prev.reshape(B * T, H), w_hid).reshape(B, T, 4 * H)
+    xp = torch.matmul(round_operand(x.reshape(B * T, D), mm),
+                      round_operand(w_in, mm)).reshape(B, T, 4 * H) + b
+    rec = torch.matmul(round_operand(hids_prev.reshape(B * T, H), mm),
+                       round_operand(w_hid, mm)).reshape(B, T, 4 * H)
     return hids, cells, xp + rec
 
 
 class _LSTMCore(torch.autograd.Function):
     """The training core: counterpart of ``_lstm_core_fwd`` /
     ``_lstm_core_bwd`` (ip_avsr_tpu/ops/lstm.py:375-588), non-peephole,
-    with their residual levers ``remat`` and ``residual_dtype``."""
+    with their residual levers ``remat`` and ``residual_dtype`` and the
+    products' operand dtype ``mm`` (None or bfloat16: the kernels then take
+    a bf16 W_hid, rows 3 and 4's bf16 instantiations)."""
 
     @staticmethod
     def forward(ctx, w_in, w_hid, b, cell_init, hid_init, x, mask, backwards, clip,
-                return_state, remat, residual_dtype):
-        w_hid = w_hid.contiguous()
+                return_state, remat, residual_dtype, mm):
+        w_hid = _w_mm(w_hid, mm)
         x, mask, x_proj, cell0, hid0 = _prep(w_in, b, cell_init, hid_init, x, mask,
-                                             backwards)
+                                             backwards, mm)
         hids, cells, gates_pre = lstm_recurrence_train(x_proj, w_hid, mask, cell0, hid0)
         stacks = _save_residuals(ctx, hids, cells, gates_pre, remat, residual_dtype)
         ctx.save_for_backward(w_in, w_hid, b, x, mask, cell0, hid0, *stacks)
         ctx.backwards, ctx.clip, ctx.per_row = backwards, clip, cell_init.shape[0] != 1
+        ctx.mm = mm
         return _outputs(ctx, hids, cells, return_state)
 
     @staticmethod
@@ -242,8 +290,8 @@ class _LSTMCore(torch.autograd.Function):
         dgates, dcell0, dhid0 = lstm_bwd_chain(*chain, w_hid, ctx.clip)
         grads = _batched_grads(ctx.needs_input_grad[:6], w_in, x, hids, hid0,
                                dgates[:, :hids.shape[1]], dcell0, dhid0, ctx.backwards,
-                               ctx.per_row)
-        return (*grads, None, None, None, None, None, None)
+                               ctx.per_row, ctx.mm)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 class _LSTMCorePeep(torch.autograd.Function):
@@ -256,16 +304,17 @@ class _LSTMCorePeep(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, w_in, w_hid, b, cell_init, hid_init, w_ci, w_cf, w_co, x, mask,
-                backwards, clip, return_state, remat, residual_dtype):
-        w_hid = w_hid.contiguous()
+                backwards, clip, return_state, remat, residual_dtype, mm):
+        w_hid = _w_mm(w_hid, mm)
         peep = tuple(v.contiguous() for v in (w_ci, w_cf, w_co))
         x, mask, x_proj, cell0, hid0 = _prep(w_in, b, cell_init, hid_init, x, mask,
-                                             backwards)
+                                             backwards, mm)
         hids, cells, gates_pre = lstm_peep_recurrence_train(x_proj, w_hid, mask, cell0, hid0,
                                                             *peep)
         stacks = _save_residuals(ctx, hids, cells, gates_pre, remat, residual_dtype)
         ctx.save_for_backward(w_in, w_hid, b, *peep, x, mask, cell0, hid0, *stacks)
         ctx.backwards, ctx.clip, ctx.per_row = backwards, clip, cell_init.shape[0] != 1
+        ctx.mm = mm
         return _outputs(ctx, hids, cells, return_state)
 
     @staticmethod
@@ -278,9 +327,9 @@ class _LSTMCorePeep(torch.autograd.Function):
         need = ctx.needs_input_grad
         dw_in, dw_hid, db, dcell_init, dhid_init, dx = _batched_grads(
             (*need[:5], need[8]), w_in, x, hids, hid0, dgates[:, :hids.shape[1]], dcell0,
-            dhid0, ctx.backwards, ctx.per_row)
+            dhid0, ctx.backwards, ctx.per_row, ctx.mm)
         return (dw_in, dw_hid, db, dcell_init, dhid_init, dw_ci, dw_cf, dw_co, dx,
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def _residual_dtype(residual_dtype) -> Optional[torch.dtype]:
@@ -300,7 +349,8 @@ def lstm_forward(params: dict, x: torch.Tensor,
                  initial_state=None,
                  return_state: bool = False,
                  remat: bool = False,
-                 residual_dtype=None):
+                 residual_dtype=None,
+                 matmul_dtype=None):
     """Run a masked LSTM over ``x`` (B, T, D); returns hidden states (B, T, H).
 
     Parameters with the three peephole vectors run the peephole recurrence.
@@ -326,7 +376,20 @@ def lstm_forward(params: dict, x: torch.Tensor,
     backward, which then computes from the rounded stacks.  Outputs and
     gradients stay float32, and neither lever changes inference.  As in
     the JAX package they do not combine with ``initial_state`` or
-    ``return_state`` (``ValueError``)."""
+    ``return_state`` (``ValueError``).
+
+    ``matmul_dtype`` ("bfloat16" or ``torch.bfloat16``; None or float32
+    change nothing) rounds every product's operands to bf16 and sums the
+    products in float32, as the JAX package's ``matmul_dtype`` does: the
+    input projection, the recurrence's h_{t-1} @ W_hid (the kernels' bf16
+    instantiations, W_hid passed as bf16), and in the backward the chain's
+    dgates @ W_hid^T and the batched weight and input gradients.  States,
+    gates, outputs, residuals and gradients stay float32.  A bf16
+    ``params["w_hid"]`` (a bf16-weight artifact) runs the bf16 recurrence
+    whatever ``matmul_dtype`` says, as the JAX package rounds h_{t-1} to
+    W_hid's dtype.  With a gradient through ``initial_state`` the port
+    runs the custom-VJP core, whose cotangents stay float32, where the JAX
+    package's plain-autodiff scan rounds them to bf16."""
     B, T, D = x.shape
     stateful = initial_state is not None or return_state
     if stateful and backwards:
@@ -336,6 +399,7 @@ def lstm_forward(params: dict, x: torch.Tensor,
         raise ValueError("remat / residual_dtype are training residual levers of the "
                          "stateless recurrence; initial_state/return_state take none")
     residual_dtype = _residual_dtype(residual_dtype)
+    mm = matmul_dtype_of(matmul_dtype)
     if mask is None:
         mask = torch.ones((B, T), dtype=torch.float32, device=x.device)
     mask = mask.to(torch.float32)
@@ -353,11 +417,11 @@ def lstm_forward(params: dict, x: torch.Tensor,
         core = _LSTMCorePeep if peep else _LSTMCore
         res = core.apply(*tensors, *peep, x, mask, bool(backwards),
                          float(grad_clipping or 0.0), bool(return_state), bool(remat),
-                         residual_dtype)
+                         residual_dtype, mm)
     else:
         _, mask, x_proj, cell0, hid0 = _prep(params["w_in"], params["b"], cell0, hid0, x,
-                                             mask, backwards)
-        w_hid = params["w_hid"].contiguous()
+                                             mask, backwards, mm)
+        w_hid = _w_mm(params["w_hid"], mm)
         peep = [v.contiguous() for v in peep]
         if return_state:
             state_fn = lstm_peep_recurrence_state if peep else lstm_recurrence_state
@@ -375,11 +439,11 @@ def lstm_forward(params: dict, x: torch.Tensor,
 
 def blstm_forward(fwd_params: dict, bwd_params: dict, x: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
-                  merge: str = "sum") -> torch.Tensor:
+                  merge: str = "sum", matmul_dtype=None) -> torch.Tensor:
     """Bidirectional LSTM; ``merge`` is "sum" (the reference default) or
-    "concat"."""
-    f = lstm_forward(fwd_params, x, mask, False)
-    b = lstm_forward(bwd_params, x, mask, True)
+    "concat"; ``matmul_dtype`` as :func:`lstm_forward`."""
+    f = lstm_forward(fwd_params, x, mask, False, matmul_dtype=matmul_dtype)
+    b = lstm_forward(bwd_params, x, mask, True, matmul_dtype=matmul_dtype)
     if merge == "sum":
         return f + b
     if merge == "concat":
@@ -399,20 +463,21 @@ def can_group_lstms(params_list) -> bool:
 
 
 def lstm_forward_grouped(params_list, xs, mask: Optional[torch.Tensor], backwards_flags,
-                         grad_clipping: float = 5.0) -> list:
+                         grad_clipping: float = 5.0, matmul_dtype=None) -> list:
     """G independent LSTMs over the same mask: the counterpart of the JAX
     package's ``lstm_forward_grouped``, whose grouped scan is numerically
     the separate recurrences.  The members run one after another through
     :func:`lstm_forward` (on the card one recurrence launch each, and one
     backward chain each under training); inputs may differ in width and
-    ``backwards_flags[g]`` flips member g in time.  Returns the (B, T, H)
-    outputs in input order."""
+    ``backwards_flags[g]`` flips member g in time; ``matmul_dtype`` as
+    :func:`lstm_forward` (the grouped core's products round the same
+    operands).  Returns the (B, T, H) outputs in input order."""
     if not len(params_list) == len(xs) == len(backwards_flags):
         raise ValueError(f"{len(params_list)} parameter sets, {len(xs)} inputs and "
                          f"{len(backwards_flags)} direction flags")
     if len(params_list) > 1 and not can_group_lstms(params_list):
         raise ValueError("grouped LSTMs need equal hidden sizes and peephole settings")
-    return [lstm_forward(p, x, mask, bool(bwd), grad_clipping)
+    return [lstm_forward(p, x, mask, bool(bwd), grad_clipping, matmul_dtype=matmul_dtype)
             for p, x, bwd in zip(params_list, xs, backwards_flags)]
 
 

@@ -33,27 +33,50 @@ from ip_avsr_torch.ops.dct import dct_feature_basis_np
 from ip_avsr_torch.ops.voting import majority_voting_layer_masked
 
 
+def _index_leaves(tree, leaves: list, recurrent: set, key=None):
+    """The skeleton of ``tree`` with each leaf replaced by its index in
+    ``leaves`` (appended in ``device.tree_map`` order); the indices of the
+    leaves stored under a ``"w_hid"`` key go into ``recurrent``."""
+    if isinstance(tree, dict):
+        return {k: _index_leaves(v, leaves, recurrent, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_index_leaves(v, leaves, recurrent) for v in tree)
+    leaves.append(tree)
+    if key == "w_hid":
+        recurrent.add(len(leaves) - 1)
+    return len(leaves) - 1
+
+
 class _ParamBuffers(torch.nn.Module):
     """A parameter tree held as buffers ``p0, p1, ...`` (leaves in
     ``device.tree_map`` order), so ``.to(device)`` moves it and
     ``torch.export`` records it as the program's state.  :meth:`tree`
-    gives the tree in float32: buffers stored narrower (an artifact's bf16
-    weights) are upcast before any op, so the kernels always see float32."""
+    gives the tree with every buffer stored narrower (an artifact's bf16
+    weights) upcast to float32 before any op, as the JAX package's products
+    promote a bf16 weight against float32 activations, except a bf16
+    recurrent matrix ``w_hid``: the LSTM kernels take it as it is, and
+    their bf16 instantiations round h_{t-1} to bf16 before the product, as
+    the JAX package's recurrence does with a bf16 ``w_hid``
+    (ip_avsr_tpu/ops/lstm.py:236-242)."""
 
     def __init__(self, params: dict):
         super().__init__()
         leaves = []
-        self._skeleton = tree_map(lambda t: leaves.append(t) or len(leaves) - 1, params)
+        self._recurrent = set()
+        self._skeleton = _index_leaves(params, leaves, self._recurrent)
         for i, t in enumerate(leaves):
             self.register_buffer(f"p{i}", t)
         self._tree = (None, None)
 
+    def _kept(self, i, t) -> bool:
+        return t.dtype == torch.float32 or (i in self._recurrent and t.dtype == torch.bfloat16)
+
     def tree(self) -> dict:
-        """The tree over the current buffers.  Where every buffer is float32
-        the tree holds the buffers themselves, and is built once for each
-        set of buffer objects (``.to()`` and the exporter's tracing swap
-        them) instead of on every call; an upcast tree is built anew each
-        call, so it never holds a stale copy."""
+        """The tree over the current buffers.  Where no buffer needs an
+        upcast the tree holds the buffers themselves, and is built once for
+        each set of buffer objects (``.to()`` and the exporter's tracing
+        swap them) instead of on every call; an upcast tree is built anew
+        each call, so it never holds a stale copy."""
         bufs = tuple(self._buffers.values())
         held, tree = self._tree
         if held is not None and len(held) == len(bufs) and all(
@@ -62,10 +85,10 @@ class _ParamBuffers(torch.nn.Module):
 
         def leaf(i):
             t = getattr(self, f"p{i}")
-            return t if t.dtype == torch.float32 else t.to(torch.float32)
+            return t if self._kept(i, t) else t.to(torch.float32)
 
         tree = tree_map(leaf, self._skeleton)
-        self._tree = ((bufs, tree) if all(b.dtype == torch.float32 for b in bufs)
+        self._tree = ((bufs, tree) if all(self._kept(i, b) for i, b in enumerate(bufs))
                       else (None, None))
         return tree
 
@@ -448,12 +471,15 @@ def _np_delta_fir(padded, window):
 class StreamPrep(torch.nn.Module):
     """A streaming session's prep of one stream as a module: ``forward(x)``
     maps (B, n, D) float32 to (B, n, E) through the stream's encoder (where
-    it has one) and then its batch norm in evaluation mode (where it has
-    one: ``bn`` holds ``{"bn": ..., "bn_state": ...}``), as the JAX
-    session's prep does; the parameters are buffers."""
+    it has one, its products with the model's ``matmul_dtype``) and then its
+    batch norm in evaluation mode (where it has one: ``bn`` holds ``{"bn":
+    ..., "bn_state": ...}``), as the JAX session's prep does; the parameters
+    are buffers."""
 
-    def __init__(self, encoder_params: Optional[dict], nonlinearities, bn: Optional[dict] = None):
+    def __init__(self, encoder_params: Optional[dict], nonlinearities, bn: Optional[dict] = None,
+                 matmul_dtype=None):
         super().__init__()
+        self.matmul_dtype = matmul_dtype
         self.nonlinearities = tuple(nonlinearities or ())
         self.params = _ParamBuffers({"encoder": encoder_params or {}, **(bn or {})})
         self.has_encoder, self.has_bn = bool(encoder_params), bn is not None
@@ -463,7 +489,8 @@ class StreamPrep(torch.nn.Module):
         p = self.params.tree()
         if self.has_encoder:
             x = encoder_mod.encoder_forward(p["encoder"], x.reshape(B * n, D),
-                                            self.nonlinearities).reshape(B, n, -1)
+                                            self.nonlinearities,
+                                            matmul_dtype=self.matmul_dtype).reshape(B, n, -1)
         if self.has_bn:
             x, _ = norm_ops.batch_norm_forward(p["bn"], p["bn_state"], x, train=False)
         return x
@@ -576,7 +603,7 @@ class StreamingSession:
             bn = ({"bn": sp["bn"], "bn_state": sp["bn_state"]} if spec.use_batchnorm
                   else None)
             preps.append(StreamPrep(sp.get("encoder"), spec.encoder_nonlinearities,
-                                    bn).to(device)
+                                    bn, config.matmul_dtype).to(device)
                          if spec.encoder_shapes or bn is not None else None)
         advance = StreamAdvance(params, config).to(device)
         # the modules, for the exporter; a stream with neither an encoder nor

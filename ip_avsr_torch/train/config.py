@@ -26,9 +26,8 @@ model config in both packages; :func:`build_model_config` is the one
 selection logic.  ``bucket_boundaries`` and ``grad_accum_steps`` reach the
 Trainer, which runs both; ``lstm_remat`` and ``lstm_residual_dtype`` reach
 every training recurrence of the model (``ops/lstm.lstm_forward``).
-``matmul_dtype`` is kept as a field of the model config, and building its
-parameters refuses it (``models/adenet.check_supported``, ROADMAP Queue 2
-item 4).
+``matmul_dtype`` reaches the model config, where "bfloat16" rounds every
+product's operands to bf16 with float32 sums (``models/adenet``).
 """
 
 from __future__ import annotations

@@ -1,18 +1,20 @@
 """The config values of the LSTM levers and the legacy INI schema.
 
-``lstm_remat`` and ``lstm_residual_dtype`` are ported: an INI's
-``[lstm_classifier]`` value reaches the model config through
-``train.config.build_model_config``, the model builds, and its training
-gradients equal the JAX package's for the same setting.  ``matmul_dtype``
-is still refused, naming ROADMAP Queue 2 item 4, by
-``models/adenet.check_supported`` and when its ``[training]`` value reaches
-``init_adenet_params``.  ``parse_legacy_config`` reads the trimodal CLI's
-[data]/[models]/[training] schema as the JAX package reads it.
+``lstm_remat``, ``lstm_residual_dtype`` and ``matmul_dtype`` are ported: an
+INI's ``[lstm_classifier]`` value (``[training]`` for ``matmul_dtype``, which
+the CLIs copy into the model config as the JAX CLIs do) reaches the model
+config, the model builds, and its training gradients equal the JAX
+package's for the same setting.  A ``matmul_dtype`` the kernels have no
+instantiation for is still refused, naming ROADMAP Queue 2 item 4, by
+``models/adenet.check_supported``.  ``parse_legacy_config`` reads the
+trimodal CLI's [data]/[models]/[training] schema as the JAX package reads
+it.
 """
 
 import dataclasses
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -41,16 +43,21 @@ def _ini_config(tmp_path, section, key, value):
 
 
 def _jax_ini_config(tmp_path, section, key, value):
-    """The same INI through the JAX package's build_model_config."""
+    """The same INI through the JAX package's build_model_config, its
+    ``[training] matmul_dtype`` applied as the JAX CLIs apply it
+    (ip_avsr_tpu/cli/nstream.py:252)."""
     cp = jconfig.load_config(str(tmp_path / "cfg.ini"))
-    return jconfig.build_model_config(jconfig.parse_streams(cp), jconfig.parse_classifier(cp))
+    cfg = jconfig.build_model_config(jconfig.parse_streams(cp), jconfig.parse_classifier(cp))
+    dtype = jconfig.parse_training(cp).matmul_dtype
+    return dataclasses.replace(cfg, matmul_dtype=dtype) if dtype else cfg
 
 
-def _grads_match_jax(jcfg, tcfg):
+def _grads_match_jax(jcfg, tcfg, tol=1e-5):
     """One training loss and gradient of both packages on the same
-    parameters and batch: loss 1e-5 relative, each gradient within 1e-5 of
-    its max abs (the levers' own tolerances: tests/test_torch_lstm_residuals
-    .py)."""
+    parameters and batch: loss 1e-5 relative, each gradient within ``tol``
+    of its max abs (the levers' own tolerances: tests/test_torch_lstm_
+    residuals.py, tests/test_torch_bf16_lstm.py).  Returns the port's
+    gradient leaves, JAX's, and the parameters and batch used."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -77,7 +84,8 @@ def _grads_match_jax(jcfg, tcfg):
     ref = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, jg))
     assert len(got) == len(ref)
     for g, r in zip(got, ref):
-        np.testing.assert_allclose(g, r, rtol=0, atol=1e-5 * max(np.abs(r).max(), 1e-3))
+        np.testing.assert_allclose(g, r, rtol=0, atol=tol * max(np.abs(r).max(), 1e-3))
+    return got, ref, (tp, streams, y, mask)
 
 
 @pytest.mark.parametrize("key,value,section,item", [
@@ -86,28 +94,34 @@ def _grads_match_jax(jcfg, tcfg):
     ("matmul_dtype", "bfloat16", "training", "Queue 2 item 4"),
 ])
 def test_unported_lstm_keys_raise(tmp_path, key, value, section, item):
-    """``matmul_dtype`` still raises naming its item; the two levers, which
-    ``item`` names as the ROADMAP item that brought them, now build from the
-    INI and train with JAX's gradients."""
+    """The three keys, which ``item`` names as the ROADMAP item that brought
+    each, build from the INI and train with JAX's gradients.  For
+    ``matmul_dtype = bfloat16`` the gradients are held at the bf16 LSTM
+    tests' 1e-5 of max abs (measured 2.3e-7 here), and the same parameters'
+    float32 gradients lie more than ten times that from JAX's bf16 ones;
+    a dtype with no kernel instantiation still raises naming the item."""
     direct = dataclasses.replace(tzoo.adenet_v3(16, 4, 16, lstm_size=4), **{key: value})
     cfg = _ini_config(tmp_path, section, key, value)
     assert getattr(cfg, key) == value  # the INI value reached the model config
-    if key == "matmul_dtype":
-        with pytest.raises(NotImplementedError, match=f"{key}.*{item}"):
-            tadenet.check_supported(direct)
-        with pytest.raises(NotImplementedError, match=f"{key}.*{item}"):
-            tadenet.init_adenet_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-        # with the key at its default the same file builds
-        default = tadenet.AdeNetConfig.__dataclass_fields__[key].default
-        tadenet.init_adenet_params(torch.Generator().manual_seed(0),
-                                   dataclasses.replace(cfg, **{key: default}), device="cpu")
-        return
-    assert item == "Queue 1 item 5"
+    assert item == ("Queue 2 item 4" if key == "matmul_dtype" else "Queue 1 item 5")
     tadenet.check_supported(direct)
     tadenet.init_adenet_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     jcfg = _jax_ini_config(tmp_path, section, key, value)
     assert getattr(jcfg, key) == value
-    _grads_match_jax(jcfg, cfg)
+    got, ref, (tp, streams, y, mask) = _grads_match_jax(jcfg, cfg)
+    if key != "matmul_dtype":
+        return
+    import jax
+    from ip_avsr_torch.train import trainer as ttr
+
+    f32 = ttr.loss_and_grads(tp, dataclasses.replace(cfg, matmul_dtype=None),
+                             [torch.from_numpy(x) for x in streams], torch.from_numpy(y).long(),
+                             torch.from_numpy(mask))[1]
+    f32 = jax.tree_util.tree_leaves(jax.tree_util.tree_map(lambda t: t.numpy(), f32))
+    gap = max(np.abs(f - r).max() / max(np.abs(r).max(), 1e-3) for f, r in zip(f32, ref))
+    assert gap > 10 * 1e-5, gap
+    with pytest.raises(NotImplementedError, match=f"{key}.*{item}"):
+        tadenet.check_supported(dataclasses.replace(direct, matmul_dtype="float16"))
 
 
 @pytest.mark.parametrize("ini", ["oulu_trimodal.ini", "oulu_4stream.ini"])
