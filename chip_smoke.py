@@ -218,12 +218,27 @@ Phases, each fatal on failure:
    counted; a bf16-model artifact and a bf16-weight artifact of the f32
    flagship against their live servers (5 row-1 bf16 launches per
    forward); no f32 LSTM launch on any of these paths;
-20. print the fit's numbers, the kernels line (each row's launches in the
+20. scale-out (``phase_scale``) in ranks spawned by
+   ``utils/cpu_mesh.RankPool`` (this process joins no group): one ``nccl``
+   rank steps the full-width flagship at B = 10 through ``Trainer`` with
+   use_mesh (gspmd, timed in interleaved turns against the plain step;
+   shard_map), zero1 and multihost, serves it through
+   ``make_server(mesh=)`` at B = 8 and steps the 4-stream model with
+   use_mesh; two ``gloo`` ranks sharing the card step the flagship
+   data-parallel at global B = 10 and adenet_v1 with batch-norm statistics
+   synced over the ranks; each step against the one-process card step
+   (the train tolerances; adenet_v1's gradients to BN_GRAD_TOL, which the
+   same two-rank step with each rank's own batch-norm statistics must
+   fail, beside its float64 step on the CPU that shows the float32 error
+   behind that limit) with the same launches, its collectives and bytes
+   printed;
+21. print the fit's numbers, the kernels line (each row's launches in the
    fits and per fit epoch, beside its serve or train path's count; rows 1
    and 5 also their launches in the streaming sessions and the state
    output's error; rows 1, 2 and 5 their launches through the artifacts;
    every row its launches through the CLIs' card runs, through phase_zoo,
-   through phase_residuals, through phase_pretrain and through phase_tools;
+   through phase_residuals, through phase_pretrain, through phase_tools
+   and through phase_scale's mesh runs (``scale_launches``, every rank);
    then the six bf16 rows, their launches on the bf16 serve and train
    paths, through the bf16 CLI run and the two artifacts), then ``{"ok":
    true, "device": ...}`` last.
@@ -897,24 +912,36 @@ def traced(fn, n):
     start and end 10 ms inside the trace: the trace's device clock can stand
     milliseconds off the host's, and a record that falls outside the trace
     is lost.  The schedule's own ``ProfilerStep*`` records (one on the host,
-    one on the card) are left out."""
+    one on the card) are left out.  A trace whose host side made
+    cooperative launches of which the card's side recorded none (the H100's
+    profiler has dropped all of them, in phase_lstm_state and phase_bf16)
+    is taken again, once; the callers' checks hold the trace that is
+    returned."""
     import torch
+    from torch.autograd import DeviceType
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    warm_up = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with torch.profiler.profile(activities=acts, schedule=warm_up) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        time.sleep(0.01)
-        for _ in range(n):
+    for attempt in range(2):
+        warm_up = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=warm_up) as prof:
             fn()
-        torch.cuda.synchronize()
-        time.sleep(0.01)
-        prof.step()
-    events = prof.key_averages()
-    events[:] = [e for e in events if not e.key.startswith("ProfilerStep")]
-    return events
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(0.01)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+            prof.step()
+        events = prof.key_averages()
+        events[:] = [e for e in events if not e.key.startswith("ProfilerStep")]
+        host = sum(e.count for e in events if e.key == "cudaLaunchCooperativeKernel")
+        chains = sum(e.count for e in events
+                     if e.device_type == DeviceType.CUDA and "_chain_kernel" in e.key)
+        if not (host and not chains) or attempt:
+            return events
+        print(f"traced: the card's side recorded none of the host's {host} cooperative "
+              f"launches; tracing again")
 
 
 def trace_chain(fn, label, row, steps, n=5, lost_ok=False):
@@ -2722,7 +2749,7 @@ def fit_forwards(result, epochsize):
 class FitClock:
     """Host times of a fit's parts on the card: batch assembly and its copy
     into pinned host memory (both on the prefetch thread), the copy of a
-    training batch to the card (``_device_batch``), the step's host time
+    training batch to the card (``_to_device``), the step's host time
     (``train_step``, which returns before the card finishes) and the start
     of each copy, and the time of each log line (one per epoch)."""
 
@@ -2731,8 +2758,8 @@ class FitClock:
 
         self.assembly, self.pin, self.copy, self.step, self.starts, self.logs = (
             [], [], [], [], [], [])
-        batches, host_batch, device_batch, train_step = (
-            trainer._infinite_batches, trainer._host_batch, trainer._device_batch,
+        batches, host_batch, to_device, train_step = (
+            trainer._infinite_batches, trainer._host_batch, trainer._to_device,
             trainer.train_step)
 
         def timed_batches(*args):
@@ -2750,10 +2777,10 @@ class FitClock:
                 self.pin.append(time.perf_counter() - t0)
             return out
 
-        def timed_copy(streams, y, mask):
+        def timed_copy(batch):
             t0 = time.perf_counter()
-            out = device_batch(streams, y, mask)
-            if len(mask) == batchsize:
+            out = to_device(batch)
+            if len(batch[2]) == batchsize:
                 self.copy.append(time.perf_counter() - t0)
                 self.starts.append(t0)
             return out
@@ -2766,7 +2793,7 @@ class FitClock:
 
         trainer._infinite_batches = timed_batches
         trainer._host_batch = timed_pin
-        trainer._device_batch = timed_copy
+        trainer._to_device = timed_copy
         trainer.train_step = timed_step
         trainer.options.log_fn = self.log
 
@@ -4989,14 +5016,8 @@ def bf16_timings(dev):
         ms = statistics.mean(turns["bf16"])
         f32_ms = statistics.mean(turns["f32"])
         plain_ms = cuda_ms(plain_call, iters=3, warmup=1)
-        for attempt in range(3):  # a trace whose every record was lost is taken again
-            try:
-                traced_ms = trace_chain(lambda: call(args[1]), f"{name} B={B} H={H}", name,
-                                        steps, lost_ok=True)
-                break
-            except AssertionError:
-                if attempt == 2:
-                    raise
+        traced_ms = trace_chain(lambda: call(args[1]), f"{name} B={B} H={H}", name, steps,
+                                lost_ok=True)
         b_ms, by = bound(*cost(B, T_FRAMES, H, peep, w_bytes=2))
         lib_ms = None
         if not peep:
@@ -5271,6 +5292,307 @@ def phase_bf16(dev):
     return rows, paths, numbers
 
 
+SCALE_TURNS = 10
+# the mesh options phase_scale steps the flagship with on one rank
+SCALE_OPTIONS = {"gspmd": dict(use_mesh=True),
+                 "shard_map": dict(use_mesh=True, mesh_mode="shard_map"),
+                 "zero1": dict(zero1=True), "multihost": dict(use_mesh=True, multihost=True)}
+SCALE_SERVE_B = 8
+# adenet_v1's two-rank gradients against the one-process card step, of max
+# abs.  Above TRAIN_GRAD_TOL because each float32 step of this model lies
+# 1.2e-4 to 4.1e-4 from its float64 step (bn_conditioning prints it and its
+# cause), so two correct ones may lie twice that apart; far below the
+# control that normalises each rank's rows alone (about 0.1), which must
+# exceed it
+BN_GRAD_TOL = 1e-3
+
+
+def scale_batch(cfg, B, seed):
+    """A seeded numpy batch (streams, int32 labels, ragged mask: a full row,
+    the rest T/2-T) of ``cfg``'s streams at T = 29."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    streams = [rng.randn(B, T_FRAMES, s.input_dim).astype(np.float32) for s in cfg.streams]
+    lens = rng.randint(T_FRAMES // 2, T_FRAMES + 1, B)
+    lens[0] = T_FRAMES
+    mask = (np.arange(T_FRAMES)[None] < lens[:, None]).astype(np.float32)
+    return streams, rng.randint(0, cfg.output_classes, B).astype(np.int32), mask
+
+
+def check_scale_step(label, got, ref_launches, zero=(), grad_tol=TRAIN_GRAD_TOL):
+    """A mesh step's gaps from the one-process card step within the train
+    tolerances (gradients within ``grad_tol`` of max abs; zero-gradient
+    biases to noise under ``grad_tol`` of their weight's gradient, at least
+    1e-4) and its launches equal to the one-process step's."""
+    g = got["gaps"]
+    print(f"{label}: loss {got['loss']:.7f}, gaps to one process: loss {g['loss_rel']:.2e}, "
+          f"gradients {g['grad_rel']:.2e} of max abs, parameters {g['param_abs']:.2e}"
+          + (f", zero-gradient biases {g['zero_noise']:.2e} of their weight's" if zero else "")
+          + f" (worst {g['grad_worst']}, held to {grad_tol:.2e})"
+          + f"; launches {dict((k, v) for k, v in got['launches'].items() if v)}; "
+          f"collectives {got['collectives']} ({got['collective_bytes']} B); "
+          f"step {got['step_ms']:.3f} ms")
+    if not (g["loss_rel"] <= TRAIN_LOSS_TOL and g["grad_rel"] <= grad_tol
+            and g["param_abs"] <= TRAIN_PARAM_TOL and g["zero_noise"] <= max(grad_tol, 1e-4)):
+        raise AssertionError(f"{label}: the mesh step disagrees with one process: {g}")
+    if got["launches"] != ref_launches:
+        raise AssertionError(f"{label}: launches {got['launches']}, one process "
+                             f"{ref_launches}")
+
+
+@contextlib.contextmanager
+def plain_float64():
+    """While active, the kernels' plain versions take float64 CPU tensors,
+    for an exact reference: the wrappers refuse a dtype their kernels lack,
+    so the delta wrapper's dtype check and the LSTM plain versions'
+    widening of W_hid to float32 let float64 through (nothing launches on
+    the CPU)."""
+    import torch
+
+    from ip_avsr_torch.ops.kernels import delta as delta_kernel
+    from ip_avsr_torch.ops.kernels import lstm as lstm_kernel
+
+    check, widen = delta_kernel._check, lstm_kernel._w_operand
+    delta_kernel._check = lambda xs, window: check(
+        [x.float() if x.dtype == torch.float64 else x for x in xs], window)
+    lstm_kernel._w_operand = lambda w: w if w.dtype == torch.float64 else widen(w)
+    try:
+        yield
+    finally:
+        delta_kernel._check, lstm_kernel._w_operand = check, widen
+
+
+def grad_gap(grads, exact, zero=()) -> float:
+    """The worst gradient's max abs gap from ``exact`` ({path: array}) over
+    that array's max abs, the leaves ``zero`` left out."""
+    import numpy as np
+
+    from ip_avsr_torch.parallel import _multiprocess_worker as worker
+
+    return max(float(np.abs(np.asarray(a, np.float64) - exact[path]).max()
+                     / max(np.abs(exact[path]).max(), 1e-30))
+               for path, a in worker._named(grads) if path not in zero)
+
+
+def bn_conditioning(cfg, params, batch, dev):
+    """Why adenet_v1's two-rank step is held to BN_GRAD_TOL: the
+    one-process step on the card against the same step in float64 on the
+    CPU (:func:`plain_float64`), with the factors X and dZ of the
+    bottleneck weight's gradient X^T dZ taken from both
+    (``_multiprocess_worker.bottleneck_terms``).  Batch norm makes dZ's
+    column sums zero, so X^T dZ equals (X - mean X)^T dZ, while X, sigmoids
+    near 0.5, varies far less than its mean: float32's error in dZ, which
+    does not sum to zero, comes out multiplied.  Prints X's mean and
+    spread, the size of X^T dZ's terms over the result, and for the card
+    step :func:`dz_share`.  Returns {"exact": the float64 gradients by
+    path, "path", "shape", "X", "dZ": float64's factors}."""
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch.device import tree_map
+    from ip_avsr_torch.parallel import _multiprocess_worker as worker
+    from ip_avsr_torch.train.trainer import TrainOptions, loss_and_grads
+
+    stream = next(s.name for s in cfg.streams if s.use_batchnorm)
+    path = f"/streams/{stream}/encoder/bottleneck/w"
+    shape = tuple(params["streams"][stream]["encoder"]["bottleneck"]["w"].shape)
+
+    def step(dtype, device):
+        p = tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                     worker.tensors(params, device))
+        streams, y, mask = batch
+        gen = torch.Generator(device=device).manual_seed(0)
+        _, g = loss_and_grads(p, cfg, [torch.as_tensor(x, dtype=dtype, device=device)
+                                       for x in streams],
+                              torch.as_tensor(y, dtype=torch.int64, device=device),
+                              torch.as_tensor(mask, dtype=dtype, device=device), gen,
+                              window=TrainOptions().window)
+        return worker.arrays(g)
+
+    with worker.bottleneck_terms(shape) as taken:
+        with plain_float64():
+            exact = dict(worker._named(step(torch.float64, "cpu")))
+        card = step(torch.float32, dev)
+    if len(taken) != 2 or any("dZ" not in d for d in taken):
+        raise AssertionError(f"bn_conditioning: took {len(taken)} bottleneck products, "
+                             f"expected one a step with its gradient")
+    cond = dict(exact=exact, path=path, shape=shape, **taken[0])
+    X, dZ, G = cond["X"], cond["dZ"], exact[path]
+    print(f"scale, adenet_v1's float32 conditioning ({path}, {X.shape} X, {dZ.shape} dZ): "
+          f"X's mean {X.mean():.4f}, its columns' spread {X.std(0).mean():.4f}; dZ's column "
+          f"sums {np.abs(dZ.sum(0)).max():.1e} (batch norm makes them 0); X^T dZ's terms "
+          f"{np.abs(X).max() * np.abs(dZ).sum(0).max() / np.abs(G).max():.0f}x its max abs; "
+          f"the card's one-process step: {dz_share(cond, card, taken[1]['dZ'])}")
+    return cond
+
+
+def dz_share(cond, grads, dZ) -> str:
+    """A float32 step's bottleneck-weight gradient (in ``grads``) and its
+    factor ``dZ`` against float64's (:func:`bn_conditioning`), each error
+    of its reference's max abs: dZ's, the gradient's, that of the exact X
+    times ``dZ`` (what dZ's error alone makes), and X's column means times
+    the error in dZ's column sums, which are 0 exactly (what that error
+    makes through the cancellation alone: X^T dZ's error from a column
+    sum s of dZ's error is mean(X) s)."""
+    import numpy as np
+
+    from ip_avsr_torch.parallel import _multiprocess_worker as worker
+
+    X, dZ64, G = cond["X"], cond["dZ"], cond["exact"][cond["path"]]
+    rel = lambda a, r: float(np.abs(a - r).max() / np.abs(r).max())  # noqa: E731
+    sums = np.outer(X.mean(0), (dZ - dZ64).sum(0))
+    return (f"dZ {rel(dZ, dZ64):.2e} of max abs from float64's, the gradient "
+            f"{rel(dict(worker._named(grads))[cond['path']], G):.2e}, exact X times its dZ "
+            f"{rel(X.T @ dZ, G):.2e}, X's column means times the error of dZ's column sums "
+            f"{rel(G + sums, G):.2e}")
+
+
+def phase_scale(dev):
+    """Scale-out (``parallel/``) on the card, in ranks that
+    ``utils/cpu_mesh.RankPool`` spawns (this process joins no group), each
+    mesh step against the one-process Trainer's on the card (adadelta at lr
+    1.0, dropout 0, ragged masks; loss TRAIN_LOSS_TOL, gradients
+    TRAIN_GRAD_TOL of max abs, parameters TRAIN_PARAM_TOL) with the same
+    launches of every kernel:
+
+    (a) one rank, ``nccl``: the full-width flagship at B = 10 through
+        ``Trainer`` with use_mesh (gspmd, timed in turns against the plain
+        step), shard_map, zero1 and multihost; ``make_server(mesh=)`` at B
+        = 8 against the plain server (SCORE_TOL); the 4-stream model of
+        configs/oulu_4stream.ini with use_mesh;
+    (b) two ranks sharing the card, ``gloo``: the flagship data-parallel at
+        global B = 10 (5 rows a rank), and zoo.adenet_v1 with batch-norm
+        statistics synced over the ranks, its gradients to BN_GRAD_TOL
+        (:func:`bn_conditioning` prints why), and the control: the same
+        step with each rank's own statistics must fail that limit.
+
+    model_parallel and sequence_parallel need two cards under nccl (gloo
+    has no all_gather, send/recv or all_to_all on CUDA tensors): the CPU
+    tests hold them.  Returns {kernel: launches over the phase's mesh
+    runs, every rank}."""
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch.models import adenet, zoo
+    from ip_avsr_torch.parallel import _multiprocess_worker as worker
+    from ip_avsr_torch.utils.cpu_mesh import RankPool
+
+    t0 = time.perf_counter()
+    card = smi("name,power.limit")
+    spec = KERNEL_COUNTERS
+    init = lambda cfg, seed: worker.arrays(adenet.init_adenet_params(  # noqa: E731
+        torch.Generator().manual_seed(seed), cfg, device="cpu"))
+    cfg, cfg4 = flagship(dropout=False), no_dropout(oulu_4stream()[0])
+    C = IMAGE_SHAPE[0] * IMAGE_SHAPE[1]
+    bn_cfg = zoo.adenet_v1(C, DCT, output_classes=10)
+    cases = {name: (c, init(c, SEED + 16 + i), scale_batch(c, TRAIN_B, SEED + 16 + i))
+             for i, (name, c) in enumerate((("flagship", cfg), ("4-stream", cfg4),
+                                            ("adenet_v1", bn_cfg)))}
+    # the one-process card steps every mesh step is held against
+    on = dev.type
+    refs = {name: worker.chip_step(spec, *case, {}, device=on) for name, case in cases.items()}
+    for name, ref in refs.items():
+        print(f"scale, one process {name}: loss {ref['loss']:.7f}, launches "
+              f"{dict((k, v) for k, v in ref['launches'].items() if v)}")
+    expect_launches(refs["flagship"]["launches"], lstm_fwd_train=5, lstm_bwd=5, delta=1)
+    expect_launches(refs["4-stream"]["launches"], lstm_peep_fwd_train=6, lstm_peep_bwd=6,
+                    delta=1)
+    totals = {k: 0 for k in KERNEL_COUNTERS}
+
+    with RankPool(1, backend="nccl" if on == "cuda" else "gloo", timeout_s=600) as pool:
+        for name, opts in SCALE_OPTIONS.items():
+            got = pool.run(worker.chip_step, spec, *cases["flagship"], opts,
+                           refs["flagship"]["result"],
+                           turns=SCALE_TURNS if name == "gspmd" else 0, device=on)[0]
+            check_scale_step(f"scale (a) 1 rank nccl, flagship {name}", got,
+                             refs["flagship"]["launches"])
+            count_into(totals, got["launches"])
+            if name == "gspmd":
+                mesh_ms, plain_ms = (statistics.median(got[k]) for k in ("mesh_ms", "plain_ms"))
+                print(f"scale (a): world-size-1 mesh step {mesh_ms:.3f} ms against the plain "
+                      f"Trainer's {plain_ms:.3f} ms (host clock, median of {SCALE_TURNS} "
+                      f"interleaved turns, B = {TRAIN_B}; {card}); its collectives per step: "
+                      f"{got['collectives'] or 'none'} (every group of one rank is the "
+                      f"identity)")
+        streams, _, mask = scale_batch(cfg, SCALE_SERVE_B, SEED + 19)
+        served = pool.run(worker.chip_serve, spec, cfg, cases["flagship"][1], streams, mask,
+                          device=on)[0]
+        print(f"scale (a) make_server(mesh=) B={SCALE_SERVE_B}: scores max abs gap to the "
+              f"plain server {served['max_abs_err']:.2e}; launches "
+              f"{dict((k, v) for k, v in served['launches'].items() if v)}")
+        if not (served["finite"] and served["max_abs_err"] <= SCORE_TOL):
+            raise AssertionError("make_server(mesh=) disagrees with the plain server")
+        expect_launches(served["launches"], lstm_fwd=5, delta=1)
+        count_into(totals, served["launches"])
+        got = pool.run(worker.chip_step, spec, *cases["4-stream"], dict(use_mesh=True),
+                       refs["4-stream"]["result"], device=on)[0]
+        check_scale_step("scale (a) 1 rank nccl, 4-stream use_mesh", got,
+                         refs["4-stream"]["launches"])
+        count_into(totals, got["launches"])
+
+    # adenet_v1: the float32 spread of its one-process step (printed, not a
+    # limit), the float64 step that shows where it comes from, then the
+    # two-rank step at BN_GRAD_TOL and the control that must fail it
+    zero = zero_grad_biases(bn_cfg)
+    c, p, (streams, y, mask) = cases["adenet_v1"]
+    perm = np.random.RandomState(SEED).permutation(TRAIN_B)
+    spreads = {
+        "permuted rows": (([x[perm] for x in streams], y[perm], mask[perm]), {}, on),
+        "the CPU": ((streams, y, mask), {}, "cpu"),
+        "the one-process mesh": ((streams, y, mask), dict(use_mesh=True), on)}
+    for label, (batch, opts, where) in spreads.items():
+        g = worker.chip_step(spec, c, p, batch, opts, refs["adenet_v1"]["result"], zero,
+                             device=where)["gaps"]
+        print(f"scale: adenet_v1's one-process step on {label} lies {g['grad_rel']:.2e} of max "
+              f"abs from the card's ({g['grad_worst']}; zero-gradient biases "
+              f"{g['zero_noise']:.2e})")
+    cond = bn_conditioning(c, p, (streams, y, mask), dev)
+    with RankPool(2, backend="gloo", timeout_s=600) as pool:
+        for name, z, tol in (("flagship", (), TRAIN_GRAD_TOL),
+                             ("adenet_v1", zero, BN_GRAD_TOL)):
+            bn = name == "adenet_v1"
+            ranks = pool.run(worker.chip_step, spec, *cases[name], dict(use_mesh=True),
+                             None if bn else refs[name]["result"], z, device=on,
+                             bottleneck=cond["shape"] if bn else None)
+            if bn:
+                # each rank's dZ is of the loss's numerator: over the count
+                # (adenet_v1's last-step head counts the rows with a frame)
+                dZ = np.concatenate([g["bottleneck"]["dZ"] for g in ranks]) / (
+                    mask.sum(axis=1) > 0).sum()
+                print(f"scale (b) adenet_v1, two ranks against float64: "
+                      f"{dz_share(cond, ranks[0]['result'][1], dZ)}; worst gradient "
+                      f"{grad_gap(ranks[0]['result'][1], cond['exact'], z):.2e}, the "
+                      f"one-process card step's "
+                      f"{grad_gap(refs[name]['result'][1], cond['exact'], z):.2e}")
+            for r, got in enumerate(ranks):
+                if bn:
+                    got["gaps"] = worker.step_gaps(got["result"], refs[name]["result"], z)
+                check_scale_step(f"scale (b) 2 ranks gloo, {name} rank {r}", got,
+                                 refs[name]["launches"], z, tol)
+                count_into(totals, got["launches"])
+            print(f"scale (b) {name}: step {np.median([g['step_ms'] for g in ranks]):.3f} ms "
+                  f"at global B = {TRAIN_B}, of which the gradients' all-reduce alone "
+                  f"{np.median([g['allreduce_ms'] for g in ranks]):.3f} ms (two processes "
+                  f"sharing one card, time-sliced, gloo through host memory: not a scaling "
+                  f"figure; one process {refs[name]['step_ms']:.3f} ms; {card})")
+        # the control: each rank's batch norm on its own 5 rows
+        for r, got in enumerate(pool.run(worker.chip_step, spec, *cases["adenet_v1"],
+                                         dict(use_mesh=True), refs["adenet_v1"]["result"],
+                                         zero, device=on, local_bn=True)):
+            g = got["gaps"]
+            print(f"scale (b) control, adenet_v1 rank {r} with batch-norm statistics of its "
+                  f"own rows: loss {g['loss_rel']:.2e}, gradients {g['grad_rel']:.2e} of max "
+                  f"abs ({g['grad_worst']}) from one process, against BN_GRAD_TOL "
+                  f"{BN_GRAD_TOL:.0e}")
+            if not g["grad_rel"] > BN_GRAD_TOL:
+                raise AssertionError("BN_GRAD_TOL passes a step whose batch norm is not "
+                                     "synced over the ranks")
+    print(f"phase_scale: {time.perf_counter() - t0:.1f} s; launches over the mesh runs "
+          f"{dict((k, v) for k, v in totals.items() if v)}")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -5331,6 +5653,7 @@ def main() -> int:
     print(json.dumps({"pretrain": pretrain_numbers}))
     tools_launches, tools_numbers = phase_tools(dev)
     print(json.dumps({"tools": tools_numbers}))
+    scale_launches = phase_scale(dev)
 
     pallas = "ip_avsr_tpu/ops/pallas/lstm_kernel.py"
     fwd_src, bwd_src = "ip_avsr_torch/csrc/lstm_fwd.cu", "ip_avsr_torch/csrc/lstm_bwd.cu"
@@ -5390,7 +5713,8 @@ def main() -> int:
                    zoo_launches=zoo_launches[row["name"]],
                    residual_launches=residual_launches[row["name"]],
                    pretrain_launches=pretrain_launches[row["name"]],
-                   tools_launches=tools_launches[row["name"]])
+                   tools_launches=tools_launches[row["name"]],
+                   scale_launches=scale_launches[row["name"]])
     # the six bf16 instantiations: launches on their bf16 main path (the
     # flagship's serve and train steps for rows 1, 3 and 4, the 4-stream
     # model's for rows 5-7), beside the bf16 CLI's and the artifacts'
@@ -5405,7 +5729,8 @@ def main() -> int:
             **{k: numbers[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                        "traced_ms", "us_per_step", "f32_ms")},
             "cli_launches": bf16_paths["cli"][name],
-            "export_launches": bf16_paths["export"][name]})
+            "export_launches": bf16_paths["export"][name],
+            "scale_launches": scale_launches[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

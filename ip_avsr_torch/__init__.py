@@ -13,8 +13,11 @@ generic N-stream AdeNets with peephole LSTMs that INI configs such as
 ``configs/oulu_4stream.ini`` select (``train.config.load_config`` and
 ``build_model_config``; inference on preprocessed streams with
 ``serve.make_server``), and their training: the bare step
-(``train.trainer.make_train_step``) and the single-device trainer
-(``train.trainer.Trainer``: fit, evaluation, checkpoints, every optimizer).
+(``train.trainer.make_train_step``) and the trainer
+(``train.trainer.Trainer``: fit, evaluation, checkpoints, every optimizer),
+on one device or over the ranks of a ``torch.distributed`` group
+(``parallel``: the JAX package's mesh options, data, ZeRO-1, tensor and
+sequence parallelism).
 ``export`` ships a served program as one artifact through ``torch.export``
 (``cli.export_model``; the demo's ``--artifact`` serves it).  The whole
 model zoo builds (``models.zoo``, ``models.avnet``), batch norm, grouped

@@ -14,24 +14,32 @@ Additions over the reference, as in the JAX package: ``--synthetic N``
 fabricates a dataset (for smoke-running without the corpora),
 ``--split itervec``, ``--checkpoint_dir``/``--resume`` (``torch.save``
 train states) and ``--device_data``.  The mesh flags (``--mesh``,
-``--mesh_mode shard_map``, ``--model_parallel``, ``--sequence_parallel``,
-``--zero1``) reach ``TrainOptions``, which refuses them: the trainer runs on
-one device (ROADMAP Queue 1 item 10).  The data is read and preprocessed on
-the host; the model trains on ``--device`` (default ``cuda``; ``cpu`` runs
-the kernels' plain versions).
+``--mesh_mode``, ``--model_parallel``, ``--sequence_parallel``, ``--zero1``)
+reach ``TrainOptions`` and train over the ranks of a ``torch.distributed``
+group, one device each: under ``torchrun`` the CLI joins the group that
+torchrun's environment describes (``nccl`` on ``cuda``, ``gloo`` on
+``cpu``), and rank 0 alone writes the results; without that environment
+(or a group already joined) it runs the one-process mesh.  The data is read
+and preprocessed on the host, by every rank; the model trains on
+``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions).
 
 Usage:
     python -m ip_avsr_torch.cli.nstream --config configs/synthetic_1stream.ini \\
         --synthetic 60 --device cpu
+    torchrun --nproc_per_node 2 -m ip_avsr_torch.cli.nstream \\
+        --config configs/synthetic_1stream.ini --synthetic 60 --mesh
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ip_avsr_torch.data import preprocessing as pp
 from ip_avsr_torch.data.datagen import compute_integral_len
@@ -58,18 +66,19 @@ def parse_options(argv=None):
                              "'itervec': AVLetters-style iterations 1,2=train, "
                              "3=test (utils/preprocessing.py:54-74)")
     parser.add_argument("--mesh", action="store_true",
-                        help="data-parallel over devices (not ported: raises)")
+                        help="data-parallel over the ranks (torchrun's processes)")
     parser.add_argument("--mesh_mode", default="gspmd", choices=["gspmd", "shard_map"],
-                        help="with --mesh: the partitioning mode (shard_map is not "
-                             "ported: raises)")
+                        help="with --mesh: each rank draws the whole batch's dropout "
+                             "masks (gspmd) or its own (shard_map)")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="tensor parallelism over a 'model' mesh axis (not "
-                             "ported: above 1 raises)")
+                        help="tensor parallelism: size of the 'model' mesh dim (a "
+                             "data x model mesh over the ranks)")
     parser.add_argument("--zero1", action="store_true",
-                        help="ZeRO-1 optimizer-state sharding (not ported: raises)")
+                        help="ZeRO-1: each rank keeps its block of the optimizer "
+                             "moments (implies --mesh, gspmd only)")
     parser.add_argument("--sequence_parallel", type=int, default=1,
-                        help="sequence parallelism over a 'seq' mesh axis (not "
-                             "ported: above 1 raises)")
+                        help="sequence parallelism: size of the 'seq' mesh dim (a "
+                             "data x seq mesh over the ranks)")
     parser.add_argument("--device_data", action="store_true",
                         help="keep the training set on the device; each step "
                              "gathers its batch there")
@@ -120,9 +129,37 @@ def presplit_processing(data_matrix, vidlens, sc: config_lib.StreamConfig):
     return data_matrix
 
 
+def _wants_mesh(options) -> bool:
+    return bool(options.mesh or options.zero1 or options.model_parallel > 1
+                or options.sequence_parallel > 1)
+
+
+@contextlib.contextmanager
+def process_group(options, device):
+    """The group of torchrun's environment, joined for the run and left
+    after, when a mesh flag asks for one and no group is joined yet;
+    otherwise nothing (the one-process mesh, or the caller's group)."""
+    if (not _wants_mesh(options) or dist.is_initialized()
+            or "WORLD_SIZE" not in os.environ or "MASTER_ADDR" not in os.environ):
+        yield
+        return
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method="env://")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None):
     options = parse_options(argv)
     device = resolve_device(options.device)
+    with process_group(options, device):
+        return _main(options, device)
+
+
+def _main(options, device):
     cp = config_lib.load_config(options.config)
     stream_cfgs = config_lib.parse_streams(cp)
     clf = config_lib.parse_classifier(cp)
@@ -273,6 +310,9 @@ def _train_and_report(options, device, clf, tc, stream_cfgs,
         lr_map_config=lr_map_config,
     )
 
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    if not rank0:
+        topts = dataclasses.replace(topts, log_fn=lambda *_: None)
     trainer = Trainer(model_cfg, topts, device=device)
     params0 = trainer.init_params(torch.Generator().manual_seed(topts.seed),
                                   pretrained_encoders=pretrained if any(
@@ -286,6 +326,8 @@ def _train_and_report(options, device, clf, tc, stream_cfgs,
         (test_streams, test_y, test_lens),
     )
 
+    if not rank0:
+        return result
     print("Final Model")
     print(f"CR: {result.best_cr}, val loss: {result.best_val}, Test CR: {result.test_cr}")
     classnames = clf.output_classnames or [str(i) for i in range(clf.output_classes)]

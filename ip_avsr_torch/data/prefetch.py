@@ -19,6 +19,8 @@ class _End:
 
 
 _END = _End()
+# seconds an abandoned prefetch waits for its producer to stop
+JOIN_TIMEOUT_S = 10.0
 
 
 class _Raised:
@@ -34,7 +36,8 @@ def prefetch(iterable: Iterable, buffer_size: int = 2) -> Iterator:
 
     Abandoning the returned generator (break, exception, garbage
     collection) stops the producer: its puts give up once the consumer is
-    gone."""
+    gone, and the generator waits (``JOIN_TIMEOUT_S`` at most) for the item
+    it is making."""
     if buffer_size < 1:
         raise ValueError("buffer_size must be >= 1")
     q: "queue.Queue" = queue.Queue(maxsize=buffer_size)
@@ -79,3 +82,6 @@ def prefetch(iterable: Iterable, buffer_size: int = 2) -> Iterator:
                 q.get_nowait()
         except queue.Empty:
             pass
+        # let the producer finish the item it is making: a daemon thread
+        # still inside torch when the interpreter exits aborts the process
+        t.join(JOIN_TIMEOUT_S)

@@ -20,10 +20,16 @@ member); ``lstm_remat`` and ``lstm_residual_dtype`` reach every training
 recurrence (``ops/lstm.lstm_forward``).  ``matmul_dtype="bfloat16"``
 rounds the operands of every encoder product, input projection and
 recurrent product to bf16 with float32 sums (the recurrences through the
-kernels' bf16 instantiations), and ``bn_axis`` (batch-norm statistics over
-mesh axes) raises naming Queue 1 item 10.  Dropout
+kernels' bf16 instantiations).  Dropout
 (``train=True``) follows Lasagne's DropoutLayer with its 1/(1-p) rescale,
 drawing from an explicit ``torch.Generator``; its bits differ from JAX's.
+
+On a mesh (``parallel/``) each rank runs the same forward on its block:
+``bn_axis`` syncs batch norm's statistics over mesh dims, ``model_axis``
+gathers the encoders' column blocks (tensor parallelism), ``delta_fn``
+replaces the delta stage (sequence parallelism's halo FIR), and ``block``
+(:class:`Block`) says where the rank's rows lie in the batch, so that its
+dropout masks are its rows of the masks one process draws.
 ``lstm_impl`` selects a TPU backend and changes no result here: the
 recurrences run the CUDA kernels whenever their tensors are on the card.
 """
@@ -183,20 +189,42 @@ def init_adenet_params(generator: torch.Generator, config: AdeNetConfig,
     return tree_to(params, device)
 
 
-def _dropout(x: torch.Tensor, rate: float, generator, train: bool) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """Where a rank's (B, T, ...) inputs lie in the batch one process would
+    run: rows ``rows`` of ``batch`` rows and, where time is split too,
+    frames ``frames`` of ``time``.  A training forward draws each dropout
+    mask for that whole batch and keeps the block, so the ranks of a mesh
+    draw together what one process draws, as JAX's gspmd program equals
+    its one-device program."""
+
+    batch: int
+    rows: slice
+    time: Optional[int] = None
+    frames: Optional[slice] = None
+
+
+def _dropout(x: torch.Tensor, rate: float, generator, train: bool,
+             block: Optional[Block] = None) -> torch.Tensor:
     """Lasagne DropoutLayer semantics: a train-time keep mask drawn from
-    ``generator`` (on ``x``'s device), kept values rescaled by 1/(1-p)."""
+    ``generator`` (on ``x``'s device), kept values rescaled by 1/(1-p);
+    with ``block``, the mask of the whole batch cut to the block."""
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    draw = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    if block is None:
+        draw = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    else:
+        shape = (block.batch, x.shape[1] if block.time is None else block.time) + x.shape[2:]
+        draw = torch.rand(shape, generator=generator, device=x.device, dtype=x.dtype)
+        draw = draw[block.rows] if block.frames is None else draw[block.rows, block.frames]
     return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 
 def adenet_forward(params: dict, config: AdeNetConfig, inputs, mask: torch.Tensor,
                    window: Optional[int] = None, train: bool = False,
                    generator: Optional[torch.Generator] = None, return_aux: bool = False,
-                   bn_axis=None):
+                   bn_axis=None, mesh=None, model_axis=None, block: Optional[Block] = None):
     """Run the model.  ``inputs[i]`` is (B, T, D_i); ``mask`` is (B, T).
 
     Returns (B, T, C) per-timestep probabilities ("per_step") or (B, C)
@@ -205,26 +233,34 @@ def adenet_forward(params: dict, config: AdeNetConfig, inputs, mask: torch.Tenso
     with 0, as the JAX package defaults to ``PRNGKey(0)``) and normalizes
     batch-norm streams with the batch's statistics.  ``return_aux=True``
     returns ``(out, {"bn_state": {stream name: new running statistics}})``,
-    detached, for the trainer to merge into the parameters."""
+    detached, for the trainer to merge into the parameters.  On a mesh:
+    ``bn_axis`` (a dim of ``mesh``, default the 1-D ``data`` mesh, or a
+    tuple of dims) syncs batch norm's training statistics over its ranks,
+    ``model_axis`` names the dim the encoders' columns are split over, and
+    ``block`` places these rows in the whole batch for dropout."""
     check_supported(config)
     if train and generator is None:
         generator = torch.Generator(device=inputs[0].device).manual_seed(0)
     stream_feats, aux = stream_prefix(params, config, inputs, window, train, generator,
-                                      return_aux=True, bn_axis=bn_axis)
-    out = head_forward(params, config, stream_feats, mask, train, generator)
+                                      return_aux=True, bn_axis=bn_axis, mesh=mesh,
+                                      model_axis=model_axis, block=block)
+    out = head_forward(params, config, stream_feats, mask, train, generator, block=block)
     return (out, aux) if return_aux else out
 
 
 def stream_prefix(params, config: AdeNetConfig, inputs, window=None, train=False,
-                  generator=None, return_aux=False, bn_axis=None):
+                  generator=None, return_aux=False, bn_axis=None, delta_fn=None, mesh=None,
+                  model_axis=None, block: Optional[Block] = None):
     """The frame-parallel part: per stream, encoder -> batch norm -> delta ->
     dropout.  The encoders (each followed by its stream's batch norm) run
     first, then one grouped delta over every stream with ``use_delta`` (one
-    kernel launch on CUDA), then dropout per stream in stream order.
-    Returns the features, and with ``return_aux`` also the batch-norm aux
-    of :func:`adenet_forward`."""
+    kernel launch on CUDA), or ``delta_fn(x)`` per such stream when given,
+    then dropout per stream in stream order.  Returns the features, and
+    with ``return_aux`` also the batch-norm aux of :func:`adenet_forward`;
+    ``bn_axis``, ``mesh``, ``model_axis`` and ``block`` as there."""
     window = config.window if window is None else window
     B, T = inputs[0].shape[0], inputs[0].shape[1]
+    model_group = None if model_axis is None else mesh.group(model_axis)
     aux = {"bn_state": {}}
     feats = []
     for i, spec in enumerate(config.streams):
@@ -233,26 +269,31 @@ def stream_prefix(params, config: AdeNetConfig, inputs, window=None, train=False
         if spec.encoder_shapes:
             enc = encoder_mod.encoder_forward(sp["encoder"], x.reshape(B * T, spec.input_dim),
                                               spec.encoder_nonlinearities,
-                                              matmul_dtype=config.matmul_dtype)
+                                              matmul_dtype=config.matmul_dtype,
+                                              widths=spec.encoder_shapes, group=model_group)
             x = enc.reshape(B, T, -1)
         if spec.use_batchnorm:
             x, aux["bn_state"][spec.name] = norm_ops.batch_norm_forward(
-                sp["bn"], sp["bn_state"], x, train, axis_name=bn_axis)
+                sp["bn"], sp["bn_state"], x, train, axis_name=bn_axis, mesh=mesh)
         feats.append(x)
     with_delta = [i for i, spec in enumerate(config.streams) if spec.use_delta]
-    if with_delta:
+    if with_delta and delta_fn is not None:
+        for i in with_delta:
+            feats[i] = delta_fn(feats[i])
+    elif with_delta:
         outs = delta_group([feats[i].contiguous() for i in with_delta], window)
         for i, out in zip(with_delta, outs):
             feats[i] = out
-    feats = [_dropout(x, spec.dropout, generator, train)
+    feats = [_dropout(x, spec.dropout, generator, train, block)
              for x, spec in zip(feats, config.streams)]
     return (feats, aux) if return_aux else feats
 
 
 def head_forward(params, config: AdeNetConfig, stream_feats, mask, train=False,
-                 generator=None) -> torch.Tensor:
+                 generator=None, block: Optional[Block] = None) -> torch.Tensor:
     """The recurrent part: per-stream LSTMs -> fusion -> aggregator
-    (B)LSTM stack (dropout before each layer) -> classifier head.
+    (B)LSTM stack (dropout before each layer, cut to ``block`` when given)
+    -> classifier head.
 
     With ``fuse_scans`` the stream LSTMs run as one group and each BLSTM
     layer's two halves as one group, where ``can_group_lstms`` allows it.
@@ -288,7 +329,7 @@ def head_forward(params, config: AdeNetConfig, stream_feats, mask, train=False,
 
     agg = fusion_ops.fuse(stream_outs, config.fusiontype, params.get("adasum"))
     for layer in range(config.agg_layers):
-        agg = _dropout(agg, config.agg_dropout, generator, train)
+        agg = _dropout(agg, config.agg_dropout, generator, train, block)
         lp = params["aggregator"][layer]
         if config.agg_bidirectional:
             if fuse_ok and lstm_ops.can_group_lstms([lp["fwd"], lp["bwd"]]):

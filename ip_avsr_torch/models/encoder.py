@@ -9,6 +9,15 @@ and sums in float32.  Autograd of the casts rounds each operand's cotangent
 to bf16 (the backward of ``.to(float32)`` from bf16 casts the gradient to
 bf16), which is what JAX's autodiff of that product gives:
 ``da = bf16(g bf16(b)^T)`` and ``db = bf16(bf16(a)^T g)``.
+
+Under tensor parallelism (``parallel/mesh.adenet_param_rules``) a layer's
+``w`` and ``b`` hold this rank's block of its output columns: the rank
+computes its block of the layer's output and the blocks are all-gathered
+over the ``model`` ranks before the next layer
+(``parallel/collectives.all_gather``, whose backward keeps the rank's block
+of the gradient); the layer's input, read whole by every rank, gets the sum
+over the ranks of their columns' gradients
+(``parallel/collectives.all_reduce_grad``).
 """
 
 from __future__ import annotations
@@ -21,7 +30,8 @@ import torch
 from ip_avsr_torch.ops import initializers as inits
 from ip_avsr_torch.ops.kernels.lstm import round_operand
 from ip_avsr_torch.ops.lstm import matmul_dtype_of
-from ip_avsr_torch.ops.nonlinearities import select_nonlinearity
+from ip_avsr_torch.ops.nonlinearities import select_nonlinearity, softmax
+from ip_avsr_torch.parallel import collectives
 
 DEFAULT_NAMES = ("fc1", "fc2", "fc3", "bottleneck")
 
@@ -62,18 +72,32 @@ def product(a: torch.Tensor, b: torch.Tensor, matmul_dtype=None) -> torch.Tensor
 
 
 def encoder_forward(params: dict, x: torch.Tensor, nonlinearities: Sequence,
-                    names=None, matmul_dtype=None) -> torch.Tensor:
+                    names=None, matmul_dtype=None, widths=None, group=None) -> torch.Tensor:
     """Apply the dense stack to (..., D) inputs; ``matmul_dtype`` None,
-    float32 or bfloat16 (ip_avsr_tpu/models/encoder.py:66-73)."""
+    float32 or bfloat16 (ip_avsr_tpu/models/encoder.py:66-73).
+
+    With ``group`` (the ``model`` ranks) and ``widths`` (each layer's
+    output width), a layer whose ``w`` has fewer columns than its width is
+    this rank's column block: its output block is all-gathered over
+    ``group`` (after the nonlinearity when that is elementwise, before a
+    softmax)."""
     names = names or sorted(params.keys(), key=_layer_sort_key)
     if len(nonlinearities) != len(names):
         raise ValueError(
             f"encoder has {len(names)} layers {list(names)} but "
             f"{len(nonlinearities)} nonlinearities {list(nonlinearities)}")
     out = x
-    for name, nl in zip(names, nonlinearities):
-        out = select_nonlinearity(nl)(
-            product(out, params[name]["w"], matmul_dtype) + params[name]["b"])
+    for i, (name, nl) in enumerate(zip(names, nonlinearities)):
+        w = params[name]["w"]
+        fn = select_nonlinearity(nl)
+        if group is None or widths is None or w.shape[1] == int(widths[i]):
+            out = fn(product(out, w, matmul_dtype) + params[name]["b"])
+            continue
+        z = product(collectives.all_reduce_grad(out, group), w, matmul_dtype) + params[name]["b"]
+        if fn is softmax:
+            out = fn(collectives.all_gather(z, -1, group))
+        else:
+            out = collectives.all_gather(fn(z), -1, group)
     return out
 
 

@@ -34,18 +34,29 @@ def _edge_pad_time(x: torch.Tensor, window: int) -> torch.Tensor:
     return torch.cat([first, x, last], dim=-2)
 
 
-def delta_coeff(x: torch.Tensor, window: int) -> torch.Tensor:
-    """Single-order normalised delta along axis -2 of ``x`` (..., T, D)."""
-    if window <= 0:
-        return torch.zeros_like(x)
-    padded = _edge_pad_time(x, window)
-    T = x.shape[-2]
-    out = torch.zeros_like(x)
+def delta_taps_from_padded(padded: torch.Tensor, window: int,
+                           normalized: bool = True) -> torch.Tensor:
+    """The delta FIR over an already extended (..., T + 2*window, D) tensor
+    -> its (..., T, D) centre: taps 1/(2*theta) (``normalized``, the
+    DeltaLayer) or theta (the host-side feature deltas).  Shared by
+    :func:`delta_coeff` (edge padding) and sequence parallelism (frames
+    from the neighbouring ranks, ``parallel/sequence.py``)."""
+    T = padded.shape[-2] - 2 * window
+    out = torch.zeros(padded.shape[:-2] + (T,) + padded.shape[-1:], dtype=padded.dtype,
+                      device=padded.device)
     for theta in range(1, window + 1):
+        coeff = (1.0 / (2.0 * theta)) if normalized else float(theta)
         fwd = padded[..., window + theta: window + theta + T, :]
         bwd = padded[..., window - theta: window - theta + T, :]
-        out = out + (1.0 / (2.0 * theta)) * (fwd - bwd)
+        out = out + coeff * (fwd - bwd)
     return out
+
+
+def delta_coeff(x: torch.Tensor, window: int, normalized: bool = True) -> torch.Tensor:
+    """Single-order delta along axis -2 of ``x`` (..., T, D)."""
+    if window <= 0:
+        return torch.zeros_like(x)
+    return delta_taps_from_padded(_edge_pad_time(x, window), window, normalized)
 
 
 def append_delta_coeff(x: torch.Tensor, window: int) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Serving on one device.
+"""Serving on one device, or on the ranks of a mesh.
 
 Mirrors ip_avsr_tpu/serve.py:
 
@@ -6,7 +6,8 @@ Mirrors ip_avsr_tpu/serve.py:
   encoders, deltas, LSTMs, fusion, aggregation, softmax and optionally the
   masked majority vote on the server's device; raw (B, T, D) uint8 pixels
   in, (B, C) scores out;
-* ``make_server``: the same for preprocessed streams, on one device;
+* ``make_server``: the same for preprocessed streams, on one device or, with
+  ``mesh=``, each request's rows split over the ranks of a mesh;
 * ``PipelinedServer``: requests dispatched asynchronously through pinned
   host buffers, results fetched in blocks of ``depth``, in submission order;
 * ``make_bucketed_server``: any request size rounded up to a bounded set of
@@ -31,6 +32,8 @@ from ip_avsr_torch.ops import normalization as norm_ops
 from ip_avsr_torch.ops import pipeline
 from ip_avsr_torch.ops.dct import dct_feature_basis_np
 from ip_avsr_torch.ops.voting import majority_voting_layer_masked
+from ip_avsr_torch.parallel import collectives
+from ip_avsr_torch.parallel import mesh as mesh_lib
 
 
 def _index_leaves(tree, leaves: list, recurrent: set, key=None):
@@ -183,20 +186,36 @@ def make_server(params: dict, config: adenet.AdeNetConfig, vote: bool = True,
 
     ``streams[i]`` is (B, T, D_i) and ``mask`` (B, T), tensors or arrays.
     Scores are (B, C); a per-step head with ``vote=False`` returns its
-    (B, T, C) probabilities.  ``mesh`` (data parallelism over several
-    devices) is not ported yet (ROADMAP Queue 1 item 10) and raises."""
-    if mesh is not None:
-        raise NotImplementedError("make_server(mesh=...) is not ported yet (ROADMAP "
-                                  "Queue 1 item 10: data parallelism)")
+    (B, T, C) probabilities.
+
+    ``mesh`` (``parallel/mesh.make_mesh()``; every rank of its group calls
+    the server with the same request) splits the request's rows over the
+    mesh's first dim: the weights are replicated once, from rank 0, when the
+    server is built; each rank runs its rows and the scores are
+    all-gathered, on every rank.  Every layer on the serve path is per row,
+    so the scores equal one device's.  The batch must divide by the mesh
+    size (pad rows with a zero mask)."""
     device = resolve_device(device)
+    if mesh is not None:
+        params = mesh_lib.replicate(mesh, tree_to(params, device))
     program = Server(params, config, vote).to(device)
+    rows = None if mesh is None else mesh_lib.batch_sharding(mesh, mesh.axis_names[0])
 
     @torch.inference_mode()
     def serve(streams, mask):
+        if rows is not None:
+            if streams[0].shape[0] % mesh.size:
+                raise ValueError(f"batch {streams[0].shape[0]} must be divisible by the mesh "
+                                 f"size {mesh.size} (pad rows with a zero mask)")
+            streams, mask = [rows.local(s) for s in streams], rows.local(mask)
         streams = [torch.as_tensor(s, device=device).to(torch.float32) for s in streams]
         mask = torch.as_tensor(mask, device=device).to(torch.float32)
-        return program(streams, mask)
+        out = program(streams, mask)
+        if rows is None:
+            return out
+        return collectives.all_gather(out, 0, mesh.group(mesh.axis_names[0]))
 
+    serve._mesh = mesh
     return serve
 
 

@@ -237,8 +237,8 @@ def test_unported_config_values_raise(field, value):
 def test_batchnorm_and_train_raise():
     """Batch norm is ported: the config passes ``check_supported``, and a
     training forward with ``return_aux`` gives JAX's output and moved
-    running statistics; ``bn_axis`` (statistics over mesh axes) raises,
-    naming Queue 1 item 10."""
+    running statistics; ``bn_axis`` (statistics synced over mesh axes) on
+    the one-process mesh gives the unsharded forward and statistics."""
     (jcfg, tcfg), _, _, xs, mask = _tiny_v3_pair()
     jbn, tbn = (dataclasses.replace(c, streams=[
         dataclasses.replace(c.streams[0], use_batchnorm=True), *c.streams[1:]])
@@ -256,9 +256,13 @@ def test_batchnorm_and_train_raise():
     for k in ("mean", "var"):
         np.testing.assert_allclose(aux["bn_state"]["raw"][k].numpy(),
                                    np.asarray(jaux["bn_state"]["raw"][k]), atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tadenet.adenet_forward(tp, tbn, [torch.from_numpy(x) for x in xs],
-                               torch.from_numpy(mask), train=True, bn_axis="data")
+    synced, saux = tadenet.adenet_forward(tp, tbn, [torch.from_numpy(x) for x in xs],
+                                          torch.from_numpy(mask), train=True, bn_axis="data",
+                                          return_aux=True)
+    np.testing.assert_allclose(synced.detach().numpy(), got.detach().numpy(), atol=1e-6, rtol=0)
+    for k in ("mean", "var"):
+        np.testing.assert_allclose(saux["bn_state"]["raw"][k].numpy(),
+                                   aux["bn_state"]["raw"][k].numpy(), atol=1e-7, rtol=1e-6)
 
 
 def test_init_adenet_params_has_jax_keys_and_shapes():

@@ -114,9 +114,27 @@ def test_init_batch_norm_matches_jax():
 
 
 def test_batch_norm_mesh_axis_raises():
+    """``axis_name`` syncs the training statistics over mesh dims: on the
+    one-process mesh the synced forward, its moved statistics and its input
+    gradient equal the unsynced ones (and JAX's); a dim the mesh lacks
+    raises."""
+    rng = np.random.RandomState(3)
+    x = (5.0 + rng.randn(4, 6, 3)).astype(np.float32)
     params, state = tnorm.init_batch_norm(3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tnorm.batch_norm_forward(params, state, torch.zeros(2, 3), True, axis_name="data")
+    xs = [torch.from_numpy(x).requires_grad_(True) for _ in range(2)]
+    (y0, s0), (y1, s1) = (tnorm.batch_norm_forward(params, state, xi, True, axis_name=ax)
+                          for xi, ax in zip(xs, (None, "data")))
+    ref, jstate = jnorm.batch_norm_forward(*jnorm.init_batch_norm(3), jnp.asarray(x), True)
+    np.testing.assert_allclose(y1.detach().numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(y1.detach().numpy(), y0.detach().numpy(), atol=1e-6, rtol=0)
+    for k in ("mean", "var"):
+        np.testing.assert_allclose(s1[k].numpy(), s0[k].numpy(), rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(s1[k].numpy(), np.asarray(jstate[k]), rtol=1e-5, atol=1e-6)
+    w = torch.from_numpy(rng.randn(4, 6, 3).astype(np.float32))
+    g0, g1 = (torch.autograd.grad((y * w).sum(), xi)[0] for y, xi in zip((y0, y1), xs))
+    np.testing.assert_allclose(g1.numpy(), g0.numpy(), atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="unbound axis name 'seq'"):
+        tnorm.batch_norm_forward(params, state, torch.zeros(2, 3), True, axis_name="seq")
 
 
 def test_masked_mean_pool_matches_jax_with_an_all_pad_row():

@@ -229,10 +229,16 @@ def test_4stream_train_step_matches_jax():
 
 
 def test_make_server_rejects_mesh_and_defaults_to_cuda():
+    """``mesh=`` takes a mesh: on the one-process mesh the 4-stream server's
+    scores equal the plain server's; without ``device`` it needs CUDA."""
+    from ip_avsr_torch.parallel import mesh as tmesh
+
     _, tcfg = _tiny_configs()
     params = tadenet.init_adenet_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tserve.make_server(params, tcfg, mesh=object(), device="cpu")
+    streams, mask = _batch(3, tcfg, 4, 9, [9, 5, 1, 7])[:2]
+    got = tserve.make_server(params, tcfg, mesh=tmesh.make_mesh(), device="cpu")(streams, mask)
+    want = tserve.make_server(params, tcfg, device="cpu")(streams, mask)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tserve.make_server(params, tcfg)

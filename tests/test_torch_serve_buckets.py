@@ -290,7 +290,18 @@ def test_bucketed_server_property_random_sizes():
 
 
 def test_make_server_mesh_still_raises():
-    _, tp, _, tcfg = _model()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tserve.make_server(tp, tcfg, mesh=object(), device="cpu")
-    assert dataclasses.is_dataclass(tcfg)
+    """``make_server(mesh=)`` on the one-process mesh: the server keeps its
+    mesh and its scores equal the plain server's and JAX's (the multi-rank
+    split is tests/test_torch_scale_multihost.py's)."""
+    from ip_avsr_torch.parallel import mesh as tmesh
+
+    jp, tp, jcfg, tcfg = _model()
+    mesh = tmesh.make_mesh()
+    serve = tserve.make_server(tp, tcfg, mesh=mesh, device="cpu")
+    assert serve._mesh is mesh and dataclasses.is_dataclass(tcfg)
+    rng = np.random.RandomState(5)
+    x = rng.randn(3, 7, 6).astype(np.float32)
+    mask = (np.arange(7)[None] < np.array([7, 3, 1])[:, None]).astype(np.float32)
+    got = _np(serve([x], mask))
+    np.testing.assert_array_equal(got, _np(tserve.make_server(tp, tcfg, device="cpu")([x], mask)))
+    np.testing.assert_allclose(got, _np(jserve.make_server(jp, jcfg)([x], mask)), **TOL)

@@ -8,8 +8,8 @@ the JAX fits take their XLA scans, the port its plain loops.
 Cases: both heads; the reference trimodal schedule (adadelta, lr 1.0, decay,
 early stopping); adam_vlr with an lr map; gradient accumulation (also
 against the full-batch step); bucketed batches; device-resident data and
-device-side evaluation against the host paths; chunked evaluation; and the
-refusals.
+device-side evaluation against the host paths; chunked evaluation; the
+refusals; and each mesh option's step on two gloo ranks.
 """
 
 import dataclasses
@@ -25,7 +25,9 @@ from ip_avsr_tpu.train import trainer as jtr
 from ip_avsr_torch import bridge
 from ip_avsr_torch.data.datagen import PaddedDataset
 from ip_avsr_torch.models import adenet as tadenet, zoo as tzoo
+from ip_avsr_torch.parallel import _multiprocess_worker as worker
 from ip_avsr_torch.train import trainer as ttr
+from tests import torch_scale_lib as scale_lib
 from tests import torch_trainer_lib as lib
 
 torch.set_num_threads(1)
@@ -200,13 +202,33 @@ def test_refusals_match_jax(case):
     assert str(terr.value) == str(jerr.value)
 
 
+@pytest.fixture(scope="module")
+def two_ranks():
+    with scale_lib.pool(2) as pool:
+        yield pool
+
+
 @pytest.mark.parametrize("kw", [dict(use_mesh=True), dict(model_parallel=2),
                                 dict(sequence_parallel=2), dict(zero1=True),
                                 dict(multihost=True), dict(mesh_mode="shard_map")],
                          ids=lambda kw: next(iter(kw)))
-def test_mesh_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ttr.Trainer(lib.per_step_config(tzoo), lib.quiet_options(ttr, **kw), device="cpu")
+def test_mesh_options_raise(two_ranks, kw):
+    """Each mesh option trains: one step on two gloo ranks (multihost and
+    shard_map with use_mesh) equals the one-process step from the same
+    parameters on a ragged batch of 7 rows, padded to 8 on the mesh."""
+    cfg = lib.per_step_config(tzoo)
+    opts = dict(kw, optimizer="momentum", **({"use_mesh": True} if "multihost" in kw
+                                             or "mesh_mode" in kw else {}))
+    params = lib.jax_params(jtr.Trainer(lib.per_step_config(jzoo), lib.quiet_options(jtr)))
+    rng = np.random.RandomState(4)
+    x = rng.randn(7, 8, lib.PER_STEP_DIMS[0]).astype(np.float32)
+    mask = (np.arange(8)[None] < np.array([8, 1, 5, 6, 8, 3, 4])[:, None]).astype(np.float32)
+    batch = ([x], rng.randint(0, lib.CLASSES, 7).astype(np.int32), mask)
+    single = worker.trainer_step(cfg, dict(optimizer="momentum"), params, batch, evaluate=False)
+    for got in two_ranks.run(worker.trainer_step, cfg, opts, params, batch, evaluate=False):
+        assert got["mesh"] is not None and np.prod(list(got["mesh"].values())) == 2
+        assert got["loss"] == pytest.approx(single["loss"], rel=1e-5)
+        scale_lib.assert_trees_close(got["params"], single["params"], atol=1e-6, rtol=1e-4)
 
 
 def test_trainer_defaults_to_cuda():
