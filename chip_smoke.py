@@ -232,13 +232,29 @@ Phases, each fatal on failure:
    fail, beside its float64 step on the CPU that shows the float32 error
    behind that limit) with the same launches, its collectives and bytes
    printed;
-21. print the fit's numbers, the kernels line (each row's launches in the
+21. the numpy oracle (``phase_oracle``, run right after 17.): the
+   full-width flagship, the 4-stream model (per-step probabilities), every
+   model of 15. and the conv-AE plain and batchnorm, from the trees 4., 7.,
+   15. and 17. built (biases, scales, coefficients and initial states
+   moved off their init), through ``models/adenet.adenet_forward`` (or
+   ``convae_forward``) on the card at B = 8, T = 29 with a ragged mask (a
+   row of length 1), each against ``reference_impl.adenet_forward_np`` (or
+   ``convae_forward_np``) on the host, the independent numpy forward that
+   shares no code with the port: probabilities within 2e-5,
+   reconstructions within 2e-4 relative plus 2e-5; the launches of each
+   forward (rows 1, 2 and 5) against its predicted count, the CPU path's
+   distance from the oracle, the card's forward time and the oracle's host
+   time per forward (the "reference CPU" figure) beside the CPU model; then
+   ``blstm_forward(grad_clipping=0)`` at the flagship aggregator's shape
+   (rows 3 and 4 with clip 0) against the CPU path;
+22. print the fit's numbers, the kernels line (each row's launches in the
    fits and per fit epoch, beside its serve or train path's count; rows 1
    and 5 also their launches in the streaming sessions and the state
    output's error; rows 1, 2 and 5 their launches through the artifacts;
    every row its launches through the CLIs' card runs, through phase_zoo,
-   through phase_residuals, through phase_pretrain, through phase_tools
-   and through phase_scale's mesh runs (``scale_launches``, every rank);
+   through phase_residuals, through phase_pretrain, through phase_tools,
+   through phase_scale's mesh runs (``scale_launches``, every rank) and
+   through phase_oracle (``oracle_launches``);
    then the six bf16 rows, their launches on the bf16 serve and train
    paths, through the bf16 CLI run and the two artifacts), then ``{"ok":
    true, "device": ...}`` last.
@@ -989,7 +1005,7 @@ def compare_units(make, units, label):
     return times
 
 
-def phase_serve(dev):
+def phase_serve(dev, trees):
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1003,6 +1019,7 @@ def phase_serve(dev):
     params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED), cfg,
                                        device=dev)
     print(f"adenet_v3 full width: init {time.perf_counter() - t0:.1f} s")
+    trees["flagship"] = (cfg, tree_to(params, torch.device("cpu")))
     server = make_trimodal_server(params, cfg, IMAGE_SHAPE, DCT, device=dev)
     rng = np.random.RandomState(SEED)
     requests = []
@@ -1878,7 +1895,7 @@ def busy_share(events, n, median_ms, label, rows=14):
     return events, busy_ms
 
 
-def phase_serve_4stream(dev):
+def phase_serve_4stream(dev, trees):
     """The peephole 4-stream adasum AdeNet of configs/oulu_4stream.ini at full
     width, served on preprocessed streams through serve.make_server."""
     import torch
@@ -1891,6 +1908,7 @@ def phase_serve_4stream(dev):
     print(f"oulu_4stream full width: features {[s.feature_dim() for s in cfg.streams]}, "
           f"H={cfg.lstm_size}, fusion {cfg.fusiontype}, peepholes {cfg.use_peepholes}")
     params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 6), cfg, device=dev)
+    trees["4-stream"] = (cfg, tree_to(params, torch.device("cpu")))
     server = make_server(params, cfg, device=dev)
     probs_server = make_server(params, cfg, vote=False, device=dev)
     requests = [stream_batch(cfg, B, SEED + 6 + i, dev)[:2]
@@ -3610,7 +3628,7 @@ def count_into(totals, launches):
         totals[k] += v
 
 
-def phase_zoo(dev):
+def phase_zoo(dev, trees):
     """The rest of the model zoo on the card at full width: every builder
     of :func:`zoo_models` from seeded weights (running statistics moved off
     their init), served at B = 8, T = 29 with a ragged mask through
@@ -3654,6 +3672,7 @@ def phase_zoo(dev):
                 torch.Generator().manual_seed(seed), cfg, device=dev), cfg, seed)
         if label == "adenet_v5":
             v5 = params
+        trees[f"zoo {label}"] = (cfg, tree_to(params, cpu))
         streams, mask, _ = stream_batch(cfg, ZOO_B, seed, dev)
         server = make_server(params, cfg, vote=False, device=dev)
         server(streams, mask)  # warm-up
@@ -3684,7 +3703,7 @@ def phase_zoo(dev):
             raise AssertionError(f"zoo, {label}: bad probabilities {tuple(probs.shape)}, "
                                  f"error {err:.2e}")
         numbers[label] = dict(launches=got, err=err, ms=ms)
-        del params, server
+        del server
     print(f"zoo: launches per forward, measured against predicted: all "
           f"{len(models)} equal; {smi('name,power.limit')}")
 
@@ -3812,6 +3831,216 @@ def phase_zoo(dev):
     if not (torch.equal(got, want) and torch.equal(outs[0][2], outs[1][2]) and all(same)):
         raise AssertionError("zoo: fuse_scans is not the unfused forward and step bit for bit")
     print(f"zoo: launches over the phase {totals}")
+    return totals, numbers
+
+
+# phase_oracle: the card's full-width forwards against the port's numpy
+# oracle (ip_avsr_torch/reference_impl.py, which shares no code with the
+# port), from the trees earlier phases built (``trees``), at B = 8, T = 29 with
+# a ragged mask (a full row and a row of length 1)
+ORACLE_B = 8
+ORACLE_CONVAE_B = 8
+# the conv-AE's reconstructions (up to 2.4 in magnitude, scaled tanh) pass
+# through convolutions of 2500 products each (conv3, 100 -> 150 channels at
+# 5 x 5), summed in another order by cuDNN than by the oracle's einsum, and
+# through batch statistics: held as tests/test_reference_parity.py holds the
+# JAX forward to the oracle, |card - oracle| <= ORACLE_ATOL + ORACLE_RTOL |oracle|
+ORACLE_RTOL = 2e-4
+ORACLE_ATOL = 2e-5
+def cpu_model():
+    """The host CPU's model name (``lscpu``'s, else /proc/cpuinfo's) and
+    architecture."""
+    import platform
+
+    name = None
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=10).stdout
+        name = next((line.split(":", 1)[1].strip() for line in out.splitlines()
+                     if line.startswith("Model name")), None)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if name is None and os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            name = next((line.split(":", 1)[1].strip() for line in f
+                         if line.startswith("model name")), None)
+    return f"{name or 'unknown'} ({platform.machine()})"
+
+
+def perturbed(params, seed):
+    """A copy of ``params`` whose biases, scales, coefficients and initial
+    states (the leaves with at most one dimension above 1, which init fills
+    with 0 or 1) carry seeded N(0, 0.1^2) noise, so that their wiring shows;
+    weight matrices and kernels are the same tensors."""
+    import torch
+
+    from ip_avsr_torch.device import tree_map
+
+    gen = torch.Generator().manual_seed(seed)
+    return tree_map(lambda t: t + (0.1 * torch.randn(t.shape, generator=gen)).to(t.device)
+                    if t.dim() < 2 or t.shape[0] == 1 else t, params)
+
+
+def oracle_batch(cfg, seed):
+    """Seeded normal (B, T, D_i) features per stream and a ragged mask
+    (row 0 full, row 1 one frame long), as numpy."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    inputs = [rng.randn(ORACLE_B, T_FRAMES, s.input_dim).astype(np.float32)
+              for s in cfg.streams]
+    lens = rng.randint(1, T_FRAMES + 1, ORACLE_B)
+    lens[0], lens[1] = T_FRAMES, 1
+    return inputs, (np.arange(T_FRAMES)[None] < lens[:, None]).astype(np.float32)
+
+
+def clip0_check(dev, params, totals):
+    """``blstm_forward(grad_clipping=0)`` at the flagship aggregator's shape
+    (its own BLSTM, H = 250 over the 250-wide fused streams, B = TRAIN_B,
+    T = 29, ragged): rows 3 and 4 with clip 0 on the card, every gradient
+    against the CPU path within TRAIN_GRAD_TOL of its max abs, under an
+    upstream x100 that makes clip 5 differ.  Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch.device import tree_map, tree_to
+    from ip_avsr_torch.ops import lstm as lstm_ops
+
+    layer = params["aggregator"][0]
+    H, D = layer["fwd"]["w_hid"].shape[0], layer["fwd"]["w_in"].shape[0]
+    rng = np.random.RandomState(SEED + 70)
+    x = rng.randn(TRAIN_B, T_FRAMES, D).astype(np.float32)
+    lens = rng.randint(1, T_FRAMES + 1, TRAIN_B)
+    lens[0] = T_FRAMES
+    mask = (np.arange(T_FRAMES)[None] < lens[:, None]).astype(np.float32)
+    g = 100.0 * rng.randn(TRAIN_B, T_FRAMES, H).astype(np.float32)
+    cpu = torch.device("cpu")
+
+    def grads(device, clip):
+        fwd, bwd = (tree_map(lambda t: t.detach().to(device).clone().requires_grad_(True),
+                             layer[k]) for k in ("fwd", "bwd"))
+        xt = torch.from_numpy(x).to(device).requires_grad_(True)
+        out = lstm_ops.blstm_forward(fwd, bwd, xt, torch.from_numpy(mask).to(device),
+                                     "sum", clip)
+        (out * torch.from_numpy(g).to(device)).sum().backward()
+        leaves = {f"{k}/{n}": t.grad for k, tree in (("fwd", fwd), ("bwd", bwd))
+                  for n, t in tree.items()}
+        return tree_to({**leaves, "x": xt.grad}, cpu)
+
+    reset_launches()
+    card = grads(dev, 0.0)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    count_into(totals, launches)
+    expect_launches(launches, lstm_fwd_train=2, lstm_bwd=2)
+    host, clipped = grads(cpu, 0.0), grads(dev, 5.0)
+    rel = {k: max_err(card[k], v)[0] / max(v.abs().max().item(), 1e-30)
+           for k, v in host.items()}
+    bite = max_err(clipped["x"], card["x"])[0] / card["x"].abs().max().item()
+    worst = max(rel, key=rel.get)
+    print(f"oracle, blstm_forward(grad_clipping=0) at the flagship aggregator's shape (B="
+          f"{TRAIN_B}, T={T_FRAMES}, D={D}, H={H}, upstream x100): launches "
+          f"{ {k: v for k, v in launches.items() if v} }; card "
+          f"vs CPU path, gradients relative to max abs worst {rel[worst]:.2e} ({worst}; held "
+          f"to {TRAIN_GRAD_TOL:g}); clip 5 moves dx by {bite:.2e} of its max abs")
+    if not (all(e <= TRAIN_GRAD_TOL for e in rel.values()) and bite > 1e-2):
+        raise AssertionError("oracle: blstm_forward(grad_clipping=0) on the card disagrees "
+                             "with the CPU path, or clip 5 does not bite")
+    return dict(grad_rel=rel[worst], clip5_moves_dx=bite)
+
+
+def phase_oracle(dev, trees):
+    """The card's full-width forwards against the port's numpy oracle
+    (``reference_impl.adenet_forward_np`` / ``convae_forward_np``, run on
+    the host from the same parameters through ``torch_tree_to_np``): the
+    flagship (phase_serve's tree), the 4-stream model (phase_serve_4stream's,
+    per-step probabilities before the vote), every model of
+    :func:`zoo_models` (phase_zoo's, running statistics moved) and the
+    conv-AE plain and batchnorm (convae_check's, its images), each with its
+    biases, scales, coefficients and initial states moved off their init
+    (:func:`perturbed`), through ``models/adenet.adenet_forward`` (or
+    ``models/convae.convae_forward``) in evaluation mode.  Probabilities
+    held within SCORE_TOL of the oracle, reconstructions within
+    ORACLE_RTOL / ORACLE_ATOL; the port's CPU path's distance from the
+    oracle printed beside the card's, the card's forward time (CUDA
+    events) beside the oracle's host time.  Then :func:`clip0_check`.
+    ``trees`` maps each label to (config, parameter tree on the host[,
+    input]), as those phases fill it.  Returns ({row: launches} over the phase, its
+    numbers)."""
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch import reference_impl
+    from ip_avsr_torch.device import tree_to
+    from ip_avsr_torch.models import adenet, convae
+
+    totals, numbers = {name: 0 for name in KERNEL_COUNTERS}, {}
+    cpu = torch.device("cpu")
+    card = smi("name,power.limit")
+    threads = torch.get_num_threads()
+    print(f"oracle: host {cpu_model()}, {os.cpu_count()} cores, torch threads {threads}; "
+          f"card {card}")
+    expected = {"flagship": dict(lstm_fwd=5, delta=1),
+                "4-stream": dict(lstm_peep_fwd=6, delta=1),
+                **{f"zoo {k}": v for k, v in ZOO_LAUNCHES.items()},
+                "convae plain": {}, "convae batchnorm": {}}
+    for i, (label, want_launches) in enumerate(expected.items()):
+        cfg, params, *rest = trees[label]
+        params = perturbed(tree_to(params, dev), SEED + 80 + i)
+        host_params = reference_impl.torch_tree_to_np(params)
+        if label.startswith("convae"):
+            x = rest[0][:ORACLE_CONVAE_B].numpy()
+            inputs = [torch.from_numpy(x).to(dev)]
+
+            def forward(p, xs, _cfg=cfg):
+                return convae.convae_forward(p, _cfg, xs[0])
+
+            def oracle(_p=host_params, _cfg=cfg, _x=x):
+                return reference_impl.convae_forward_np(_p, _cfg, _x)
+        else:
+            xs, mask = oracle_batch(cfg, SEED + 80 + i)
+            inputs = [torch.from_numpy(a).to(dev) for a in xs] + [torch.from_numpy(mask).to(dev)]
+
+            def forward(p, xs, _cfg=cfg):
+                return adenet.adenet_forward(p, _cfg, xs[:-1], xs[-1])
+
+            def oracle(_p=host_params, _cfg=cfg, _xs=xs, _mask=mask):
+                return reference_impl.adenet_forward_np(_p, _cfg, _xs, _mask)
+        with torch.no_grad():
+            forward(params, inputs)  # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            got = forward(params, inputs)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            count_into(totals, launches)
+            expect_launches(launches, **want_launches)
+            host = forward(tree_to(params, cpu), tree_to(inputs, cpu))
+            ms = cuda_ms(lambda: forward(params, inputs), iters=10)
+        want = oracle()
+        got, ref = got.cpu().numpy(), want
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"oracle, {label}: shape {got.shape} against {ref.shape}, "
+                                 f"or not finite")
+        err, cpu_err = np.abs(got - ref).max(), np.abs(host.numpy() - ref).max()
+        if label.startswith("convae"):
+            over = (np.abs(got - ref) - ORACLE_ATOL - ORACLE_RTOL * np.abs(ref)).max()
+            limit = f"|d| <= {ORACLE_ATOL:g} + {ORACLE_RTOL:g} |oracle|, worst margin {-over:.2e}"
+            ok = over <= 0
+        else:
+            limit = f"held to {SCORE_TOL:g}"
+            ok = err <= SCORE_TOL
+        host_ms = host_median_ms(oracle, calls=3, warmup=0)
+        print(f"oracle, {label}: |card - oracle| {err:.2e} ({limit}), |CPU path - oracle| "
+              f"{cpu_err:.2e}; launches {({k: v for k, v in launches.items() if v})}; card "
+              f"forward {ms:.3f} ms (CUDA events, B={len(ref)}; {card}); oracle "
+              f"{host_ms:.1f} ms per forward (host clock, median of 3)")
+        if not ok:
+            raise AssertionError(f"oracle, {label}: the card disagrees with the numpy oracle")
+        numbers[label] = dict(err=float(err), cpu_err=float(cpu_err), ms=ms, oracle_ms=host_ms)
+        del params, inputs
+    numbers["clip0"] = clip0_check(dev, trees["flagship"][1], totals)
+    numbers["host"] = dict(cpu=cpu_model(), cores=os.cpu_count(), card=card)
+    print(f"oracle: launches over the phase {totals}")
     return totals, numbers
 
 
@@ -4138,7 +4367,7 @@ def ae_check(dev, weights, biases, x, numbers):
     numbers["ae_epoch"] = dict(loss_rel=loss_rel, worst_rel=worst)
 
 
-def convae_check(dev, images, numbers):
+def convae_check(dev, images, numbers, trees):
     """The conv-AE, plain and batchnorm, on the card against the CPU path
     from the same parameters and batch of CONVAE_CHECK_B images.  In float64
     (the semantics, free of rounding): every gradient and adadelta update
@@ -4171,6 +4400,7 @@ def convae_check(dev, images, numbers):
         zero_grad = ({f"/{name}/b" for name in ("conv1", "conv3", "conv5", "dense7")}
                      if cfg.use_batchnorm else set())
         params = convae.init_convae_params(torch.Generator().manual_seed(SEED + 91), cfg)
+        trees[f"convae {variant}"] = (cfg, params, x)
         runs = {}
         for key in ((cpu, f32), (dev, f32), (cpu, f64), (dev, f64), ("no cudnn", f32)):
             device, dtype = (dev, key[1]) if key[0] == "no cudnn" else key
@@ -4245,7 +4475,7 @@ def convae_check(dev, images, numbers):
             reroutes=reroutes)
 
 
-def phase_pretrain(dev):
+def phase_pretrain(dev, trees):
     """Pretraining at full width on the card, through the CLIs a user runs:
     ``cli.pretrain_dbn`` (RBM CD-1, greedy stacking, unfolding, the w1..w8
     ``.mat``) on the frames of a corpus of OuluVS's size, ``cli.ae_finetuner``
@@ -4487,7 +4717,7 @@ def phase_pretrain(dev):
         split = pp.create_split_index(n, data["videoLengthVec"], data["iterVec"])
         ae_check(dev, weights, biases, pp.normalize_input(
             data["dataMatrix"][split][:20 * PRETRAIN_B].astype(np.float32)), numbers)
-        convae_check(dev, train_X, numbers)
+        convae_check(dev, train_X, numbers, trees)
         numbers["checks_s"] = time.perf_counter() - t0
         print(f"pretrain: the card against the CPU path took {numbers['checks_s']:.1f} s")
     finally:
@@ -5627,9 +5857,13 @@ def main() -> int:
     peep_train_err = max(peep_train_err, sweep_err["lstm_peep_fwd_train"])
     phase_chunks(dev)
     state = phase_lstm_state(dev)
-    launches, _ = phase_serve(dev)
+    # {label: (config, parameter tree[, input])} of the models the phases
+    # build, which phase_oracle takes instead of building them again; kept
+    # on the host, so that the later phases' memory readings do not see them
+    trees = {}
+    launches, _ = phase_serve(dev, trees)
     train_launches, _ = phase_train(dev)
-    launches4, _ = phase_serve_4stream(dev)
+    launches4, _ = phase_serve_4stream(dev, trees)
     train_launches4, _ = phase_train_4stream(dev)
     # the bf16 paths beside the f32 ones: on this card torch.profiler has
     # lost every device record of a cooperative launch when traced after
@@ -5645,12 +5879,14 @@ def main() -> int:
     print(json.dumps({"cli": cli_numbers}))
     export = phase_export(dev)
     print(json.dumps({"export": export}))
-    zoo_launches, zoo_numbers = phase_zoo(dev)
+    zoo_launches, zoo_numbers = phase_zoo(dev, trees)
     print(json.dumps({"zoo": zoo_numbers}))
     residual_launches, residual_numbers = phase_residuals(dev)
     print(json.dumps({"residuals": residual_numbers}))
-    pretrain_launches, pretrain_numbers = phase_pretrain(dev)
+    pretrain_launches, pretrain_numbers = phase_pretrain(dev, trees)
     print(json.dumps({"pretrain": pretrain_numbers}))
+    oracle_launches, oracle_numbers = phase_oracle(dev, trees)
+    print(json.dumps({"oracle": oracle_numbers}))
     tools_launches, tools_numbers = phase_tools(dev)
     print(json.dumps({"tools": tools_numbers}))
     scale_launches = phase_scale(dev)
@@ -5708,13 +5944,16 @@ def main() -> int:
         # every row: its launches through the training CLIs' card runs, the
         # rest of the zoo's serving, training and export, the residual
         # levers' train steps, the pretraining phase (its trimodal fit) and
-        # the tools phase (the rehearsal's fits, the confusion forward)
+        # the tools phase (the rehearsal's fits, the confusion forward), and
+        # the oracle phase (the forwards held to the numpy oracle, the clip-0
+        # BLSTM gradients)
         row.update(cli_launches=cli_launches[row["name"]],
                    zoo_launches=zoo_launches[row["name"]],
                    residual_launches=residual_launches[row["name"]],
                    pretrain_launches=pretrain_launches[row["name"]],
                    tools_launches=tools_launches[row["name"]],
-                   scale_launches=scale_launches[row["name"]])
+                   scale_launches=scale_launches[row["name"]],
+                   oracle_launches=oracle_launches[row["name"]])
     # the six bf16 instantiations: launches on their bf16 main path (the
     # flagship's serve and train steps for rows 1, 3 and 4, the 4-stream
     # model's for rows 5-7), beside the bf16 CLI's and the artifacts'
@@ -5730,7 +5969,8 @@ def main() -> int:
                                        "traced_ms", "us_per_step", "f32_ms")},
             "cli_launches": bf16_paths["cli"][name],
             "export_launches": bf16_paths["export"][name],
-            "scale_launches": scale_launches[name]})
+            "scale_launches": scale_launches[name],
+            "oracle_launches": oracle_launches[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -109,3 +109,10 @@ def _layer_sort_key(name: str):
         return (order[name], 0)
     digits = "".join(c for c in name if c.isdigit())
     return (99, int(digits) if digits else 0)
+
+
+def encoder_output_dim(params: dict, names=None) -> int:
+    """The width of the stack's last layer (in ``names`` order, default the
+    fc1 < ... < bottleneck < fc5 order)."""
+    names = names or sorted(params.keys(), key=_layer_sort_key)
+    return int(params[names[-1]]["w"].shape[1])

@@ -167,21 +167,24 @@ def load_mat_native(path) -> Optional[dict]:
         lib.ipav_close(h)
 
 
-def load_many(paths, workers: Optional[int] = None) -> list:
+def load_many(paths, workers: Optional[int] = None, fallback=None) -> list:
     """Parse many .mat files in a thread pool of ``workers`` (default
     ``min(16, cpu_count)``; the C parse and zlib run without the GIL),
-    ``scipy.io.loadmat`` reading each file the parser rejects.  Returns
-    dicts in input order."""
-    import scipy.io as sio
+    ``fallback(path)`` reading each file the parser rejects (default
+    ``scipy.io.loadmat``; every file when the reader is switched off).
+    Returns dicts in input order."""
+    if fallback is None:
+        import scipy.io as sio
 
+        fallback = sio.loadmat
     if not enabled():
-        return [sio.loadmat(p) for p in paths]
+        return [fallback(p) for p in paths]
     if workers is None:
         workers = min(16, os.cpu_count() or 4)
 
     def one(p):
         d = load_mat_native(p)
-        return d if d is not None else sio.loadmat(p)
+        return d if d is not None else fallback(p)
 
     if workers <= 1 or len(paths) <= 1:
         return [one(p) for p in paths]

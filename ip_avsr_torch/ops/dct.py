@@ -12,7 +12,9 @@ the gathered DCT-II columns:
     s_0 = sqrt(1/N), s_k = sqrt(2/N) for k > 0.
 
 The basis is built once per (shape, count, device) in float64 and rounded to
-float32.
+float32.  :func:`dct2_ortho`, the whole transform along the last axis, is
+the product with the full (N, N) matrix, built the same way and cached per
+(N, dtype, device).
 """
 
 from __future__ import annotations
@@ -35,14 +37,33 @@ def zigzag_indices(shape) -> np.ndarray:
     return np.lexsort((key.ravel(), d.ravel()))
 
 
+def _dct_columns(n_pix: int, k: np.ndarray) -> np.ndarray:
+    """(n_pix, len(k)) float64 columns k of the orthonormal DCT-II matrix."""
+    n = np.arange(n_pix, dtype=np.float64)[:, None]
+    scale = np.where(k == 0, np.sqrt(1.0 / n_pix), np.sqrt(2.0 / n_pix))
+    return scale * np.cos(np.pi * (2.0 * n + 1.0) * k[None, :] / (2.0 * n_pix))
+
+
 def dct_feature_basis_np(image_shape, no_coeff: int) -> np.ndarray:
     """(N, no_coeff) float64 columns of the orthonormal DCT-II matrix for
     the zigzag coefficients 1..no_coeff."""
     n_pix = int(image_shape[0]) * int(image_shape[1])
     k = zigzag_indices(image_shape)[1: no_coeff + 1].astype(np.float64)
-    n = np.arange(n_pix, dtype=np.float64)[:, None]
-    scale = np.where(k == 0, np.sqrt(1.0 / n_pix), np.sqrt(2.0 / n_pix))
-    return scale * np.cos(np.pi * (2.0 * n + 1.0) * k[None, :] / (2.0 * n_pix))
+    return _dct_columns(n_pix, k)
+
+
+@functools.lru_cache(maxsize=8)
+def _dct_matrix(n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """The whole (n, n) DCT-II matrix, built in float64 and cast to
+    ``dtype`` on ``device``, cached (it is never written)."""
+    basis = _dct_columns(n, np.arange(n, dtype=np.float64))
+    return torch.as_tensor(basis, dtype=dtype, device=device)
+
+
+def dct2_ortho(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormal DCT-II along the last axis, as ``x @ D`` with ``D`` the
+    cached (n, n) basis of ``x``'s dtype and device."""
+    return torch.matmul(x, _dct_matrix(int(x.shape[-1]), x.dtype, x.device))
 
 
 @functools.lru_cache(maxsize=8)

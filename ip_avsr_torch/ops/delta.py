@@ -8,7 +8,8 @@ over a sequence edge-padded by W frames on each side (first/last frame
 repeated); the acceleration is the same filter applied to the delta, with its
 own edge padding; the output is [x, delta, accel] on the feature axis.
 
-:func:`append_delta_coeff` is the plain version.  :func:`delta_group` is what
+:func:`append_delta_coeff` is the plain version; :func:`delta_filter_weights`
+gives its taps as a numpy array.  :func:`delta_group` is what
 the model calls, once over all its delta streams: it goes through the kernel
 wrapper (``ops/kernels/delta.append_delta_group``), which runs one launch of
 the CUDA kernel for CUDA tensors and this plain version for CPU tensors;
@@ -24,6 +25,7 @@ gradient to take, :func:`delta_group` calls the wrapper (the operator
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -32,6 +34,22 @@ def _edge_pad_time(x: torch.Tensor, window: int) -> torch.Tensor:
     first = x[..., :1, :].expand(*x.shape[:-2], window, x.shape[-1])
     last = x[..., -1:, :].expand(*x.shape[:-2], window, x.shape[-1])
     return torch.cat([first, x, last], dim=-2)
+
+
+def _tap(theta: int, normalized: bool) -> float:
+    """The FIR tap at offset +theta: 1/(2 theta) (``normalized``, the
+    DeltaLayer) or theta (the host-side feature deltas); offset -theta
+    takes its negative."""
+    return (1.0 / (2.0 * theta)) if normalized else float(theta)
+
+
+def delta_filter_weights(window: int, normalized: bool = True) -> np.ndarray:
+    """The float32 FIR taps for offsets -window..window (0 at offset 0)."""
+    taps = [0.0] * (2 * window + 1)
+    for theta in range(1, window + 1):
+        taps[window + theta] = _tap(theta, normalized)
+        taps[window - theta] = -_tap(theta, normalized)
+    return np.asarray(taps, dtype=np.float32)
 
 
 def delta_taps_from_padded(padded: torch.Tensor, window: int,
@@ -45,7 +63,7 @@ def delta_taps_from_padded(padded: torch.Tensor, window: int,
     out = torch.zeros(padded.shape[:-2] + (T,) + padded.shape[-1:], dtype=padded.dtype,
                       device=padded.device)
     for theta in range(1, window + 1):
-        coeff = (1.0 / (2.0 * theta)) if normalized else float(theta)
+        coeff = _tap(theta, normalized)
         fwd = padded[..., window + theta: window + theta + T, :]
         bwd = padded[..., window - theta: window - theta + T, :]
         out = out + coeff * (fwd - bwd)

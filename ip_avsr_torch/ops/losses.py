@@ -6,6 +6,8 @@ Mirrors ip_avsr_tpu/ops/losses.py:
   head.  The reference feeds it the network's softmax *probabilities* and
   applies a second (max-subtracted) softmax inside; that double softmax is
   kept, because training dynamics depend on it.
+* ``categorical_crossentropy``: the mean -log p[y] of a last-step head
+  (Lasagne's ``categorical_crossentropy`` on a softmax layer);
 * ``categorical_crossentropy_masked``: the weighted mean -log p[y] of a
   last-step head, with batch-pad rows weighted 0.
 * ``squared_error`` and ``l2_regularization``: the autoencoders'
@@ -35,6 +37,16 @@ def temporal_softmax_loss(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     if return_parts:
         return num, mask_flat.sum()
     return num / mask_flat.sum()
+
+
+def categorical_crossentropy(probs: torch.Tensor, y: torch.Tensor,
+                             eps: float = 0.0) -> torch.Tensor:
+    """Mean -log(probs[y]) over the batch, the picked probabilities clipped
+    to [eps, 1] when ``eps`` is nonzero."""
+    p = probs.gather(1, y[:, None].long())[:, 0]
+    if eps:
+        p = torch.clamp(p, eps, 1.0)
+    return -torch.mean(torch.log(p))
 
 
 def categorical_crossentropy_masked(probs: torch.Tensor, y: torch.Tensor,

@@ -1,11 +1,12 @@
 """Masked LSTM / BLSTM with Lasagne-compatible semantics.
 
-Mirrors ip_avsr_tpu/ops/lstm.py (``init_lstm_params``, ``init_blstm_params``,
-``lstm_forward`` with its streaming options ``initial_state`` and
-``return_state``, ``_lstm_prep``, the custom-VJP cores ``_lstm_core`` and
-``_lstm_core_peep`` with their primals, forwards and backwards and their
-residual levers ``remat`` and ``residual_dtype``, ``lstm_forward_grouped``,
-``can_group_lstms``, ``blstm_forward``, ``last_valid_step``,
+Mirrors ip_avsr_tpu/ops/lstm.py (``grad_clip``, ``init_lstm_params``,
+``init_blstm_params``, ``lstm_forward`` with its streaming options
+``initial_state`` and ``return_state``, ``_lstm_prep``, the custom-VJP cores
+``_lstm_core`` and ``_lstm_core_peep`` with their primals, forwards and
+backwards and their residual levers ``remat`` and ``residual_dtype``,
+``lstm_forward_grouped``, ``can_group_lstms``, ``blstm_forward``,
+``last_valid_step``, ``last_valid_step_gathered``,
 ``lstm_params_hidden_size``):
 
   * gate stacking order (ingate, forgetgate, cell, outgate) in ``w_in (D, 4H)``,
@@ -72,6 +73,23 @@ from ip_avsr_torch.ops.kernels.lstm import (lstm_bwd_chain, lstm_peep_bwd_chain,
                                             round_operand)
 
 _PEEPHOLE_KEYS = ("w_cell_to_ingate", "w_cell_to_forgetgate", "w_cell_to_outgate")
+
+
+class _GradClip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bound):
+        ctx.bound = bound
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.clamp(g, -ctx.bound, ctx.bound), None
+
+
+def grad_clip(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """The identity whose backward clamps the incoming gradient to
+    +-``bound`` elementwise (``theano.gradient.grad_clip``)."""
+    return _GradClip.apply(x, float(bound))
 
 
 def init_lstm_params(generator, input_dim: int, hidden: int,
@@ -439,11 +457,13 @@ def lstm_forward(params: dict, x: torch.Tensor,
 
 def blstm_forward(fwd_params: dict, bwd_params: dict, x: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
-                  merge: str = "sum", matmul_dtype=None) -> torch.Tensor:
+                  merge: str = "sum", grad_clipping: float = 5.0,
+                  matmul_dtype=None) -> torch.Tensor:
     """Bidirectional LSTM; ``merge`` is "sum" (the reference default) or
-    "concat"; ``matmul_dtype`` as :func:`lstm_forward`."""
-    f = lstm_forward(fwd_params, x, mask, False, matmul_dtype=matmul_dtype)
-    b = lstm_forward(bwd_params, x, mask, True, matmul_dtype=matmul_dtype)
+    "concat"; ``grad_clipping`` and ``matmul_dtype`` as :func:`lstm_forward`,
+    for both directions."""
+    f = lstm_forward(fwd_params, x, mask, False, grad_clipping, matmul_dtype=matmul_dtype)
+    b = lstm_forward(bwd_params, x, mask, True, grad_clipping, matmul_dtype=matmul_dtype)
     if merge == "sum":
         return f + b
     if merge == "concat":
@@ -489,3 +509,14 @@ def last_valid_step(outputs: torch.Tensor, mask: Optional[torch.Tensor]) -> torc
     state: exactly what the reference's SliceLayer(-1) reads."""
     del mask
     return outputs[:, -1, :]
+
+
+def last_valid_step_gathered(outputs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Each row's output at its true last valid frame, max(len - 1, 0) (an
+    all-pad row reads frame 0).  Equal to :func:`last_valid_step` for a
+    forward mask-carrying recurrence, and right for upstreams that zero
+    their padded steps; not the reference's reading of a summed BLSTM,
+    whose index -1 holds the backward half's learned initial state."""
+    lengths = (mask > 0).sum(dim=1)
+    idx = torch.clamp(lengths - 1, min=0)
+    return outputs.gather(1, idx[:, None, None].expand(-1, 1, outputs.shape[-1]))[:, 0, :]

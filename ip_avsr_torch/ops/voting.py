@@ -1,7 +1,10 @@
-"""Masked majority vote over per-timestep predictions.
+"""Majority voting over per-timestep predictions.
 
 Mirrors ip_avsr_tpu/ops/voting.py:
 
+* ``majority_voting_layer``: per-frame argmax, per-class vote counts over
+  every frame (no mask, as the reference layer counts), softmax over the
+  counts, on tensors;
 * ``majority_voting_layer_masked``: per-frame argmax (ties go to the lower
   class), per-class vote counts over VALID frames only, softmax over the
   counts, on tensors;
@@ -13,6 +16,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def majority_voting_layer(probs: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(B, T, C) -> (B, C) softmax of per-class argmax counts over every
+    frame; ties go to the lower class, as ``jnp.argmax`` breaks them."""
+    preds = torch.argmax(probs, dim=-1)
+    onehot = torch.nn.functional.one_hot(preds, num_classes).to(probs.dtype)
+    return torch.softmax(torch.sum(onehot, dim=1), dim=-1)
 
 
 def majority_voting_layer_masked(probs: torch.Tensor, mask: torch.Tensor,

@@ -20,7 +20,9 @@ corpus (force-align, pretrained ``model`` files, the report files);
 ``cli.trimodal`` with both autoencoders, with ``--test_subj`` and with the
 reference's key names, and its dropout-0 fit (``zoo.adenet_v3`` patched in
 both packages); ``separate_train`` (its encodings and its fit);
-``extract_weights`` (the ``.mat`` it writes read by the JAX package);
+``extract_weights`` (the ``.mat`` it writes read by the JAX package, and
+the extracted encoder fed a probe against the port's numpy oracle
+``reference_impl.encoder_forward_np``);
 ``evaluate_delta_features`` (both fits and the report).
 """
 
@@ -265,6 +267,38 @@ def test_extract_weights_written_mat_reads_in_jax(tmp_path):
     with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
         text.main(["--model", model, "--out", str(tmp_path / "x.mat"),
                    "--encoder-stream", "s9"])
+
+
+def test_extract_weights_encoder_matches_the_oracle(tmp_path):
+    """The JAX check of tests/test_cli_and_checkpoints.py:288-324 in the
+    port: an encoder written by ``extract_weights`` and read back through
+    the CLI loader path (``load_decoder``, ``pretrained_encoder_params``)
+    gives, on a probe, what the independent numpy forward gives for the
+    model's own encoder; six layers, so fc5 and fc6 sort after bottleneck."""
+    from ip_avsr_torch import reference_impl
+    from ip_avsr_torch.io import matio as tmatio
+    from ip_avsr_torch.models import adenet as tadenet, encoder as tencoder
+
+    shapes, nls = (9, 8, 7, 6, 5, 4), ("sigmoid",) * 5 + ("linear",)
+    cfg = tzoo.deltanet_majority_vote(10, shapes, nls, lstm_size=4, window=2,
+                                      output_classes=3)
+    params = tadenet.init_adenet_params(torch.Generator().manual_seed(2), cfg, device="cpu")
+    model = str(tmp_path / "best.pkl")
+    tmatio.save_model_params(params, model)
+    run(text.main, ["--model", model, "--encoder-stream", "s1",
+                    "--out", str(tmp_path / "enc.mat")])
+    w, b, got_shapes, got_nls = tmatio.load_decoder(
+        str(tmp_path / "enc.mat"), ",".join(map(str, shapes)), ",".join(nls))
+    assert [wi.shape[1] for wi in w] == list(got_shapes) == list(shapes)
+    enc = tencoder.pretrained_encoder_params(w, b)
+    assert sorted(enc, key=tencoder._layer_sort_key)[4:] == ["fc5", "fc6"]
+    probe = np.random.RandomState(3).randn(5, 10).astype(np.float32)
+    with torch.no_grad():
+        got = tencoder.encoder_forward(enc, torch.from_numpy(probe), got_nls).numpy()
+    want = reference_impl.encoder_forward_np(
+        reference_impl.torch_tree_to_np(params["streams"]["s1"]["encoder"]), probe, nls)
+    assert got.shape == (5, 4)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def _ablation(report):
