@@ -8,7 +8,10 @@ Phases, each fatal on failure:
 1. build every CUDA kernel of the serving and training paths from
    ``ip_avsr_torch/csrc`` (one nvcc per source, started together) and the
    native ``.mat`` reader from ``ip_avsr_torch/native/matread.cc`` (g++),
-   and print the toolchain;
+   and print the toolchain; then read every instantiation of the two chain
+   kernels from the built libraries with cuobjdump (``phase_sass``): its
+   registers per thread and its tensor-core instructions (HMMA), which
+   every bf16 instantiation must have and no float32 one;
 2. print the card's name and power limit (nvidia-smi);
 3. with TF32 off, hold each kernel against its plain PyTorch version at the
    shapes of the paths below and time kernel, plain version and library
@@ -202,14 +205,20 @@ Phases, each fatal on failure:
    (equal confusions and matrix);
 19. ``matmul_dtype="bfloat16"`` (``phase_bf16``, run right after 8., while
    torch.profiler still records cooperative launches): the bf16-W_hid
-   instantiations of rows 1 and 3-7 against their plain versions (rows 1,
-   3, 4 at H = 500, B = 8 and 10; rows 5-7 at H = 250, B = 10; T = 1
-   within LSTM_TOL, T = 29 within BF16_CHAIN_TOL; the chains at clip 5 x1
-   and x100 and clip 0; the state variants of rows 1 and 5 at B = 1; rows
-   1 and 4 one batch above a bf16 launch's row cap), each timed in turns
-   with its f32 twin on the same inputs, traced (one launch per call) and
-   bounded (W_hid at 2 bytes a value), rows 1, 3 and 4 beside
-   ``torch.nn.LSTM`` in bf16; the full-width flagship at bf16 served (B =
+   instantiations of rows 1 and 3-7 (their products on the tensor cores)
+   against their plain versions (rows 1, 3, 4 at H = 500, B = 8 and 10;
+   rows 5-7 at H = 250, B = 10; T = 1 within LSTM_TOL, T = 29 within
+   BF16_CHAIN_TOL; the chains at clip 5 x1 and x100 and clip 0; the state
+   variants of rows 1 and 5 at B = 1; every row at B in {1, 10, 17, 64} and
+   H in {500, 250, 130}, clip 5 and 0, step by step against the plain
+   version fed the kernel's own operands (LSTM_TOL) and, but for the
+   backward chains at B = 1 (printed), free-running within the chain
+   limits; U = 8 and 4 forced; rows 1 and 4 one batch above a bf16
+   launch's row cap), each timed on events in turns with its f32 twin on
+   the same inputs (``queued_ms``: device time, not the host's rate), the
+   backward rows also at the f32 plan's units per block, traced (one
+   launch per call) and bounded (W_hid at 2 bytes a value), rows 1, 3 and
+   4 beside ``torch.nn.LSTM`` in bf16; the full-width flagship at bf16 served (B =
    1 and 8: 5 row-1 bf16 launches and 1 delta per forward) and trained
    three steps (5 rows 3 and 4 bf16 per step), the 4-stream model at bf16
    served and stepped (rows 5-7 bf16), each against the CPU path at bf16
@@ -256,10 +265,23 @@ Phases, each fatal on failure:
    through phase_scale's mesh runs (``scale_launches``, every rank) and
    through phase_oracle (``oracle_launches``);
    then the six bf16 rows, their launches on the bf16 serve and train
-   paths, through the bf16 CLI run and the two artifacts), then ``{"ok":
-   true, "device": ...}`` last.
+   paths, through the bf16 CLI run and the two artifacts; every LSTM row
+   with its instantiation's registers per thread and HMMA count), then
+   ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a CUDA device or without the package beside it.
+
+    python3 chip_smoke.py --bf16
+
+runs only phases 1, 2 and 19 (the build, the card, the registers and
+tensor-core instructions of the chain kernels, and ``phase_bf16``) and
+prints their numbers as JSON (about three minutes);
+
+    python3 chip_smoke.py --sass DIR
+
+builds the two chain kernels' sources of this checkout and of DIR (another
+checkout) and fails unless every float32 instantiation compiles to the same
+SASS in both, instruction for instruction;
 
     python3 chip_smoke.py --ab DIR
 
@@ -399,6 +421,44 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+_SLEEP_CYCLES_PER_MS = []
+
+
+def queued_ms(fn, iters=20, warmup=3):
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls with the
+    stream held busy while the host queues them: a sleep kernel sized to
+    1.5 times the host time of the calls goes first, so the calls run back
+    to back on the card even where the host takes longer to issue one than
+    the card to run it (there :func:`cuda_ms` reads the host's rate)."""
+    import torch
+
+    if not _SLEEP_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(_SLEEP_CYCLES_PER_MS[0] * (1.5 * host_ms * iters + 1)))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound(nbytes, flops, bf16_flops=0):
     # flops at the float32 rate, bf16_flops (products of bf16 operands) at
     # the bf16 rate
@@ -514,6 +574,136 @@ def phase_build():
         for line in _build.build_logs[name].splitlines():
             if any(k in line for k in ("entry function", "registers", "spill")):
                 print(f"  {name}: {line.strip()}")
+
+
+# the rows' instantiations at their main path's units per block (the
+# flagship's H = 500 at 4, the 4-stream model's H = 250 at 2; the bf16
+# backward chains at 8, ops/kernels/lstm.MMA_UNITS)
+ROW_INSTANCES = {
+    "lstm_fwd": "lstm_fwd_chain_kernel<false, false, {u}, {w}>",
+    "lstm_fwd_train": "lstm_fwd_chain_kernel<true, false, {u}, {w}>",
+    "lstm_bwd": "lstm_bwd_chain_kernel<false, {u}, {w}>",
+    "lstm_peep_fwd": "lstm_fwd_chain_kernel<false, true, {u}, {w}>",
+    "lstm_peep_fwd_train": "lstm_fwd_chain_kernel<true, true, {u}, {w}>",
+    "lstm_peep_bwd": "lstm_bwd_chain_kernel<true, {u}, {w}>",
+}
+
+
+def row_instance(name):
+    """The demangled instantiation of a kernels-line LSTM row ("lstm_fwd",
+    "lstm_fwd_bf16", ...) at its main path's units per block."""
+    bf16 = name.endswith("_bf16")
+    row = name[:-5] if bf16 else name
+    units = 8 if bf16 and row.endswith("bwd") else 2 if "peep" in row else 4
+    return ROW_INSTANCES[row].format(u=units, w="__nv_bfloat16" if bf16 else "float")
+
+
+def chain_name(mangled):
+    """The chain kernel instantiation a mangled name holds, as a demangler
+    writes it ("lstm_fwd_chain_kernel<false, false, 4, float>"), or None:
+    its template arguments are bools (Lb0E, Lb1E), ints (Li4E) and the
+    type (f, 13__nv_bfloat16)."""
+    m = re.search(r"(lstm_(?:fwd|bwd)_chain_kernel)I(\w+?)EEv", mangled)
+    if not m:
+        return None
+    args = [("true" if b == "1" else "false") if b else i if i else
+            "float" if t == "f" else "__nv_bfloat16"
+            for b, i, t in re.findall(r"Lb([01])E|Li(\d+)E|(13__nv_bfloat16|f)", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def chain_kernels(lib_path):
+    """{instantiation: (SASS instructions, registers per thread)} of the
+    chain kernels in a built library, read with cuobjdump (SASS and
+    resource usage)."""
+    from ip_avsr_torch.ops.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+
+    def dump(flag):
+        return subprocess.run([cuobjdump, flag, lib_path], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+
+    code, name = {}, None
+    for line in dump("--dump-sass").splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = chain_name(m.group(1))
+            if name:
+                code[name] = []
+        elif name is not None:
+            m = re.match(r"\s*/\*[0-9a-f]+\*/\s*(.*?)\s*;", line)
+            if m:
+                code[name].append(m.group(1))
+    regs = {chain_name(m.group(1)): int(m.group(2)) for m in
+            re.finditer(r"Function (\S+):\s*REG:(\d+)", dump("--dump-resource-usage"))}
+    return {name: (ins, regs.get(name)) for name, ins in code.items()}
+
+
+def phase_sass():
+    """Registers per thread and tensor-core instructions (HMMA) of every
+    instantiation of the two chain kernels in the built libraries.  Raises
+    unless every bf16 instantiation's product runs on the tensor cores and
+    no float32 one does.  Returns {instantiation: {"registers", "hmma"}}."""
+    from ip_avsr_torch.ops.kernels import _build
+
+    report = {}
+    for path in _build.build(("lstm_fwd", "lstm_bwd")).values():
+        for name, (ins, regs) in chain_kernels(path).items():
+            report[name] = {"registers": regs, "hmma": sum("HMMA" in i for i in ins)}
+    print(json.dumps({"sass": report}))
+    bf16 = {k: v for k, v in report.items() if "bfloat16" in k}
+    f32 = {k: v for k, v in report.items() if k.endswith("float>")}
+    if len(bf16) != 24 or len(f32) != 24:
+        raise AssertionError(f"expected 24 bf16 and 24 float32 chain instantiations in the "
+                             f"SASS, found {sorted(report)}")
+    if not all(v["hmma"] > 0 for v in bf16.values()) or any(v["hmma"] for v in f32.values()):
+        raise AssertionError(f"the bf16 instantiations must run their product on the tensor "
+                             f"cores (HMMA) and the float32 ones must not: {report}")
+    for row in ROW_INSTANCES:
+        print(f"registers per thread, {row}: float32 {report[row_instance(row)]['registers']}, "
+              f"bf16 {report[row_instance(row + '_bf16')]['registers']} "
+              f"(HMMA {report[row_instance(row + '_bf16')]['hmma']})")
+    return report
+
+
+def sass_against(other):
+    """Build csrc/lstm_fwd.cu and csrc/lstm_bwd.cu of this checkout and of
+    the checkout ``other`` with the same flags and hold the float32
+    instantiations of the chain kernels to the same SASS, instruction for
+    instruction (``--sass DIR``; a kernel is named by its template
+    arguments alone, so one whose parameter list grew keeps its name).
+    Returns {instantiation: identical}."""
+    import tempfile
+
+    from ip_avsr_torch.ops.kernels import _build
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_sass_")
+    try:
+        procs = {}
+        for tree, label in ((ROOT, "this"), (os.path.abspath(other), "other")):
+            for name in ("lstm_fwd", "lstm_bwd"):
+                lib = os.path.join(out, f"{label}_{name}.so")
+                procs[(label, name)] = (lib, subprocess.Popen(
+                    [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib,
+                     os.path.join(tree, "ip_avsr_torch", "csrc", f"{name}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for (label, name), (lib, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"{label} {name}.cu did not build:\n{log}")
+        same = {}
+        for name in ("lstm_fwd", "lstm_bwd"):
+            this = chain_kernels(procs[("this", name)][0])
+            them = chain_kernels(procs[("other", name)][0])
+            for fn, (code, _) in them.items():
+                if fn.endswith("float>"):
+                    same[fn] = this.get(fn, (None,))[0] == code
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"float32 chain kernels with SASS identical to {other}'s: {sum(same.values())} of "
+          f"{len(same)}")
+    return same
 
 
 def smi(query):
@@ -5025,6 +5215,12 @@ BF16_ROWS = {
 # (2.3e-3 at B = 1-64, H = 130-500); mean 7e-9 to 5.3e-5 against gaps of
 # 6.3e-5 to 3.5e-4, each at least 6.6 times its error.
 BF16_CHAIN_TOL = 3e-3
+# rounds of turns (f32, bf16, bf16, f32) behind each bf16 row's times
+BF16_TIMING_ROUNDS = 3
+# bf16_kernel_checks' sweep: batches of one, one ragged, two and four
+# 16-row tensor-core tiles, and widths of 4, 2 and 1 units per block
+BF16_SWEEP_B = (1, 10, 17, 64)
+BF16_SWEEP_H = (500, 250, 130)
 BF16_CHAIN_MEAN_TOL = 1e-4
 BF16_SEPARATION = 3.0
 # the bf16 models on the card against the port's CPU path at bf16, each side
@@ -5085,8 +5281,10 @@ def bf16_kernel_checks(dev):
     and 7 on the chains of those recurrences, clip 5 at x1 and x100 and clip
     0; T = 1 (LSTM_TOL) and T = 29 (BF16_CHAIN_TOL; the mean error against
     BF16_CHAIN_MEAN_TOL beside the float32 instantiation's); the state variants of
-    rows 1 and 5 at B = 1; row 1 and row 4 one batch above a bf16 launch's
-    row cap (two chunks).  Returns {kernels-line name: worst error}."""
+    rows 1 and 5 at B = 1; every row at B in BF16_SWEEP_B and H in
+    BF16_SWEEP_H (T = 29, the chains at clip 5 and 0) and at U = 8 forced
+    (B = 17, H = 500); row 1 and row 4 one batch above a bf16 launch's row
+    cap (two chunks).  Returns {kernels-line name: worst error}."""
     import torch
 
     from ip_avsr_torch.ops.kernels import _build
@@ -5115,41 +5313,64 @@ def bf16_kernel_checks(dev):
                       max(mean_err(a, r) for a, r in zip(f32, ref)), BF16_CHAIN_MEAN_TOL)
         errs[name] = max(errs[name], e)
 
-    def fwd(name, B, T, H, peep, train, state=False):
+    def fwd(name, B, T, H, peep, train, state=False, units=None, free=True):
+        """``free``: also against the free-running plain version (T = 1:
+        LSTM_TOL; T = 29: the chain limits, the mean beside the float32
+        instantiation's); at T > 1 always against the plain version fed the
+        kernel's own operands, step by step (LSTM_TOL)."""
         args, pv = bf16_inputs(B, T, H, gen, dev, peep)
         shapes = ([(B, T, H), (B, T, H), (B, T, 4 * H)] if train
                   else [(B, T, H), (B, H)] if state else [(B, T, H)])
         outs = [torch.full(s, float("nan"), device=dev) for s in shapes]
-        got = kl._run_fwd(name, args, train, pv, outs=outs, state=state)
+        got = kl._run_fwd(name, args, train, pv, units=units, outs=outs, state=state)
         got = got if isinstance(got, tuple) else (got,)
-        ref = getattr(kl, f"{name}_plain")(*args, *pv)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        tol = LSTM_TOL if T == 1 else BF16_CHAIN_TOL
-        f32 = None
-        if T == T_FRAMES:
-            f32 = kl._run_fwd(name, (args[0], args[1].float(), *args[2:]), train, pv,
-                              state=state)
-            f32 = f32 if isinstance(f32, tuple) else (f32,)
         row = ("lstm_peep_fwd" if peep else "lstm_fwd") + ("_train" if train else "") + "_bf16"
-        hold(row, f"B={B} T={T} H={H}{' state' if state else ''}", got, ref, tol, f32)
+        label = (f"B={B} T={T} H={H}{' state' if state else ''}"
+                 f"{'' if units is None else f' U={units}'}")
+        if T > 1:
+            hids, cells, gates = kl._recurrence_plain(*args, pv or None, operands=got[0])
+            forced = (hids, cells, gates) if train else (hids, cells[:, -1]) if state else (hids,)
+            hold(row, f"{label} (each step from the kernel's operand)", got, forced, LSTM_TOL)
+        if free:
+            ref = getattr(kl, f"{name}_plain")(*args, *pv)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            tol = LSTM_TOL if T == 1 else BF16_CHAIN_TOL
+            f32 = None
+            if T == T_FRAMES:
+                f32 = kl._run_fwd(name, (args[0], args[1].float(), *args[2:]), train, pv,
+                                  units=units, state=state)
+                f32 = f32 if isinstance(f32, tuple) else (f32,)
+            hold(row, label, got, ref, tol, f32)
         return args, pv, got
 
-    def bwd(B, T, H, peep, clip, scale, fwd_out):
+    def bwd(B, T, H, peep, clip, scale, fwd_out, units=None, free=True):
+        """As :func:`fwd`: at T > 1 against the plain chain fed the
+        kernel's own dgates as each product's operand (LSTM_BWD_TOL), and
+        with ``free`` against the free-running plain chain."""
         args, pv, (hids, cells, gates) = fwd_out
         g = torch.randn(B, T, H, generator=gen).to(dev) * scale
         c0 = args[3]
         cells_prev = torch.cat([c0[:, None], cells[:, :-1]], dim=1)
         chain = (g, gates, cells, cells_prev, args[2], args[1])
-        got = kl._run_bwd("bf16 check", chain, clip, pv)
+        got = kl._run_bwd("bf16 check", chain, clip, pv, units=units)
+        name = "lstm_peep_bwd_bf16" if peep else "lstm_bwd_bf16"
+        label = (f"B={B} T={T} H={H} clip={clip} x{scale:g}"
+                 f"{'' if units is None else f' U={units}'}")
+        if T > 1:
+            dg, dc, dh, dw = kl._bwd_chain_plain(*chain, clip, pv or None, operands=got[0])
+            forced = (dg, dc, dh, *(d.sum(dim=0) for d in dw)) if peep else (dg, dc, dh)
+            hold(name, f"{label} (each step from the kernel's operand)", got, forced,
+                 LSTM_BWD_TOL)
+            if free:
+                ref = (kl.lstm_peep_bwd_chain_plain(*chain, *pv, clip) if peep
+                       else kl.lstm_bwd_chain_plain(*chain, clip))
+                f32 = (kl._run_bwd("bf16 check", (*chain[:-1], chain[-1].float()), clip, pv,
+                                   units=units)
+                       if T == T_FRAMES else None)
+                hold(name, label, got, ref, BF16_CHAIN_TOL, f32)
+            return
         ref = (kl.lstm_peep_bwd_chain_plain(*chain, *pv, clip) if peep
                else kl.lstm_bwd_chain_plain(*chain, clip))
-        name = "lstm_peep_bwd_bf16" if peep else "lstm_bwd_bf16"
-        label = f"B={B} T={T} H={H} clip={clip} x{scale:g}"
-        if T > 1:
-            f32 = (kl._run_bwd("bf16 check", (*chain[:-1], chain[-1].float()), clip, pv)
-                   if T == T_FRAMES else None)
-            hold(name, label, got, ref, BF16_CHAIN_TOL, f32)
-            return
         # one step: the gate backward is elementwise, held tight; its dgates
         # may straddle a bf16 rounding boundary between the card's and the
         # plain version's sigmoids, so dhid0 is held to the product of the
@@ -5160,6 +5381,25 @@ def bf16_kernel_checks(dev):
         dh = (kl.round_operand(got[0][:, 0], torch.bfloat16) @ args[1].float().T
               + (1.0 - m) * g[:, 0])
         hold(name, f"{label} (dhid0 from the kernel's dgates)", [got[2]], [dh], LSTM_TOL)
+
+    def free_running_b1(H, peep, clip, fwd_out):
+        """The B = 1 backward chain against the free-running plain version,
+        beside the float32 instantiation's distance, printed and not held
+        (see the sweep below)."""
+        args, pv, (_, cells, gates) = fwd_out
+        g = torch.randn(1, T_FRAMES, H, generator=gen).to(dev)
+        cells_prev = torch.cat([args[3][:, None], cells[:, :-1]], dim=1)
+        chain = (g, gates, cells, cells_prev, args[2], args[1])
+        got = kl._run_bwd("bf16 check", chain, clip, pv)
+        ref = (kl.lstm_peep_bwd_chain_plain(*chain, *pv, clip) if peep
+               else kl.lstm_bwd_chain_plain(*chain, clip))
+        f32 = kl._run_bwd("bf16 check", (*chain[:-1], chain[-1].float()), clip, pv)
+        err = max(mean_err(a, r) for a, r in zip(got, ref))
+        gap = max(mean_err(a, r) for a, r in zip(f32, ref))
+        print(f"bf16 {'lstm_peep_bwd' if peep else 'lstm_bwd'}_bf16 B=1 T={T_FRAMES} H={H} "
+              f"clip={clip} free-running (not held): max "
+              f"{max(max_err(a, r)[1] for a, r in zip(got, ref)):.2e}, mean {err:.2e}; "
+              f"float32 instantiation mean {gap:.2e} ({gap / max(err, 1e-30):.1f} times)")
 
     for T in (1, T_FRAMES):
         fwd("lstm_recurrence", 8, T, 500, False, False)
@@ -5172,6 +5412,36 @@ def bf16_kernel_checks(dev):
             bwd(TRAIN_B, T, 250, True, clip, scale, out)
     fwd("lstm_recurrence_state", 1, T_FRAMES, 500, False, False, state=True)
     fwd("lstm_peep_recurrence_state", 1, T_FRAMES, 250, True, False, state=True)
+    # the shapes that break fragment code (the tensor-core products): one,
+    # one ragged, two and four tiles of 16 rows (B = 1, 10, 17, 64), H = 500,
+    # 250 and 130 (the recurrences at U = 4, 2, 1; 250 and 130 pad their
+    # last k step, 130 its 520-deep backward one too; the backward chains at
+    # U = 8, their last block ragged at all three), every row with and
+    # without peepholes, the chains at clip 5 and clip 0, each against the
+    # plain version fed the kernel's own operands, and against the
+    # free-running plain version within the chain limits, but for the
+    # backward chains at B = 1: there the free-running comparison is printed
+    # and not held, since a rounding flip in a 2000-deep dh sum moves every
+    # later entry of the only row, and the mean rule's premise (a flip moves
+    # a few entries) does not hold; then U = 8 (four n8 tiles forward) and
+    # U = 4 (the backward chain) forced at H = 500
+    for H in BF16_SWEEP_H:
+        for B in BF16_SWEEP_B:
+            for peep in (False, True):
+                fwd("lstm_peep_recurrence" if peep else "lstm_recurrence", B, T_FRAMES, H,
+                    peep, False)
+                out = fwd("lstm_peep_recurrence_train" if peep else "lstm_recurrence_train",
+                          B, T_FRAMES, H, peep, True)
+                for clip in (5.0, 0.0):
+                    bwd(B, T_FRAMES, H, peep, clip, 1.0, out, free=B > 1)
+                    if B == 1:
+                        free_running_b1(H, peep, clip, out)
+    for peep in (False, True):
+        fwd("lstm_peep_recurrence" if peep else "lstm_recurrence", 17, T_FRAMES, 500, peep,
+            False, units=8)
+        out = fwd("lstm_peep_recurrence_train" if peep else "lstm_recurrence_train", 17,
+                  T_FRAMES, 500, peep, True, units=8)
+        bwd(17, T_FRAMES, 500, peep, 5.0, 1.0, out, units=4)
     sms = kl._sm_count(dev.index or 0)
 
     def cap(plan, w_dtype):
@@ -5193,12 +5463,17 @@ def bf16_kernel_checks(dev):
 
 
 def bf16_timings(dev):
-    """Each bf16 row at its main-path shape: its time on the card (events)
-    beside the float32 instantiation's on the same inputs (in turns: f32,
-    bf16, bf16, f32), the plain version's, its traced device time per call
-    and per step (one launch per call), its bound (W_hid at 2 bytes a value,
-    the per-step product's operations at the bf16 rate, the gate math's at
-    the float32 rate), and for rows 1, 3 and 4 ``torch.nn.LSTM`` in bf16
+    """Each bf16 row at its main-path shape: its time on the card (events
+    around back-to-back calls queued behind a sleep kernel, queued_ms, the
+    mean of BF16_TIMING_ROUNDS rounds of turns f32, bf16, bf16, f32) and
+    per step beside the float32 instantiation's on the same inputs, the
+    backward rows also at the float32 plan's units per block (in the same
+    turns), the plain version's time, its traced device time per call and
+    per step (one launch per call; the times above do not rest on it:
+    traces of cooperative launches can lose records), its bound (W_hid at
+    2 bytes a value, the per-step product's operations at the bf16 rate,
+    the gate math's at the float32 rate), and for rows 1, 3 and 4
+    ``torch.nn.LSTM`` in bf16
     (cuDNN, which rounds every operand and state to bf16: not the same
     function).
     Returns {kernels-line name: numbers}."""
@@ -5224,6 +5499,11 @@ def bf16_timings(dev):
             def call(w, fn=fn, chain=chain):
                 return fn(*chain, w, *pv, 5.0)
 
+            f32_units = kl.bwd_launch_plan(B, H, kl._sm_count(dev.index or 0)).units
+
+            def call_units(w, chain=chain, units=f32_units):
+                return kl._run_bwd("bf16 timing", (*chain, w), 5.0, pv, units=units)
+
             def plain_call(plain=plain, chain=chain):
                 return plain(*chain, args[1], *pv, 5.0)
             steps = T_FRAMES + 1
@@ -5237,14 +5517,22 @@ def bf16_timings(dev):
 
             def plain_call(plain=plain):
                 return plain(*args, *pv)
+            call_units = None
             steps = T_FRAMES
             cost = lstm_train_cost if row.endswith("train") else lstm_cost
         turns = {"f32": [], "bf16": []}
-        for kind in ("f32", "bf16", "bf16", "f32"):
+        kinds = ("f32", "bf16", "bf16", "f32")
+        if call_units is not None:
+            turns["bf16_f32_units"] = []
+            kinds = ("f32", "bf16", "bf16_f32_units", "bf16_f32_units", "bf16", "f32")
+        for kind in kinds * BF16_TIMING_ROUNDS:
             w = args32[1] if kind == "f32" else args[1]
-            turns[kind].append(cuda_ms(lambda w=w: call(w)))
+            fn_k = call_units if kind == "bf16_f32_units" else call
+            turns[kind].append(queued_ms(lambda w=w, fn_k=fn_k: fn_k(w)))
         ms = statistics.mean(turns["bf16"])
         f32_ms = statistics.mean(turns["f32"])
+        units_ms = (statistics.mean(turns["bf16_f32_units"]) if call_units is not None
+                    else None)
         plain_ms = cuda_ms(plain_call, iters=3, warmup=1)
         traced_ms = trace_chain(lambda: call(args[1]), f"{name} B={B} H={H}", name, steps,
                                 lost_ok=True)
@@ -5269,14 +5557,22 @@ def bf16_timings(dev):
                     wts = [xin, *cudnn.parameters()]
                     lib_ms = cuda_ms(lambda: torch.autograd.grad(out, wts, gy,
                                                                  retain_graph=True))
-        print(f"{name} B={B} T={T_FRAMES} H={H}: kernel {ms:.4f} ms (float32 instantiation "
-              f"{f32_ms:.4f} ms, in turns {turns}; bf16 / f32 {ms / f32_ms:.3f}), plain "
-              f"{plain_ms:.4f} ms, traced {traced_ms:.4f} ms ({traced_ms * 1e3 / steps:.3f} "
-              f"us per step), bound {b_ms:.5f} ms ({by}), cuDNN nn.LSTM bf16 "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; {smi('name,power.limit')}")
+        print(f"{name} B={B} T={T_FRAMES} H={H}: kernel {ms:.4f} ms, "
+              f"{ms * 1e3 / steps:.3f} us per step (float32 instantiation {f32_ms:.4f} ms, "
+              f"{f32_ms * 1e3 / steps:.3f} us per step; in turns {turns}; bf16 / f32 "
+              f"{ms / f32_ms:.3f}"
+              + ("" if units_ms is None else
+                 f"; bf16 at the float32 plan's units per block {units_ms:.4f} ms")
+              + f"), plain {plain_ms:.4f} ms, traced {traced_ms:.4f} ms "
+              f"({traced_ms * 1e3 / steps:.3f} us per step), bound {b_ms:.5f} ms ({by}), cuDNN "
+              f"nn.LSTM bf16 {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+              f"{smi('name,power.limit')}")
         rows[name] = dict(ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                           library_ms=lib_ms, traced_ms=traced_ms,
-                          us_per_step=traced_ms * 1e3 / steps, shape=f"B={B} T=29 H={H}")
+                          us_per_step=ms * 1e3 / steps, f32_us_per_step=f32_ms * 1e3 / steps,
+                          traced_us_per_step=traced_ms * 1e3 / steps, turns=turns,
+                          f32_units_ms=units_ms,
+                          shape=f"B={B} T=29 H={H}")
     return rows
 
 
@@ -5830,14 +6126,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     ab = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--ab" else None
-    if len(sys.argv) > 1 and ab is None:
-        print(f"usage: {sys.argv[0]} [--ab DIR]", file=sys.stderr)
+    sass_dir = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--sass" else None
+    bf16_only = sys.argv[1:] == ["--bf16"]
+    if len(sys.argv) > 1 and ab is None and sass_dir is None and not bf16_only:
+        print(f"usage: {sys.argv[0]} [--ab DIR | --sass DIR | --bf16]", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(ab) if ab else ROOT)
     import ip_avsr_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     print("torch", torch.__version__, "cuda", torch.version.cuda,
           "python", sys.version.split()[0])
+    if sass_dir:
+        same = sass_against(sass_dir)
+        print(json.dumps({"sass_identical": same}))
+        return 0 if all(same.values()) else 1
     phase_build()
     phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5845,6 +6147,14 @@ def main() -> int:
     dev = torch.device("cuda")
     if ab:
         print(json.dumps({"ab": ab_run(dev)}))
+        return 0
+    sass = phase_sass()
+    if bf16_only:
+        bf16_rows, _, bf16_numbers = phase_bf16(dev)
+        for name, numbers in bf16_rows.items():
+            numbers.update(sass[row_instance(name)], f32_registers=sass[row_instance(
+                name[:-5])]["registers"])
+        print(json.dumps({"bf16": bf16_numbers, "bf16_rows": bf16_rows}))
         return 0
     delta_err, delta_rows = phase_delta(dev)
     lstm_err, lstm_rows = phase_lstm(dev)
@@ -5966,11 +6276,18 @@ def main() -> int:
             "replaces": f"{pallas}:{line}", "launches": bf16_paths[path][name],
             "max_abs_err": numbers["max_abs_err"], "shape": numbers["shape"],
             **{k: numbers[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                       "traced_ms", "us_per_step", "f32_ms")},
+                                       "traced_ms", "us_per_step", "f32_ms",
+                                       "f32_us_per_step", "traced_us_per_step",
+                                       "f32_units_ms")},
             "cli_launches": bf16_paths["cli"][name],
             "export_launches": bf16_paths["export"][name],
             "scale_launches": scale_launches[name],
             "oracle_launches": oracle_launches[name]})
+    # every LSTM row: registers per thread of its instantiation at its main
+    # path's units per block, and its tensor-core instructions (HMMA)
+    for row in kernels:
+        if row["name"] != "delta":
+            row.update(sass[row_instance(row["name"])])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

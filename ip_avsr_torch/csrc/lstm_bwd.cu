@@ -55,11 +55,10 @@
 //   over b = 0 .. B-1 in that order: deterministic, and no launch outside.
 //   The plain version sums the rows with torch's sum, in another order: the
 //   card holds the two within 1e-5 of each output's max abs.
-// Shared memory (dynamic, one layout for both instantiations): W_hid rows
-// U x 4H, then dh_next, dc, pass and the three dw partials, B x U each, then
-// the block reduction kWarps x kPairs; 16UH + 24BU + 1024 bytes in all for
-// f32 (8UH + 24BU + 1024 for bf16), so one launch holds up to 2077 rows at H
-// = 500 (2244 for bf16).  Rows are independent: a
+// Shared memory (dynamic): W_hid rows U x 4H, then dh_next, dc, pass and
+// the three dw partials, B x U each, then the block reduction kWarps x
+// kPairs; 16UH + 24BU + 1024 bytes in all for f32, so one launch holds up to
+// 2077 rows at H = 500 (bf16: below, 1022).  Rows are independent: a
 // larger batch runs as several launches over near-equal row chunks, each a
 // pointer offset into the batch-major tensors, and the chunks' (3, H)
 // peephole gradients are added in chunk order (ops/kernels/lstm.py).
@@ -69,12 +68,57 @@
 // _lstm_bwd_kernel is generic over W_hid's dtype: dh <- bf16(dgates[t]) @
 // W_hid^T with f32 accumulation, as jnp.dot(dgates.astype(bf16), w_hid_t,
 // preferred_element_type=f32) computes it (lstm_kernel.py:227-230).  The
-// product rounds each clipped dgate to bf16 (__float2bfloat16_rn) as it reads
-// it; the stored dgates, the carries, the gate math and every output stay
-// f32.  The block's W_hid rows sit in shared memory as bf16 (16,000 B at H =
-// 500, U = 4), read as 8-byte words of four values and widened by a shift.
-// The all-zero dgates of a pass-through step (ops/lstm.py::_chain_inputs)
-// round to exactly 0.
+// product runs on Hopper's tensor cores (product_mma below): warp-level
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 through inline PTX,
+// dh_next (B x U) = bf16(dgates_{t+1}) (B x 4H) . W_blk (4H x U), the rows on
+// M in tiles of 16, the U units on N (one n8 tile; the lanes of units past U
+// pass zeros), K = 4H in KQ = ceil(4H / 16) steps (125 at H = 500; the last
+// one zero-padded at H = 250 and 130).  A block's product costs the same at
+// 2 to 8 units, so the launch plan gives a bf16 W 8 units per block, which
+// fill the tile, and half or a quarter of the f32 plan's blocks
+// (ops/kernels/lstm.py::bwd_launch_plan; 63 blocks at H = 500).  Only the product differs from the
+// f32 instantiations, whose code is untouched (if constexpr (sizeof(WT) ==
+// 2) below):
+// - The k of a step in a permuted order, the same for both operands: the
+//   fragment's k 2 (lane % 4) + 8 r + {0, 1} is column c = 16 s + 4 (lane
+//   % 4) + 2 r + {0, 1} of dgates, so that a lane's four A values of a row
+//   are neighbours in memory (as in lstm_fwd.cu).
+// - W in shared memory as bf16 in fragment order, once per call: 32-bit word
+//   (s * 4U + lane) * 2 + r holds W_hid[j0 + lane / 4, c] and W_hid[j0 +
+//   lane / 4, c + 1] (low half first), c = 16 s + 4 (lane % 4) + 2 r, the B
+//   fragment register r of lane `lane` (< 4U) at k step s: one 8-byte read
+//   per lane and k step, neighbouring lanes on neighbouring words, no bank
+//   conflict.  32 U bytes per k step: 32,000 B at H = 500, U = 8.
+// - The operand, rounded once: the gate stage also writes each clipped
+//   dgate rounded to nearest even (__float2bfloat16_rn, as the plain version
+//   rounds it) into dg16 (2, B, 4H) bf16 in global memory, slot t % 2 at
+//   step t (the wrapper's scratch), and the next step's product reads that
+//   slot: every value is rounded once, by the block that owns it, not once
+//   by each of the blocks that read it (125 at H = 500), and the reads are
+//   half the bytes.  Two slots, because step t reads slot (t + 1) % 2 while it
+//   writes slot t % 2, and the grid.sync() between steps orders both
+//   ([stale]: dg16 is written and read in the launch, read with __ldcg).
+//   The stored dgates, the carries, the gate math and every output stay
+//   f32.  All-zero dgates (a pass-through step, ops/lstm.py::_chain_inputs)
+//   round to zeros and give exactly 0.
+// - The A fragment: rows b0 + lane / 4 and + 8, columns 16 s + 4 (lane %
+//   4) .. + 3 of dg16's slot, one 8-byte __ldcg per row (four bf16 values,
+//   two fragment registers; a row of 4H values is 8-byte aligned); each
+//   product exact, each k step's products summed into a zero accumulator
+//   and added in f32 (mma_bf16, as in lstm_fwd.cu), a batch's products in
+//   one straight run without a branch between them.
+// - Tiles of 16 rows in rounds of up to kWarps; the warps split the round's
+//   tiles and the KQ k steps (warp -> tile warp % G, k steps ks, ks + ns,
+//   ...: 15-16 each at B <= 16, H = 500), store their 16 x U partial tiles
+//   in shared memory, and the tile's partials are added in warp order
+//   (unrolled), as product adds its warps' sums: the result does not depend
+//   on the schedule.  The operands of kMmaBatch k steps, all of a warp's at
+//   B <= 16 and H = 500, are requested before any of their products.
+//   Shared memory: 32 U KQ bytes of W, the carries, then the partial tiles
+//   8 x 16 x U floats; one launch holds up to 1022 rows at H = 500, U = 8.
+// [bf16 uniform] mma.sync is warp-wide: every lane of a warp runs the same k
+//   steps (warp-uniform trip counts, masked operands are zeros), and every
+//   thread reaches the round's two __syncthreads.
 //
 // Where trouble is likely, and what the code does about it (marked below):
 // [stale] dgates is written and read inside this launch, so it is never read
@@ -92,9 +136,8 @@
 //   number of times (T): no thread leaves early.
 // [converge] the warp shuffles of the product's reduction follow a column
 //   loop whose trip count is the same for every lane.
-// Large B: every block reads B x 4H floats of dgates each step, which grows
-// linearly with B; a tensor-core product per step for large-B training is
-// later work.
+// Large B: every block reads B x 4H values of dgates each step (f32, or
+// their bf16 copy), which grows linearly with B.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,47 +154,33 @@ constexpr int kPairs = 32;
 
 __device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
 
-// the two bf16 halves of a 32-bit word as floats (element 0 in the low half)
-__device__ __forceinline__ float bf16_lo(unsigned int w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(unsigned int w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
+// The bf16 product on the tensor cores (header): kTile rows of an m16n8k16
+// tile, k steps of 16 over the 4H columns, and the floats of the warps'
+// partial tiles (16 x U each).
+constexpr int kTile = 16;
+__host__ __device__ constexpr int mma_ksteps(int H) { return (4 * H + kTile - 1) / kTile; }
+__host__ __device__ constexpr int mma_red_floats(int U) { return kWarps * kTile * U; }
+// k steps whose operands a warp loads before their products: all of a warp's
+// at B <= 16 for the widths the launch plan gives U (H <= 528 at U = 4:
+// 16; H <= 264 at U = 2: 8)
+__host__ __device__ constexpr int mma_batch(int U) { return U >= 4 ? 16 : 8; }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename WT>
-__device__ __forceinline__ WT from_f32(float v) {
-  if constexpr (sizeof(WT) == 2) {
-    return __float2bfloat16_rn(v);
-  } else {
-    return v;
-  }
-}
-
-// Clipped dgates as the product's operand for a W of type WT: f32 as they
-// are, rounded to bf16 (to nearest even) for a bf16 W.
-template <typename WT>
-__device__ __forceinline__ float4 round_operand(float4 v) {
-  if constexpr (sizeof(WT) == 2) {
-    return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)),
-                       __bfloat162float(__float2bfloat16_rn(v.y)),
-                       __bfloat162float(__float2bfloat16_rn(v.z)),
-                       __bfloat162float(__float2bfloat16_rn(v.w)));
-  } else {
-    return v;
-  }
-}
-
-// Four consecutive W values (columns 4c .. 4c + 3 of a row) as a float4: one
-// 16-byte read for f32, one 8-byte read for bf16.
-template <typename WT>
-__device__ __forceinline__ float4 load4(const WT* row, int c) {
-  if constexpr (sizeof(WT) == 4) {
-    return reinterpret_cast<const float4*>(row)[c];
-  } else {
-    const uint2 q = reinterpret_cast<const uint2*>(row)[c];
-    return make_float4(bf16_lo(q.x), bf16_hi(q.x), bf16_lo(q.y), bf16_hi(q.y));
-  }
+// acc += a b for one k step on the tensor cores: a 16 x 16 bf16 A
+// (row-major fragment a), a 16 x 8 bf16 B (column-major fragment b0, b1),
+// f32 sums (PTX ISA, mma.sync m16n8k16 fragment layouts).  The tensor core
+// sums the step's 16 exact products into a zero accumulator, and the step's
+// sum is added to acc in f32, rounded to nearest, so the k steps are not
+// summed inside the tensor core and their products need not wait on each
+// other.
+__device__ __forceinline__ void mma_bf16(float (&acc)[4], const unsigned int (&a)[4],
+                                         unsigned int b0, unsigned int b1) {
+  float d[4];
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+#pragma unroll
+  for (int q = 0; q < 4; ++q) acc[q] += d[q];
 }
 
 // One level of the warp's transposing reduction: of the 2 * O values a lane
@@ -179,10 +208,10 @@ __device__ __forceinline__ void transpose_level(float (&v)[kPairs], int lane) {
 // are batched: every load of a (tile, pass) chunk is issued before any of
 // its products (16 float4 per thread at U >= 2), and the next chunk's loads
 // go out before this tile's reduction, so they overlap it.  Ends with a
-// __syncthreads, so dh_next is visible to the whole block.  For a bf16 W the
-// dgates are rounded to bf16 as they are loaded.
-template <int U, typename WT>
-__device__ void product(const float* dg, size_t row_stride, const WT* w_s, float* dh_next,
+// __syncthreads, so dh_next is visible to the whole block.  f32 W only
+// (product_mma is the bf16 product).
+template <int U>
+__device__ void product(const float* dg, size_t row_stride, const float* w_s, float* dh_next,
                         float* red, int B, int H) {
   constexpr int R = kPairs / U;
   constexpr int kRounds = U >= 2 ? U / 2 : 1;
@@ -206,8 +235,7 @@ __device__ void product(const float* dg, size_t row_stride, const WT* w_s, float
       for (int r = 0; r < R; ++r) {
         // [stale] dgates of this launch: L2 only, never __ldg or L1
         d[k][r] = c < H && b0 + r < B
-                      ? round_operand<WT>(__ldcg(
-                            reinterpret_cast<const float4*>(dg + (b0 + r) * row_stride) + c))
+                      ? __ldcg(reinterpret_cast<const float4*>(dg + (b0 + r) * row_stride) + c)
                       : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
@@ -226,7 +254,7 @@ __device__ void product(const float* dg, size_t row_stride, const WT* w_s, float
       float4 w[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        w[u] = c < H ? load4(w_s + static_cast<size_t>(u) * 4 * H, c)
+        w[u] = c < H ? reinterpret_cast<const float4*>(w_s + static_cast<size_t>(u) * 4 * H)[c]
                      : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
@@ -258,6 +286,113 @@ __device__ void product(const float* dg, size_t row_stride, const WT* w_s, float
       dh_next[b0 * U + tid] = s;
     }
     __syncthreads();
+  }
+}
+
+// product's bf16 twin on the tensor cores (header): the same dh_next from
+// the clipped dgates of one step already rounded to bf16 (dg16, rows of 4H
+// bf16 values) and the block's W_hid rows in fragment order (w_w).  Ends
+// with a __syncthreads, so dh_next is visible to the whole block.
+template <int U>
+__device__ void product_mma(const unsigned short* dg16, const unsigned int* w_w, float* dh_next,
+                            float* red, int B, int H) {
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int H4 = 4 * H;
+  const int KQ = mma_ksteps(H);
+  const int n_tiles = (B + kTile - 1) / kTile;
+  for (int tile0 = 0; tile0 < n_tiles; tile0 += kWarps) {
+    // warp -> tile g of the round and k steps ks, ks + ns, ...
+    const int G = min(kWarps, n_tiles - tile0);
+    const int g = warp % G;
+    const int ks = warp / G;
+    const int ns = (kWarps - 1 - g) / G + 1;
+    const int ra = (tile0 + g) * kTile + lane / 4;
+    const bool la = ra < B;
+    const bool lb = ra + 8 < B;
+    const unsigned short* da = dg16 + static_cast<size_t>(la ? ra : 0) * H4;
+    const unsigned short* db = dg16 + static_cast<size_t>(lb ? ra + 8 : 0) * H4;
+    // [bf16 uniform] the same k steps for every lane of the warp
+    const int steps = (KQ - ks + ns - 1) / ns;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    constexpr int kMmaBatch = mma_batch(U);
+    for (int s0 = 0; s0 < steps; s0 += kMmaBatch) {
+      // every operand of the batch is requested before any product: the
+      // lane's c = 16 s + 4 (lane % 4) .. + 3 of rows ra and ra + 8, four
+      // bf16 values (two fragment registers) each, one 8-byte read (a row is
+      // 4H values, 8-byte aligned; 4H is a multiple of 4, so a quad never
+      // crosses a row's end)
+      uint2 d[kMmaBatch][2];
+#pragma unroll
+      for (int i = 0; i < kMmaBatch; ++i) {
+        const int c = (ks + (s0 + i) * ns) * kTile + (lane % 4) * 4;
+        const bool live = s0 + i < steps && c < H4;
+        const uint2 zero = make_uint2(0u, 0u);
+        // [stale] written in this launch: L2 only, never __ldg or L1
+        d[i][0] = live && la ? __ldcg(reinterpret_cast<const uint2*>(da + c)) : zero;
+        d[i][1] = live && lb ? __ldcg(reinterpret_cast<const uint2*>(db + c)) : zero;
+      }
+      // the batch's products in one straight run: a slot past the warp's
+      // steps has zero operands (its loads are masked) and a live W word, so
+      // it adds exactly 0, where a branch per slot kept each step's shared
+      // memory read, product and sums from overlapping the next step's
+#pragma unroll
+      for (int i = 0; i < kMmaBatch; ++i) {
+        const int s = min(ks + (s0 + i) * ns, KQ - 1);
+        // the A fragment: registers 0 and 2 of row ra, 1 and 3 of row ra + 8
+        const unsigned int a[4] = {d[i][0].x, d[i][1].x, d[i][0].y, d[i][1].y};
+        const uint2 b = lane < 4 * U
+                            ? reinterpret_cast<const uint2*>(w_w)[static_cast<size_t>(s) * 4 * U +
+                                                                  lane]
+                            : make_uint2(0u, 0u);
+        mma_bf16(acc, a, b.x, b.y);
+      }
+    }
+    // the accumulator fragment: rows lane / 4 and lane / 4 + 8, units
+    // 2 (lane % 4) + {0, 1}; units past U are not stored
+    float* rw = red + warp * kTile * U + (lane / 4) * U;
+    const int u = (lane % 4) * 2;
+    if (u < U) {
+      rw[u] = acc[0];
+      rw[8 * U + u] = acc[2];
+    }
+    if (u + 1 < U) {
+      rw[u + 1] = acc[1];
+      rw[8 * U + u + 1] = acc[3];
+    }
+    __syncthreads();
+    // pair q of the round: tile gt, row (q % 16U) / U of it, unit q % U;
+    // the partial tiles of the warps on tile gt added in warp order
+    for (int q = tid; q < G * kTile * U; q += kThreads) {
+      const int gt = q / (kTile * U);
+      const int pr = q % (kTile * U);
+      if ((tile0 + gt) * kTile + pr / U >= B) continue;
+      const int nsg = (kWarps - 1 - gt) / G + 1;
+      float sum = 0.f;
+#pragma unroll
+      for (int p = 0; p < kWarps; ++p) {
+        if (p < nsg) sum += red[(p * G + gt) * kTile * U + pr];
+      }
+      dh_next[(tile0 + gt) * kTile * U + pr] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+// dh_next from the dgates of step t: product (f32 W, the f32 dgates dg of
+// step t, row stride row_stride) or product_mma (bf16 W, their bf16 copy in
+// slot t % 2 of dg16), W at the start of shared memory (smem).
+template <int U, typename WT>
+__device__ __forceinline__ void run_product(const float* dg, size_t row_stride,
+                                            const unsigned short* dg16, int t,
+                                            const float4* smem, float* dh_next, float* red,
+                                            int B, int H) {
+  if constexpr (sizeof(WT) == 2) {
+    product_mma<U>(dg16 + static_cast<size_t>(t % 2) * B * 4 * H,
+                   reinterpret_cast<const unsigned int*>(smem), dh_next, red, B, H);
+  } else {
+    product<U>(dg, row_stride, reinterpret_cast<const float*>(smem), dh_next, red, B, H);
   }
 }
 
@@ -298,7 +433,9 @@ __device__ __forceinline__ GateIn load_gate(const float* __restrict__ g_out,
 // The whole chain.  All sequence tensors are batch-major (B, T, .).  dw is
 // (3, H) (dw_ci, dw_cf, dw_co) with Peephole; without it the peephole
 // pointers and dw are unused.  Shared memory as in the header.  w_hid holds
-// WT values (float or __nv_bfloat16).
+// WT values (float or __nv_bfloat16).  With a bf16 W, dg16 (2, B, 4H) bf16
+// holds the product's operand, the clipped dgates of step t in slot t % 2
+// (header); unused in f32.
 template <bool Peephole, int U, typename WT>
 __global__ void __launch_bounds__(kThreads)
 lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__ gates_pre,
@@ -308,26 +445,50 @@ lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__
                       const float* __restrict__ w_co,
                       float* dgates,  // [stale] written and read here: not const, not restrict
                       float* __restrict__ dcell0, float* __restrict__ dhid0,
-                      float* __restrict__ dw, float clip, int B, int T, int H) {
+                      float* __restrict__ dw, float clip, int B, int T, int H,
+                      unsigned short* dg16) {  // [stale] as dgates
+  constexpr bool kMma = sizeof(WT) == 2;  // bf16: the product on the tensor cores
   extern __shared__ float4 smem4[];
   const size_t H4 = static_cast<size_t>(4) * H;
   const int BU = B * U;
-  WT* w_s = reinterpret_cast<WT*>(smem4);        // (U, 4H)
-  float* dh_next = reinterpret_cast<float*>(w_s + U * H4);  // (B * U) each, from here on
+  // W: f32 (U, 4H); bf16 in fragment order, KQ k steps of 4U word pairs
+  float* dh_next;  // (B * U) each, from here on
+  if constexpr (kMma) {
+    dh_next = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) +
+                                       static_cast<size_t>(32) * U * mma_ksteps(H));
+  } else {
+    dh_next = reinterpret_cast<float*>(smem4) + U * H4;
+  }
   float* dc_s = dh_next + BU;
   float* pass_s = dc_s + BU;
   float* dw_s = pass_s + BU;                     // (3, B * U)
-  float* red = dw_s + 3 * BU;                    // (kWarps, kPairs)
+  float* red = dw_s + 3 * BU;                    // f32 (kWarps, kPairs); bf16 (kWarps, kTile, U)
   const int tid = threadIdx.x;
   const int j0 = blockIdx.x * U;
   const int nu = min(U, H - j0);
   const size_t row_stride = static_cast<size_t>(T) * H4;
 
-  // W_hid[j0 : j0 + U, :] is contiguous: one coalesced pass, once per call.
-  // [ragged] dead units' rows are zero.
-  for (size_t i = tid; i < U * H4; i += kThreads) {
-    const bool live = static_cast<int>(i / H4) < nu;
-    w_s[i] = from_f32<WT>(live ? to_f32(__ldg(w_hid + j0 * H4 + i)) : 0.f);
+  if constexpr (kMma) {
+    // word (s * 4U + l) * 2 + r = W_hid[j0 + l / 4, c .. c + 1] for c = 16 s
+    // + 4 (l % 4) + 2 r, once per call: one 4-byte read of two bf16 values
+    // (c is even, and so is 4H).  [ragged] dead units and c past 4H are 0.
+    unsigned int* w_w = reinterpret_cast<unsigned int*>(smem4);
+    const int n_words = mma_ksteps(H) * 8 * U;
+    for (int i = tid; i < n_words; i += kThreads) {
+      const int l = i / 2 % (4 * U);
+      const int c = i / (8 * U) * kTile + (l % 4) * 4 + (i % 2) * 2;
+      w_w[i] = l / 4 < nu && c < static_cast<int>(H4)
+                   ? __ldg(reinterpret_cast<const unsigned int*>(w_hid + (j0 + l / 4) * H4 + c))
+                   : 0u;
+    }
+  } else {
+    // W_hid[j0 : j0 + U, :] is contiguous: one coalesced pass, once per call.
+    // [ragged] dead units' rows are zero.
+    float* w_s = reinterpret_cast<float*>(smem4);  // (U, 4H)
+    for (size_t i = tid; i < U * H4; i += kThreads) {
+      const bool live = static_cast<int>(i / H4) < nu;
+      w_s[i] = live ? __ldg(w_hid + j0 * H4 + i) : 0.f;
+    }
   }
   for (int i = tid; i < 5 * BU; i += kThreads) dc_s[i] = 0.f;  // dc, pass, dw
   __syncthreads();
@@ -341,7 +502,10 @@ lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__
     if (tid < BU && tid % U < nu)
       first = load_gate<Peephole>(g_out, gates_pre, cells, cells_prev, mask, w_ci, w_cf, w_co,
                                   tid / U, j0 + tid % U, T, H, t);
-    if (has_next) product<U, WT>(dgates + (t + 1) * H4, row_stride, w_s, dh_next, red, B, H);
+    if (has_next) {
+      run_product<U, WT>(dgates + (t + 1) * H4, row_stride, dg16, t + 1, smem4, dh_next, red,
+                         B, H);
+    }
 
     for (int q = tid; q < BU; q += kThreads) {
       const int b = q / U;
@@ -389,6 +553,14 @@ lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__
       float* dp = dgates + (static_cast<size_t>(b) * T + t) * H4 + j;
 #pragma unroll
       for (int k = 0; k < 4; ++k) dp[static_cast<size_t>(k) * H] = dgate[k];
+      if constexpr (kMma) {
+        // the product's operand, rounded to nearest even once here rather
+        // than by each of the blocks that read it
+        __nv_bfloat16* op = reinterpret_cast<__nv_bfloat16*>(dg16) +
+                            (static_cast<size_t>(t % 2) * B + b) * H4 + j;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) op[static_cast<size_t>(k) * H] = __float2bfloat16_rn(dgate[k]);
+      }
       dc_s[q] = dc_prev;
       pass_s[q] = (1.0f - m) * dh_total;
     }
@@ -397,7 +569,7 @@ lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__
   }
 
   // dh after step 0: one more product, then the block's outputs
-  product<U, WT>(dgates, row_stride, w_s, dh_next, red, B, H);
+  run_product<U, WT>(dgates, row_stride, dg16, 0, smem4, dh_next, red, B, H);
   for (int q = tid; q < BU; q += kThreads) {
     const int u = q % U;
     if (u >= nu) continue;
@@ -421,7 +593,11 @@ lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__
 
 template <typename WT>
 size_t smem_bytes(int B, int H, int U) {
-  return static_cast<size_t>(4) * U * H * sizeof(WT) +
+  if constexpr (sizeof(WT) == 2) {
+    return static_cast<size_t>(32) * U * mma_ksteps(H) +
+           (static_cast<size_t>(6) * B * U + mma_red_floats(U)) * sizeof(float);
+  }
+  return static_cast<size_t>(4) * U * H * sizeof(float) +
          (static_cast<size_t>(6) * B * U + kWarps * kPairs) * sizeof(float);
 }
 
@@ -430,13 +606,13 @@ cudaError_t launch(const float* g_out, const float* gates_pre, const float* cell
                    const float* cells_prev, const float* mask, const WT* w_hid,
                    const float* w_ci, const float* w_cf, const float* w_co, float* dgates,
                    float* dcell0, float* dhid0, float* dw, float clip, int B, int T, int H,
-                   size_t smem, cudaStream_t stream) {
+                   unsigned short* dg16, size_t smem, cudaStream_t stream) {
   const auto kernel = lstm_bwd_chain_kernel<Peephole, U, WT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   void* args[] = {&g_out, &gates_pre, &cells, &cells_prev, &mask, &w_hid, &w_ci, &w_cf, &w_co,
-                  &dgates, &dcell0, &dhid0, &dw, &clip, &B, &T, &H};
+                  &dgates, &dcell0, &dhid0, &dw, &clip, &B, &T, &H, &dg16};
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                      dim3((H + U - 1) / U), dim3(kThreads), args, smem, stream);
 }
@@ -446,9 +622,15 @@ cudaError_t launch(const float* g_out, const float* gates_pre, const float* cell
 template <bool Peephole, typename WT>
 int run_chain_w(const void* g_out, const void* gates_pre, const void* cells,
                 const void* cells_prev, const void* mask, const void* w_hid, void* dgates,
-                void* dcell0, void* dhid0, void* const* peep, float clip, int B, int T, int H,
-                int units, size_t smem, void* stream) {
+                void* dcell0, void* dhid0, void* const* peep, void* scratch, float clip, int B,
+                int T, int H, int units, size_t smem, void* stream) {
   if (smem < smem_bytes<WT>(B, H, units)) return static_cast<int>(cudaErrorInvalidValue);
+  // the bf16 layout reads W_hid two values at a time and needs its operand
+  // buffer, read 8 bytes at a time
+  if (sizeof(WT) == 2 && (reinterpret_cast<size_t>(w_hid) % 4 != 0 ||
+                          reinterpret_cast<size_t>(scratch) % 8 != 0))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (sizeof(WT) == 2 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const float* p[3] = {nullptr, nullptr, nullptr};
   float* dw = nullptr;
   if constexpr (Peephole) {
@@ -460,7 +642,8 @@ int run_chain_w(const void* g_out, const void* gates_pre, const void* cells,
     return launcher(f(g_out), f(gates_pre), f(cells), f(cells_prev), f(mask),
                     static_cast<const WT*>(w_hid), p[0],
                     p[1], p[2], static_cast<float*>(dgates), static_cast<float*>(dcell0),
-                    static_cast<float*>(dhid0), dw, clip, B, T, H, smem,
+                    static_cast<float*>(dhid0), dw, clip, B, T, H,
+                    static_cast<unsigned short*>(scratch), smem,
                     static_cast<cudaStream_t>(stream));
   };
   cudaError_t err;
@@ -478,45 +661,52 @@ int run_chain_w(const void* g_out, const void* gates_pre, const void* cells,
 template <bool Peephole>
 int run_chain(const void* g_out, const void* gates_pre, const void* cells,
               const void* cells_prev, const void* mask, const void* w_hid, void* dgates,
-              void* dcell0, void* dhid0, void* const* peep, float clip, int w_bf16, int B, int T,
-              int H, int units, size_t smem, void* stream) {
+              void* dcell0, void* dhid0, void* const* peep, void* scratch, float clip,
+              int w_bf16, int B, int T, int H, int units, size_t smem, void* stream) {
   return w_bf16 ? run_chain_w<Peephole, __nv_bfloat16>(g_out, gates_pre, cells, cells_prev,
                                                         mask, w_hid, dgates, dcell0, dhid0,
-                                                        peep, clip, B, T, H, units, smem, stream)
+                                                        peep, scratch, clip, B, T, H, units,
+                                                        smem, stream)
                 : run_chain_w<Peephole, float>(g_out, gates_pre, cells, cells_prev, mask, w_hid,
-                                               dgates, dcell0, dhid0, peep, clip, B, T, H, units,
-                                               smem, stream);
+                                               dgates, dcell0, dhid0, peep, nullptr, clip, B, T,
+                                               H, units, smem, stream);
 }
 
 }  // namespace
 
 // Runs the whole chain on `stream` in one cooperative launch of ceil(H /
 // units) blocks, units in {1, 2, 4, 8}, with `smem` bytes of dynamic shared
-// memory (at least 4 * units * H * sizeof(W) + 24 * B * units + 1024).  w_hid
+// memory (at least smem_bytes<W>(B, H, units): f32 16 units H + 24 B units
+// + 1024; bf16 32 units ceil(4H / 16) + 24 B units + 512 units).  w_hid
 // is (H, 4H) bf16 when w_bf16 is not 0, else f32; every other tensor is f32.
-// Writes dgates (B, T, 4H), dcell0 and dhid0 (B, H).  Returns the first CUDA error (0 on
-// success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be
+// Writes dgates (B, T, 4H), dcell0 and dhid0 (B, H).  With a bf16 w_hid,
+// scratch is 2 B 4H bf16 values of device memory, 8-byte aligned, for the
+// product's operand (the header's dg16; its contents need no setting);
+// ignored (may be null) with an f32 w_hid.  Returns the first CUDA error (0
+// on success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be
 // co-resident).
 extern "C" int lstm_bwd_chain(const void* g_out, const void* gates_pre, const void* cells,
                               const void* cells_prev, const void* mask, const void* w_hid,
-                              void* dgates, void* dcell0, void* dhid0, float clip, int w_bf16,
-                              int B, int T, int H, int units, size_t smem, void* stream) {
+                              void* dgates, void* dcell0, void* dhid0, void* scratch, float clip,
+                              int w_bf16, int B, int T, int H, int units, size_t smem,
+                              void* stream) {
   return run_chain<false>(g_out, gates_pre, cells, cells_prev, mask, w_hid, dgates, dcell0,
-                          dhid0, nullptr, clip, w_bf16, B, T, H, units, smem, stream);
+                          dhid0, nullptr, scratch, clip, w_bf16, B, T, H, units, smem, stream);
 }
 
 // The peephole chain: as lstm_bwd_chain, with the (H,) peephole vectors
-// w_ci, w_cf, w_co, and dw (3, H), which receives their gradients.
+// w_ci, w_cf, w_co, and dw (3, H), which receives their gradients (scratch
+// as there).
 extern "C" int lstm_bwd_peep_chain(const void* g_out, const void* gates_pre, const void* cells,
                                    const void* cells_prev, const void* mask,
                                    const void* w_hid, const void* w_ci, const void* w_cf,
                                    const void* w_co, void* dgates, void* dcell0, void* dhid0,
-                                   void* dw, float clip, int w_bf16, int B, int T, int H,
-                                   int units, size_t smem, void* stream) {
+                                   void* dw, void* scratch, float clip, int w_bf16, int B, int T,
+                                   int H, int units, size_t smem, void* stream) {
   void* peep[4] = {const_cast<void*>(w_ci), const_cast<void*>(w_cf), const_cast<void*>(w_co),
                    dw};
   return run_chain<true>(g_out, gates_pre, cells, cells_prev, mask, w_hid, dgates, dcell0,
-                         dhid0, peep, clip, w_bf16, B, T, H, units, smem, stream);
+                         dhid0, peep, scratch, clip, w_bf16, B, T, H, units, smem, stream);
 }
 
 extern "C" const char* lstm_bwd_error_string(int code) {

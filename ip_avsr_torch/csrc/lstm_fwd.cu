@@ -75,14 +75,73 @@
 // parameter WT), as each Pallas body is generic over W_hid's dtype.  There
 // gates = x_proj[:, t] + bf16(h_{t-1}) @ W_hid with f32 accumulation, as
 // jnp.dot(hid_prev.astype(bf16), w_hid_bf16, preferred_element_type=f32)
-// computes it (lstm_kernel.py:67-70): h_{t-1} is rounded to bf16 with
-// __float2bfloat16_rn as it is read, each bf16 x bf16 product is exact in
-// f32, and the sums stay f32.  The carries, the mask carry's h_{t-1}, the
-// gate math, x_proj, the peepholes and every output stay f32.  W sits in
-// shared memory as bf16, rows of padded_columns<bf16>(U) values (24 at U =
-// 4: 24,000 B at H = 500 instead of 40,000), read as 8- or 16-byte words and
-// widened by a shift (a bf16 is the upper half of an f32).  The bound is the
-// same serial chain: a step costs the exchange, not the product.
+// computes it (lstm_kernel.py:67-70), and the product runs on Hopper's
+// tensor cores: warp-level mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.
+// f32 (inline PTX, mma_bf16 below), rows of h on M, the block's 4U gate
+// columns on N (n8 tiles: 2 at U = 4; one at U = 1 and 2, half of it zero
+// at U = 1), K = H padded with zeros to KS = ceil(H / 16) steps of 16.  (The
+// other orientation, the 4U columns on M and the rows on N, issues the same
+// number of products at B = 9-16 and half of them at B <= 8; it was not
+// built: a step of the chain costs the exchange, not these few products.)
+// Only the product differs from the f32 instantiations, whose code is
+// untouched (if constexpr (sizeof(WT) == 2) below):
+// - The k of a step in a permuted order, the same for both operands (a sum
+//   does not depend on it): the fragment's k 2 (lane % 4) + 8 r + {0, 1}
+//   is h's column 16 s + 4 (lane % 4) + 2 r + {0, 1}, so that a lane's four
+//   A values of a row are neighbours in memory, one 8-byte read.
+// - W in shared memory as bf16 in fragment order, laid out once per call:
+//   32-bit word ((s * LW + lane) * NT + j) * 2 + r holds W_hid[k, col] and
+//   W_hid[k + 1, col] (low half first) for k = 16 s + 4 (lane % 4) + 2 r and
+//   col = 8 j + lane / 4, which is the B fragment register r of n-tile j
+//   that lane `lane` passes to the k step s.  A lane reads its fragments of
+//   a k step as one 8- or 16-byte word (two at U = 8), neighbouring lanes on
+//   neighbouring words: no bank conflict.  LW = 32 lanes hold live columns
+//   (16 at U = 1, whose other lanes pass zeros).  8 U bytes per padded k:
+//   16,384 B at H = 500, U = 4 (f32: 40,000).
+// - The operand, rounded once: the gate stage also writes each h_t rounded
+//   to nearest even (__float2bfloat16_rn, as the f32-emulating plain
+//   version rounds it) into h16 (2, B, KS * 16) bf16 in global memory, slot
+//   (t + 1) % 2, and step t's product reads slot t % 2: every value is
+//   rounded once, by the block that owns it, not once by each of the
+//   blocks that read it, the reads are half the bytes, and the rows,
+//   padded to KS * 16 values (zeros past H), need no ragged or misaligned
+//   reads at H = 250 or 130.  Slot 0 starts as bf16(hid0), each block
+//   writing its units, the last block zeroing the padding of both slots,
+//   and one more grid.sync() orders that before the first product.  Two
+//   slots, because step t reads one while it writes the other, and the
+//   grid.sync() between steps orders both ([stale]: h16 is written and
+//   read in the launch, read with __ldcg).  The mask carry's h_{t-1}, out
+//   and every other output stay f32.
+// - The A fragment: a lane's rows are b0 + lane / 4 and b0 + lane / 4 + 8,
+//   its columns 16 s + 4 (lane % 4) .. + 3 of h16's slot, one 8-byte
+//   __ldcg per row (four bf16 values, two fragment registers); each bf16 x
+//   bf16 product is exact.  A ragged operand is zero: rows past B (masked),
+//   k past H (the padding).
+// - Each k step's products go to a zero accumulator and the step's sums are
+//   added in f32 (mma_bf16), so that the k steps are summed with f32
+//   rounding to nearest, not inside the tensor core, and the steps'
+//   products need not wait on each other.
+// - A round is up to 16 / U tiles of 16 rows (at most 8): 64 rows at U =
+//   4, one tile for the flagship's B = 8-10.  The warps split the round's
+//   tiles and the KS k steps as the f32 design splits its tiles: warp ->
+//   tile warp % G and k steps ks, ks + ns, ..., so at B <= 16 every warp
+//   takes every 8th k step (4 at H = 500).  Each warp stores its 16 x 4U
+//   partial tile to shared memory and the gate stage adds the tiles of the
+//   warps that shared its tile in warp order (unrolled, its up to 32 loads
+//   in flight together), as in f32: the result does not depend on the
+//   schedule.  Within a k step the tensor core's own order sums the 16
+//   products; that, and the order of the k steps, is all that differs from
+//   a chain of fmaf.
+// - The carries, the mask carry's h_{t-1}, the gate math, x_proj, the
+//   peepholes and every output stay f32, and the persistent cooperative
+//   launch, the grid.sync() per step and the row chunks are the f32
+//   design's.  Shared memory: 8 U KS * 16 bytes of W, the carries, then the
+//   warps' partial tiles 8 x 16 x 4U floats (8,192 B at U = 4); the operand
+//   buffer is the wrapper's scratch in global memory.
+// [bf16 uniform] mma.sync is warp-wide: every lane of a warp runs the same
+//   k steps (warp-uniform trip counts; masked lanes pass zeros), and the
+//   round's __syncthreads and the grid.sync()s (T + 1 with a bf16 W) are
+//   reached by every thread.
 //
 // Layouts are batch-major, the port's public layout, so no transpose is
 // needed: x_proj (B, T, 4H), mask (B, T), out (B, T, H), and the residuals
@@ -115,7 +174,8 @@
 // Large B: every block reads all B rows of h_{t-1} each step and does their
 // products, so the time grows with B, and each round past the first adds a
 // __syncthreads and an L2 round trip that the previous round does not hide;
-// a tensor-core product for large B is later work.
+// a tensor-core product for large B is later work in f32 (bf16 runs on the
+// tensor cores at every B, above).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,81 +211,153 @@ constexpr int kWarps = kChainThreads / 32;
 // accumulator each per lane, reduced across the warp in 31 shuffles
 constexpr int kPairs = 32;
 
-// Values per k row of the block's W_hid columns in shared memory: 4U, padded
-// so that the 8 lanes of each phase of a 16-byte read (neighbouring k) hit
-// distinct banks, that is so that a row is an odd number of 16-byte words:
-// f32 rows of 20 floats at U = 4 (U = 1 needs no padding); bf16 rows of 24
-// values at U = 4 and 40 at U = 8 (U = 2 is one 16-byte word, and U = 1 one
-// 8-byte word, read in half-warp phases without conflict).
-template <typename WT>
-__host__ __device__ constexpr int padded_columns(int U) {
-  if constexpr (sizeof(WT) == 2) return U <= 2 ? 4 * U : 4 * U + 8;
-  return U == 1 ? 4 : 4 * U + 4;
-}
+// f32 values per k row of the block's W_hid columns in shared memory: 4U,
+// padded so that the 8 lanes of each phase of a float4 read (neighbouring
+// k) hit distinct banks, that is so that a row is an odd number of 16-byte
+// words: 20 floats at U = 4 (U = 1 needs no padding).
+__host__ __device__ constexpr int padded_columns(int U) { return U == 1 ? 4 : 4 * U + 4; }
 
-// the two bf16 halves of a 32-bit word as floats (element 0 in the low half)
-__device__ __forceinline__ float bf16_lo(unsigned int w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(unsigned int w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// A W element as f32, and f32 as a W element (exact for values read from a
-// W of that type).
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename WT>
-__device__ __forceinline__ WT from_f32(float v) {
-  if constexpr (sizeof(WT) == 2) {
-    return __float2bfloat16_rn(v);
-  } else {
-    return v;
-  }
-}
-
-// The product's operand h_{t-1} (or a clipped dgate) for a W of type WT: f32
-// as it is, rounded to bf16 (to nearest even) for a bf16 W.
-template <typename WT>
-__device__ __forceinline__ float round_operand(float v) {
-  if constexpr (sizeof(WT) == 2) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-
-// The C weights of one k row of w_s as floats: C / 4 float4 reads for f32;
-// for bf16 one 8-byte read at C = 4, else C / 8 16-byte reads.
-template <typename WT, int C>
-__device__ __forceinline__ void load_row(const WT* row, float (&w)[C]) {
-  if constexpr (sizeof(WT) == 4) {
-    const float4* r4 = reinterpret_cast<const float4*>(row);
+// The C weights of one k row of w_s as floats: C / 4 float4 reads.
+template <int C>
+__device__ __forceinline__ void load_row(const float* row, float (&w)[C]) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
 #pragma unroll
-    for (int c4 = 0; c4 < C / 4; ++c4) {
-      const float4 q = r4[c4];
-      w[4 * c4] = q.x;
-      w[4 * c4 + 1] = q.y;
-      w[4 * c4 + 2] = q.z;
-      w[4 * c4 + 3] = q.w;
+  for (int c4 = 0; c4 < C / 4; ++c4) {
+    const float4 q = r4[c4];
+    w[4 * c4] = q.x;
+    w[4 * c4 + 1] = q.y;
+    w[4 * c4 + 2] = q.z;
+    w[4 * c4 + 3] = q.w;
+  }
+}
+
+// The bf16 product on the tensor cores (header).  kTile rows of an m16n8k16
+// tile; the n8 tiles and the lanes holding live columns of the block's 4U
+// gate columns; the tiles of a round (16 / U, at most kWarps, so that a
+// round's rows x U units are at most kChainThreads gate-stage threads).
+constexpr int kTile = 16;
+__host__ __device__ constexpr int mma_ntiles(int U) { return (4 * U + 7) / 8; }
+__host__ __device__ constexpr int mma_lanes(int U) { return U == 1 ? 16 : 32; }
+__host__ __device__ constexpr int mma_round_tiles(int U) {
+  return 16 / U < kWarps ? 16 / U : kWarps;
+}
+// k steps of 16 at width H, and the bytes of W (fragment order) and of the
+// warps' partial tiles in shared memory
+__host__ __device__ constexpr int mma_ksteps(int H) { return (H + kTile - 1) / kTile; }
+__host__ __device__ constexpr size_t mma_w_bytes(int H, int U) {
+  return static_cast<size_t>(mma_ksteps(H)) * mma_lanes(U) * mma_ntiles(U) * 8;
+}
+__host__ __device__ constexpr int mma_red_floats(int U) { return kWarps * kTile * 4 * U; }
+// k steps whose operands a warp loads before their products: all of a warp's
+// at B <= 16 for the widths the launch plan gives U (H <= 528 at U = 4: 4;
+// H <= 264 at U = 2: 2)
+__host__ __device__ constexpr int mma_batch(int U) { return U >= 4 ? 4 : 2; }
+
+// Two f32 as a bf16 pair, each rounded to nearest even, x in the low half
+// (the lower k of an mma fragment register).
+__device__ __forceinline__ unsigned int pack_bf16(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned int*>(&v);
+}
+
+// acc += a b for one k step on the tensor cores: a 16 x 16 bf16 A
+// (row-major fragment a), a 16 x 8 bf16 B (column-major fragment b0, b1),
+// f32 sums (PTX ISA, mma.sync m16n8k16 fragment layouts).  The tensor core
+// sums the step's 16 exact products into a zero accumulator, and the step's
+// sum is added to acc in f32, rounded to nearest, so the k steps are not
+// summed inside the tensor core and their products need not wait on each
+// other.
+__device__ __forceinline__ void mma_bf16(float (&acc)[4], const unsigned int (&a)[4],
+                                         unsigned int b0, unsigned int b1) {
+  float d[4];
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+#pragma unroll
+  for (int q = 0; q < 4; ++q) acc[q] += d[q];
+}
+
+// The bf16 product of one round (header): this warp's 16 x 4U partial tile
+// of rows b0 .. b0 + 15 over k steps ks, ks + ns, ... into red_w (16 rows of
+// 4U floats), from h_{t-1} already rounded to bf16 (h16: rows of KS * 16
+// values, zero past H) and W in fragment order.
+template <int U>
+__device__ __forceinline__ void mma_tile(const unsigned short* h16, const unsigned int* w_w,
+                                         float* red_w, int b0, int ks, int ns, int B, int H,
+                                         int lane) {
+  constexpr int C = 4 * U;
+  constexpr int NT = mma_ntiles(U);
+  constexpr int LW = mma_lanes(U);
+  const int KS = mma_ksteps(H);
+  const size_t stride = static_cast<size_t>(KS) * kTile;
+  const int ra = b0 + lane / 4;
+  const bool la = ra < B;
+  const bool lb = ra + 8 < B;
+  const unsigned short* ha = h16 + (la ? ra : 0) * stride;
+  const unsigned short* hb = h16 + (lb ? ra + 8 : 0) * stride;
+  // [bf16 uniform] the same k steps for every lane of the warp
+  const int steps = (KS - ks + ns - 1) / ns;
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+  }
+  constexpr int kMmaBatch = mma_batch(U);
+  for (int s0 = 0; s0 < steps; s0 += kMmaBatch) {
+    // every operand of the batch is requested before any product: the
+    // lane's k = 16 s + 4 (lane % 4) .. + 3 of rows ra and ra + 8, four bf16
+    // values (two fragment registers) in one 8-byte read each
+    uint2 hv[kMmaBatch][2];
+#pragma unroll
+    for (int i = 0; i < kMmaBatch; ++i) {
+      const bool live = s0 + i < steps;
+      const int k = (ks + (s0 + i) * ns) * kTile + (lane % 4) * 4;
+      const uint2 zero = make_uint2(0u, 0u);
+      // [stale] written in this launch: L2 only, never __ldg or L1
+      hv[i][0] = live && la ? __ldcg(reinterpret_cast<const uint2*>(ha + k)) : zero;
+      hv[i][1] = live && lb ? __ldcg(reinterpret_cast<const uint2*>(hb + k)) : zero;
     }
-  } else if constexpr (C == 4) {
-    const uint2 q = *reinterpret_cast<const uint2*>(row);
-    w[0] = bf16_lo(q.x);
-    w[1] = bf16_hi(q.x);
-    w[2] = bf16_lo(q.y);
-    w[3] = bf16_hi(q.y);
-  } else {
-    const uint4* r4 = reinterpret_cast<const uint4*>(row);
+    // the batch's products in one straight run: a slot past the warp's
+    // steps has zero operands (its loads are masked) and a live W word, so
+    // it adds exactly 0 (as in lstm_bwd.cu)
 #pragma unroll
-    for (int c8 = 0; c8 < C / 8; ++c8) {
-      const uint4 q = r4[c8];
-      w[8 * c8] = bf16_lo(q.x);
-      w[8 * c8 + 1] = bf16_hi(q.x);
-      w[8 * c8 + 2] = bf16_lo(q.y);
-      w[8 * c8 + 3] = bf16_hi(q.y);
-      w[8 * c8 + 4] = bf16_lo(q.z);
-      w[8 * c8 + 5] = bf16_hi(q.z);
-      w[8 * c8 + 6] = bf16_lo(q.w);
-      w[8 * c8 + 7] = bf16_hi(q.w);
+    for (int i = 0; i < kMmaBatch; ++i) {
+      const int s = min(ks + (s0 + i) * ns, KS - 1);
+      // the A fragment: registers 0 and 2 of row ra, 1 and 3 of row ra + 8
+      const unsigned int a[4] = {hv[i][0].x, hv[i][1].x, hv[i][0].y, hv[i][1].y};
+      unsigned int b[NT][2];
+      const unsigned int* wp = w_w + (static_cast<size_t>(s) * LW + lane) * NT * 2;
+      if constexpr (NT == 1) {
+        const uint2 q = lane < LW ? *reinterpret_cast<const uint2*>(wp) : make_uint2(0u, 0u);
+        b[0][0] = q.x;
+        b[0][1] = q.y;
+      } else {
+#pragma unroll
+        for (int j2 = 0; j2 < NT / 2; ++j2) {
+          const uint4 q = reinterpret_cast<const uint4*>(wp)[j2];
+          b[2 * j2][0] = q.x;
+          b[2 * j2][1] = q.y;
+          b[2 * j2 + 1][0] = q.z;
+          b[2 * j2 + 1][1] = q.w;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_bf16(acc[j], a, b[j][0], b[j][1]);
+    }
+  }
+  // the accumulator fragment: rows lane / 4 and lane / 4 + 8, columns
+  // 8 j + 2 (lane % 4) + {0, 1}; columns past 4U (U = 1) are zero
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = j * 8 + (lane % 4) * 2;
+    if (col < C) {
+      float* r0 = red_w + (lane / 4) * C + col;
+      r0[0] = acc[j][0];
+      r0[1] = acc[j][1];
+      r0[8 * C] = acc[j][2];
+      r0[8 * C + 1] = acc[j][3];
     }
   }
 }
@@ -251,7 +383,9 @@ __device__ __forceinline__ void transpose_level(float (&v)[kPairs], int lane) {
 // and w_co are the (H,) peephole vectors, otherwise unused.  cell_last (B, H),
 // when not null, receives the cell carry after step T - 1 (the carried hidden
 // state is out[:, T - 1]), so a caller can resume the recurrence from it.
-// w_hid holds WT values (float or __nv_bfloat16).
+// w_hid holds WT values (float or __nv_bfloat16).  With a bf16 W, h16 (2, B,
+// KS * 16) bf16 holds the product's operand, h_{t-1} in slot t % 2 (header);
+// unused in f32.
 template <bool EmitResiduals, bool Peephole, int U, typename WT>
 __global__ void __launch_bounds__(kChainThreads)
 lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const WT* __restrict__ w_hid,
@@ -261,17 +395,26 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const WT* __restrict__ w
                       float* __restrict__ cells, float* __restrict__ gates,
                       float* __restrict__ cell_last, const float* __restrict__ w_ci,
                       const float* __restrict__ w_cf, const float* __restrict__ w_co, int B,
-                      int T, int H) {
+                      int T, int H,
+                      unsigned short* h16) {  // [stale] as out
+  constexpr bool kMma = sizeof(WT) == 2;  // bf16: the product on the tensor cores
   constexpr int C = 4 * U;       // the block's gate columns, col = gate * U + unit
-  constexpr int CP = padded_columns<WT>(U);
-  constexpr int R = kPairs / C;  // rows of a warp tile
-  constexpr int KI = kPairs / R; // k steps per batch of loads: R * KI = 32 in flight
+  constexpr int CP = padded_columns(U);
+  // rows of a warp tile, and tiles of a round
+  constexpr int R = kMma ? kTile : kPairs / C;
+  constexpr int RT = kMma ? mma_round_tiles(U) : kWarps;
+  constexpr int KI = kMma ? 1 : kPairs / R;  // f32: k steps per batch of loads, R * KI = 32
   extern __shared__ float4 smem4[];
   const int BU = B * U;
-  WT* w_s = reinterpret_cast<WT*>(smem4);        // (H, CP): row k holds the C weights
-  float* c_s = reinterpret_cast<float*>(w_s + CP * H);  // (B * U) each, from here on
-  float* h_s = c_s + BU;
-  float* red = h_s + BU;                         // (kWarps, kPairs)
+  // W: f32 (H, CP), row k holding the C weights; bf16 in fragment order
+  float* c_s;
+  if constexpr (kMma) {
+    c_s = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + mma_w_bytes(H, U));
+  } else {
+    c_s = reinterpret_cast<float*>(smem4) + CP * H;
+  }
+  float* h_s = c_s + BU;  // (B * U) each
+  float* red = h_s + BU;  // f32 (kWarps, kPairs); bf16 (kWarps, kTile, C)
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
@@ -279,26 +422,65 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const WT* __restrict__ w
   const int nu = min(U, H - j0);
   const size_t H4 = static_cast<size_t>(4) * H;
 
-  // w_s[k, col] = W_hid[k, gate * H + j0 + unit], once per call, kLoadW loads
-  // in flight per thread; neighbouring threads read neighbouring units of
-  // one gate.  [ragged] dead units are 0.
   constexpr int kLoadW = 16;
-  for (int i0 = 0; i0 < C * H; i0 += kLoadW * kChainThreads) {
-    float v[kLoadW];
+  if constexpr (kMma) {
+    // word ((s * LW + l) * NT + j) * 2 + r = (W[k, col], W[k + 1, col]) for
+    // k = 16 s + 4 (l % 4) + 2 r, col = 8 j + l / 4 = gate * U + unit, once
+    // per call: item i is the pair k = 2 (i / C), column i % C, so that
+    // neighbouring threads read neighbouring units of one gate; kLoadW items
+    // in flight per thread.  [ragged] dead units and k past H are 0.
+    constexpr int NT = mma_ntiles(U);
+    constexpr int LW = mma_lanes(U);
+    unsigned int* w_w = reinterpret_cast<unsigned int*>(smem4);
+    const int n_items = mma_ksteps(H) * (kTile / 2) * C;
+    for (int i0 = 0; i0 < n_items; i0 += kLoadW * kChainThreads) {
+      float v[kLoadW][2];
 #pragma unroll
-    for (int l = 0; l < kLoadW; ++l) {
-      const int i = i0 + l * kChainThreads + tid;
-      const int k = i / C;
-      const int col = i % C;
-      const int u = col % U;
-      v[l] = i < C * H && u < nu
-                 ? to_f32(__ldg(w_hid + k * H4 + static_cast<size_t>(col / U) * H + j0 + u))
-                 : 0.f;
+      for (int l = 0; l < kLoadW; ++l) {
+        const int i = i0 + l * kChainThreads + tid;
+        const int k = i / C * 2;
+        const int col = i % C;
+        const int u = col % U;
+        const bool live = i < n_items && u < nu;
+        const WT* src = w_hid + k * H4 + static_cast<size_t>(col / U) * H + j0 + u;
+        v[l][0] = live && k < H ? __bfloat162float(__ldg(src)) : 0.f;
+        v[l][1] = live && k + 1 < H ? __bfloat162float(__ldg(src + H4)) : 0.f;
+      }
+#pragma unroll
+      for (int l = 0; l < kLoadW; ++l) {
+        const int i = i0 + l * kChainThreads + tid;
+        if (i < n_items) {
+          // k = 16 s + 4 (lane % 4) + 2 r, col = 8 j + lane / 4
+          const int k = i / C * 2;
+          const int col = i % C;
+          const int wl = col % 8 * 4 + k % kTile / 4;
+          const int w = ((k / kTile * LW + wl) * NT + col / 8) * 2 + k % 4 / 2;
+          w_w[w] = pack_bf16(v[l][0], v[l][1]);  // exact: bf16 values
+        }
+      }
     }
+  } else {
+    // w_s[k, col] = W_hid[k, gate * H + j0 + unit], once per call, kLoadW loads
+    // in flight per thread; neighbouring threads read neighbouring units of
+    // one gate.  [ragged] dead units are 0.
+    float* w_s = reinterpret_cast<float*>(smem4);
+    for (int i0 = 0; i0 < C * H; i0 += kLoadW * kChainThreads) {
+      float v[kLoadW];
 #pragma unroll
-    for (int l = 0; l < kLoadW; ++l) {
-      const int i = i0 + l * kChainThreads + tid;
-      if (i < C * H) w_s[i / C * CP + i % C] = from_f32<WT>(v[l]);
+      for (int l = 0; l < kLoadW; ++l) {
+        const int i = i0 + l * kChainThreads + tid;
+        const int k = i / C;
+        const int col = i % C;
+        const int u = col % U;
+        v[l] = i < C * H && u < nu
+                   ? __ldg(w_hid + k * H4 + static_cast<size_t>(col / U) * H + j0 + u)
+                   : 0.f;
+      }
+#pragma unroll
+      for (int l = 0; l < kLoadW; ++l) {
+        const int i = i0 + l * kChainThreads + tid;
+        if (i < C * H) w_s[i / C * CP + i % C] = v[l];
+      }
     }
   }
   for (int q = tid; q < BU; q += kChainThreads) {
@@ -320,12 +502,31 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const WT* __restrict__ w
   __syncthreads();
 
   cg::grid_group grid = cg::this_grid();
+  if constexpr (kMma) {
+    // slot 0 of the operand buffer: bf16(hid0) of the block's units, every
+    // row; the last block zeroes the padding columns H .. KS * 16 - 1 of
+    // both slots, which no step writes.  [order] [uniform] before any
+    // block's first product.
+    const int Kp = mma_ksteps(H) * kTile;
+    __nv_bfloat16* hb = reinterpret_cast<__nv_bfloat16*>(h16);
+    for (int q = tid; q < BU; q += kChainThreads) {
+      if (q % U < nu) {
+        hb[static_cast<size_t>(q / U) * Kp + j0 + q % U] = __float2bfloat16_rn(h_s[q]);
+      }
+    }
+    if (blockIdx.x == gridDim.x - 1) {
+      for (int q = tid; q < 2 * B * (Kp - H); q += kChainThreads) {
+        hb[static_cast<size_t>(q / (Kp - H)) * Kp + H + q % (Kp - H)] = __float2bfloat16_rn(0.f);
+      }
+    }
+    grid.sync();
+  }
   const int n_tiles = (B + R - 1) / R;
   for (int t = 0; t < T; ++t) {
     const float* h = t == 0 ? hid0 : out + static_cast<size_t>(t - 1) * H;
     const size_t h_stride = t == 0 ? static_cast<size_t>(H) : static_cast<size_t>(T) * H;
-    for (int tile0 = 0; tile0 < n_tiles; tile0 += kWarps) {
-      const int G = min(kWarps, n_tiles - tile0);  // tiles of this round
+    for (int tile0 = 0; tile0 < n_tiles; tile0 += RT) {
+      const int G = min(RT, n_tiles - tile0);  // tiles of this round
       const int rb0 = tile0 * R;
       // gate-stage thread: row rb0 + tid / U, unit tid % U of this round;
       // its read-only inputs are fetched first, so they overlap the product
@@ -347,45 +548,51 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const WT* __restrict__ w
       const int ks = warp / G;
       const int ns = (kWarps - 1 - g) / G + 1;
       const int b0 = rb0 + g * R;
-      const int stride = 32 * ns;
-      // [converge] warp-uniform trip counts; k >= H is masked inside
-      const int steps = (H + stride - 1) / stride;
-      float acc[kPairs];
+      if constexpr (kMma) {
+        mma_tile<U>(h16 + static_cast<size_t>(t % 2) * B * mma_ksteps(H) * kTile,
+                    reinterpret_cast<const unsigned int*>(smem4), red + warp * R * C, b0, ks,
+                    ns, B, H, lane);
+      } else {
+        const float* w_s = reinterpret_cast<const float*>(smem4);
+        const int stride = 32 * ns;
+        // [converge] warp-uniform trip counts; k >= H is masked inside
+        const int steps = (H + stride - 1) / stride;
+        float acc[kPairs];
 #pragma unroll
-      for (int p = 0; p < kPairs; ++p) acc[p] = 0.f;
-      for (int s0 = 0; s0 < steps; s0 += KI) {
-        float hv[KI][R];
+        for (int p = 0; p < kPairs; ++p) acc[p] = 0.f;
+        for (int s0 = 0; s0 < steps; s0 += KI) {
+          float hv[KI][R];
 #pragma unroll
-        for (int i = 0; i < KI; ++i) {
-          const int k = (s0 + i) * stride + ks * 32 + lane;
+          for (int i = 0; i < KI; ++i) {
+            const int k = (s0 + i) * stride + ks * 32 + lane;
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            // [stale] h of this launch: L2 only, never __ldg or L1; rounded
-            // to bf16 as the product's operand for a bf16 W
-            hv[i][r] = s0 + i < steps && k < H && b0 + r < B
-                           ? round_operand<WT>(__ldcg(h + (b0 + r) * h_stride + k)) : 0.f;
+            for (int r = 0; r < R; ++r) {
+              // [stale] h of this launch: L2 only, never __ldg or L1
+              hv[i][r] = s0 + i < steps && k < H && b0 + r < B
+                             ? __ldcg(h + (b0 + r) * h_stride + k) : 0.f;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < KI; ++i) {
+            if (s0 + i >= steps) break;  // warp-uniform
+            const int k = (s0 + i) * stride + ks * 32 + lane;
+            // one address per k; past H, hv is 0 and row H - 1 stands in
+            float w[C];
+            load_row<C>(w_s + min(k, H - 1) * CP, w);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+#pragma unroll
+              for (int c = 0; c < C; ++c) acc[r * C + c] = fmaf(hv[i][r], w[c], acc[r * C + c]);
+            }
           }
         }
-#pragma unroll
-        for (int i = 0; i < KI; ++i) {
-          if (s0 + i >= steps) break;  // warp-uniform
-          const int k = (s0 + i) * stride + ks * 32 + lane;
-          // one address per k; past H, hv is 0 and row H - 1 stands in
-          float w[C];
-          load_row<WT, C>(w_s + min(k, H - 1) * CP, w);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-#pragma unroll
-            for (int c = 0; c < C; ++c) acc[r * C + c] = fmaf(hv[i][r], w[c], acc[r * C + c]);
-          }
-        }
+        transpose_level<16>(acc, lane);
+        transpose_level<8>(acc, lane);
+        transpose_level<4>(acc, lane);
+        transpose_level<2>(acc, lane);
+        transpose_level<1>(acc, lane);
+        red[warp * kPairs + lane] = acc[0];
       }
-      transpose_level<16>(acc, lane);
-      transpose_level<8>(acc, lane);
-      transpose_level<4>(acc, lane);
-      transpose_level<2>(acc, lane);
-      transpose_level<1>(acc, lane);
-      red[warp * kPairs + lane] = acc[0];
       __syncthreads();
 
       if (gate_live) {
@@ -394,11 +601,25 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const WT* __restrict__ w
         const int pair = (gr % R) * C + gu;
         const int nsg = (kWarps - 1 - gt) / G + 1;
         float gate[4];
+        if constexpr (kMma) {
+          // unrolled, so that the up to 8 x 4 loads are in flight together
+          float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float s = 0.f;
-          for (int p = 0; p < nsg; ++p) s += red[(p * G + gt) * kPairs + pair + q * U];
-          gate[q] = xin[q] + s;
+          for (int p = 0; p < kWarps; ++p) {
+            if (p < nsg) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) s[q] += red[(p * G + gt) * (R * C) + pair + q * U];
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gate[q] = xin[q] + s[q];
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float s = 0.f;
+            for (int p = 0; p < nsg; ++p) s += red[(p * G + gt) * (R * C) + pair + q * U];
+            gate[q] = xin[q] + s;
+          }
         }
         const int q = gb * U + gu;
         float c_out, h_out;
@@ -407,6 +628,13 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const WT* __restrict__ w
         h_s[q] = h_out;
         const size_t e = (static_cast<size_t>(gb) * T + t) * H + j0 + gu;
         out[e] = h_out;  // [carry] every row, padded or not
+        if constexpr (kMma) {
+          // the next step's operand, rounded to nearest even once here
+          // rather than by each of the blocks that read it
+          reinterpret_cast<__nv_bfloat16*>(h16)[(static_cast<size_t>((t + 1) % 2) * B + gb) *
+                                                    mma_ksteps(H) * kTile + j0 + gu] =
+              __float2bfloat16_rn(h_out);
+        }
         if constexpr (EmitResiduals) {
           // gate[] holds the pre-activations before any peephole term
           cells[e] = c_out;
@@ -416,7 +644,7 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const WT* __restrict__ w
         }
       }
       // red is refilled by the next round; the last round's barrier is grid.sync
-      if (tile0 + kWarps < n_tiles) __syncthreads();
+      if (tile0 + RT < n_tiles) __syncthreads();
     }
     // [order] [uniform] every block's out[:, t] before any block's next product
     grid.sync();
@@ -433,7 +661,10 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const WT* __restrict__ w
 
 template <typename WT>
 size_t chain_smem_bytes(int B, int H, int U) {
-  return static_cast<size_t>(padded_columns<WT>(U)) * H * sizeof(WT) +
+  if constexpr (sizeof(WT) == 2) {
+    return mma_w_bytes(H, U) + (static_cast<size_t>(2) * B * U + mma_red_floats(U)) * sizeof(float);
+  }
+  return static_cast<size_t>(padded_columns(U)) * H * sizeof(float) +
          (static_cast<size_t>(2) * B * U + kWarps * kPairs) * sizeof(float);
 }
 
@@ -441,14 +672,14 @@ template <bool EmitResiduals, bool Peephole, int U, typename WT>
 cudaError_t launch_chain(const float* x_proj, const WT* w_hid, const float* mask,
                          const float* cell0, const float* hid0, float* out, float* cells,
                          float* gates, float* cell_last, const float* w_ci, const float* w_cf,
-                         const float* w_co, int B, int T, int H, size_t smem,
-                         cudaStream_t stream) {
+                         const float* w_co, int B, int T, int H, unsigned short* h16,
+                         size_t smem, cudaStream_t stream) {
   const auto kernel = lstm_fwd_chain_kernel<EmitResiduals, Peephole, U, WT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   void* args[] = {&x_proj, &w_hid, &mask, &cell0, &hid0, &out, &cells,
-                  &gates, &cell_last, &w_ci, &w_cf, &w_co, &B, &T, &H};
+                  &gates, &cell_last, &w_ci, &w_cf, &w_co, &B, &T, &H, &h16};
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                      dim3((H + U - 1) / U), dim3(kChainThreads), args, smem,
                                      stream);
@@ -456,13 +687,17 @@ cudaError_t launch_chain(const float* x_proj, const WT* w_hid, const float* mask
 
 // Runs the whole recurrence of one instantiation on `stream`; see the entry
 // points.  cells and gates are null without EmitResiduals, `peep` (w_ci,
-// w_cf, w_co) is null without Peephole, cell_last may be null.
+// w_cf, w_co) is null without Peephole, cell_last may be null, scratch is
+// null for an f32 W.
 template <bool EmitResiduals, bool Peephole, typename WT>
 int run_chain_w(const void* x_proj, const void* w_hid, const void* mask, const void* cell0,
                 const void* hid0, void* out, void* cells, void* gates, void* cell_last,
-                const void* const* peep, int B, int T, int H, int units, size_t smem,
-                void* stream) {
+                const void* const* peep, void* scratch, int B, int T, int H, int units,
+                size_t smem, void* stream) {
   if (smem < chain_smem_bytes<WT>(B, H, units)) return static_cast<int>(cudaErrorInvalidValue);
+  // the bf16 product reads its operand buffer 8 bytes at a time
+  if (sizeof(WT) == 2 && (scratch == nullptr || reinterpret_cast<size_t>(scratch) % 8 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* v) { return static_cast<const float*>(v); };
   const void* p[3] = {nullptr, nullptr, nullptr};
   if constexpr (Peephole) {
@@ -472,7 +707,8 @@ int run_chain_w(const void* x_proj, const void* w_hid, const void* mask, const v
     return launcher(f(x_proj), static_cast<const WT*>(w_hid), f(mask), f(cell0), f(hid0),
                     static_cast<float*>(out),
                     static_cast<float*>(cells), static_cast<float*>(gates),
-                    static_cast<float*>(cell_last), f(p[0]), f(p[1]), f(p[2]), B, T, H, smem,
+                    static_cast<float*>(cell_last), f(p[0]), f(p[1]), f(p[2]), B, T, H,
+                    static_cast<unsigned short*>(scratch), smem,
                     static_cast<cudaStream_t>(stream));
   };
   cudaError_t err;
@@ -490,42 +726,47 @@ int run_chain_w(const void* x_proj, const void* w_hid, const void* mask, const v
 template <bool EmitResiduals, bool Peephole>
 int run_chain(const void* x_proj, const void* w_hid, const void* mask, const void* cell0,
               const void* hid0, void* out, void* cells, void* gates, void* cell_last,
-              const void* const* peep, int w_bf16, int B, int T, int H, int units, size_t smem,
-              void* stream) {
+              const void* const* peep, void* scratch, int w_bf16, int B, int T, int H,
+              int units, size_t smem, void* stream) {
   return w_bf16 ? run_chain_w<EmitResiduals, Peephole, __nv_bfloat16>(
-                      x_proj, w_hid, mask, cell0, hid0, out, cells, gates, cell_last, peep, B,
-                      T, H, units, smem, stream)
+                      x_proj, w_hid, mask, cell0, hid0, out, cells, gates, cell_last, peep,
+                      scratch, B, T, H, units, smem, stream)
                 : run_chain_w<EmitResiduals, Peephole, float>(
-                      x_proj, w_hid, mask, cell0, hid0, out, cells, gates, cell_last, peep, B,
-                      T, H, units, smem, stream);
+                      x_proj, w_hid, mask, cell0, hid0, out, cells, gates, cell_last, peep,
+                      nullptr, B, T, H, units, smem, stream);
 }
 
 }  // namespace
 
 // Runs all T steps on `stream` in one cooperative launch of ceil(H / units)
 // blocks, units in {1, 2, 4, 8}, with `smem` bytes of dynamic shared memory
-// (at least padded_columns<WT>(units) * H * sizeof(WT) + 8 * B * units +
-// 1024).  w_hid is (H, 4H) bf16 when w_bf16 is not 0, else f32; every other
+// (at least chain_smem_bytes<W>(B, H, units): f32 4 padded_columns(units) H
+// + 8 B units + 1024; bf16 128 units ceil(H / 16) + 8 B units + 2048
+// units).  w_hid is (H, 4H) bf16 when w_bf16 is not 0, else f32; every other
 // tensor is f32.  cell0 and hid0 (B, H) are the initial state; writes out
-// (B, T, H) and, when cell_last is not null, the final cell (B, H).  Returns
-// the first CUDA error (0 on success; cudaErrorCooperativeLaunchTooLarge when
+// (B, T, H) and, when cell_last is not null, the final cell (B, H).  With a
+// bf16 w_hid, scratch is 2 B 16 ceil(H / 16) bf16 values of device memory,
+// 8-byte aligned, for the product's operand (the header's h16; its contents
+// need no setting); ignored (may be null) with an f32 w_hid.  Returns the
+// first CUDA error (0 on success; cudaErrorCooperativeLaunchTooLarge when
 // the grid cannot be co-resident).
 extern "C" int lstm_fwd_forward(const void* x_proj, const void* w_hid, const void* mask,
                                 const void* cell0, const void* hid0, void* out, void* cell_last,
-                                int w_bf16, int B, int T, int H, int units, size_t smem,
-                                void* stream) {
+                                void* scratch, int w_bf16, int B, int T, int H, int units,
+                                size_t smem, void* stream) {
   return run_chain<false, false>(x_proj, w_hid, mask, cell0, hid0, out, nullptr, nullptr,
-                                 cell_last, nullptr, w_bf16, B, T, H, units, smem, stream);
+                                 cell_last, nullptr, scratch, w_bf16, B, T, H, units, smem,
+                                 stream);
 }
 
 // The training forward: as lstm_fwd_forward, and also writes the residuals
 // cells (B, T, H) and gates (B, T, 4H).
 extern "C" int lstm_fwd_train_forward(const void* x_proj, const void* w_hid, const void* mask,
                                       const void* cell0, const void* hid0, void* out,
-                                      void* cells, void* gates, int w_bf16, int B, int T, int H,
-                                      int units, size_t smem, void* stream) {
+                                      void* cells, void* gates, void* scratch, int w_bf16, int B,
+                                      int T, int H, int units, size_t smem, void* stream) {
   return run_chain<true, false>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates, nullptr,
-                                nullptr, w_bf16, B, T, H, units, smem, stream);
+                                nullptr, scratch, w_bf16, B, T, H, units, smem, stream);
 }
 
 // The peephole recurrence: as lstm_fwd_forward (cell_last included), with
@@ -533,11 +774,11 @@ extern "C" int lstm_fwd_train_forward(const void* x_proj, const void* w_hid, con
 extern "C" int lstm_fwd_peep_forward(const void* x_proj, const void* w_hid, const void* mask,
                                      const void* cell0, const void* hid0, void* out,
                                      void* cell_last, const void* w_ci, const void* w_cf,
-                                     const void* w_co, int w_bf16, int B, int T, int H,
-                                     int units, size_t smem, void* stream) {
+                                     const void* w_co, void* scratch, int w_bf16, int B, int T,
+                                     int H, int units, size_t smem, void* stream) {
   const void* peep[3] = {w_ci, w_cf, w_co};
   return run_chain<false, true>(x_proj, w_hid, mask, cell0, hid0, out, nullptr, nullptr,
-                                cell_last, peep, w_bf16, B, T, H, units, smem, stream);
+                                cell_last, peep, scratch, w_bf16, B, T, H, units, smem, stream);
 }
 
 // The peephole training forward: as lstm_fwd_peep_forward, and also writes
@@ -547,11 +788,11 @@ extern "C" int lstm_fwd_peep_train_forward(const void* x_proj, const void* w_hid
                                            const void* mask, const void* cell0,
                                            const void* hid0, void* out, void* cells,
                                            void* gates, const void* w_ci, const void* w_cf,
-                                           const void* w_co, int w_bf16, int B, int T, int H,
-                                           int units, size_t smem, void* stream) {
+                                           const void* w_co, void* scratch, int w_bf16, int B,
+                                           int T, int H, int units, size_t smem, void* stream) {
   const void* peep[3] = {w_ci, w_cf, w_co};
   return run_chain<true, true>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates, nullptr,
-                               peep, w_bf16, B, T, H, units, smem, stream);
+                               peep, scratch, w_bf16, B, T, H, units, smem, stream);
 }
 
 extern "C" const char* lstm_fwd_error_string(int code) {

@@ -39,12 +39,15 @@ port's layout, where the JAX package keeps the training residuals time-major
 
 Every kernel has two instantiations by W_hid's dtype, as each Pallas body is
 generic over it: float32, and bfloat16 for ``matmul_dtype="bfloat16"`` (and
-a bf16-weight artifact's recurrences), where W_hid sits in shared memory as
-bf16, the product's other operand (h_{t-1}, or the clipped dgates in the
-backward chains) is rounded to bf16 as it is read, and the product sums in
-float32.  Every other tensor, and every output, stays float32.  A wrapper
-counts a launch of its float32 instantiation in ``.launches`` and of its
-bf16 one in ``.launches_bf16``.
+a bf16-weight artifact's recurrences), whose product runs on the tensor
+cores (``mma.sync`` m16n8k16, float32 sums): W_hid sits in shared memory as
+bf16 in the tensor cores' fragment order, and the product's other operand
+(h_{t-1}, or the clipped dgates in the backward chains) is rounded to bf16
+once, by the block that computes it, into a scratch buffer of two steps
+that the wrapper allocates (:func:`_run_fwd`, :func:`_run_bwd`).  Every
+other tensor, and every output, stays float32.  A wrapper counts a launch
+of its float32 instantiation in ``.launches`` and of its bf16 one in
+``.launches_bf16``.
 """
 
 from __future__ import annotations
@@ -83,15 +86,17 @@ def _w_operand(w_hid: torch.Tensor) -> torch.Tensor:
     return w_hid.to(torch.float32)
 
 
-def _plain_step(x_proj_t, w_hid, m, cell, hid, peep=None, w_dtype=torch.float32):
+def _plain_step(x_proj_t, w_hid, m, cell, hid, peep=None, w_dtype=torch.float32,
+                operand=None):
     """One masked step: returns the new (hid, cell) and the pre-activation
     gates (B, 4H), before any peephole term.  Where ``m`` (B, 1) is 0 both
     states carry over.  ``peep`` is None or the (H,) vectors (w_ci, w_cf,
     w_co): c_{t-1} feeds the in and forget gates, the new cell the out
     gate.  ``w_hid`` is float32 (widened); with ``w_dtype`` bfloat16 the
-    product's operand h_{t-1} is rounded to bf16, the carry is not."""
+    product's operand h_{t-1} is rounded to bf16, the carry is not.
+    ``operand``, when given, is the product's h_{t-1} in place of ``hid``."""
     H = w_hid.shape[0]
-    gates = x_proj_t + round_operand(hid, w_dtype) @ w_hid
+    gates = x_proj_t + round_operand(hid if operand is None else operand, w_dtype) @ w_hid
     z_i, z_f, z_c, z_o = gates[:, :H], gates[:, H: 2 * H], gates[:, 2 * H: 3 * H], gates[:, 3 * H:]
     if peep is not None:
         z_i = z_i + cell * peep[0]
@@ -107,16 +112,22 @@ def _plain_step(x_proj_t, w_hid, m, cell, hid, peep=None, w_dtype=torch.float32)
     return m * hid_cand + (1.0 - m) * hid, m * cell_cand + (1.0 - m) * cell, gates
 
 
-def _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, peep):
+def _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, peep, operands=None):
     """All T steps: (hids, post-mask cells, gates) stacked batch-major.
     W_hid is float32 or bfloat16 (then h_{t-1} is rounded to bf16 before
-    each product, and the product accumulates in float32)."""
+    each product, and the product accumulates in float32).  ``operands``
+    (B, T, H), when given, are the hids whose step t - 1 is step t's
+    product operand (hid0 at t = 0) in place of this recurrence's own: fed
+    a kernel's hids, each step is that kernel's step from the kernel's own
+    operand, so a bf16 rounding that parted the two sums earlier does not
+    carry (the carries stay this recurrence's own)."""
     w_dtype, w = w_hid.dtype, _w_operand(w_hid)
     cell, hid = cell0, hid0
     hids, cells, gates_all = [], [], []
     for t in range(x_proj.shape[1]):
+        operand = None if operands is None or t == 0 else operands[:, t - 1]
         hid, cell, gates = _plain_step(x_proj[:, t], w, mask[:, t: t + 1], cell, hid, peep,
-                                       w_dtype)
+                                       w_dtype, operand)
         hids.append(hid)
         cells.append(cell)
         gates_all.append(gates)
@@ -181,9 +192,13 @@ def lstm_peep_recurrence_train_plain(x_proj, w_hid, mask, cell0, hid0, w_ci, w_c
     return _recurrence_plain(x_proj, w_hid, mask, cell0, hid0, (w_ci, w_cf, w_co))
 
 
-def _bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip, peep):
+def _bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip, peep,
+                     operands=None):
     """The reverse-time chain; with ``peep`` (w_ci, w_cf, w_co) also the
-    peephole routes and the (B, H) per-row partial sums of their gradients."""
+    peephole routes and the (B, H) per-row partial sums of their gradients.
+    ``operands`` (B, T, 4H), when given, are the clipped dgates whose step t
+    is the product's operand after step t in place of this chain's own (as
+    in :func:`_recurrence_plain`)."""
     B, T, H = cells.shape
     w_dtype, w_hid = w_hid.dtype, _w_operand(w_hid)
     dcell = torch.zeros((B, H), dtype=cells.dtype, device=cells.device)
@@ -220,7 +235,8 @@ def _bwd_chain_plain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip, pee
             dgates = torch.clamp(dgates, -clip, clip)
         # the clipped dgates as the product's operand (bf16-rounded with a
         # bf16 W_hid); the stored dgates stay unrounded
-        dhid = round_operand(dgates, w_dtype) @ w_hid.T + (1.0 - m) * dhid_total
+        operand = dgates if operands is None else operands[:, t]
+        dhid = round_operand(operand, w_dtype) @ w_hid.T + (1.0 - m) * dhid_total
         dcell_prev = dcell_cand * f + (1.0 - m) * dcell
         if peep is not None:
             # the peephole routes take the cotangents before the clip
@@ -267,13 +283,14 @@ def _lib():
     lib = _build.load("lstm_fwd")
     # w_bf16, B, T, H, units, smem, stream
     chain_tail = [ctypes.c_int] * 5 + [ctypes.c_size_t, ctypes.c_void_p]
-    lib.lstm_fwd_forward.argtypes = [ctypes.c_void_p] * 7 + chain_tail
+    # ..., the outputs[, w_ci, w_cf, w_co], scratch, then the tail
+    lib.lstm_fwd_forward.argtypes = [ctypes.c_void_p] * 8 + chain_tail
     lib.lstm_fwd_forward.restype = ctypes.c_int
-    lib.lstm_fwd_train_forward.argtypes = [ctypes.c_void_p] * 8 + chain_tail
+    lib.lstm_fwd_train_forward.argtypes = [ctypes.c_void_p] * 9 + chain_tail
     lib.lstm_fwd_train_forward.restype = ctypes.c_int
-    lib.lstm_fwd_peep_forward.argtypes = [ctypes.c_void_p] * 10 + chain_tail
+    lib.lstm_fwd_peep_forward.argtypes = [ctypes.c_void_p] * 11 + chain_tail
     lib.lstm_fwd_peep_forward.restype = ctypes.c_int
-    lib.lstm_fwd_peep_train_forward.argtypes = [ctypes.c_void_p] * 11 + chain_tail
+    lib.lstm_fwd_peep_train_forward.argtypes = [ctypes.c_void_p] * 12 + chain_tail
     lib.lstm_fwd_peep_train_forward.restype = ctypes.c_int
     return lib
 
@@ -294,23 +311,27 @@ class ChainPlan(NamedTuple):
     chunks: int
 
 
-# the kernels' instantiations (units per block) and their warps' partial
-# sums (8 warps x 32 floats)
+# the kernels' instantiations (units per block); the float32 products'
+# partial sums (8 warps x 32 floats), and the rows and depth of a bf16
+# tensor-core tile (mma m16n8k16: 16 rows, k steps of 16)
 CHAIN_UNITS = (1, 2, 4, 8)
 _RED_BYTES = 8 * 32 * 4
+MMA_TILE = 16
+# the bf16 backward chain's units per block: the mma tile's n8 columns
+MMA_UNITS = 8
 
 
-def _chain_plan(name, B, H, sm_count, units, chunks, row_bytes, carry_floats) -> ChainPlan:
+def _chain_plan(name, B, H, sm_count, units, chunks, fixed_bytes, carry_floats) -> ChainPlan:
     """The cooperative launch needs every block resident at once, one block
     per SM, so ``units`` is the smallest of :data:`CHAIN_UNITS` whose grid
     ``ceil(H / units)`` fits ``sm_count`` (or the one given, which must
-    fit).  A block keeps its ``units`` units' W_hid (``row_bytes(units)``
-    bytes per element of H) and ``carry_floats`` per row and unit in shared
-    memory, beside the 1 KB of partial sums.  Rows are independent, so B
-    runs in the fewest near-equal chunks whose carries fit beside W_hid (or
-    in ``chunks``, for measurement, which must be at least that many and at
-    most B).  Raises ``ValueError`` when no instantiation fits the grid or
-    W_hid leaves no room for one row's carries under ``_build.SMEM_LIMIT``."""
+    fit).  A block keeps its ``units`` units' W_hid and its warps' partial
+    sums (``fixed_bytes(units)`` bytes) and ``carry_floats`` per row and
+    unit in shared memory.  Rows are independent, so B runs in the fewest
+    near-equal chunks whose carries fit beside W_hid (or in ``chunks``, for
+    measurement, which must be at least that many and at most B).  Raises
+    ``ValueError`` when no instantiation fits the grid or W_hid leaves no
+    room for one row's carries under ``_build.SMEM_LIMIT``."""
     if units is None:
         units = next((u for u in CHAIN_UNITS if -(-H // u) <= sm_count), None)
         if units is None:
@@ -320,7 +341,7 @@ def _chain_plan(name, B, H, sm_count, units, chunks, row_bytes, carry_floats) ->
     if units not in CHAIN_UNITS or grid > sm_count:
         raise ValueError(f"{name}: {units} units per block at H={H} is not one of "
                          f"{CHAIN_UNITS} with a grid of at most {sm_count} blocks")
-    fixed = row_bytes(units) * H + _RED_BYTES
+    fixed = fixed_bytes(units)
     per_row = 4 * carry_floats * units
     cap = (_build.SMEM_LIMIT - fixed) // per_row
     if cap < 1:
@@ -342,12 +363,14 @@ def fwd_launch_plan(B: int, H: int, sm_count: int, units=None, chunks=None,
     """Units per block, grid, shared memory and row chunks of the recurrence
     (all four instantiations, with W_hid of ``w_dtype``) at batch ``B`` and
     width ``H`` on a card with ``sm_count`` SMs: the block's 4 * units
-    columns of W_hid as rows of :func:`fwd_row_bytes` bytes, and two carries
-    per row and unit (cell and hidden state); see :func:`_chain_plan`.  A
-    bf16 W_hid halves the block's weights, so one launch holds more rows:
-    6482 at H = 500 where float32 holds 5982."""
+    columns of W_hid (:func:`fwd_w_bytes`), the warps' partial sums
+    (:func:`fwd_red_bytes`) and two carries per row and unit (cell and
+    hidden state); see :func:`_chain_plan`.  A bf16 W_hid takes fewer bytes
+    in the tensor cores' fragment order and more for the partial tiles, so
+    one launch holds 6496 rows at H = 500 where float32 holds 5982."""
     return _chain_plan("recurrence", B, H, sm_count, units, chunks,
-                       lambda u: fwd_row_bytes(u, w_dtype), carry_floats=2)
+                       lambda u: fwd_w_bytes(u, H, w_dtype) + fwd_red_bytes(u, w_dtype),
+                       carry_floats=2)
 
 
 def fwd_row_floats(units: int) -> int:
@@ -358,29 +381,67 @@ def fwd_row_floats(units: int) -> int:
     return 4 if units == 1 else 4 * units + 4
 
 
-def fwd_row_bytes(units: int, w_dtype=torch.float32) -> int:
-    """Bytes per k row of a recurrence block's W_hid columns in shared
-    memory.  float32: :func:`fwd_row_floats` floats.  bfloat16: 4 * units
-    values (8 or 16 bytes, one 8- or 16-byte read per row at 1 and 2 units),
-    padded by 8 values at 4 and 8 units so that a row is an odd number of
-    16-byte words and the 8 lanes of a 16-byte read phase hit distinct banks
-    (csrc/lstm_fwd.cu::padded_columns)."""
+def mma_ksteps(K: int) -> int:
+    """k steps of a bf16 tensor-core product of depth ``K``: K padded with
+    zeros to a multiple of :data:`MMA_TILE`."""
+    return -(-K // MMA_TILE)
+
+
+def fwd_w_bytes(units: int, H: int, w_dtype=torch.float32) -> int:
+    """Bytes of a recurrence block's W_hid columns in shared memory.
+    float32: H rows of :func:`fwd_row_floats` floats.  bfloat16: the tensor
+    cores' fragment order, 4 * units bf16 values per k with K = H padded to
+    a multiple of 16 (csrc/lstm_fwd.cu::mma_w_bytes)."""
     if w_dtype == torch.bfloat16:
-        return 2 * (4 * units if units <= 2 else 4 * units + 8)
-    return 4 * fwd_row_floats(units)
+        return 2 * 4 * units * MMA_TILE * mma_ksteps(H)
+    return 4 * fwd_row_floats(units) * H
+
+
+def fwd_red_bytes(units: int, w_dtype=torch.float32) -> int:
+    """Bytes of a recurrence block's partial sums: float32, 8 warps x 32
+    floats; bfloat16, each of the 8 warps' 16-row x 4 * units partial tile
+    (csrc/lstm_fwd.cu::mma_red_floats)."""
+    if w_dtype == torch.bfloat16:
+        return 4 * 8 * MMA_TILE * 4 * units
+    return _RED_BYTES
 
 
 def bwd_launch_plan(B: int, H: int, sm_count: int, units=None, chunks=None,
                     w_dtype=torch.float32) -> ChainPlan:
     """Units per block, grid, shared memory and row chunks of the backward
     chain at batch ``B`` and width ``H`` on a card with ``sm_count`` SMs:
-    the block's units rows of W_hid (4H values of ``w_dtype`` each) and six
-    carries per row and unit (dh_next, dc, the pass-through and three
-    peephole partials); see :func:`_chain_plan`.  A bf16 W_hid raises one
-    launch's rows at H = 500 from 2077 to 2244."""
-    size = torch.finfo(w_dtype).bits // 8
+    the block's units rows of W_hid (:func:`bwd_w_bytes`), the warps'
+    partial sums (:func:`bwd_red_bytes`) and six carries per row and unit
+    (dh_next, dc, the pass-through and three peephole partials); see
+    :func:`_chain_plan`.  A bf16 W_hid takes :data:`MMA_UNITS` units per
+    block where that grid fits, the units that fill the tensor-core tile's
+    8 columns (each block's product costs the same at 2 to 8 units, so
+    fewer blocks take less time); one launch then holds 1022 rows at H =
+    500 (float32, 4 units: 2077)."""
+    if units is None and w_dtype == torch.bfloat16 and -(-H // MMA_UNITS) <= sm_count:
+        units = MMA_UNITS
     return _chain_plan("backward chain", B, H, sm_count, units, chunks,
-                       lambda u: 4 * size * u, carry_floats=6)
+                       lambda u: bwd_w_bytes(u, H, w_dtype) + bwd_red_bytes(u, w_dtype),
+                       carry_floats=6)
+
+
+def bwd_w_bytes(units: int, H: int, w_dtype=torch.float32) -> int:
+    """Bytes of a backward-chain block's W_hid rows in shared memory:
+    float32, units rows of 4H floats; bfloat16, the tensor cores' fragment
+    order, units x 4H bf16 values with K = 4H padded to a multiple of 16
+    (csrc/lstm_bwd.cu::smem_bytes)."""
+    if w_dtype == torch.bfloat16:
+        return 2 * units * MMA_TILE * mma_ksteps(4 * H)
+    return 16 * units * H
+
+
+def bwd_red_bytes(units: int, w_dtype=torch.float32) -> int:
+    """Bytes of a backward-chain block's partial sums: float32, 8 warps x
+    32 floats; bfloat16, each of the 8 warps' 16-row x units partial tile
+    (csrc/lstm_bwd.cu::mma_red_floats)."""
+    if w_dtype == torch.bfloat16:
+        return 4 * 8 * MMA_TILE * units
+    return _RED_BYTES
 
 
 def chunk_spans(B: int, chunks: int) -> list:
@@ -408,9 +469,10 @@ def _bwd_lib():
     lib = _build.load("lstm_bwd")
     # clip, w_bf16, B, T, H, units, smem, stream
     tail = [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_size_t, ctypes.c_void_p]
-    lib.lstm_bwd_chain.argtypes = [ctypes.c_void_p] * 9 + tail
+    # ..., dgates, dcell0, dhid0[, dw], scratch, then the tail
+    lib.lstm_bwd_chain.argtypes = [ctypes.c_void_p] * 10 + tail
     lib.lstm_bwd_chain.restype = ctypes.c_int
-    lib.lstm_bwd_peep_chain.argtypes = [ctypes.c_void_p] * 13 + tail
+    lib.lstm_bwd_peep_chain.argtypes = [ctypes.c_void_p] * 14 + tail
     lib.lstm_bwd_peep_chain.restype = ctypes.c_int
     return lib
 
@@ -485,13 +547,19 @@ def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, sta
         entry = lib.lstm_fwd_train_forward if train else lib.lstm_fwd_forward
     stream = torch.cuda.current_stream(dev).cuda_stream
     w_bf16 = int(w_hid.dtype == torch.bfloat16)
+    # the bf16 product's operand: h of the last two steps rounded to bf16,
+    # (2, rows, H padded to a multiple of 16), reused by the chunks in turn
+    # on the stream (held here until the launches are queued)
+    operand = (torch.empty(2 * plan.rows * MMA_TILE * mma_ksteps(H), dtype=torch.bfloat16,
+                           device=dev) if w_bf16 else None)
+    scratch = None if operand is None else operand.data_ptr()
 
     def launch(x_c, mask_c, cell0_c, hid0_c, *outs_c):
         ptrs = [o.data_ptr() for o in outs_c]
         if not (train or state):
             ptrs.append(None)  # no cell_last
         code = entry(x_c.data_ptr(), w_hid.data_ptr(), mask_c.data_ptr(), cell0_c.data_ptr(),
-                     hid0_c.data_ptr(), *ptrs, *(v.data_ptr() for v in peep), w_bf16,
+                     hid0_c.data_ptr(), *ptrs, *(v.data_ptr() for v in peep), scratch, w_bf16,
                      x_c.shape[0], T, H, plan.units, plan.smem_bytes, stream)
         _build.check(lib, "lstm_fwd", code)
 
@@ -683,6 +751,12 @@ def _run_bwd(name, args, clip, peep=(), units=None, chunks=None):
     dhid0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     w_bf16 = int(w_hid.dtype == torch.bfloat16)
+    # the bf16 product's operand: the clipped dgates of the last two steps
+    # rounded to bf16, (2, rows, 4H), reused by the chunks in turn on the
+    # stream (held here until the launches are queued)
+    operand = (torch.empty(2 * plan.rows * 4 * H, dtype=torch.bfloat16, device=dev)
+               if w_bf16 else None)
+    scratch = None if operand is None else operand.data_ptr()
 
     def launch(*views):
         ptrs = [a.data_ptr() for a in views]
@@ -691,10 +765,10 @@ def _run_bwd(name, args, clip, peep=(), units=None, chunks=None):
             dw = torch.empty((3, H), dtype=torch.float32, device=dev)
             code = lib.lstm_bwd_peep_chain(*ptrs[:5], w_hid.data_ptr(),
                                            *(v.data_ptr() for v in peep), *ptrs[5:],
-                                           dw.data_ptr(), *tail)
+                                           dw.data_ptr(), scratch, *tail)
         else:
             dw = None
-            code = lib.lstm_bwd_chain(*ptrs[:5], w_hid.data_ptr(), *ptrs[5:], *tail)
+            code = lib.lstm_bwd_chain(*ptrs[:5], w_hid.data_ptr(), *ptrs[5:], scratch, *tail)
         _build.check(lib, "lstm_bwd", code)
         return dw
 

@@ -236,18 +236,26 @@ def test_bf16_state_variants_match_the_jax_scan(peep):
 
 
 # (plan, H, dtype) -> the most rows one launch holds on 132 SMs: a bf16
-# W_hid halves the block's weights, so more carries fit beside them
-CAPS = {("fwd", 500, "float32"): 5982, ("fwd", 500, "bfloat16"): 6482,
-        ("fwd", 250, "float32"): 13714, ("fwd", 250, "bfloat16"): 14214,
-        ("bwd", 500, "float32"): 2077, ("bwd", 500, "bfloat16"): 2244,
-        ("bwd", 250, "float32"): 4654, ("bwd", 250, "bfloat16"): 4738}
+# W_hid in the tensor cores' fragment order (K padded to a multiple of 16)
+# takes fewer bytes than float32 and its warps' partial tiles more, so more
+# recurrence carries fit beside them at H = 500 and 250 and fewer at H =
+# 130; the bf16 backward chain takes 8 units per block (MMA_UNITS), so each
+# row's carries take twice (H = 500) to eight times (H = 130) the f32
+# plan's bytes
+CAPS = {("fwd", 500, "float32"): 5982, ("fwd", 500, "bfloat16"): 6496,
+        ("fwd", 250, "float32"): 13714, ("fwd", 250, "bfloat16"): 14016,
+        ("fwd", 130, "float32"): 28668, ("fwd", 130, "bfloat16"): 28656,
+        ("bwd", 500, "float32"): 2077, ("bwd", 500, "bfloat16"): 1022,
+        ("bwd", 250, "float32"): 4654, ("bwd", 250, "bfloat16"): 1105,
+        ("bwd", 130, "float32"): 9556, ("bwd", 130, "bfloat16"): 1145}
 PLANS = {"fwd": klstm.fwd_launch_plan, "bwd": klstm.bwd_launch_plan}
 
 
 @pytest.mark.parametrize("key", list(CAPS), ids=["-".join(map(str, k)) for k in CAPS])
 def test_bf16_launch_plan_caps(key):
-    """The caps: one row more than the cap takes two launches, and the
-    plan's grid and units do not depend on W_hid's dtype."""
+    """The caps: one row more than the cap takes two launches; the
+    recurrence plan's grid and units do not depend on W_hid's dtype, and
+    the bf16 backward chain's blocks take MMA_UNITS (8) units."""
     kind, H, name = key
     dtype, cap = getattr(torch, name), CAPS[key]
     plan = PLANS[kind](cap, H, 132, w_dtype=dtype)
@@ -255,24 +263,192 @@ def test_bf16_launch_plan_caps(key):
     over = PLANS[kind](cap + 1, H, 132, w_dtype=dtype)
     assert over.chunks == 2 and over.rows == -(-(cap + 1) // 2)
     f32 = PLANS[kind](cap, H, 132)
-    assert (plan.units, plan.grid, plan.last_units) == (f32.units, f32.grid, f32.last_units)
+    if kind == "bwd" and dtype == BF16:
+        assert (plan.units, plan.grid, plan.last_units) == (
+            klstm.MMA_UNITS, -(-H // 8), H - (-(-H // 8) - 1) * 8)
+    else:
+        assert (plan.units, plan.grid, plan.last_units) == (f32.units, f32.grid,
+                                                             f32.last_units)
 
 
 @pytest.mark.parametrize("units", klstm.CHAIN_UNITS)
 def test_bf16_shared_memory_rows(units):
-    """The bf16 W rows in shared memory: a recurrence row is 4U bf16 values
-    at 1 and 2 units (one 8- or 16-byte word) and 4U + 8 at 4 and 8 (an odd
-    number of 16-byte words, so the 8 lanes of a read phase hit distinct
-    banks); the backward chain's U rows of 4H values, 2 bytes each."""
-    row = klstm.fwd_row_bytes(units, BF16)
-    assert row == 2 * (4 * units if units <= 2 else 4 * units + 8)
-    assert row % 8 == 0 and (units < 2 or (row % 16 == 0 and (row // 16) % 2 == 1))
-    assert klstm.fwd_row_bytes(units) == 4 * klstm.fwd_row_floats(units)
-    H = 100
-    for kind, per_row in (("fwd", 8), ("bwd", 24)):
-        one = PLANS[kind](1, H, 132, units=units, w_dtype=BF16).smem_bytes
-        w = (klstm.fwd_row_bytes(units, BF16) * H if kind == "fwd" else 8 * units * H)
-        assert one == w + per_row * units + 1024
+    """The bf16 W in shared memory, in the tensor cores' fragment order
+    with K padded to a multiple of 16: a recurrence block holds 4U bf16
+    values per padded k (csrc/lstm_fwd.cu::mma_w_bytes), a backward block U
+    per padded k of 4H; the partial tiles are 8 warps x 16 rows x 4U (or U)
+    floats; float32 keeps its rows of 4U + 4 floats (4 at one unit) and 8 x
+    32 partial sums."""
+    for H in (100, 130, 250, 500, 12):
+        kp_f, kp_b = 16 * -(-H // 16), 16 * -(-4 * H // 16)
+        assert klstm.fwd_w_bytes(units, H, BF16) == 2 * 4 * units * kp_f
+        assert klstm.bwd_w_bytes(units, H, BF16) == 2 * units * kp_b
+        assert klstm.fwd_w_bytes(units, H) == 4 * klstm.fwd_row_floats(units) * H
+        assert klstm.bwd_w_bytes(units, H) == 16 * units * H
+        # 16-byte aligned carries follow W
+        assert klstm.fwd_w_bytes(units, H, BF16) % 16 == 0
+        assert klstm.bwd_w_bytes(units, H, BF16) % 16 == 0
+        for kind, per_row, red in (("fwd", 8, 4 * 8 * 16 * 4), ("bwd", 24, 4 * 8 * 16)):
+            one = PLANS[kind](1, H, 1000, units=units, w_dtype=BF16).smem_bytes
+            w = (klstm.fwd_w_bytes if kind == "fwd" else klstm.bwd_w_bytes)(units, H, BF16)
+            assert one == w + red * units + per_row * units
+            f32 = PLANS[kind](1, H, 1000, units=units).smem_bytes
+            w32 = (klstm.fwd_w_bytes if kind == "fwd" else klstm.bwd_w_bytes)(units, H)
+            assert f32 == w32 + 1024 + per_row * units
+
+
+def _fragment_product(h, w, kind):
+    """numpy's model of the bf16 tensor-core product of one block as the
+    kernels' headers lay it out (csrc/lstm_fwd.cu, csrc/lstm_bwd.cu): the
+    block's W in fragment order (every (k, column) in exactly one half of
+    one 32-bit word, zeros in the padding), the A fragments of the rows of
+    ``h`` (the operand, bf16-rounded), mma.sync m16n8k16's fragment layouts
+    (PTX ISA), the 16-row tiles, and the product mapped back from the
+    accumulator fragments.  ``w`` is the block's (K, N) operand: (H, 4U)
+    forward, (4H, U) backward; returns (B, N)."""
+    K, N = w.shape
+    KS = -(-K // 16)
+    lanes = np.arange(32)
+    g, tig = lanes // 4, lanes % 4
+    # the layout's words: forward ((s * LW + lane) * NT + j) * 2 + r, N = 4U
+    # over NT n8 tiles; backward (s * 4U + lane) * 2 + r, one n8 tile; each
+    # holds K rows k and k + 1 of column 8 j + lane / 4 for k = 16 s + 4
+    # (lane % 4) + 2 r: the fragment's k 2 (lane % 4) + 8 r sits at K row
+    # 4 (lane % 4) + 2 r of the step, so that a lane's four A values are
+    # neighbours in memory
+    NT = -(-N // 8)
+    words = np.full((KS * 32 * NT * 2, 2), np.nan)
+    lw = 16 if N == 4 else 32
+    for s in range(KS):
+        for lane in range(32):
+            for j in range(NT):
+                for r in range(2):
+                    k = 16 * s + 4 * tig[lane] + 2 * r
+                    col = 8 * j + g[lane]
+                    if kind == "fwd":
+                        if lane >= lw:
+                            continue
+                        idx = ((s * lw + lane) * NT + j) * 2 + r
+                    else:
+                        if lane >= 4 * N:
+                            continue
+                        idx = (s * 4 * N + lane) * 2 + r
+                    pair = [w[k + e, col] if k + e < K and col < N else 0.0 for e in (0, 1)]
+                    assert np.isnan(words[idx]).all(), "a word written twice"
+                    words[idx] = pair
+    live = ~np.isnan(words).any(axis=1)
+    n_live = KS * 16 * N
+    assert live.sum() * 2 == n_live  # every padded (k, column) exactly once
+    wb = 2 * n_live
+    assert wb == (klstm.fwd_w_bytes(N // 4, K, BF16) if kind == "fwd"
+                  else klstm.bwd_w_bytes(N, K // 4, BF16))
+    B = h.shape[0]
+    hp = np.zeros((16 * -(-B // 16), 16 * KS))
+    hp[:B, :K] = klstm.round_operand(torch.from_numpy(h), BF16).double().numpy()
+    out = np.zeros((hp.shape[0], 8 * NT))
+    for b0 in range(0, hp.shape[0], 16):
+        for s in range(KS):
+            # A from the lanes' fragments: (row g or g + 8, fragment k 2 tig
+            # + {0, 1} or + 8, from K rows 4 tig + {0, 1} or + {2, 3}); B
+            # from the words; D's fragments back into (row, col)
+            A = np.zeros((16, 16))
+            for reg, (dr, dk) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+                for e in (0, 1):
+                    A[g + dr, 2 * tig + dk + e] = hp[b0 + g + dr,
+                                                     16 * s + 4 * tig + dk // 4 + e]
+            for j in range(NT):
+                Bt = np.zeros((16, 8))
+                for lane in range(32):
+                    if kind == "fwd":
+                        base = ((s * lw + lane) * NT + j) * 2 if lane < lw else None
+                    else:
+                        base = (s * 4 * N + lane) * 2 if lane < 4 * N else None
+                    for r in range(2):
+                        pair = words[base + r] if base is not None else (0.0, 0.0)
+                        for e in (0, 1):
+                            Bt[2 * tig[lane] + 8 * r + e, g[lane]] = pair[e]
+                D = A @ Bt
+                for c in range(4):
+                    row = g + (8 if c >= 2 else 0)
+                    col = 8 * j + 2 * tig + c % 2
+                    out[b0 + row, col] += D[row, 2 * tig + c % 2]
+    return out[:B, :N]
+
+
+@pytest.mark.parametrize("kind,B,H,units", [
+    ("fwd", 1, 20, 1), ("fwd", 10, 36, 2), ("fwd", 17, 44, 4), ("fwd", 33, 18, 8),
+    ("bwd", 1, 6, 1), ("bwd", 10, 10, 2), ("bwd", 17, 9, 4), ("bwd", 64, 5, 8),
+], ids=lambda v: str(v))
+def test_bf16_fragment_order(kind, B, H, units):
+    """The bf16 tensor-core layout of the kernels' headers, modelled in
+    numpy at ragged shapes (one, two and more 16-row tiles; H and 4H that
+    leave the last k step padded; 1 to 8 units): every W value sits in one
+    word, the padding is zero, the words take the bytes the plans count, and
+    the fragments multiply to bf16(h) @ W exactly (float64 sums)."""
+    rng = np.random.RandomState(B + H + units)
+    wfull = klstm.round_operand(torch.from_numpy(rng.randn(H, 4 * H).astype(np.float32)),
+                                BF16).double().numpy()
+    if kind == "fwd":
+        # the block of units j0 .. j0 + U - 1: columns gate * H + j0 + u
+        j0 = 0
+        cols = [q * H + j0 + u for q in range(4) for u in range(units)]
+        w = wfull[:, cols]
+        h = rng.randn(B, H).astype(np.float32)
+    else:
+        w = wfull[:units].T.copy()  # (4H, U): dh = dg @ W_hid[j0 : j0 + U]^T
+        h = rng.randn(B, 4 * H).astype(np.float32)
+    got = _fragment_product(h, w, kind)
+    want = klstm.round_operand(torch.from_numpy(h), BF16).double().numpy() @ w
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("H", [500, 250, 130])
+@pytest.mark.parametrize("B", [1, 10, 17, 64])
+def test_bf16_plans_at_ragged_shapes(B, H):
+    """The bf16 plans at the shapes that break fragment code (B = 1, 10, 17
+    and 64 rows; H = 500, 250 and 130, the recurrence at 4, 2 and 1 units
+    per block, the backward chain at 8): one launch, the f32 plan's grid
+    for the recurrence, shared memory within a block's limit, and
+    the rows split into 2 forced chunks reassembling to the unsplit plain
+    result (rows 1 and 4 with a bf16 W_hid, T = 3): row 1 bit for bit, row
+    4 within 1e-5 of max(1, max abs)."""
+    for kind in ("fwd", "bwd"):
+        plan = PLANS[kind](B, H, 132, w_dtype=BF16)
+        f32 = PLANS[kind](B, H, 132)
+        assert plan.chunks == 1 and plan.rows == B and plan.smem_bytes <= _build.SMEM_LIMIT
+        if kind == "fwd":
+            assert (plan.units, plan.grid, plan.last_units) == (f32.units, f32.grid,
+                                                                 f32.last_units)
+        assert plan.units == ({500: 4, 250: 2, 130: 1}[H] if kind == "fwd" else 8)
+        assert plan.grid == -(-H // plan.units) and plan.grid <= 132
+        if B > 1:
+            forced = PLANS[kind](B, H, 132, chunks=2, w_dtype=BF16)
+            assert forced.rows == -(-B // 2) and forced.smem_bytes <= plan.smem_bytes
+    rng = np.random.RandomState(B * H)
+    T = 3
+    x_proj = _t(rng.randn(B, T, 4 * H).astype(np.float32))
+    w = _t((rng.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32)).to(BF16)
+    ms = _t((rng.rand(B, T) < 0.8).astype(np.float32))
+    cell0, hid0 = (_t(rng.randn(B, H).astype(np.float32)) for _ in range(2))
+    hids, cells, gates = klstm.lstm_recurrence_train_plain(x_proj, w, ms, cell0, hid0)
+    if B > 1:
+        out = torch.full_like(hids, float("nan"))
+
+        def launch(xc, mc, c0, h0, oc):
+            oc.copy_(klstm.lstm_recurrence_plain(xc, w, mc, c0, h0))
+
+        klstm.map_chunks(launch, 2, x_proj, ms, cell0, hid0, out)
+        torch.testing.assert_close(out, hids, rtol=0, atol=0)
+    cells_prev = torch.cat([cell0[:, None], cells[:, :-1]], dim=1)
+    args = (_t(rng.randn(B, T, H).astype(np.float32)), gates, cells, cells_prev, ms)
+    whole = klstm.lstm_bwd_chain_plain(*args, w, 5.0)
+    parts = klstm.map_chunks(lambda *v: klstm.lstm_bwd_chain_plain(*v, w, 5.0),
+                             min(2, B), *args)
+    # the CPU's matrix products sum the 2000-deep dh in another order for
+    # another row count, so the chunks agree to float32 rounding, not bits
+    for i in range(3):
+        torch.testing.assert_close(torch.cat([p[i] for p in parts]), whole[i], rtol=0,
+                                   atol=1e-5 * max(1.0, float(whole[i].abs().max())))
 
 
 @pytest.mark.parametrize("chunks", [2, 3])
@@ -379,3 +555,32 @@ def test_operators_take_a_bf16_w_hid(name):
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("peep", [False, True], ids=["rows1_3_4", "rows5_6_7"])
+def test_bf16_plain_versions_take_the_kernels_operands(peep):
+    """The plain versions' ``operands`` hook, through which the card holds
+    each step of a bf16 kernel to a plain step from the kernel's own
+    operand (chip_smoke.bf16_kernel_checks): fed their own hids (or their
+    own clipped dgates) the recurrence and the backward chain give their
+    own results bit for bit; fed other operands, every step follows those
+    (the first step's product from hid0 stays the same)."""
+    params, x, mask, g = _case(7, peep)
+    x_proj, w_hid, ms, cell0, hid0 = map(_t, _inputs(params, x, mask, False))
+    w = w_hid.to(BF16)
+    pv = tuple(_t(params[k]) for k in PEEP) if peep else None
+    own = klstm._recurrence_plain(x_proj, w, ms, cell0, hid0, pv)
+    fed = klstm._recurrence_plain(x_proj, w, ms, cell0, hid0, pv, operands=own[0])
+    for a, b in zip(own, fed):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    moved = klstm._recurrence_plain(x_proj, w, ms, cell0, hid0, pv, operands=own[0] + 0.25)
+    torch.testing.assert_close(moved[2][:, 0], own[2][:, 0], rtol=0, atol=0)
+    assert (moved[2][:, 1:] - own[2][:, 1:]).abs().max() > 1e-2
+    cells_prev = torch.cat([cell0[:, None], own[1][:, :-1]], dim=1)
+    chain = (_t(g), own[2], own[1], cells_prev, ms, w)
+    base = klstm._bwd_chain_plain(*chain, 5.0, pv)
+    fed = klstm._bwd_chain_plain(*chain, 5.0, pv, operands=base[0])
+    for a, b in zip(base[:3], fed[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    moved = klstm._bwd_chain_plain(*chain, 5.0, pv, operands=base[0] * 2)
+    assert (moved[2] - base[2]).abs().max() > 1e-3
