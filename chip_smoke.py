@@ -241,6 +241,18 @@ Phases, each fatal on failure:
    fail, beside its float64 step on the CPU that shows the float32 error
    behind that limit) with the same launches, its collectives and bytes
    printed;
+20b. scale-out on four cards (``phase_scale4``), only on a host with four
+   or more: one ``nccl`` rank per card; the flagship data-parallel (gspmd,
+   shard_map, zero1, multihost at global B = 10; B = 40), tensor-parallel
+   (data 2 x model 2, data 1 x model 4) and sequence-parallel (data 2 x
+   seq 2 at T = 29 padded to 30, data 1 x seq 4 at T = 48), adenet_v1 with
+   batch norm synced over data 4 and data 2 x seq 2 (and the controls),
+   the 4-stream model data-parallel, ``make_server(mesh=)``, each against
+   the one-process step or server on card 0 with every rank's launches
+   counted, and ``cli.nstream`` under torchrun on the four cards with
+   ``--mesh``, ``--model_parallel 2`` and ``--sequence_parallel 2``; step
+   times, collectives and busy shares beside the cards and their link.
+   On one card one line says that it did not run;
 21. the numpy oracle (``phase_oracle``, run right after 17.): the
    full-width flagship, the 4-stream model (per-step probabilities), every
    model of 15. and the conv-AE plain and batchnorm, from the trees 4., 7.,
@@ -262,8 +274,9 @@ Phases, each fatal on failure:
    output's error; rows 1, 2 and 5 their launches through the artifacts;
    every row its launches through the CLIs' card runs, through phase_zoo,
    through phase_residuals, through phase_pretrain, through phase_tools,
-   through phase_scale's mesh runs (``scale_launches``, every rank) and
-   through phase_oracle (``oracle_launches``);
+   through phase_scale's mesh runs (``scale_launches``, every rank),
+   through phase_scale4's (``scale4_launches``, every rank; null where it
+   did not run) and through phase_oracle (``oracle_launches``);
    then the six bf16 rows, their launches on the bf16 serve and train
    paths, through the bf16 CLI run and the two artifacts; every LSTM row
    with its instantiation's registers per thread and HMMA count), then
@@ -276,6 +289,12 @@ Exits non-zero without a CUDA device or without the package beside it.
 runs only phases 1, 2 and 19 (the build, the card, the registers and
 tensor-core instructions of the chain kernels, and ``phase_bf16``) and
 prints their numbers as JSON (about three minutes);
+
+    python3 chip_smoke.py --mesh4
+
+runs only phases 1 (the build), 2 and 20b (``phase_scale4``) on a host with
+four cards, prints its numbers as JSON and the last line; with fewer cards
+it exits non-zero and says why;
 
     python3 chip_smoke.py --sass DIR
 
@@ -5833,16 +5852,16 @@ SCALE_SERVE_B = 8
 BN_GRAD_TOL = 1e-3
 
 
-def scale_batch(cfg, B, seed):
+def scale_batch(cfg, B, seed, T=T_FRAMES):
     """A seeded numpy batch (streams, int32 labels, ragged mask: a full row,
-    the rest T/2-T) of ``cfg``'s streams at T = 29."""
+    the rest T/2-T) of ``cfg``'s streams at ``T`` frames (default 29)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    streams = [rng.randn(B, T_FRAMES, s.input_dim).astype(np.float32) for s in cfg.streams]
-    lens = rng.randint(T_FRAMES // 2, T_FRAMES + 1, B)
-    lens[0] = T_FRAMES
-    mask = (np.arange(T_FRAMES)[None] < lens[:, None]).astype(np.float32)
+    streams = [rng.randn(B, T, s.input_dim).astype(np.float32) for s in cfg.streams]
+    lens = rng.randint(T // 2, T + 1, B)
+    lens[0] = T
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
     return streams, rng.randint(0, cfg.output_classes, B).astype(np.int32), mask
 
 
@@ -5994,9 +6013,9 @@ def phase_scale(dev):
         step with each rank's own statistics must fail that limit.
 
     model_parallel and sequence_parallel need two cards under nccl (gloo
-    has no all_gather, send/recv or all_to_all on CUDA tensors): the CPU
-    tests hold them.  Returns {kernel: launches over the phase's mesh
-    runs, every rank}."""
+    has no all_gather, send/recv or all_to_all on CUDA tensors):
+    :func:`phase_scale4` runs them on four cards.  Returns {kernel:
+    launches over the phase's mesh runs, every rank}."""
     import numpy as np
     import torch
 
@@ -6119,6 +6138,358 @@ def phase_scale(dev):
     return totals
 
 
+# the four-card phase: one nccl rank per card
+SCALE4_RANKS = 4
+SCALE4_TURNS = 5
+# the batch of the sequence-parallel, batch-norm and 4-stream runs: divisible
+# by data x seq at every mesh of the phase
+SCALE4_B = 12
+# the long-stream T of seq = 4: T_local = 12 >= the window of 9
+SCALE4_SP_T = 48
+# what the trainer raises for seq = 4 at T = 29, as the JAX trainer does
+# (ip_avsr_tpu/train/trainer.py:985; tests/test_torch_scale4.py holds the
+# port's message to JAX's)
+SP4_REFUSAL = ("sequence_parallel=4 leaves T_local=8 < window=9 (halo exchange needs "
+               "T_local >= window); use fewer seq shards or a smaller window")
+# cli.nstream under torchrun on the four cards: each job's flags, and the
+# limit (s) of the jobs, which run together
+SCALE4_CLI = (("--mesh",), ("--model_parallel", "2"), ("--sequence_parallel", "2"))
+SCALE4_CLI_TIMEOUT_S = 240
+
+
+def topo_link():
+    """The link between the cards: the GPU-to-GPU entries of ``nvidia-smi
+    topo -m`` (for example ``NV18``; the whole matrix printed once), or its
+    exit code and message where it cannot read the topology; beside it,
+    whether card 0 reaches card 1's memory directly (peer access) and the
+    rate of a 256 MiB copy from card 0 to card 1 (CUDA events, the median
+    of 5 after 2)."""
+    import torch
+
+    run = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
+                         timeout=60)
+    if run.returncode == 0:
+        print(run.stdout.rstrip())
+        rows = [line.split("\t") for line in run.stdout.splitlines() if line.startswith("GPU")]
+        topo = "nvidia-smi topo -m: " + ", ".join(sorted(
+            {cell.strip() for i, row in enumerate(rows)
+             for j, cell in enumerate(row[1:len(rows) + 1]) if i != j}))
+    else:
+        topo = (f"nvidia-smi topo -m: exit {run.returncode} "
+                f"({(run.stdout + run.stderr).strip().splitlines()[-1:]})")
+    src = torch.empty(64 << 20, dtype=torch.float32, device="cuda:0")
+    dst = torch.empty_like(src, device="cuda:1")
+    times = []
+    for i in range(7):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        dst.copy_(src)
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    rate = src.numel() * 4 / statistics.median(times) / 1e6
+    del src, dst
+    torch.cuda.empty_cache()
+    return (f"{topo}; peer access 0 -> 1 {torch.cuda.can_device_access_peer(0, 1)}, a 256 MiB "
+            f"copy 0 -> 1 at {rate:.1f} GB/s")
+
+
+def pad_frames(batch, T):
+    """A numpy batch with its frames zero-padded to ``T`` (mask 0 there), as
+    the trainer pads a split under sequence parallelism (``_sp_max_t``)."""
+    import numpy as np
+
+    streams, y, mask = batch
+    cut = T - mask.shape[1]
+    pad = lambda a: np.concatenate(  # noqa: E731
+        [a, np.zeros((a.shape[0], cut) + a.shape[2:], a.dtype)], axis=1)
+    return [pad(x) for x in streams], y, pad(mask)
+
+
+def scale4_report(label, ranks, where):
+    """Print a four-card run's numbers beside ``where`` (the cards, their
+    power limit and their link) and return them: the step (host median of
+    5 steps, every rank), the mesh step against the one-process step in
+    interleaved turns (rank 0's), the collectives of one step (calls and
+    bytes; CUDA-event time per step over 5 steps started together, the
+    least and the most over the ranks: the rank that comes last to a
+    collective waits for no other), the gradients' all-reduce alone, and
+    each rank's busy share from a trace (device time of the kernels but
+    the collectives' over the step's median; the collectives' kernels,
+    waits included, apart)."""
+    import numpy as np
+
+    r0 = ranks[0]
+    out = {"step_ms": [g["step_ms"] for g in ranks],
+           "collectives": {k: {"calls": c, "bytes": b, "ms": [g["collective_ms"].get(k)
+                                                               for g in ranks]}
+                           for k, (c, b) in r0["by_collective"].items()}}
+    line = (f"{label}: step {np.median(out['step_ms']):.3f} ms (host median, ranks "
+            f"{', '.join(f'{v:.3f}' for v in out['step_ms'])})")
+    if "mesh_ms" in r0:
+        out.update(mesh_ms=statistics.median(r0["mesh_ms"]),
+                   plain_ms=statistics.median(r0["plain_ms"]))
+        line += (f"; in {len(r0['mesh_ms'])} interleaved turns the mesh step "
+                 f"{out['mesh_ms']:.3f} ms against one process's {out['plain_ms']:.3f} ms "
+                 f"on the whole batch")
+    if "allreduce_ms" in r0:
+        out["allreduce_ms"] = [g["allreduce_ms"] for g in ranks]
+        line += (f"; the gradients' flat all-reduce alone "
+                 f"{np.median(out['allreduce_ms']):.3f} ms")
+    print(line + f" ({where})")
+
+    def span(ms):
+        ms = [v for v in ms if v is not None]
+        return f"{min(ms):.3f}-{max(ms):.3f} ms" if ms else "not timed"
+
+    print(f"{label}: collectives per step (calls, bytes; CUDA events, least-most over the "
+          "ranks): " + "; ".join(f"{k} {v['calls']}, {v['bytes']} B, {span(v['ms'])}"
+                                 for k, v in out["collectives"].items()))
+    if "trace" in r0:
+        out["busy"] = [(g["trace"]["device_ms"] - g["trace"]["nccl_ms"]) / g["step_ms"]
+                       for g in ranks]
+        out["nccl_ms"] = [g["trace"]["nccl_ms"] for g in ranks]
+        print(f"{label}: busy share per rank (a traced step's device time but the "
+              f"collectives' kernels, over the step's median) "
+              f"{', '.join(f'{v:.3f}' for v in out['busy'])}; the collectives' kernels, their "
+              f"waits for the other ranks included, {', '.join(f'{v:.3f}' for v in out['nccl_ms'])}"
+              f" ms a step, {r0['trace']['nccl_kernels']:.0f} of them")
+    return out
+
+
+def run_torchruns(argvs, timeout_s):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 4``
+    of each of ``argvs`` from the checkout, all started together (each job
+    one rank a card), each in a session of its own that is killed whole at
+    the time limit -> ([(exit code, stdout, stderr)], seconds until the
+    last one ended)."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", str(SCALE4_RANKS), *argv],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, start_new_session=True) for argv in argvs]
+    out = []
+    try:
+        for proc in procs:
+            left = max(1.0, timeout_s - (time.perf_counter() - t0))
+            stdout, stderr = proc.communicate(timeout=left)
+            out.append((proc.returncode, stdout, stderr))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"torchrun jobs not done within {timeout_s} s") from None
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+    return out, time.perf_counter() - t0
+
+
+def phase_scale4(dev):
+    """Scale-out (``parallel/``) on four cards of one host, one ``nccl``
+    rank per card (``utils/cpu_mesh.RankPool``; this process joins no
+    group, and the kernels are built before any rank starts).  Each rank
+    reports its backend and card.  Every mesh step is held against the
+    one-process Trainer's step on card 0 (adadelta at lr 1.0, dropout 0,
+    ragged masks; TRAIN_LOSS_TOL, TRAIN_GRAD_TOL of max abs,
+    TRAIN_PARAM_TOL) with the launches of each rank counted:
+
+    * data 4: the flagship at global B = 10 (rows padded to 12) with
+      gspmd, shard_map, zero1 and multihost, and at global B = 40 (10 rows
+      a rank); 5 row-3, 5 row-4 and 1 row-2 launches a rank;
+    * data 2 x model 2 and data 1 x model 4 (the 50-wide bottleneck
+      replicated at 4) at B = 10, the same launches;
+    * data 2 x seq 2 at T = 29 padded to 30 and data 1 x seq 4 at T = 48,
+      B = 12: 5 row-3 and 5 row-4 launches and no row-2 (the prefix's delta
+      is torch ops over the halo); seq 4 at T = 29 must raise SP4_REFUSAL;
+    * zoo.adenet_v1 at B = 12 with batch norm synced over data 4 and over
+      data 2 x seq 2, to BN_GRAD_TOL, each with its control (each rank's
+      own statistics), which must exceed it;
+    * the 4-stream model of configs/oulu_4stream.ini, data 4, B = 12: 6
+      row-6, 6 row-7 and 1 row-2 launches a rank;
+    * ``make_server(mesh=)`` over data 4 at B = 8 (SCORE_TOL against the
+      plain server): 5 row-1 and 1 row-2 launches a rank;
+    * ``cli.nstream`` under torchrun on the four cards with ``--mesh``,
+      ``--model_parallel 2`` and ``--sequence_parallel 2``: exit code 0.
+
+    Before the ranks start, this process steps the flagship on card 1 while
+    its current device is card 0: the launches follow the tensors' card.
+    Prints each run's step time, collectives and busy shares beside the
+    cards, their power limit and their link.  Returns ({kernel: launches
+    over the mesh runs, every rank}, numbers)."""
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch import serve as serve_lib
+    from ip_avsr_torch.models import adenet, zoo
+    from ip_avsr_torch.parallel import _multiprocess_worker as worker
+    from ip_avsr_torch.utils.cpu_mesh import RankPool
+
+    t0 = time.perf_counter()
+    on = dev.type
+    if on == "cuda" and torch.cuda.device_count() < SCALE4_RANKS:
+        raise RuntimeError(f"phase_scale4 needs {SCALE4_RANKS} cards, this host has "
+                           f"{torch.cuda.device_count()}")
+    cards = sorted(set(smi("name,power.limit").splitlines()))
+    link = topo_link()
+    where = f"{SCALE4_RANKS} x {'; '.join(cards)}; link {link}"
+    spec = KERNEL_COUNTERS
+    init = lambda cfg, seed: worker.arrays(adenet.init_adenet_params(  # noqa: E731
+        torch.Generator().manual_seed(seed), cfg, device="cpu"))
+    cfg, cfg4 = flagship(dropout=False), no_dropout(oulu_4stream()[0])
+    bn_cfg = zoo.adenet_v1(IMAGE_SHAPE[0] * IMAGE_SHAPE[1], DCT, output_classes=10)
+    p, p4, p_bn = init(cfg, SEED + 40), init(cfg4, SEED + 41), init(bn_cfg, SEED + 42)
+    sp2_t = -(-T_FRAMES // 2) * 2
+    bn_batch = scale_batch(bn_cfg, SCALE4_B, SEED + 46)
+    cases = {"flagship B=10": (cfg, p, scale_batch(cfg, TRAIN_B, SEED + 43)),
+             "flagship B=40": (cfg, p, scale_batch(cfg, 4 * TRAIN_B, SEED + 44)),
+             "flagship sp2": (cfg, p, pad_frames(scale_batch(cfg, SCALE4_B, SEED + 45), sp2_t)),
+             "flagship sp4": (cfg, p, scale_batch(cfg, SCALE4_B, SEED + 45, T=SCALE4_SP_T)),
+             "adenet_v1 dp": (bn_cfg, p_bn, bn_batch),
+             "adenet_v1 sp2": (bn_cfg, p_bn, pad_frames(bn_batch, sp2_t)),
+             "4-stream": (cfg4, p4, scale_batch(cfg4, SCALE4_B, SEED + 47))}
+    # the one-process steps on card 0 that every mesh step is held against
+    refs = {name: worker.chip_step(spec, *case, {}, device=on) for name, case in cases.items()}
+    for name, ref in refs.items():
+        print(f"scale4, one process {name}: loss {ref['loss']:.7f}, step {ref['step_ms']:.3f} "
+              f"ms, launches {dict((k, v) for k, v in ref['launches'].items() if v)}")
+    for name in cases:
+        if name.startswith("flagship"):
+            expect_launches(refs[name]["launches"], lstm_fwd_train=5, lstm_bwd=5, delta=1)
+    expect_launches(refs["4-stream"]["launches"], lstm_peep_fwd_train=6, lstm_peep_bwd=6,
+                    delta=1)
+    no_delta = lambda name: dict(refs[name]["launches"], delta=0)  # noqa: E731
+    zero = zero_grad_biases(bn_cfg)
+    streams, _, mask = scale_batch(cfg, SCALE_SERVE_B, SEED + 48)
+    numbers = {"cards": cards, "link": link}
+
+    # one process, current device card 0, the flagship's tensors on card 1
+    if on == "cuda":
+        other = "cuda:1"
+        got = worker.chip_step(spec, *cases["flagship B=10"], {}, refs["flagship B=10"][
+            "result"], device=other)
+        check_scale_step(f"scale4 one process, current device cuda:"
+                         f"{torch.cuda.current_device()}, tensors on {got['device']}", got,
+                         refs["flagship B=10"]["launches"])
+        tree = worker.tensors(p, other)
+        scores = serve_lib.make_server(tree, cfg, device=other)(streams, mask).cpu()
+        want = serve_lib.make_server(worker.tensors(p, on), cfg, device=on)(streams, mask).cpu()
+        err = float((scores - want).abs().max())
+        print(f"scale4 one process: the server on {other} against card 0's, max abs {err:.2e}")
+        if not err <= SCORE_TOL:
+            raise AssertionError(f"the server on {other} disagrees with card 0's: {err}")
+
+    totals = {k: 0 for k in KERNEL_COUNTERS}
+
+    def step(label, case, opts, mesh, launches, z=(), tol=TRAIN_GRAD_TOL, timed=False):
+        ranks = pool.run(worker.chip_step, spec, *cases[case], opts, refs[case]["result"], z,
+                         device=on, turns=SCALE4_TURNS if timed else 0, trace=timed)
+        for r, got in enumerate(ranks):
+            if got["mesh"] != mesh or got["world"] != SCALE4_RANKS:
+                raise AssertionError(f"{label} rank {r}: mesh {got['mesh']} of world "
+                                     f"{got['world']}, expected {mesh}")
+            if on == "cuda" and got["device"] != f"cuda:{r}":
+                raise AssertionError(f"{label} rank {r} ran on {got['device']}")
+            check_scale_step(f"{label} rank {r}", got, launches, z, tol)
+            count_into(totals, got["launches"])
+        numbers[label] = scale4_report(label, ranks, where)
+        return ranks
+
+    with RankPool(SCALE4_RANKS, backend="nccl" if on == "cuda" else "gloo",
+                  timeout_s=600) as pool:
+        for got in pool.run(worker.rank_card):
+            if on == "cuda" and (got["backend"] != "nccl"
+                                 or got["device"] != f"cuda:{got['rank']}"):
+                raise AssertionError(f"rank {got['rank']} is not an nccl rank on its own card")
+        lens = lambda case: cases[case][2][2].sum(axis=1)  # noqa: E731
+        for sp, case, want in ((2, "flagship sp2", sp2_t), (4, "flagship sp4", SCALE4_SP_T),
+                               (4, "flagship B=10", SP4_REFUSAL)):
+            got = pool.run(worker.sp_max_t, cfg, dict(sequence_parallel=sp), lens(case))
+            print(f"scale4 sequence_parallel={sp}, lengths up to {int(lens(case).max())}: "
+                  f"{got[0]!r}")
+            if got != [want] * SCALE4_RANKS:
+                raise AssertionError(f"sequence_parallel={sp}: {got}, expected {want!r}")
+
+        flag = refs["flagship B=10"]["launches"]
+        for name, opts in SCALE_OPTIONS.items():
+            step(f"scale4 data 4 {name}, B = {TRAIN_B}", "flagship B=10", opts, {"data": 4},
+                 flag, timed=name == "gspmd")
+        step(f"scale4 data 4, B = {4 * TRAIN_B}", "flagship B=40", dict(use_mesh=True),
+             {"data": 4}, refs["flagship B=40"]["launches"], timed=True)
+        for mp in (2, 4):
+            step(f"scale4 data {4 // mp} x model {mp}, B = {TRAIN_B}", "flagship B=10",
+                 dict(model_parallel=mp), {"data": 4 // mp, "model": mp}, flag, timed=True)
+        for sp, case in ((2, "flagship sp2"), (4, "flagship sp4")):
+            step(f"scale4 data {4 // sp} x seq {sp}, B = {SCALE4_B}, T = "
+                 f"{cases[case][2][2].shape[1]}", case, dict(sequence_parallel=sp),
+                 {"data": 4 // sp, "seq": sp}, no_delta(case), timed=True)
+        for case, opts, mesh in (("adenet_v1 dp", dict(use_mesh=True), {"data": 4}),
+                                 ("adenet_v1 sp2", dict(sequence_parallel=2),
+                                  {"data": 2, "seq": 2})):
+            label = f"scale4 adenet_v1 {' x '.join(f'{k} {v}' for k, v in mesh.items())}"
+            want = refs[case]["launches"] if "seq" not in mesh else no_delta(case)
+            step(label, case, opts, mesh, want, z=zero, tol=BN_GRAD_TOL)
+            for r, got in enumerate(pool.run(worker.chip_step, spec, *cases[case], opts,
+                                             refs[case]["result"], zero, device=on,
+                                             local_bn=True)):
+                g = got["gaps"]
+                print(f"{label} control, rank {r} with batch-norm statistics of its own "
+                      f"block: gradients {g['grad_rel']:.2e} of max abs ({g['grad_worst']}) "
+                      f"from one process, against BN_GRAD_TOL {BN_GRAD_TOL:.0e}")
+                if not g["grad_rel"] > BN_GRAD_TOL:
+                    raise AssertionError(f"{label}: BN_GRAD_TOL passes a step whose batch "
+                                         f"norm is not synced over the ranks")
+        step(f"scale4 4-stream data 4, B = {SCALE4_B}", "4-stream", dict(use_mesh=True),
+             {"data": 4}, refs["4-stream"]["launches"], timed=True)
+        served = pool.run(worker.chip_serve, spec, cfg, p, streams, mask, device=on,
+                          turns=SCALE4_TURNS)
+        for r, got in enumerate(served):
+            print(f"scale4 make_server(mesh=) data 4, B = {SCALE_SERVE_B}, rank {r}: scores max "
+                  f"abs gap to the plain server {got['max_abs_err']:.2e}; launches "
+                  f"{dict((k, v) for k, v in got['launches'].items() if v)}")
+            if not (got["finite"] and got["max_abs_err"] <= SCORE_TOL):
+                raise AssertionError("make_server(mesh=) disagrees with the plain server")
+            expect_launches(got["launches"], lstm_fwd=5, delta=1)
+            count_into(totals, got["launches"])
+        r0 = served[0]
+        numbers["serve"] = {"mesh_ms": statistics.median(r0["mesh_ms"]),
+                            "plain_ms": statistics.median(r0["plain_ms"]),
+                            "collectives": r0["collectives"],
+                            "collective_bytes": r0["collective_bytes"],
+                            "collective_ms": r0["collective_ms"]}
+        gather_ms = [g["collective_ms"].get("all_gather") for g in served]
+        numbers["serve"]["all_gather_ms"] = gather_ms
+        print(f"scale4 make_server(mesh=): a request of B = {SCALE_SERVE_B} "
+              f"{numbers['serve']['mesh_ms']:.3f} ms on the mesh against "
+              f"{numbers['serve']['plain_ms']:.3f} ms on one card (host medians of "
+              f"{SCALE4_TURNS} interleaved turns, rank 0); collectives {r0['collectives']} "
+              f"({r0['collective_bytes']} B; the all-gather "
+              f"{', '.join('not timed' if v is None else f'{v:.3f}' for v in gather_ms)} ms "
+              f"by rank, CUDA events) ({where})")
+
+    argvs = [["-m", "ip_avsr_torch.cli.nstream", "--config",
+              os.path.join("configs", "synthetic_1stream.ini"), "--synthetic", "60", *flags]
+             + ([] if on == "cuda" else ["--device", "cpu"]) for flags in SCALE4_CLI]
+    runs, secs = run_torchruns(argvs, SCALE4_CLI_TIMEOUT_S)
+    numbers["cli"] = {"s": secs}
+    for flags, (code, out, err) in zip(SCALE4_CLI, runs):
+        tail = [line for line in out.splitlines() if line.startswith(("CR:", "Epoch"))][-2:]
+        print(f"scale4 torchrun x {SCALE4_RANKS} cli.nstream {' '.join(flags)}: exit {code}; "
+              f"{' | '.join(tail)}")
+        numbers["cli"][" ".join(flags)] = code
+        if code != 0 or "terminate called" in err:
+            raise AssertionError(f"cli.nstream {' '.join(flags)} under torchrun: exit {code}:\n"
+                                 f"{err[-4000:]}")
+    print(f"scale4: the {len(SCALE4_CLI)} torchrun jobs, run together, took {secs:.1f} s")
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"phase_scale4: {numbers['phase_s']:.1f} s; launches over the mesh runs "
+          f"{dict((k, v) for k, v in totals.items() if v)} ({where})")
+    return totals, numbers
+
+
 def main() -> int:
     import torch
 
@@ -6128,9 +6499,15 @@ def main() -> int:
     ab = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--ab" else None
     sass_dir = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--sass" else None
     bf16_only = sys.argv[1:] == ["--bf16"]
-    if len(sys.argv) > 1 and ab is None and sass_dir is None and not bf16_only:
-        print(f"usage: {sys.argv[0]} [--ab DIR | --sass DIR | --bf16]", file=sys.stderr)
+    mesh4_only = sys.argv[1:] == ["--mesh4"]
+    if len(sys.argv) > 1 and ab is None and sass_dir is None and not (bf16_only or mesh4_only):
+        print(f"usage: {sys.argv[0]} [--ab DIR | --sass DIR | --bf16 | --mesh4]",
+              file=sys.stderr)
         return 2
+    if mesh4_only and torch.cuda.device_count() < SCALE4_RANKS:
+        print(f"chip_smoke --mesh4: phase_scale4 needs {SCALE4_RANKS} cards, this host has "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 1
     sys.path.insert(0, os.path.abspath(ab) if ab else ROOT)
     import ip_avsr_torch  # noqa: F401  (fails outside a checkout of the repo)
 
@@ -6147,6 +6524,13 @@ def main() -> int:
     dev = torch.device("cuda")
     if ab:
         print(json.dumps({"ab": ab_run(dev)}))
+        return 0
+    if mesh4_only:
+        scale4_launches, scale4_numbers = phase_scale4(dev)
+        print(json.dumps({"scale4": scale4_numbers, "scale4_launches": scale4_launches}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
         return 0
     sass = phase_sass()
     if bf16_only:
@@ -6200,6 +6584,14 @@ def main() -> int:
     tools_launches, tools_numbers = phase_tools(dev)
     print(json.dumps({"tools": tools_numbers}))
     scale_launches = phase_scale(dev)
+    scale4_launches = None
+    if torch.cuda.device_count() >= SCALE4_RANKS:
+        scale4_launches, scale4_numbers = phase_scale4(dev)
+        print(json.dumps({"scale4": scale4_numbers}))
+    else:
+        print(f"phase_scale4: not run: it needs {SCALE4_RANKS} cards, this host has "
+              f"{torch.cuda.device_count()} (python3 chip_smoke.py --mesh4 on a host with "
+              f"{SCALE4_RANKS})")
 
     pallas = "ip_avsr_tpu/ops/pallas/lstm_kernel.py"
     fwd_src, bwd_src = "ip_avsr_torch/csrc/lstm_fwd.cu", "ip_avsr_torch/csrc/lstm_bwd.cu"
@@ -6263,6 +6655,7 @@ def main() -> int:
                    pretrain_launches=pretrain_launches[row["name"]],
                    tools_launches=tools_launches[row["name"]],
                    scale_launches=scale_launches[row["name"]],
+                   scale4_launches=scale4_launches and scale4_launches[row["name"]],
                    oracle_launches=oracle_launches[row["name"]])
     # the six bf16 instantiations: launches on their bf16 main path (the
     # flagship's serve and train steps for rows 1, 3 and 4, the 4-stream
@@ -6282,6 +6675,7 @@ def main() -> int:
             "cli_launches": bf16_paths["cli"][name],
             "export_launches": bf16_paths["export"][name],
             "scale_launches": scale_launches[name],
+            "scale4_launches": scale4_launches and scale4_launches[name],
             "oracle_launches": oracle_launches[name]})
     # every LSTM row: registers per thread of its instantiation at its main
     # path's units per block, and its tensor-core instructions (HMMA)

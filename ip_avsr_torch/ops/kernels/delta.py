@@ -90,9 +90,12 @@ def _launch(xs, window: int, outs) -> list:
         raise ValueError("append_delta_group: outs must be contiguous float32 (B, T, 3 D_i) "
                          "tensors on the inputs' device")
     lib = _lib()
-    code = lib.delta_group_forward(
-        ptrs(*[x.data_ptr() for x in xs]), ptrs(*[o.data_ptr() for o in outs]), widths_arg,
-        len(xs), S.data_ptr(), B, T, window, torch.cuda.current_stream(dev).cuda_stream)
+    # the launch acts on the host thread's current device, which need not be
+    # the tensors' card
+    with torch.cuda.device(dev):
+        code = lib.delta_group_forward(
+            ptrs(*[x.data_ptr() for x in xs]), ptrs(*[o.data_ptr() for o in outs]), widths_arg,
+            len(xs), S.data_ptr(), B, T, window, torch.cuda.current_stream(dev).cuda_stream)
     if code < 0:
         _build.check(lib, "delta", -code)
     append_delta.launches += 1

@@ -563,7 +563,10 @@ def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, sta
                      x_c.shape[0], T, H, plan.units, plan.smem_bytes, stream)
         _build.check(lib, "lstm_fwd", code)
 
-    map_chunks(launch, plan.chunks, x_proj, mask, cell0, hid0, *outs)
+    # the launch and cudaFuncSetAttribute act on the host thread's current
+    # device, which need not be the tensors' card
+    with torch.cuda.device(dev):
+        map_chunks(launch, plan.chunks, x_proj, mask, cell0, hid0, *outs)
     return tuple(outs) if train or state else outs[0]
 
 
@@ -772,8 +775,9 @@ def _run_bwd(name, args, clip, peep=(), units=None, chunks=None):
         _build.check(lib, "lstm_bwd", code)
         return dw
 
-    dws = map_chunks(launch, plan.chunks, g_out, gates_pre, cells, cells_prev, mask, dgates,
-                     dcell0, dhid0)
+    with torch.cuda.device(dev):  # the launch's device, as in _run_fwd
+        dws = map_chunks(launch, plan.chunks, g_out, gates_pre, cells, cells_prev, mask,
+                         dgates, dcell0, dhid0)
     if not peep:
         return dgates, dcell0, dhid0
     dw = dws[0]

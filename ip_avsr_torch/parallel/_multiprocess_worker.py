@@ -263,6 +263,24 @@ def sp_errors(cfg, params, inputs, mask, data: int, seq: int) -> list:
     return got
 
 
+def strided_collectives(a, w) -> dict:
+    """On each rank ``k`` of the world group, with ``x`` = ``a[k]``
+    transposed (a dense tensor in permuted strides): ``ppermute`` of ``x``
+    from each rank to the next, the gradient of sum(y^T * w[k]) with
+    respect to ``a[k]`` (the exchange's backward gets a transposed
+    cotangent), and ``all_gather`` of ``x`` along dim 0."""
+    from ip_avsr_torch.parallel import collectives
+
+    no_jax()
+    k, n, world = dist.get_rank(), dist.get_world_size(), dist.group.WORLD
+    leaf = torch.from_numpy(np.array(a[k])).requires_grad_(True)
+    x = leaf.t()
+    y = collectives.ppermute(x, [(i, i + 1) for i in range(n - 1)], world)
+    (y.t() * torch.from_numpy(np.array(w[k]))).sum().backward()
+    return {"y": y.detach().numpy(), "grad": leaf.grad.numpy(),
+            "gathered": collectives.all_gather(x.detach(), 0, world).numpy()}
+
+
 def bn_synced(x, axis_name="data") -> dict:
     """Batch norm with statistics synced over the ranks, each rank on its
     rows of ``x``: the whole output (gathered) and the moved statistics."""
@@ -383,6 +401,17 @@ def _sync():
         torch.cuda.synchronize()
 
 
+def _align():
+    """Synchronize the device and, in a group, wait for every rank (the
+    barrier of ``distributed_c10d`` itself, which a
+    :class:`CollectiveTally` does not count)."""
+    from torch.distributed import distributed_c10d
+
+    _sync()
+    if dist.is_initialized():
+        distributed_c10d.barrier()
+
+
 def _launched(counters, fn):
     """``(fn(), {kernel: launches during fn})``, the device synchronized."""
     for wrapper, attr in counters.values():
@@ -394,7 +423,11 @@ def _launched(counters, fn):
 
 class CollectiveTally:
     """Counts the ``torch.distributed`` collectives called while active and
-    the bytes this rank hands them (the inputs it contributes)."""
+    the bytes this rank hands them (the inputs it contributes), per
+    collective in ``by_name`` too; on CUDA tensors each call is timed with
+    CUDA events on the current stream around it (a blocking collective
+    makes that stream wait for its end; an exchange's requests are waited
+    for inside the span), read by :meth:`times_ms` after a synchronize."""
 
     NAMES = ("all_reduce", "all_gather", "broadcast", "all_to_all", "batch_isend_irecv",
              "barrier")
@@ -402,6 +435,8 @@ class CollectiveTally:
     def __init__(self):
         self.calls = {}
         self.bytes = 0
+        self.by_name = {}
+        self._events = []
 
     def _wrap(self, name, fn):
         def counted(*args, **kwargs):
@@ -414,10 +449,31 @@ class CollectiveTally:
                 ts = []
             else:
                 ts = [args[0]]
-            self.bytes += sum(t.numel() * t.element_size() for t in ts)
-            return fn(*args, **kwargs)
+            nbytes = sum(t.numel() * t.element_size() for t in ts)
+            self.bytes += nbytes
+            count, total = self.by_name.get(name, (0, 0))
+            self.by_name[name] = (count + 1, total + nbytes)
+            if not any(t.is_cuda for t in ts):
+                return fn(*args, **kwargs)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            if name == "batch_isend_irecv":
+                for req in out:
+                    req.wait()
+            end.record()
+            self._events.append((name, start, end))
+            return out
 
         return counted
+
+    def times_ms(self) -> dict:
+        """{collective: milliseconds summed over its timed calls}."""
+        _sync()
+        out = {}
+        for name, start, end in self._events:
+            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        return out
 
     def __enter__(self):
         self._saved = {n: getattr(dist, n) for n in self.NAMES}
@@ -499,18 +555,19 @@ def _card_step(tr, params, batch, seed=0, lr=1.0):
 
 @contextlib.contextmanager
 def local_bn_statistics():
-    """While active, the model's batch norm normalises each rank's rows
-    with that rank's own statistics (``adenet_forward(bn_axis=None)``
-    under the Trainer's mesh step): the control that a check of statistics
-    synced over the ranks must fail."""
+    """While active, the model's batch norm normalises each rank's block
+    with that rank's own statistics (``stream_prefix(bn_axis=None)``, which
+    both the Trainer's data-parallel forward and the sequence-parallel
+    ``forward_rows`` call): the control that a check of statistics synced
+    over the ranks must fail."""
     from ip_avsr_torch.models import adenet
 
-    forward = adenet.adenet_forward
-    adenet.adenet_forward = lambda *a, **kw: forward(*a, **dict(kw, bn_axis=None))
+    prefix = adenet.stream_prefix
+    adenet.stream_prefix = lambda *a, **kw: prefix(*a, **dict(kw, bn_axis=None))
     try:
         yield
     finally:
-        adenet.adenet_forward = forward
+        adenet.stream_prefix = prefix
 
 
 @contextlib.contextmanager
@@ -539,8 +596,81 @@ def bottleneck_terms(shape):
         encoder.product = product
 
 
+@contextlib.contextmanager
+def counted_on_cpu(counters_spec: dict):
+    """While active, a call of a kernel's wrapper on CPU tensors, which runs
+    the plain version and launches nothing, counts as one launch in that
+    kernel's float32 counter (``counters_spec`` as :func:`_counters`
+    takes it; its bf16 counters are left alone): the wrappers are replaced
+    where the model looks them up (``ops/lstm`` imports the LSTM wrappers,
+    ``ops/delta`` calls the grouped delta wrapper through its module), so
+    that a rehearsal on the CPU reads the launches a card would count."""
+    import importlib
+
+    from ip_avsr_torch.ops import lstm as lstm_ops
+    from ip_avsr_torch.ops.kernels import delta as delta_kernel
+
+    def counting(fn, holder):
+        def call(*args, **kwargs):
+            first = args[0][0] if isinstance(args[0], (list, tuple)) else args[0]
+            if first.device.type == "cpu":
+                holder.launches += 1
+            return fn(*args, **kwargs)
+
+        return call
+
+    saved = []
+    for mod, fn, attr in counters_spec.values():
+        if attr != "launches":
+            continue
+        holder = getattr(importlib.import_module(f"ip_avsr_torch.ops.kernels.{mod}"), fn)
+        where, name = ((delta_kernel, "append_delta_group") if mod == "delta"
+                       else (lstm_ops, fn))
+        saved.append((where, name, getattr(where, name)))
+        setattr(where, name, counting(getattr(where, name), holder))
+    try:
+        yield
+    finally:
+        for where, name, fn in reversed(saved):
+            setattr(where, name, fn)
+
+
+def _trace(step, n: int = 3) -> dict:
+    """A torch.profiler trace of ``n`` steps on the card, after one
+    warm-up step that the profile throws away (chip_smoke.traced's
+    schedule; its ``ProfilerStep*`` records left out): the device time per
+    step of every kernel and of the collectives' own (nccl) kernels, which
+    include their wait for the other ranks, the count of those per step,
+    and the traced steps' host time per step.  The traced steps start
+    together on every rank (:func:`_align`)."""
+    import time
+
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=schedule) as prof:
+        step()
+        _sync()
+        prof.step()
+        _align()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        _sync()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+        prof.step()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")]
+    nccl = [e for e in events if "nccl" in e.key.lower()]
+    ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3 / n  # noqa: E731
+    return {"device_ms": ms(events), "nccl_ms": ms(nccl),
+            "nccl_kernels": sum(e.count for e in nccl) / n, "traced_ms": wall}
+
+
 def chip_step(counters_spec: dict, cfg, params, batch, options: dict, ref=None, zero=(),
-              turns: int = 0, device="cuda", local_bn: bool = False, bottleneck=None) -> dict:
+              turns: int = 0, device="cuda", local_bn: bool = False, bottleneck=None,
+              trace: bool = False) -> dict:
     """One Trainer step (adadelta at lr 1.0, as chip_smoke's card-vs-CPU
     checks) on this rank of the card's group with ``options``: its launches
     and collectives, its host median over 5 steps (on two or more ranks also
@@ -550,14 +680,22 @@ def chip_step(counters_spec: dict, cfg, params, batch, options: dict, ref=None, 
     one-process Trainer's (the mesh's first, then the plain one's, each
     turn).  ``local_bn`` runs all of it under :func:`local_bn_statistics`;
     ``bottleneck`` (a weight's shape) adds the factors X and dZ of that
-    weight's gradient on this rank's rows (:func:`bottleneck_terms`)."""
-    with local_bn_statistics() if local_bn else contextlib.nullcontext():
+    weight's gradient on this rank's rows (:func:`bottleneck_terms`).  Also
+    the mesh's shape, the device, each collective's calls and bytes in the
+    step and on two or more ranks its time per step (:class:`CollectiveTally`,
+    the mean of 5 steps started together), and with ``trace`` on the card
+    the step's device time and its collectives' kernels (:func:`_trace`).
+    On the CPU each wrapper's call counts as its launch
+    (:func:`counted_on_cpu`)."""
+    on_cpu = torch.device(device).type == "cpu"
+    with local_bn_statistics() if local_bn else contextlib.nullcontext(), \
+            counted_on_cpu(counters_spec) if on_cpu else contextlib.nullcontext():
         return _chip_step(counters_spec, cfg, params, batch, options, ref, zero, turns,
-                          device, bottleneck)
+                          device, bottleneck, trace and not on_cpu)
 
 
 def _chip_step(counters_spec, cfg, params, batch, options, ref, zero, turns, device,
-               bottleneck):
+               bottleneck, trace):
     from ip_avsr_torch.parallel import collectives
 
     no_jax()
@@ -572,10 +710,22 @@ def _chip_step(counters_spec, cfg, params, batch, options, ref, zero, turns, dev
         (p1, s1, loss), launches = _launched(counters, step)
     world = dist.get_world_size() if dist.is_initialized() else 1
     out = {"launches": launches, "collectives": dict(tally.calls), "collective_bytes": tally.bytes,
+           "by_collective": dict(tally.by_name),
+           "mesh": None if tr.mesh is None else dict(tr.mesh.shape), "device": str(dev[2].device),
            "loss": float(loss), "world": world, "step_ms": float(np.median(_host_ms(step, 5)))}
+    if trace:
+        out["trace"] = _trace(step)
     if bottleneck:
         out["bottleneck"] = taken[0]
     if world > 1:
+        # each collective's time per step, the mean of 5 steps that start
+        # together (a barrier before each): the rank that comes last to a
+        # collective waits for no other
+        with CollectiveTally() as timed:
+            for _ in range(5):
+                _align()
+                step()
+        out["collective_ms"] = {k: v / 5 for k, v in timed.times_ms().items()}
         leaves = []
         tree_map(leaves.append, grads)
         out["allreduce_ms"] = float(np.median(_host_ms(
@@ -598,10 +748,40 @@ def _chip_step(counters_spec, cfg, params, batch, options, ref, zero, turns, dev
     return out
 
 
-def chip_serve(counters_spec: dict, cfg, params, streams, mask, device="cuda") -> dict:
+def rank_card() -> dict:
+    """This rank's backend, rank and device, printed by the rank and
+    returned."""
+    no_jax()
+    backend = dist.get_backend() if dist.is_initialized() else None
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    out = {"rank": rank, "backend": backend, "device": None, "name": None}
+    if backend == "nccl":
+        index = torch.cuda.current_device()
+        out.update(device=f"cuda:{index}", name=torch.cuda.get_device_name(index))
+    print(f"rank {rank}: backend {backend}, device {out['device']}, {out['name']}",
+          flush=True)
+    return out
+
+
+def sp_max_t(cfg, options: dict, seqlens):
+    """``Trainer._sp_max_t(seqlens)`` on this rank: the padded T, or the
+    ValueError's message."""
+    no_jax()
+    try:
+        return trainer(cfg, options)._sp_max_t(np.asarray(seqlens))
+    except ValueError as e:
+        return str(e)
+
+
+def chip_serve(counters_spec: dict, cfg, params, streams, mask, device="cuda",
+               turns: int = 0) -> dict:
     """``make_server(mesh=make_mesh())`` on the card against the plain
-    server from the same parameters: the scores' max abs gap and the mesh
-    server's launches per forward."""
+    server from the same parameters: the scores' max abs gap, the mesh
+    server's launches and collectives per forward (their time as
+    :func:`chip_step` takes it), and with ``turns`` the
+    host times of the two servers' requests in turns (the mesh's first).
+    On the CPU each wrapper's call counts as its launch
+    (:func:`counted_on_cpu`)."""
     from ip_avsr_torch import serve as serve_lib
     from ip_avsr_torch.parallel import mesh as mesh_lib
 
@@ -612,7 +792,23 @@ def chip_serve(counters_spec: dict, cfg, params, streams, mask, device="cuda") -
     mesh_fn = serve_lib.make_server(p, cfg, mesh=mesh_lib.make_mesh(), device=device)
     plain_fn = serve_lib.make_server(p, cfg, device=device)
     mesh_fn(streams, mask)  # warm-up: libraries, handles
-    got, launches = _launched(counters, lambda: mesh_fn(streams, mask))
+    on_cpu = torch.device(device).type == "cpu"
+    with counted_on_cpu(counters_spec) if on_cpu else contextlib.nullcontext(), \
+            CollectiveTally() as tally:
+        got, launches = _launched(counters, lambda: mesh_fn(streams, mask))
     want = plain_fn(streams, mask)
-    return {"launches": launches, "max_abs_err": float((got - want).abs().max()),
-            "finite": bool(torch.isfinite(got).all())}
+    with CollectiveTally() as timed:
+        for _ in range(5):
+            _align()
+            mesh_fn(streams, mask)
+    out = {"launches": launches, "max_abs_err": float((got - want).abs().max()),
+           "finite": bool(torch.isfinite(got).all()), "collectives": dict(tally.calls),
+           "collective_bytes": tally.bytes,
+           "collective_ms": {k: v / 5 for k, v in timed.times_ms().items()}}
+    if turns:
+        mesh_ms, plain_ms = [], []
+        for _ in range(turns):
+            mesh_ms += _host_ms(lambda: mesh_fn(streams, mask), 1, warmup=1)
+            plain_ms += _host_ms(lambda: plain_fn(streams, mask), 1, warmup=1)
+        out.update(mesh_ms=mesh_ms, plain_ms=plain_ms)
+    return out

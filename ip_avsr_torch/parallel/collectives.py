@@ -73,8 +73,10 @@ def all_reduce_grad(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def _gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    # the parts laid out as the contiguous input every rank sends
+    x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
+    dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
 
 
@@ -100,8 +102,9 @@ def all_gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
 
 def _exchange(x: torch.Tensor, pairs, group) -> torch.Tensor:
     me = dist.get_rank(group)
-    out = torch.zeros_like(x)
+    # gloo and nccl send and receive contiguous tensors only
     x = x.contiguous()
+    out = torch.zeros_like(x)
     ops = []
     for src, dst in pairs:
         if src == me:
