@@ -50,6 +50,7 @@ from ip_avsr_torch.ops import initializers as inits
 from ip_avsr_torch.ops import lstm as lstm_ops
 from ip_avsr_torch.ops import normalization as norm_ops
 from ip_avsr_torch.ops.delta import delta_group
+from ip_avsr_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,10 +242,12 @@ def adenet_forward(params: dict, config: AdeNetConfig, inputs, mask: torch.Tenso
     check_supported(config)
     if train and generator is None:
         generator = torch.Generator(device=inputs[0].device).manual_seed(0)
-    stream_feats, aux = stream_prefix(params, config, inputs, window, train, generator,
-                                      return_aux=True, bn_axis=bn_axis, mesh=mesh,
-                                      model_axis=model_axis, block=block)
-    out = head_forward(params, config, stream_feats, mask, train, generator, block=block)
+    with spans.span("model.streams"):
+        stream_feats, aux = stream_prefix(params, config, inputs, window, train, generator,
+                                          return_aux=True, bn_axis=bn_axis, mesh=mesh,
+                                          model_axis=model_axis, block=block)
+    with spans.span("model.head"):
+        out = head_forward(params, config, stream_feats, mask, train, generator, block=block)
     return (out, aux) if return_aux else out
 
 

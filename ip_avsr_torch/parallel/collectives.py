@@ -31,6 +31,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ip_avsr_torch.utils import spans
+
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
@@ -192,7 +194,8 @@ def flat_all_reduce(tensors, group=None) -> list:
     if group is None or not tensors:
         return tensors
     buf = _flat(tensors)
-    dist.all_reduce(buf, group=group)
+    with spans.span("collective.all_reduce", device=False, nbytes=buf.nbytes):
+        dist.all_reduce(buf, group=group)
     return _unflat(buf, tensors)
 
 
@@ -222,7 +225,8 @@ def flat_all_gather(tensors, group=None) -> list:
         return [[t] for t in tensors]
     buf = _flat(tensors)
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, buf, group=group)
+    with spans.span("collective.all_gather", device=False, nbytes=buf.nbytes):
+        dist.all_gather(parts, buf, group=group)
     per_rank = [_unflat(p, tensors) for p in parts]
     return [[rank[i] for rank in per_rank] for i in range(len(tensors))]
 

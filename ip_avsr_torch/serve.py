@@ -34,6 +34,7 @@ from ip_avsr_torch.ops.dct import dct_feature_basis_np
 from ip_avsr_torch.ops.voting import majority_voting_layer_masked
 from ip_avsr_torch.parallel import collectives
 from ip_avsr_torch.parallel import mesh as mesh_lib
+from ip_avsr_torch.utils import spans
 
 
 def _index_leaves(tree, leaves: list, recurrent: set, key=None):
@@ -136,9 +137,10 @@ class TrimodalServer(Server):
         self.register_buffer("dct_std", stats[1])
 
     def forward(self, raw, mask):
-        streams = pipeline.trimodal_streams(raw, mask, self.image_shape, self.dct_coeffs,
-                                            self.dct_mean, self.dct_std,
-                                            dct_basis=self.dct_basis)
+        with spans.span("serve.pipeline"):
+            streams = pipeline.trimodal_streams(raw, mask, self.image_shape, self.dct_coeffs,
+                                                self.dct_mean, self.dct_std,
+                                                dct_basis=self.dct_basis)
         return super().forward(streams, mask)
 
 
@@ -303,10 +305,15 @@ class PipelinedServer:
 
         return tree_map(view, tuple(args)), [pinned]
 
-    def submit(self, *args):
-        """Queue one request; returns an opaque handle for :meth:`result`."""
-        dev_args, pinned = self._upload(args)
-        return self._serve(*dev_args), pinned
+    def submit(self, *args, requests: int = 1):
+        """Queue one request (``requests`` stacked into one, by :meth:`map`);
+        returns an opaque handle for :meth:`result`.  Its spans, under a new
+        request id: ``serve.stage`` (the upload) and ``serve.forward``."""
+        ident = spans.new_id()
+        with spans.span("serve.stage", ident=ident, device=False):
+            dev_args, pinned = self._upload(args)
+        with spans.span("serve.forward", ident=ident, count=requests):
+            return self._serve(*dev_args), pinned, ident
 
     def result(self, handle) -> np.ndarray:
         """Wait for ``handle``'s scores and return them on the host."""
@@ -316,20 +323,22 @@ class PipelinedServer:
         """One concat on the card and one copy home of the block (into a
         fresh pinned buffer, then an event); ``sizes`` are the per-request
         row counts (a stacked handle covers several requests)."""
-        out = torch.cat([h for h, _ in handles], dim=0)
-        keep = [p for _, ps in handles for p in ps]
+        out = torch.cat([h[0] for h in handles], dim=0)
+        keep = [p for h in handles for p in h[1]]
+        ids = [h[2] for h in handles]
         if self._device.type != "cuda":
-            return out, None, list(sizes), keep
+            return out, None, list(sizes), keep, ids
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(self._device))
-        return host, done, list(sizes), keep + [out]
+        return host, done, list(sizes), keep + [out], ids
 
     def _unpack(self, packed):
-        host, done, sizes, _ = packed
-        if done is not None:
-            done.synchronize()  # the block's copy home, and every upload before it
+        host, done, sizes, _, ids = packed
+        with spans.span("serve.wait", device=False, ids=ids):
+            if done is not None:
+                done.synchronize()  # the block's copy home, and every upload before it
         arr = host.numpy()
         off = 0
         for s in sizes:
@@ -354,7 +363,7 @@ class PipelinedServer:
             else:
                 args = tree_map(lambda *xs: np.concatenate([_to_host(x) for x in xs], axis=0),
                                 *stage)
-            h = self.submit(*args)
+            h = self.submit(*args, requests=len(stage))
             stage.clear()
             if block and h[0].shape[1:] != block[-1][0].shape[1:]:
                 pending.append(self._pack(block, sizes))

@@ -68,6 +68,7 @@ from ip_avsr_torch.parallel import sequence as seq_lib
 from ip_avsr_torch.train import checkpoints as ckpt_lib
 from ip_avsr_torch.train import evaluation
 from ip_avsr_torch.train import optimizers as opt_lib
+from ip_avsr_torch.utils import spans
 from ip_avsr_torch.utils.data_structures import CircularList
 from ip_avsr_torch.utils.regularization import early_stop2
 
@@ -111,8 +112,10 @@ def grads_of(fn, params):
         leaves.append(leaf)
         return leaf
 
-    objective, value = fn(tree_map(track, params))
-    grads = iter(torch.autograd.grad(objective, leaves, allow_unused=True))
+    with spans.span("train.forward"):
+        objective, value = fn(tree_map(track, params))
+    with spans.span("train.backward"):
+        grads = iter(torch.autograd.grad(objective, leaves, allow_unused=True))
 
     def grad_of(p):
         g = next(grads)
@@ -184,7 +187,10 @@ class TrainOptions:
     # on a non-finite train or val cost: restore the best parameters so far,
     # reset the optimizer state, halve the learning rate, go on
     recover_on_nan: bool = False
-    profile_dir: Optional[str] = None  # a torch.profiler trace of the fit
+    # a torch.profiler trace of the fit (trace.json), with the spans of
+    # utils/spans.py: ip_avsr::train.step and its .forward, .backward and
+    # .optimizer, the collectives on a mesh
+    profile_dir: Optional[str] = None
     # per-parameter learning rates, path prefix -> rate (optimizer="adam_vlr")
     lr_map_config: Optional[dict] = None
     checkpoint_dir: Optional[str] = None
@@ -412,15 +418,20 @@ class Trainer:
     def train_step(self, params, opt_state, streams, y, mask, generator, lr):
         """One step of loss, gradients and update at the rate ``lr`` ->
         ``(params, opt_state, loss)``; with ``grad_accum_steps`` > 1,
-        :meth:`train_step_accum`; on a mesh, :meth:`mesh_train_step`."""
-        if self.mesh is not None:
-            return self.mesh_train_step(params, opt_state, streams, y, mask, generator, lr)
-        if self.options.grad_accum_steps > 1:
-            return self.train_step_accum(params, opt_state, streams, y, mask, generator, lr)
-        loss, grads, aux = loss_and_grads(params, self.config, streams, y, mask, generator,
-                                          window=self.options.window, return_aux=True)
-        params, opt_state = self.optimizer.apply(params, grads, opt_state, learning_rate=lr)
-        return merge_bn_state(params, aux), opt_state, loss
+        :meth:`train_step_accum`; on a mesh, :meth:`mesh_train_step`.  The
+        span ``train.step`` holds the step, whichever path it takes, under
+        a new step id."""
+        with spans.span("train.step", ident=spans.new_id()):
+            if self.mesh is not None:
+                return self.mesh_train_step(params, opt_state, streams, y, mask, generator, lr)
+            if self.options.grad_accum_steps > 1:
+                return self.train_step_accum(params, opt_state, streams, y, mask, generator, lr)
+            loss, grads, aux = loss_and_grads(params, self.config, streams, y, mask, generator,
+                                              window=self.options.window, return_aux=True)
+            with spans.span("train.optimizer"):
+                params, opt_state = self.optimizer.apply(params, grads, opt_state,
+                                                         learning_rate=lr)
+                return merge_bn_state(params, aux), opt_state, loss
 
     def train_step_accum(self, params, opt_state, streams, y, mask, generator, lr):
         """K microbatches of B / K rows in order, each with its own draws of
@@ -440,7 +451,8 @@ class Trainer:
             num_sum, den_sum = num_sum + num, den_sum + den
         den = torch.clamp(den_sum, min=1.0)
         grads = tree_map(lambda g: g / den, gsum)
-        params, opt_state = self.optimizer.apply(params, grads, opt_state, learning_rate=lr)
+        with spans.span("train.optimizer"):
+            params, opt_state = self.optimizer.apply(params, grads, opt_state, learning_rate=lr)
         return params, opt_state, num_sum / den
 
     def mesh_train_step(self, params, opt_state, streams, y, mask, generator, lr):
@@ -449,9 +461,10 @@ class Trainer:
         :meth:`mesh_loss_and_grads`, then the update (:meth:`_apply`) and
         the batch-norm statistics merged.  Returns the global loss."""
         loss, grads, aux = self.mesh_loss_and_grads(params, streams, y, mask, generator)
-        params, opt_state = self._apply(params, grads, opt_state, lr)
-        if aux is not None:
-            params = merge_bn_state(params, aux)
+        with spans.span("train.optimizer"):
+            params, opt_state = self._apply(params, grads, opt_state, lr)
+            if aux is not None:
+                params = merge_bn_state(params, aux)
         return params, opt_state, loss
 
     def mesh_loss_and_grads(self, params, streams, y, mask, generator=None):

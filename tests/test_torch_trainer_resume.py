@@ -10,6 +10,7 @@ learning-rate schedule, and it equals the JAX package's resume from the same
 train state.
 """
 
+import json
 import os
 
 import numpy as np
@@ -66,6 +67,10 @@ def test_profile_dir_writes_a_trace_even_when_fit_raises(tmp_path):
     ttr.Trainer(lib.per_step_config(tzoo), lib.quiet_options(
         ttr, num_epoch=1, epochsize=1, profile_dir=str(good)), device="cpu").fit(*data)
     assert os.path.getsize(good / "trace.json") > 0
+    with open(good / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {f"ip_avsr::train.{part}" for part in ("step", "forward", "backward",
+                                                 "optimizer")} <= names
     bad = tmp_path / "bad"
     with pytest.raises(FloatingPointError):
         ttr.Trainer(lib.per_step_config(tzoo), lib.quiet_options(
