@@ -34,9 +34,14 @@ Phases, each fatal on failure:
    persistent kernels traced with torch.profiler at the main path's shapes
    (exactly one launch per call and no other device work, its device time
    per call and per step), timed against cuDNN, and at two units-per-block
-   settings in turns; batches above one launch's shared memory (rows 1 and
-   3 at B = 6000, rows 3 and 4 at B = 2100, H = 500) and forced row chunks
-   at B = 64 (all six), each chunked call against its plain version;
+   settings in turns; the four recurrences' large-B body (``tiled_check``,
+   rows 1 and 3 at H = 500, B in {64, 257, 256}, rows 5 and 6 at H = 250,
+   B in {250, 512}, T in {1, 29}, both directions, nonzero states, into
+   NaN-filled outputs, traced at the cells' batch beside the small-B body);
+   batches above one launch (rows 1 and 3 at B = 6000, rows 3 and 4 at
+   B = 2100, H = 500; rows 1 and 3 at B = 6000 again in the small-B body,
+   its carry split) and forced row chunks at B = 64 (all six), each chunked
+   call against its plain version;
 4. build the full-width trimodal adenet_v3 (1144/90/1144, H = 500, W = 9)
    from a seeded generator, serve raw uint8 requests (B = 1 and 8, T = 29,
    ragged masks) through ``serve.make_trimodal_server``, check the scores
@@ -71,7 +76,11 @@ Phases, each fatal on failure:
    peephole training recurrences, 6 peephole backward chains, 1 delta, no
    other launch per step), hold the card's step against the CPU path, time
    and trace it (1 delta launch and 6 of each peephole chain kernel per
-   step, none of the others);
+   step, none of the others); then ``tiled_main_path``: both models' forward
+   and ``Trainer.train_step`` at the cells' batch (256, 512 for the
+   4-stream step) and at B = 8 or 10, each forward row's ``.launches`` and
+   ``.launches_tiled`` zeroed before each call: every launch in the large-B
+   body at the cells' batch, none at the small one;
 9. rows 1 and 5 with their final-cell output (``phase_lstm_state``, run
    after the chunk checks of 3.): H = 500 at B = 1 and 8, H = 250 at B = 1
    and 10, 3 forced row chunks at B = 64, T in {1, 2, 29, 32}, nonzero
@@ -278,9 +287,12 @@ Phases, each fatal on failure:
    through phase_scale4's (``scale4_launches``, every rank; null where it
    did not run) and through phase_oracle (``oracle_launches``);
    then the six bf16 rows, their launches on the bf16 serve and train
-   paths, through the bf16 CLI run and the two artifacts; every LSTM row
-   with its instantiation's registers per thread and HMMA count), then
-   ``{"ok": true, "device": ...}`` last.
+   paths, through the bf16 CLI run and the two artifacts; rows 1, 3, 5
+   and 6 their large-B body at the cells' batch (``large_b``: traced time,
+   bound, the small-B body's time, and ``main_path_launches``, the main
+   path's [launches, launches_tiled] by batch from ``tiled_main_path``);
+   every LSTM row with its instantiation's registers per thread and HMMA
+   count), then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a CUDA device or without the package beside it.
 
@@ -289,6 +301,15 @@ Exits non-zero without a CUDA device or without the package beside it.
 runs only phases 1, 2 and 19 (the build, the card, the registers and
 tensor-core instructions of the chain kernels, and ``phase_bf16``) and
 prints their numbers as JSON (about three minutes);
+
+    python3 chip_smoke.py --tiled
+
+runs only phases 1 and 2 and the large-B body of the four recurrences
+(``tiled_check``, ``tiled_main_path``), then the crossover sweep that sets
+``ops/kernels/lstm.TILED_MIN_ROWS`` and ``TILED_WIDE_H`` (``tiled_sweep``:
+the small-B body against the large-B one, rows 1 and 6 at the cells'
+widths at B = 16-256, row 1 at H in {130, 64, 24, 16} at B in {128, 256,
+512}), and prints their numbers as JSON;
 
     python3 chip_smoke.py --mesh4
 
@@ -673,8 +694,9 @@ def phase_sass():
     print(json.dumps({"sass": report}))
     bf16 = {k: v for k, v in report.items() if "bfloat16" in k}
     f32 = {k: v for k, v in report.items() if k.endswith("float>")}
-    if len(bf16) != 24 or len(f32) != 24:
-        raise AssertionError(f"expected 24 bf16 and 24 float32 chain instantiations in the "
+    # float32: 24 small-B instantiations and the large-B body's four
+    if len(bf16) != 24 or len(f32) != 28:
+        raise AssertionError(f"expected 24 bf16 and 28 float32 chain instantiations in the "
                              f"SASS, found {sorted(report)}")
     if not all(v["hmma"] > 0 for v in bf16.values()) or any(v["hmma"] for v in f32.values()):
         raise AssertionError(f"the bf16 instantiations must run their product on the tensor "
@@ -887,7 +909,8 @@ def phase_lstm(dev):
                        library_ms=lib_ms, traced_ms=traced)
         compare_units(lambda u: (lambda: _run_fwd("lstm_recurrence", args, False, units=u)),
                       (4, 8), f"lstm_fwd B={B} H={H}")
-    return err, rows
+    tiled_err, rows["large_b"] = tiled_check(dev, "lstm_fwd")
+    return max(err, tiled_err), rows
 
 
 def fwd_sweep(dev):
@@ -918,9 +941,12 @@ def fwd_sweep(dev):
     err = {name: 0.0 for name in rows}
     for H in (500, 250, 130):
         for B in (1, 8, TRAIN_B, 64):
-            plan = kl.fwd_launch_plan(B, H, sm_count)
+            plan = kl.fwd_plan(B, H, sm_count)
             print(f"lstm_fwd plan B={B} H={H} on {sm_count} SMs: U={plan.units} hidden units per "
-                  f"block, grid {plan.grid}, {plan.smem_bytes} B of shared memory, last block "
+                  f"block, grid {plan.grid}"
+                  + (f" x {-(-plan.rows // kl.TILED_ROWS)} row groups (large-B body)"
+                     if isinstance(plan, kl.TiledPlan) else "")
+                  + f", {plan.smem_bytes} B of shared memory, last block "
                   f"U={plan.last_units} live, {plan.chunks} chunk(s) of <= {plan.rows} rows")
             w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev)
             c0 = torch.randn(B, H, generator=gen).to(dev)
@@ -963,6 +989,207 @@ def fwd_sweep(dev):
                         print(f"{name} B={B} H={H}: kernel {ms:.4f} ms per call, "
                               f"{ms * 1e3 / T_FRAMES:.3f} us per step (event clock)")
     return err
+
+
+# the large-B body of rows 1, 3, 5 and 6 (ops/kernels/lstm.fwd_tiled_plan):
+# row -> (H, batches) of its checks, the cells' batch last
+TILED_CASES = {"lstm_fwd": (500, (64, 257, 256)), "lstm_fwd_train": (500, (64, 257, 256)),
+               "lstm_peep_fwd": (250, (250, 512)), "lstm_peep_fwd_train": (250, (250, 512))}
+# the crossover sweep, small-B body against large-B body: (row, H, batches);
+# rows 1 and 6 at the cells' widths, row 1 at the small widths of the
+# synthetic configurations and the tests
+TILED_SWEEP = (("lstm_fwd", 500, (16, 32, 64, 96, 128, 256)),
+               ("lstm_peep_fwd_train", 250, (16, 32, 64, 96, 128, 256)),
+               *(("lstm_fwd", H, (128, 256, 512)) for H in (130, 64, 24, 16)))
+
+
+def tiled_check(dev, name):
+    """Row ``name`` (a key of :data:`TILED_CASES`) in the large-B body
+    against its plain version at its shapes: nonzero initial states, ragged
+    masks with a fully padded row and a length-1 row, T in {1, 29}, both
+    directions, nonzero peephole vectors; rows 1 and 5 also with their final
+    cell (``state``), rows 3 and 6 with their residuals.  Each call runs
+    through the wrapper where the dispatch takes the large-B body (which must
+    count it in ``.launches_tiled``), forced through ``_run_fwd`` below the
+    threshold, and again into NaN-filled outputs, which must come out
+    bit-equal (a value the kernel did not write, or read stale, shows; two
+    calls, the same bits).
+    At the cells' batch, the traced time a call and per step beside the
+    small-B body's on the event clock.  Returns the largest absolute error
+    and {"traced_ms", "us_per_step", "ms", "small_ms", "bound_ms", "B", "H"}."""
+    import torch
+
+    from ip_avsr_torch.ops.kernels import lstm as kl
+
+    H, batches = TILED_CASES[name]
+    train, peep = name.endswith("train"), "peep" in name
+    wrapper = getattr(kl, name.replace("fwd", "recurrence"))
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator().manual_seed(SEED + 13 + len(name))
+    err = 0.0
+    for B in batches:
+        # below the dispatch's threshold the body is forced, past the wrapper
+        auto = isinstance(kl.fwd_plan(B, H, sm_count), kl.TiledPlan)
+        print(f"{name} B={B} H={H}: large-B plan {kl.fwd_tiled_plan(B, H, sm_count)}; the "
+              f"dispatch takes it: {auto}")
+        w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev)
+        c0 = torch.randn(B, H, generator=gen).to(dev)
+        h0 = (torch.randn(B, H, generator=gen) * 0.5).to(dev)
+        vecs = tuple((torch.randn(H, generator=gen) * 0.5).to(dev) for _ in range(3 * peep))
+        for T in (1, T_FRAMES):
+            x_proj = torch.randn(B, T, 4 * H, generator=gen).to(dev)
+            mask = ragged_mask(B, T, gen, "cpu")
+            mask[-1] = 0.0  # a fully padded row
+            mask[1] = 0.0   # a length-1 row
+            mask[1, 0] = 1.0
+            for backwards in (False, True):
+                ms_ = (mask.flip(1) if backwards else mask).contiguous().to(dev)
+                args = (x_proj, w_hid, ms_, c0, h0)
+                states = (False, True) if not train else (False,)
+                for state in states:
+                    before = (wrapper.launches, wrapper.launches_tiled)
+                    stem = name.replace("fwd", "recurrence") + ("_state" if state else "")
+                    if auto:
+                        got = getattr(kl, stem)(*args, *vecs)
+                        if (wrapper.launches - before[0],
+                                wrapper.launches_tiled - before[1]) != (1, 1):
+                            raise AssertionError(f"{name} B={B}: the call was not counted once "
+                                                 f"in .launches and .launches_tiled")
+                    else:
+                        got = kl._run_fwd(name, args, train, peep=vecs, state=state, tiled=True)
+                    ref = getattr(kl, stem + "_plain")(*args, *vecs)
+                    got = got if train or state else (got,)
+                    ref = ref if train or state else (ref,)
+                    nan = [torch.full_like(g, float("nan")) for g in got]
+                    kl._run_fwd(name, args, train, peep=vecs, outs=nan, state=state, tiled=True)
+                    same = all(torch.equal(a, b) for a, b in zip(nan, got))
+                    errs = [max_err(a, r)[0] for a, r in zip(got, ref)]
+                    rel = max(a / max(r.abs().max().item(), 1e-30) for a, r in zip(errs, ref))
+                    print(f"{name} large-B B={B} H={H} T={T} backwards={backwards} "
+                          f"state={state}: max_abs_err={max(errs):.3e}, relative {rel:.3e}; "
+                          f"into NaN-filled outputs: bit-equal {same}")
+                    if not (same and rel <= LSTM_TOL):
+                        raise AssertionError(
+                            f"{name} large-B body disagrees with its plain version: {rel}")
+                    err = max(err, max(errs))
+    # the cells' batch: traced, and against the small-B body in turns
+    B = batches[-1]
+    x_proj = torch.randn(B, T_FRAMES, 4 * H, generator=gen).to(dev)
+    mask = ragged_mask(B, T_FRAMES, gen, dev)
+    args = (x_proj, w_hid, mask, c0, h0)
+    traced_ms = trace_chain(lambda: wrapper(*args, *vecs), f"{name} large-B B={B} H={H}", name,
+                            T_FRAMES)
+    times = compare_units(lambda tiled: (lambda: kl._run_fwd(name, args, train, peep=vecs,
+                                                             tiled=tiled)),
+                          (False, True), f"{name} B={B} H={H} (units: large-B body True/False)")
+    cost = (lstm_train_cost if train else lstm_cost)(B, T_FRAMES, H, peep=peep)
+    b_ms, _ = bound(*cost[:2])
+    numbers = dict(B=B, H=H, traced_ms=traced_ms, us_per_step=traced_ms * 1e3 / T_FRAMES,
+                   ms=statistics.mean(times[True]), small_ms=statistics.mean(times[False]),
+                   bound_ms=b_ms)
+    print(f"{name} large-B B={B} H={H}: traced {traced_ms:.4f} ms a call, "
+          f"{numbers['us_per_step']:.3f} us a step; bound {b_ms:.5f} ms "
+          f"({b_ms / traced_ms:.1%} of it); small-B body {numbers['small_ms']:.4f} ms")
+    return err, numbers
+
+
+def tiled_sweep(dev):
+    """The crossover that sets ``ops/kernels/lstm.TILED_MIN_ROWS`` and
+    ``TILED_WIDE_H``: each (row, H, batches) of :data:`TILED_SWEEP`, the
+    small-B body against the large-B one in turns (a, b, b, a) on the event
+    clock.  Returns {"<row> H=<H>": {B: (small ms, large ms)}}."""
+    import torch
+
+    from ip_avsr_torch.ops.kernels import lstm as kl
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    out = {}
+    for name, H, batches in TILED_SWEEP:
+        train, peep = name.endswith("train"), "peep" in name
+        w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev)
+        vecs = tuple((torch.randn(H, generator=gen) * 0.5).to(dev) for _ in range(3 * peep))
+        key = f"{name} H={H}"
+        out[key] = {}
+        for B in batches:
+            x_proj = torch.randn(B, T_FRAMES, 4 * H, generator=gen).to(dev)
+            mask = ragged_mask(B, T_FRAMES, gen, dev)
+            c0 = torch.zeros(B, H, device=dev)
+            args = (x_proj, w_hid, mask, c0, c0)
+            times = compare_units(
+                lambda tiled: (lambda: kl._run_fwd(name, args, train, peep=vecs, tiled=tiled)),
+                (False, True), f"sweep {name} B={B} H={H} (units: large-B body True/False)")
+            out[key][B] = (statistics.mean(times[False]), statistics.mean(times[True]))
+    print(json.dumps({"tiled_sweep": out}))
+    return out
+
+
+def tiled_main_path(dev):
+    """``.launches_tiled`` on the main path: the flagship's scoring forward
+    (``make_trimodal_server``, row 1) and a ``Trainer.train_step`` (row 3),
+    the 4-stream model's forward (``make_server``, row 5) and train step
+    (row 6), each at the cells' batch (256, and 512 for the 4-stream step)
+    and at the reference batch (8 scoring, 10 training), with every forward
+    row's ``.launches`` and ``.launches_tiled`` set to 0 before each call.
+    At the cells' batch every launch of the path's row must take the large-B
+    body (the two counts equal and nonzero), at the reference batch none,
+    and no other forward row may launch.  Returns {row: {B: [launches,
+    launches_tiled]}}."""
+    import numpy as np
+    import torch
+
+    from ip_avsr_torch.models import adenet
+    from ip_avsr_torch.ops.kernels import lstm as kl
+    from ip_avsr_torch.serve import make_server, make_trimodal_server
+    from ip_avsr_torch.train.trainer import Trainer, TrainOptions
+
+    wrappers = {row: getattr(kl, LSTM_WRAPPERS[row]) for row in TILED_CASES}
+    cfg4, training4 = oulu_4stream()
+    out = {row: {} for row in TILED_CASES}
+    for cfg, lr, peep, train_b in ((flagship(), 1e-4, False, 256),
+                                   (cfg4, training4.learning_rate, True, 512)):
+        params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 15), cfg,
+                                           device=dev)
+        trainer = Trainer(cfg, TrainOptions(learning_rate=lr, optimizer="adam",
+                                            log_fn=lambda _: None), device=dev)
+        opt_state = trainer.optimizer.init(params)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+        if peep:
+            server = make_server(params, cfg, device=dev)
+        else:
+            server = make_trimodal_server(params, cfg, IMAGE_SHAPE, DCT, device=dev)
+        rng = np.random.RandomState(SEED + 15)
+
+        def score(B):
+            streams, mask, _ = stream_batch(cfg, B, SEED + 15, dev)
+            if peep:
+                return server(streams, mask)
+            raw = rng.randint(0, 256, (B, T_FRAMES, 1144)).astype(np.uint8)
+            return server(raw, mask.cpu().numpy())
+
+        def step(B):
+            streams, mask, y = stream_batch(cfg, B, SEED + 16, dev)
+            return trainer.train_step(params, opt_state, streams, y, mask, gen, lr)
+
+        serve_row, train_row = (("lstm_peep_fwd", "lstm_peep_fwd_train") if peep
+                                else ("lstm_fwd", "lstm_fwd_train"))
+        for row, call, batches in ((serve_row, score, (256, 8)),
+                                   (train_row, step, (train_b, TRAIN_B))):
+            for B in batches:
+                for fn in wrappers.values():
+                    fn.launches = fn.launches_tiled = 0
+                call(B)
+                torch.cuda.synchronize()
+                counts = {r: [fn.launches, fn.launches_tiled] for r, fn in wrappers.items()}
+                out[row][B] = counts[row]
+                n, tiled = counts[row]
+                print(f"main path {row} B={B}: {LSTM_WRAPPERS[row]}.launches = {n}, "
+                      f".launches_tiled = {tiled}")
+                others = {r: c for r, c in counts.items() if r != row and c != [0, 0]}
+                if not (n and tiled == (n if B >= kl.TILED_MIN_ROWS else 0)) or others:
+                    raise AssertionError(f"main path {row} B={B}: launches {counts}, expected "
+                                         f"every launch of {row} in the large-B body at "
+                                         f"B >= {kl.TILED_MIN_ROWS} and none below")
+    return out
 
 
 def phase_lstm_train(dev):
@@ -1052,7 +1279,9 @@ def phase_lstm_train(dev):
             "lstm_bwd": dict(ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
                              library_ms=lib_bwd, traced_ms=bwd_traced),
         }
-    return fwd_err, bwd_err, rows
+    tiled_err, numbers = tiled_check(dev, "lstm_fwd_train")
+    rows["large_b"] = {"lstm_fwd_train": numbers}
+    return max(fwd_err, tiled_err), bwd_err, rows
 
 
 def bwd_sweep(dev, peep):
@@ -1530,17 +1759,27 @@ def phase_lstm_peep(dev):
         compare_units(lambda u: (lambda: _run_bwd("lstm_peep_bwd_chain", bargs[:6], 5.0,
                                                   tuple(peep), units=u)), (2, 4),
                       f"lstm_peep_bwd B={B} H={H}")
-    return fwd_err, train_err, bwd_err, rows
+    rows["large_b"] = {}
+    tiled_err, rows["large_b"]["lstm_peep_fwd"] = tiled_check(dev, "lstm_peep_fwd")
+    tiled_train_err, rows["large_b"]["lstm_peep_fwd_train"] = tiled_check(
+        dev, "lstm_peep_fwd_train")
+    return max(fwd_err, tiled_err), max(train_err, tiled_train_err), bwd_err, rows
 
 
 def phase_chunks(dev):
-    """Batches whose carries do not fit one launch's shared memory beside
-    W_hid, and forced row chunks at a small batch, each chunked call held
-    against its plain version (relative to each output's max abs) and timed
-    on the event clock: rows 1 and 3 at B = 6000 and rows 3 and 4 at
-    B = 2100 (H = 500, T = 29) through their wrappers, then all six
-    persistent rows at B = 64 in 3 chunks of 21, 21 and 22 rows (H = 500, or
-    250 with peepholes), the recurrences also into NaN-filled outputs."""
+    """Batches that do not fit one launch, and forced row chunks at a small
+    batch, each chunked call held against its plain version (relative to
+    each output's max abs) and timed on the event clock: rows 1 and 3 at
+    B = 6000 and rows 3 and 4 at B = 2100 (H = 500, T = 29) through their
+    wrappers (the recurrences there take the large-B body, whose row groups
+    fit 256 rows a launch beside H = 500's unit groups: 24 and 9 chunks);
+    rows 1 and 3 again at B = 6000 in the small-B body, forced, whose carries
+    overflow one block's shared memory beside W_hid there (the cap of 5982
+    rows gives 2 chunks; row 4's cap of 2077 gives B = 2100 its 2), as they
+    do wherever the large-B plan does not fit (H above 512, or too few SMs)
+    and B is large enough; then all six persistent rows at
+    B = 64 in 3 chunks of 21, 21 and 22 rows (H = 500, or 250 with
+    peepholes); the recurrences also into NaN-filled outputs."""
     import torch
 
     from ip_avsr_torch.ops.kernels import lstm as kl
@@ -1576,30 +1815,36 @@ def phase_chunks(dev):
         if not (len(got) == len(ref) and rel <= tol):
             raise AssertionError(f"{label}: chunked kernel disagrees with its plain version")
 
-    for name, B, H, chunks in (("lstm_fwd", 6000, 500, None), ("lstm_fwd_train", 6000, 500, None),
-                               ("lstm_fwd_train", 2100, 500, None), ("lstm_bwd", 2100, 500, None),
-                               *((n, 64, 250 if "peep" in n else 500, 3)
-                                 for n in (*fwd_rows, *bwd_rows))):
-        label = f"{name} B={B} H={H}" + (f" forced into {chunks} chunks" if chunks else "")
+    # (row, B, H, chunks, tiled): tiled False forces the small-B body
+    for name, B, H, chunks, tiled in (
+            ("lstm_fwd", 6000, 500, None, None), ("lstm_fwd_train", 6000, 500, None, None),
+            ("lstm_fwd_train", 2100, 500, None, None), ("lstm_bwd", 2100, 500, None, None),
+            ("lstm_fwd", 6000, 500, None, False), ("lstm_fwd_train", 6000, 500, None, False),
+            *((n, 64, 250 if "peep" in n else 500, 3, None) for n in (*fwd_rows, *bwd_rows))):
+        label = (f"{name} B={B} H={H}" + (f" forced into {chunks} chunks" if chunks else "")
+                 + (" in the small-B body" if tiled is False else ""))
         if name in fwd_rows:
             wrapper, plain, train, peep = fwd_rows[name]
             args, vecs = inputs(B, H, peep)
 
             def call():
-                if chunks is None:
+                if chunks is None and tiled is None:
                     return wrapper(*args, *vecs)
-                return kl._run_fwd(name, args, train, peep=vecs, chunks=chunks)
+                return kl._run_fwd(name, args, train, peep=vecs, chunks=chunks, tiled=tiled)
 
             got = call()
             got = got if train else (got,)
             ref = plain(*args, *vecs)
             ref = ref if train else (ref,)
             nan = [torch.full_like(g, float("nan")) for g in got]
-            kl._run_fwd(name, args, train, peep=vecs, chunks=chunks, outs=nan)
+            kl._run_fwd(name, args, train, peep=vecs, chunks=chunks, outs=nan, tiled=tiled)
             if not all(torch.equal(a, b) for a, b in zip(nan, got)):
                 raise AssertionError(f"{label}: NaN-filled outputs not bit-equal")
             ms = cuda_ms(call, iters=3, warmup=1)
-            plan = kl.fwd_launch_plan(B, H, sm_count, chunks=chunks)
+            plan = kl.fwd_plan(B, H, sm_count, chunks=chunks, tiled=tiled)
+            if tiled is False and plan.chunks < 2:
+                raise AssertionError(f"{label}: expected the small-B body's row chunks, got "
+                                     f"{plan}")
             hold(label, got, ref, LSTM_TOL, ms, plan)
         else:
             chain, plain, peep = bwd_rows[name]
@@ -6500,8 +6745,10 @@ def main() -> int:
     sass_dir = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--sass" else None
     bf16_only = sys.argv[1:] == ["--bf16"]
     mesh4_only = sys.argv[1:] == ["--mesh4"]
-    if len(sys.argv) > 1 and ab is None and sass_dir is None and not (bf16_only or mesh4_only):
-        print(f"usage: {sys.argv[0]} [--ab DIR | --sass DIR | --bf16 | --mesh4]",
+    tiled_only = sys.argv[1:] == ["--tiled"]
+    if len(sys.argv) > 1 and ab is None and sass_dir is None and not (
+            bf16_only or mesh4_only or tiled_only):
+        print(f"usage: {sys.argv[0]} [--ab DIR | --sass DIR | --bf16 | --mesh4 | --tiled]",
               file=sys.stderr)
         return 2
     if mesh4_only and torch.cuda.device_count() < SCALE4_RANKS:
@@ -6540,6 +6787,14 @@ def main() -> int:
                 name[:-5])]["registers"])
         print(json.dumps({"bf16": bf16_numbers, "bf16_rows": bf16_rows}))
         return 0
+    if tiled_only:
+        # the large-B body alone: its four rows against their plain versions,
+        # timed at the cells' batches, its counter on the main path, and the
+        # crossover sweep
+        numbers = {name: tiled_check(dev, name)[1] for name in TILED_CASES}
+        print(json.dumps({"large_b": numbers, "main_path": tiled_main_path(dev),
+                          "sweep": tiled_sweep(dev)}))
+        return 0
     delta_err, delta_rows = phase_delta(dev)
     lstm_err, lstm_rows = phase_lstm(dev)
     train_fwd_err, bwd_err, train_rows = phase_lstm_train(dev)
@@ -6559,6 +6814,7 @@ def main() -> int:
     train_launches, _ = phase_train(dev)
     launches4, _ = phase_serve_4stream(dev, trees)
     train_launches4, _ = phase_train_4stream(dev)
+    main_path = tiled_main_path(dev)
     # the bf16 paths beside the f32 ones: on this card torch.profiler has
     # lost every device record of a cooperative launch when traced after
     # phase_tools, so the phase that traces them runs here
@@ -6677,6 +6933,15 @@ def main() -> int:
             "scale_launches": scale_launches[name],
             "scale4_launches": scale4_launches and scale4_launches[name],
             "oracle_launches": oracle_launches[name]})
+    # rows 1, 3, 5 and 6: the large-B body at the cells' batches, and each
+    # row's launches and large-B launches on its main path at the cells' and
+    # the reference batch
+    large_b = {"lstm_fwd": lstm_rows["large_b"], **train_rows["large_b"],
+               **peep_rows["large_b"]}
+    for row in kernels:
+        if row["name"] in large_b:
+            row["large_b"] = dict(large_b[row["name"]],
+                                  main_path_launches=main_path[row["name"]])
     # every LSTM row: registers per thread of its instantiation at its main
     # path's units per block, and its tensor-core instructions (HMMA)
     for row in kernels:

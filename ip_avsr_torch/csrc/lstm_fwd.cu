@@ -28,9 +28,12 @@
 // arithmetic of a whole call is a few microseconds of the card's f32 rate;
 // what a step costs is the exchange.
 //
-// One design serves all four rows: lstm_fwd_chain_kernel<EmitResiduals,
-// Peephole, U, WT>, one persistent cooperative launch per call (per row chunk,
-// see below), which loops over t itself.
+// Two bodies serve all four rows, one persistent cooperative launch per call
+// (per row chunk, see below) of lstm_fwd_chain_kernel<EmitResiduals,
+// Peephole, U, WT>, which loops over t itself: the small-B body described
+// first, and for a float32 W_hid at B >= 128 (256 below H = 250) the large-B
+// body (U = 16; "Large B" below).  The wrapper picks one from W_hid's dtype,
+// B and H (ops/kernels/lstm.py::fwd_plan).
 // - The grid is ceil(H / U) blocks, U the smallest of 1, 2, 4, 8 whose grid
 //   fits the card's SMs (ops/kernels/lstm.py::fwd_launch_plan), so every
 //   block is resident and grid.sync() is the step barrier (one per step,
@@ -61,10 +64,10 @@
 //   shared the tile, in a fixed order.  A round is up to 8 tiles, one per
 //   warp or several warps per tile, so B <= 8 R rows (16 at U = 4) take one
 //   round and one __syncthreads per step.
-// Shared memory (dynamic): W H x (4U + 4) f32 (H x 4 at U = 1; bf16: see
-// below), then the cell and h carries B x U each, then the warps' partial
-// sums 8 x 32; 4 (4U + 4) H + 8BU + 1024 bytes for f32
-// (ops/kernels/lstm.py::fwd_launch_plan).  Rows are
+// Shared memory (dynamic) of the small-B body: W H x (4U + 4) f32 (H x 4 at U
+// = 1; bf16: see below), then the cell and h carries B x U each, then the
+// warps' partial sums 8 x 32; 4 (4U + 4) H + 8BU + 1024 bytes for f32
+// (ops/kernels/lstm.py::fwd_launch_plan; the large-B body's below).  Rows are
 // independent, so a batch whose carries do not fit beside W_hid runs as
 // several launches over near-equal row chunks, each a pointer offset into
 // the batch-major tensors (the plan's `chunks`; the wrapper launches them in
@@ -171,11 +174,50 @@
 //   guards mask work and no thread leaves early.
 // [converge] the warp shuffles of the product's reduction follow k loops
 //   whose trip counts are the same for every lane of the warp.
-// Large B: every block reads all B rows of h_{t-1} each step and does their
-// products, so the time grows with B, and each round past the first adds a
-// __syncthreads and an L2 round trip that the previous round does not hide;
-// a tensor-core product for large B is later work in f32 (bf16 runs on the
-// tensor cores at every B, above).
+//
+// Large B, float32 W_hid (tiled_chain, the kernel's explicit specializations
+// at U = kTiledUnits = 16).  In the small-B body every block reads all B
+// rows of h_{t-1} each step, in rounds of 8 R rows (16 at U = 4), each an
+// unhidden L2 round trip, a shuffle transpose and a __syncthreads: 16 rounds,
+// 55 us a step at B = 256, H = 500.  The large-B body does the same f32 FMAs
+// on the CUDA cores (no TF32: the configurations state f32) in a layout that
+// reads less and overlaps its loads:
+// - Blocks split by rows as well as units: ceil(H / 16) unit groups on x by
+//   row groups of 64 rows on y (gridDim.y; a launch takes as many as fit
+//   beside the unit groups on the card's SMs, a larger batch runs in row
+//   chunks: ops/kernels/lstm.py::fwd_tiled_plan).  A block owns all four
+//   gates of its 16 units, so the gate math and the carries stay local, and
+//   reads only its row group's rows of h_{t-1}: 16 MB of L2 a step at B =
+//   256, H = 500, against 64 MB.  Still one grid.sync() a step.
+// - h_{t-1} staged through shared memory: the row group's rows in chunks of
+//   kTiledK = 64 values of k, two buffers, chunk c + 1's loads issued before
+//   chunk c is multiplied.  [stale] h is written in this launch, so the
+//   loads are __ldcg into registers (L2 only), then stored to shared memory:
+//   cp.async.cg copies only 16 bytes and the rows of h are 8-byte aligned at
+//   H = 250 or 130, cp.async.ca goes through L1, and TMA needs 16-byte row
+//   strides; the register route needs no proxy fence either, as its shared
+//   stores are generic.  Each unit group starts at its own chunk (blockIdx.x
+//   modulo the chunks) and takes the others in turn, so that the blocks of a
+//   row group do not all read the same lines at once.
+// - A register-tiled product: thread (kq, tr, tc) holds an 8 x 8 tile of
+//   sums, rows tr + 8 i by the four gates of units tc and tc + 8 (W's columns
+//   unit-major, 4 u + gate), over slice kq of every chunk (4 slices of 16 k).
+//   Per k it reads 8 values of h and 8 of W from shared memory as float4 (a
+//   quarter warp reads one h address and 128 contiguous bytes of W: no bank
+//   conflict), 4 FMAs a value read, which is what shared memory's 32 values
+//   a clock needs to keep up with 128 FMAs a clock.  The slices' partial sums
+//   meet in shared memory and are added in slice order; within a slice k
+//   runs in the block's fixed chunk order, so two calls give the same bits.
+// - The gate stage: thread tid owns rows tid / 16 + 16 i (i < 4) of unit
+//   tid % 16, its carries in registers for the whole call.
+// Bound of a step: a block's 64 x 64 sums over K = H padded to 64 are 2.1 M
+// FMAs at H = 500, 16.4 k clocks of an SM's 128 FMAs a clock, and as many
+// clocks of shared-memory reads; at B = 256 every block does them (128 of
+// the card's 132 SMs), so a call is bound by the FMAs whatever B up to the
+// launch's rows.  Shared memory (dynamic): W ceil(H / 64) * 64 rows of 64
+// floats (zero past H), two chunks of 64 rows x 68 floats, the slices'
+// partial sums 4 x 64 x 64 floats: 231,424 B at H = 500, 165,888 at H = 250
+// (ops/kernels/lstm.py::fwd_tiled_smem_bytes); H up to 512.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -374,6 +416,292 @@ __device__ __forceinline__ void transpose_level(float (&v)[kPairs], int lane) {
     const float send = upper ? v[k] : v[k + O];
     const float keep = upper ? v[k + O] : v[k];
     v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// The large-B body (header): float32 W_hid, kTiledUnits units by kTiledRows
+// rows a block.  For the product, thread (kq, tr, tc) sums rows tr + 8 i (i
+// < kTiledTileRows) by the gate columns of units tc and tc + 8 over slice kq
+// of every staged chunk of kTiledK values of k (kTiledSplit slices); for the
+// gate stage, thread tid owns rows tid / 16 + 16 i (i < kTiledGateRows) of
+// unit tid % 16.
+constexpr int kTiledUnits = 16;
+constexpr int kTiledRows = 64;
+constexpr int kTiledCols = 4 * kTiledUnits;
+constexpr int kTiledSplit = 4;
+constexpr int kTiledTileRows = 8;
+constexpr int kTiledK = 64;
+constexpr int kTiledKPad = kTiledK + 4;
+constexpr int kTiledGateRows = kTiledRows * kTiledUnits / kChainThreads;
+// values of a chunk each thread stages: rows r0 + kStageRowStep * l (l <
+// kTiledStage) at the thread's column tid % kTiledK
+constexpr int kTiledStage = kTiledRows * kTiledK / kChainThreads;
+constexpr int kStageRowStep = kChainThreads / kTiledK;
+static_assert(kTiledSplit * (kTiledRows / kTiledTileRows) * (kTiledCols / 8) == kChainThreads,
+              "one product thread per k slice and 8 x 8 tile");
+static_assert(kChainThreads % kTiledK == 0 && kTiledK % (4 * kTiledSplit) == 0,
+              "a chunk is staged in whole rows and cut into slices of whole groups of 4 k");
+// k rows of the block's W share: H padded to whole chunks (zero rows)
+__host__ __device__ constexpr int tiled_k_rows(int H) {
+  return (H + kTiledK - 1) / kTiledK * kTiledK;
+}
+// W share, two staged chunks of h_{t-1}, the k slices' partial sums
+__host__ __device__ constexpr size_t tiled_smem_bytes(int H) {
+  return (static_cast<size_t>(tiled_k_rows(H)) * kTiledCols +
+          static_cast<size_t>(2) * kTiledRows * kTiledKPad +
+          static_cast<size_t>(kTiledSplit) * kTiledRows * kTiledCols) *
+         sizeof(float);
+}
+
+__device__ __forceinline__ void fma4(float* acc, float h, const float4& w) {
+  acc[0] = fmaf(h, w.x, acc[0]);
+  acc[1] = fmaf(h, w.y, acc[1]);
+  acc[2] = fmaf(h, w.z, acc[2]);
+  acc[3] = fmaf(h, w.w, acc[3]);
+}
+
+// The thread's values of the chunk that starts at column k into registers:
+// hr points at the thread's column of its first row, rows row_step apart,
+// rows_live of them below B, and a column at or past h_live is past H; zero
+// there.  [stale] h is written in this launch: L2 only.
+__device__ __forceinline__ void tiled_stage_load(const float* hr, size_t row_step, int rows_live,
+                                                 int k, int h_live, float (&v)[kTiledStage]) {
+  const bool k_live = k < h_live;
+#pragma unroll
+  for (int l = 0; l < kTiledStage; ++l) {
+    v[l] = l < rows_live && k_live ? __ldcg(hr + l * row_step + k) : 0.f;
+  }
+}
+
+// The thread's staged values into a chunk buffer (kTiledRows, kTiledKPad):
+// neighbouring threads on neighbouring columns.
+__device__ __forceinline__ void tiled_stage_store(float* buf, const float (&v)[kTiledStage]) {
+  const int tid = threadIdx.x;
+  float* p = buf + tid / kTiledK * kTiledKPad + tid % kTiledK;
+#pragma unroll
+  for (int l = 0; l < kTiledStage; ++l) p[l * kStageRowStep * kTiledKPad] = v[l];
+}
+
+// The whole recurrence in the large-B body; arguments as the kernel's
+// (cell_last may be null; without Peephole the w_c* are unused; without
+// EmitResiduals cells and gates are).  Block (blockIdx.x, blockIdx.y) owns
+// units j0 = kTiledUnits blockIdx.x .. + kTiledUnits - 1 and rows rb0 =
+// kTiledRows blockIdx.y .. + kTiledRows - 1.
+template <bool EmitResiduals, bool Peephole>
+__device__ __forceinline__ void tiled_chain(
+    const float* __restrict__ x_proj, const float* __restrict__ w_hid,
+    const float* __restrict__ mask, const float* __restrict__ cell0,
+    const float* __restrict__ hid0, float* out, float* __restrict__ cells,
+    float* __restrict__ gates, float* __restrict__ cell_last, const float* __restrict__ w_ci,
+    const float* __restrict__ w_cf, const float* __restrict__ w_co, int B, int T, int H) {
+  constexpr int U = kTiledUnits;
+  constexpr int C = kTiledCols;
+  constexpr int TR = kTiledTileRows;
+  constexpr int GR = kTiledGateRows;
+  constexpr int KS = kTiledK / kTiledSplit;  // k of a chunk in one slice
+  extern __shared__ float4 smem4[];
+  const int KH = tiled_k_rows(H);
+  float* w_s = reinterpret_cast<float*>(smem4);  // (KH, C), row k: unit u's gates at 4 u
+  float* h_s = w_s + static_cast<size_t>(KH) * C;  // (2, kTiledRows, kTiledKPad)
+  float* red = h_s + 2 * kTiledRows * kTiledKPad;  // (kTiledSplit, kTiledRows, C)
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int j0 = blockIdx.x * U;
+  const int rb0 = blockIdx.y * kTiledRows;
+  const size_t H4 = static_cast<size_t>(4) * H;
+  // product thread: a quarter warp (8 lanes, one phase of a 16-byte
+  // shared-memory read) holds one tr and tc = 0 .. 7, so its h reads are
+  // one address (a broadcast) and its W reads 128 contiguous bytes
+  const int tc = lane % 8;
+  const int tr = lane / 8 + 4 * (warp % 2);
+  const int kq = warp / 2;
+  // gate-stage thread: unit gu, rows gr + 16 i
+  const int gu = tid % U;
+  const int gr = tid / U;
+  const int j = j0 + gu;
+
+  // w_s[k, 4 u + q] = W_hid[k, q H + j0 + u], once per call; neighbouring
+  // threads read neighbouring units of one gate.  [ragged] dead units and k
+  // past H are 0.
+  constexpr int kLoadW = 16;
+  const int n_w = KH * C;
+  for (int i0 = 0; i0 < n_w; i0 += kLoadW * kChainThreads) {
+    float v[kLoadW];
+#pragma unroll
+    for (int l = 0; l < kLoadW; ++l) {
+      const int i = i0 + l * kChainThreads + tid;
+      const int k = i / C;
+      const int u = i % U;
+      v[l] = i < n_w && k < H && j0 + u < H
+                 ? __ldg(w_hid + k * H4 + static_cast<size_t>(i / U % 4) * H + j0 + u)
+                 : 0.f;
+    }
+#pragma unroll
+    for (int l = 0; l < kLoadW; ++l) {
+      const int i = i0 + l * kChainThreads + tid;
+      if (i < n_w) w_s[i / C * C + i % U * 4 + i / U % 4] = v[l];
+    }
+  }
+  // the carries of the gate-stage thread's (row, unit) pairs, in registers
+  // for the whole call; [ragged] [uniform] dead pairs are masked, no thread
+  // returns
+  bool live[GR];
+  float c[GR], hp[GR];
+#pragma unroll
+  for (int i = 0; i < GR; ++i) {
+    const int b = rb0 + gr + kChainThreads / U * i;
+    live[i] = b < B && j < H;
+    const size_t e = static_cast<size_t>(b) * H + j;
+    c[i] = live[i] ? __ldg(cell0 + e) : 0.f;
+    hp[i] = live[i] ? __ldg(hid0 + e) : 0.f;
+  }
+  float p_i = 0.f, p_f = 0.f, p_o = 0.f;
+  if constexpr (Peephole) {
+    if (j < H) {
+      p_i = __ldg(w_ci + j);
+      p_f = __ldg(w_cf + j);
+      p_o = __ldg(w_co + j);
+    }
+  }
+  __syncthreads();
+
+  cg::grid_group grid = cg::this_grid();
+  const int n_chunks = (H + kTiledK - 1) / kTiledK;
+  for (int t = 0; t < T; ++t) {
+    const float* h = t == 0 ? hid0 : out + static_cast<size_t>(t - 1) * H;
+    const size_t h_stride = t == 0 ? static_cast<size_t>(H) : static_cast<size_t>(T) * H;
+    // the step's read-only inputs first, so that they overlap the product
+    float xin[GR][4];
+    float m[GR];
+#pragma unroll
+    for (int i = 0; i < GR; ++i) {
+      const size_t bt = static_cast<size_t>(rb0 + gr + kChainThreads / U * i) * T + t;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        xin[i][q] = live[i] ? __ldg(x_proj + bt * H4 + static_cast<size_t>(q) * H + j) : 0.f;
+      }
+      m[i] = live[i] ? __ldg(mask + bt) : 0.f;
+    }
+    // the thread's staged rows rb0 + tid / kTiledK + kStageRowStep * l, at
+    // column tid % kTiledK of each chunk
+    const int r0 = rb0 + tid / kTiledK;
+    const float* hr = h + r0 * h_stride + tid % kTiledK;
+    const size_t row_step = kStageRowStep * h_stride;
+    const int rows_live = (B - r0 + kStageRowStep - 1) / kStageRowStep;
+    const int h_live = H - tid % kTiledK;
+    // each unit group starts at its own chunk and takes the others in turn,
+    // so that the blocks of a row group do not all read the same lines of h
+    // at once; the order is fixed by the block, so two calls sum alike
+    const int c0 = blockIdx.x % n_chunks;
+    float sv[kTiledStage];
+    tiled_stage_load(hr, row_step, rows_live, c0 * kTiledK, h_live, sv);
+    tiled_stage_store(h_s, sv);
+    __syncthreads();
+    // acc[i][0..3]: row tr + 8 i, unit tc; acc[i][4..7]: unit tc + 8
+    float acc[TR][8];
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
+    }
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      // chunk cc is multiplied while the next one, cn, is in flight
+      const int cc = (c0 + ch) % n_chunks;
+      const int cn = (c0 + ch + 1) % n_chunks;
+      const bool more = ch + 1 < n_chunks;
+      if (more) tiled_stage_load(hr, row_step, rows_live, cn * kTiledK, h_live, sv);
+      // the slice's groups of 4 k, each group's h fragments read while the
+      // previous group is multiplied; past H both operands are zero
+      const float* hrow = h_s + (ch % 2) * kTiledRows * kTiledKPad + tr * kTiledKPad + kq * KS;
+      const float* wrow = w_s + static_cast<size_t>(cc * kTiledK + kq * KS) * C + 4 * tc;
+      float4 hv[2][TR];
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        hv[0][i] = *reinterpret_cast<const float4*>(hrow + 8 * i * kTiledKPad);
+      }
+#pragma unroll
+      for (int g = 0; g < KS / 4; ++g) {
+        if (g + 1 < KS / 4) {
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            hv[(g + 1) % 2][i] =
+                *reinterpret_cast<const float4*>(hrow + 8 * i * kTiledKPad + 4 * (g + 1));
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          const float* wr = wrow + (4 * g + d) * C;
+          const float4 wa = *reinterpret_cast<const float4*>(wr);
+          const float4 wb = *reinterpret_cast<const float4*>(wr + C / 2);
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            const float4& hq = hv[g % 2][i];
+            const float hk = d == 0 ? hq.x : d == 1 ? hq.y : d == 2 ? hq.z : hq.w;
+            fma4(acc[i], hk, wa);
+            fma4(acc[i] + 4, hk, wb);
+          }
+        }
+      }
+      // the other buffer was last read before the previous __syncthreads
+      if (more) tiled_stage_store(h_s + ((ch + 1) % 2) * kTiledRows * kTiledKPad, sv);
+      __syncthreads();
+    }
+    // the slices' partial sums, red[kq, row, col]
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      float* rp = red + (static_cast<size_t>(kq) * kTiledRows + tr + 8 * i) * C + 4 * tc;
+      *reinterpret_cast<float4*>(rp) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(rp + C / 2) =
+          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < GR; ++i) {
+      if (live[i]) {
+        const int r = gr + kChainThreads / U * i;
+        // the slices in order, whatever the schedule
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int p = 0; p < kTiledSplit; ++p) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              red + (static_cast<size_t>(p) * kTiledRows + r) * C + 4 * gu);
+          s[0] += v.x;
+          s[1] += v.y;
+          s[2] += v.z;
+          s[3] += v.w;
+        }
+        float gate[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gate[q] = xin[i][q] + s[q];
+        float c_out, h_out;
+        cell_update<Peephole>(gate, c[i], hp[i], m[i], p_i, p_f, p_o, c_out, h_out);
+        c[i] = c_out;
+        hp[i] = h_out;
+        const size_t e = (static_cast<size_t>(rb0 + r) * T + t) * H + j;
+        out[e] = h_out;  // [carry] every row, padded or not
+        if constexpr (EmitResiduals) {
+          // gate[] holds the pre-activations before any peephole term
+          cells[e] = c_out;
+          float* gp = gates + (static_cast<size_t>(rb0 + r) * T + t) * H4 + j;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gp[static_cast<size_t>(q) * H] = gate[q];
+        }
+      }
+    }
+    // [order] [uniform] every block's out[:, t] before any block's next
+    // product; it also orders this step's reads of red before the next
+    // step's writes
+    grid.sync();
+  }
+  if (cell_last != nullptr) {
+#pragma unroll
+    for (int i = 0; i < GR; ++i) {
+      if (live[i]) {
+        cell_last[static_cast<size_t>(rb0 + gr + kChainThreads / U * i) * H + j] = c[i];
+      }
+    }
   }
 }
 
@@ -659,11 +987,36 @@ lstm_fwd_chain_kernel(const float* __restrict__ x_proj, const WT* __restrict__ w
   }
 }
 
+// The large-B body's four instantiations: explicit specializations of the
+// kernel at kTiledUnits units and a float32 W, so that a trace names them
+// as it names every other (lstm_fwd_chain_kernel<EmitResiduals, Peephole,
+// 16, float>), while the body above, the small-B one, is never instantiated
+// at that width.
+#define LSTM_FWD_TILED(E, P)                                                                    \
+  template <>                                                                                  \
+  __global__ void __launch_bounds__(kChainThreads) lstm_fwd_chain_kernel<E, P, kTiledUnits,    \
+                                                                         float>(              \
+      const float* __restrict__ x_proj, const float* __restrict__ w_hid,                       \
+      const float* __restrict__ mask, const float* __restrict__ cell0,                         \
+      const float* __restrict__ hid0, float* out, float* __restrict__ cells,                   \
+      float* __restrict__ gates, float* __restrict__ cell_last, const float* __restrict__ w_ci, \
+      const float* __restrict__ w_cf, const float* __restrict__ w_co, int B, int T, int H,     \
+      unsigned short*) {                                                                       \
+    tiled_chain<E, P>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates, cell_last, w_ci,    \
+                      w_cf, w_co, B, T, H);                                                    \
+  }
+LSTM_FWD_TILED(false, false)
+LSTM_FWD_TILED(true, false)
+LSTM_FWD_TILED(false, true)
+LSTM_FWD_TILED(true, true)
+#undef LSTM_FWD_TILED
+
 template <typename WT>
 size_t chain_smem_bytes(int B, int H, int U) {
   if constexpr (sizeof(WT) == 2) {
     return mma_w_bytes(H, U) + (static_cast<size_t>(2) * B * U + mma_red_floats(U)) * sizeof(float);
   }
+  if (U == kTiledUnits) return tiled_smem_bytes(H);
   return static_cast<size_t>(padded_columns(U)) * H * sizeof(float) +
          (static_cast<size_t>(2) * B * U + kWarps * kPairs) * sizeof(float);
 }
@@ -680,9 +1033,10 @@ cudaError_t launch_chain(const float* x_proj, const WT* w_hid, const float* mask
   if (err != cudaSuccess) return err;
   void* args[] = {&x_proj, &w_hid, &mask, &cell0, &hid0, &out, &cells,
                   &gates, &cell_last, &w_ci, &w_cf, &w_co, &B, &T, &H, &h16};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                     dim3((H + U - 1) / U), dim3(kChainThreads), args, smem,
-                                     stream);
+  // the large-B body's row groups on y
+  const dim3 grid((H + U - 1) / U, U == kTiledUnits ? (B + kTiledRows - 1) / kTiledRows : 1);
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid,
+                                     dim3(kChainThreads), args, smem, stream);
 }
 
 // Runs the whole recurrence of one instantiation on `stream`; see the entry
@@ -717,6 +1071,14 @@ int run_chain_w(const void* x_proj, const void* w_hid, const void* mask, const v
     case 2: err = go(launch_chain<EmitResiduals, Peephole, 2, WT>); break;
     case 4: err = go(launch_chain<EmitResiduals, Peephole, 4, WT>); break;
     case 8: err = go(launch_chain<EmitResiduals, Peephole, 8, WT>); break;
+    case kTiledUnits:
+      // the large-B body: float32 W only
+      if constexpr (sizeof(WT) == 4) {
+        err = go(launch_chain<EmitResiduals, Peephole, kTiledUnits, WT>);
+      } else {
+        err = cudaErrorInvalidValue;
+      }
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -739,17 +1101,19 @@ int run_chain(const void* x_proj, const void* w_hid, const void* mask, const voi
 }  // namespace
 
 // Runs all T steps on `stream` in one cooperative launch of ceil(H / units)
-// blocks, units in {1, 2, 4, 8}, with `smem` bytes of dynamic shared memory
-// (at least chain_smem_bytes<W>(B, H, units): f32 4 padded_columns(units) H
-// + 8 B units + 1024; bf16 128 units ceil(H / 16) + 8 B units + 2048
-// units).  w_hid is (H, 4H) bf16 when w_bf16 is not 0, else f32; every other
-// tensor is f32.  cell0 and hid0 (B, H) are the initial state; writes out
-// (B, T, H) and, when cell_last is not null, the final cell (B, H).  With a
-// bf16 w_hid, scratch is 2 B 16 ceil(H / 16) bf16 values of device memory,
-// 8-byte aligned, for the product's operand (the header's h16; its contents
-// need no setting); ignored (may be null) with an f32 w_hid.  Returns the
-// first CUDA error (0 on success; cudaErrorCooperativeLaunchTooLarge when
-// the grid cannot be co-resident).
+// blocks, units in {1, 2, 4, 8}, or with an f32 w_hid 16 (the large-B body,
+// ceil(H / 16) x ceil(B / 64) blocks), with `smem` bytes of dynamic shared
+// memory (at least chain_smem_bytes<W>(B, H, units): f32 4
+// padded_columns(units) H + 8 B units + 1024, at 16 units tiled_smem_bytes(H);
+// bf16 128 units ceil(H / 16) + 8 B units + 2048 units).  w_hid is (H, 4H)
+// bf16 when w_bf16 is not 0, else f32; every other tensor is f32.  cell0 and
+// hid0 (B, H) are the initial state; writes out (B, T, H) and, when
+// cell_last is not null, the final cell (B, H).  With a bf16 w_hid, scratch
+// is 2 B 16 ceil(H / 16) bf16 values of device memory, 8-byte aligned, for
+// the product's operand (the header's h16; its contents need no setting);
+// ignored (may be null) with an f32 w_hid.  Returns the first CUDA error (0
+// on success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be
+// co-resident).
 extern "C" int lstm_fwd_forward(const void* x_proj, const void* w_hid, const void* mask,
                                 const void* cell0, const void* hid0, void* out, void* cell_last,
                                 void* scratch, int w_bf16, int B, int T, int H, int units,

@@ -25,10 +25,12 @@ an exchange of state across the card; the kernels partition the hidden units
 across blocks so the gate math stays local.  All six run as one persistent
 cooperative launch per call, with each block's share of W_hid in shared
 memory and a grid barrier between steps (:func:`fwd_launch_plan`,
-:func:`bwd_launch_plan`; see the sources' headers).  A batch whose carries do
-not fit one block's shared memory beside W_hid runs as near-equal row
-chunks, one launch each (:func:`map_chunks`).  The ``*_plain`` functions are
-their plain versions.  The four inference wrappers call operators
+:func:`bwd_launch_plan`; see the sources' headers).  The recurrences with a
+float32 W_hid have a second body for large batches, whose blocks split the
+rows as well as the hidden units (:func:`fwd_tiled_plan`); :func:`fwd_plan`
+picks the body from W_hid's dtype and B.  A batch that does not fit one
+launch runs as near-equal row chunks, one launch each (:func:`map_chunks`).
+The ``*_plain`` functions are their plain versions.  The four inference wrappers call operators
 ``ip_avsr::<name>`` (``torch.library``: the plain version on the
 CPU, the launch on CUDA, a fake for tracing), so ``torch.export`` records
 each as one opaque node; the training rows run only inside the autograd
@@ -47,7 +49,8 @@ once, by the block that computes it, into a scratch buffer of two steps
 that the wrapper allocates (:func:`_run_fwd`, :func:`_run_bwd`).  Every
 other tensor, and every output, stays float32.  A wrapper counts a launch
 of its float32 instantiation in ``.launches`` and of its bf16 one in
-``.launches_bf16``.
+``.launches_bf16``; the four recurrences also count the calls that took the
+large-B body in ``.launches_tiled``.
 """
 
 from __future__ import annotations
@@ -373,6 +376,103 @@ def fwd_launch_plan(B: int, H: int, sm_count: int, units=None, chunks=None,
                        carry_floats=2)
 
 
+class TiledPlan(NamedTuple):
+    """Launch plan of the recurrence's large-B body (csrc/lstm_fwd.cu,
+    ``tiled_chain``): ``units`` (:data:`TILED_UNITS`) hidden units per block
+    on ``grid`` unit groups, ``smem_bytes`` of dynamic shared memory per
+    block, the live units of the last unit group, and the batch cut into
+    ``chunks`` launches of at most ``rows`` rows each (:func:`chunk_spans`).
+    The launch adds ceil(rows / :data:`TILED_ROWS`) row groups on the
+    grid's y; the plan sizes the chunks so that they fit beside the unit
+    groups."""
+
+    units: int
+    grid: int
+    smem_bytes: int
+    last_units: int
+    rows: int
+    chunks: int
+
+
+# the large-B body: 16 hidden units by 64 rows a block; h_{t-1} staged
+# through shared memory in chunks of 64 values of k, each row padded to 68
+# floats, two chunks at a time; each chunk's k cut into 4 slices, whose
+# partial sums meet in shared memory
+TILED_UNITS = 16
+TILED_ROWS = 64
+TILED_K = 64
+TILED_K_PAD = TILED_K + 4
+TILED_SPLIT = 4
+# the smallest batch that takes the large-B body, by width: where it
+# overtook the small-B body on an H100 (chip_smoke.tiled_sweep).  From
+# H = TILED_WIDE_H, TILED_MIN_ROWS (row 1 at H = 500 about B = 100, row 6
+# at H = 250 B = 128); below, twice that (at H = 16-130 it tied or lost at
+# B = 128, by up to 37% at H = 130, and won from B = 256).  Both are above
+# every round of the small-B body (64 rows at 1 unit a block)
+TILED_MIN_ROWS = 128
+TILED_WIDE_H = 250
+
+
+def fwd_tiled_smem_bytes(H: int) -> int:
+    """Bytes of a large-B block's shared memory: its 16 units' W_hid columns
+    as H rows of 64 floats, padded with zero rows to whole chunks, two
+    staged chunks of h_{t-1}, and the k slices' partial sums of the block's
+    64 rows by 64 gate columns (csrc/lstm_fwd.cu::tiled_smem_bytes)."""
+    cols = 4 * TILED_UNITS
+    return 4 * (-(-H // TILED_K) * TILED_K * cols + 2 * TILED_ROWS * TILED_K_PAD
+                + TILED_SPLIT * TILED_ROWS * cols)
+
+
+def fwd_tiled_plan(B: int, H: int, sm_count: int, chunks=None) -> TiledPlan:
+    """Unit groups, row groups, shared memory and row chunks of the
+    recurrence's large-B body (float32 W_hid, all four instantiations) at
+    batch ``B`` and width ``H`` on a card with ``sm_count`` SMs.  Every
+    block must be resident at once, so a launch takes as many row groups of
+    :data:`TILED_ROWS` as fit beside the ceil(H / 16) unit groups, and B
+    runs in the fewest near-equal chunks of at most that many rows (or in
+    ``chunks``, for measurement, which must be at least that many and at
+    most B).  Raises ``ValueError`` when the unit groups alone exceed the
+    SMs or a block's W_hid share does not fit ``_build.SMEM_LIMIT`` (H above
+    512)."""
+    grid = -(-H // TILED_UNITS)
+    smem = fwd_tiled_smem_bytes(H)
+    if grid > sm_count or smem > _build.SMEM_LIMIT:
+        raise ValueError(f"large-B recurrence: H={H} needs {grid} blocks of {smem} bytes of "
+                         f"shared memory, above the {sm_count} SMs or the "
+                         f"{_build.SMEM_LIMIT} bytes a block may use")
+    cap = sm_count // grid * TILED_ROWS
+    need = max(1, -(-B // cap))
+    if chunks is None:
+        chunks = need
+    elif not need <= chunks <= max(B, 1):
+        raise ValueError(f"large-B recurrence: B={B}, H={H} runs in {need} to {max(B, 1)} "
+                         f"chunks of at most {cap} rows, not {chunks}")
+    return TiledPlan(TILED_UNITS, grid, smem, H - (grid - 1) * TILED_UNITS, -(-B // chunks),
+                     chunks)
+
+
+def fwd_plan(B: int, H: int, sm_count: int, w_dtype=torch.float32, units=None, chunks=None,
+             tiled=None):
+    """The plan :func:`_run_fwd` launches, the one place a recurrence's body
+    is chosen: :func:`fwd_tiled_plan` for a float32 W_hid at B at least
+    :data:`TILED_MIN_ROWS` (twice that below H = :data:`TILED_WIDE_H`) where
+    its unit groups fit the card (a bf16 W_hid keeps its tensor-core body at
+    every B), else :func:`fwd_launch_plan`
+    (``units`` and ``chunks`` as there; forcing ``units`` means the small-B
+    body).  ``tiled`` True or False forces the body, for measurement."""
+    if tiled is None:
+        min_rows = TILED_MIN_ROWS * (1 if H >= TILED_WIDE_H else 2)
+        tiled = (units is None and w_dtype == torch.float32 and B >= min_rows
+                 and -(-H // TILED_UNITS) <= sm_count
+                 and fwd_tiled_smem_bytes(H) <= _build.SMEM_LIMIT)
+    if tiled:
+        if w_dtype != torch.float32 or units not in (None, TILED_UNITS):
+            raise ValueError(f"large-B recurrence: float32 W_hid at {TILED_UNITS} units a "
+                             f"block only, not {w_dtype} at {units}")
+        return fwd_tiled_plan(B, H, sm_count, chunks)
+    return fwd_launch_plan(B, H, sm_count, units, chunks, w_dtype)
+
+
 def fwd_row_floats(units: int) -> int:
     """Floats per k row of a float32 recurrence block's W_hid columns in
     shared memory: 4 * units, padded by 4 above one unit so that
@@ -506,18 +606,20 @@ def _peep_shapes(peep, H):
     return {name: (v, (H,)) for name, v in zip(("w_ci", "w_cf", "w_co"), peep)}
 
 
-def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, state=False):
+def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, state=False,
+             tiled=None, counter=None):
     """Check the inputs and launch csrc/lstm_fwd.cu's inference entry point
     (returns hids, or with ``state`` the tuple (hids, cell_T), the final
     cell (B, H) that the kernel writes after its last step) or its training
     one (returns hids, cells, gates), with peepholes when ``peep`` holds
     (w_ci, w_cf, w_co): one cooperative launch per row chunk planned by
-    :func:`fwd_launch_plan`, each writing its rows of every output.  For
-    measurement,
-    ``units`` and ``chunks`` force the plan's units per block and row chunks,
-    and ``outs`` gives the output tensors to write (contiguous float32 of
-    the output shapes, for example NaN-filled, so a value the kernel does
-    not write shows)."""
+    :func:`fwd_plan` (the large-B body or the small-B one, chosen from W_hid's
+    dtype and B), each writing its rows of every output.  ``counter``, when
+    given, counts the call (:func:`_count`).  For measurement, ``units`` and
+    ``chunks`` force the plan's units per block and row chunks, ``tiled``
+    forces the body, and ``outs`` gives the output tensors to write
+    (contiguous float32 of the output shapes, for example NaN-filled, so a
+    value the kernel does not write shows)."""
     x_proj, w_hid, mask, cell0, hid0 = args
     if x_proj.dim() != 3 or w_hid.dim() != 2:
         raise ValueError(f"{name}: x_proj must be (B, T, 4H) and w_hid (H, 4H), got "
@@ -529,7 +631,7 @@ def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, sta
         "mask": (mask, (B, T)), "cell0": (cell0, (B, H)), "hid0": (hid0, (B, H)),
         **_peep_shapes(peep, H)}, w_hid)
     dev = x_proj.device
-    plan = fwd_launch_plan(B, H, _sm_count(dev.index), units, chunks, w_hid.dtype)
+    plan = fwd_plan(B, H, _sm_count(dev.index), w_hid.dtype, units, chunks, tiled)
     shapes = ([(B, T, H), (B, T, H), (B, T, 4 * H)] if train
               else [(B, T, H), (B, H)] if state else [(B, T, H)])
     if outs is None:
@@ -567,6 +669,8 @@ def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, sta
     # device, which need not be the tensors' card
     with torch.cuda.device(dev):
         map_chunks(launch, plan.chunks, x_proj, mask, cell0, hid0, *outs)
+    if counter is not None:
+        _count(counter, w_hid, isinstance(plan, TiledPlan))
     return tuple(outs) if train or state else outs[0]
 
 
@@ -574,14 +678,17 @@ def _on_cpu(args) -> bool:
     return all(a.device.type == "cpu" for a in args)
 
 
-def _count(counter, w_hid) -> None:
+def _count(counter, w_hid, tiled=False) -> None:
     """One launch of ``counter``'s row: its float32 instantiation counts in
     ``counter.launches``, its bf16 one (a bf16 W_hid) in
-    ``counter.launches_bf16``."""
+    ``counter.launches_bf16``; a recurrence call that took the large-B body
+    (``tiled``) also counts in ``counter.launches_tiled``."""
     if w_hid.dtype == torch.bfloat16:
         counter.launches_bf16 += 1
     else:
         counter.launches += 1
+    if tiled:
+        counter.launches_tiled += 1
 
 
 _OP_ARGS = "Tensor x_proj, Tensor w_hid, Tensor mask, Tensor cell0, Tensor hid0"
@@ -604,10 +711,8 @@ def _recurrence_op(name, plain, counter, peep, state):
                 f" -> {'(Tensor, Tensor)' if state else 'Tensor'}")
 
     def _cuda(x_proj, w_hid, mask, cell0, hid0, *peep_args):
-        out = _run_fwd(name, (x_proj, w_hid, mask, cell0, hid0), train=False, peep=peep_args,
-                       state=state)
-        _count(counter, w_hid)
-        return out
+        return _run_fwd(name, (x_proj, w_hid, mask, cell0, hid0), train=False, peep=peep_args,
+                        state=state, counter=counter)
 
     def _fake(x_proj, w_hid, *_):
         B, T, H = x_proj.shape[0], x_proj.shape[1], w_hid.shape[0]
@@ -632,6 +737,7 @@ def lstm_recurrence(x_proj, w_hid, mask, cell0, hid0):
 
 lstm_recurrence.launches = 0
 lstm_recurrence.launches_bf16 = 0
+lstm_recurrence.launches_tiled = 0
 
 
 def lstm_recurrence_state(x_proj, w_hid, mask, cell0, hid0):
@@ -658,13 +764,12 @@ def lstm_recurrence_train(x_proj, w_hid, mask, cell0, hid0):
     args = (x_proj, w_hid, mask, cell0, hid0)
     if _on_cpu(args):
         return lstm_recurrence_train_plain(*args)
-    out = _run_fwd("lstm_recurrence_train", args, train=True)
-    _count(lstm_recurrence_train, w_hid)
-    return out
+    return _run_fwd("lstm_recurrence_train", args, train=True, counter=lstm_recurrence_train)
 
 
 lstm_recurrence_train.launches = 0
 lstm_recurrence_train.launches_bf16 = 0
+lstm_recurrence_train.launches_tiled = 0
 
 
 def lstm_peep_recurrence(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
@@ -683,6 +788,7 @@ def lstm_peep_recurrence(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
 
 lstm_peep_recurrence.launches = 0
 lstm_peep_recurrence.launches_bf16 = 0
+lstm_peep_recurrence.launches_tiled = 0
 
 
 def lstm_peep_recurrence_state(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_co):
@@ -722,13 +828,13 @@ def lstm_peep_recurrence_train(x_proj, w_hid, mask, cell0, hid0, w_ci, w_cf, w_c
     peep = (w_ci, w_cf, w_co)
     if _on_cpu((*args, *peep)):
         return lstm_peep_recurrence_train_plain(*args, *peep)
-    out = _run_fwd("lstm_peep_recurrence_train", args, train=True, peep=peep)
-    _count(lstm_peep_recurrence_train, w_hid)
-    return out
+    return _run_fwd("lstm_peep_recurrence_train", args, train=True, peep=peep,
+                    counter=lstm_peep_recurrence_train)
 
 
 lstm_peep_recurrence_train.launches = 0
 lstm_peep_recurrence_train.launches_bf16 = 0
+lstm_peep_recurrence_train.launches_tiled = 0
 
 
 def _run_bwd(name, args, clip, peep=(), units=None, chunks=None):
