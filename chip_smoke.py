@@ -37,11 +37,15 @@ Phases, each fatal on failure:
    settings in turns; the four recurrences' large-B body (``tiled_check``,
    rows 1 and 3 at H = 500, B in {64, 257, 256}, rows 5 and 6 at H = 250,
    B in {250, 512}, T in {1, 29}, both directions, nonzero states, into
-   NaN-filled outputs, traced at the cells' batch beside the small-B body);
-   batches above one launch (rows 1 and 3 at B = 6000, rows 3 and 4 at
-   B = 2100, H = 500; rows 1 and 3 at B = 6000 again in the small-B body,
-   its carry split) and forced row chunks at B = 64 (all six), each chunked
-   call against its plain version;
+   NaN-filled outputs, traced at the cells' batch beside the small-B body)
+   and the backward chains' (``bwd_tiled_check``, row 4 at H = 500, B in
+   {64, 600, 256}, row 7 at H = 250, B in {250, 600, 512}, as the
+   recurrences' plus clip 5 with x1 and x100 upstream and clip 0, the
+   peephole gradients bit-equal call to call); batches above one launch
+   (rows 1 and 3 at B = 6000, rows 3 and 4 at B = 2100, H = 500; rows 1 and
+   3 at B = 6000 and row 4 at B = 2100 again in the small-B body, its carry
+   split) and forced row chunks at B = 64 (all six), each chunked call
+   against its plain version and into NaN-filled outputs;
 4. build the full-width trimodal adenet_v3 (1144/90/1144, H = 500, W = 9)
    from a seeded generator, serve raw uint8 requests (B = 1 and 8, T = 29,
    ragged masks) through ``serve.make_trimodal_server``, check the scores
@@ -78,9 +82,10 @@ Phases, each fatal on failure:
    and trace it (1 delta launch and 6 of each peephole chain kernel per
    step, none of the others); then ``tiled_main_path``: both models' forward
    and ``Trainer.train_step`` at the cells' batch (256, 512 for the
-   4-stream step) and at B = 8 or 10, each forward row's ``.launches`` and
-   ``.launches_tiled`` zeroed before each call: every launch in the large-B
-   body at the cells' batch, none at the small one;
+   4-stream step) and at B = 8 or 10, each f32 LSTM row's ``.launches`` and
+   ``.launches_tiled`` zeroed before each call: every launch of the
+   forward's row, and of the step's two rows, in the large-B body at the
+   cells' batch, none at the small one;
 9. rows 1 and 5 with their final-cell output (``phase_lstm_state``, run
    after the chunk checks of 3.): H = 500 at B = 1 and 8, H = 250 at B = 1
    and 10, 3 forced row chunks at B = 64, T in {1, 2, 29, 32}, nonzero
@@ -287,8 +292,8 @@ Phases, each fatal on failure:
    through phase_scale4's (``scale4_launches``, every rank; null where it
    did not run) and through phase_oracle (``oracle_launches``);
    then the six bf16 rows, their launches on the bf16 serve and train
-   paths, through the bf16 CLI run and the two artifacts; rows 1, 3, 5
-   and 6 their large-B body at the cells' batch (``large_b``: traced time,
+   paths, through the bf16 CLI run and the two artifacts; rows 1 and 3-7
+   their large-B body at the cells' batch (``large_b``: traced time,
    bound, the small-B body's time, and ``main_path_launches``, the main
    path's [launches, launches_tiled] by batch from ``tiled_main_path``);
    every LSTM row with its instantiation's registers per thread and HMMA
@@ -304,12 +309,16 @@ prints their numbers as JSON (about three minutes);
 
     python3 chip_smoke.py --tiled
 
-runs only phases 1 and 2 and the large-B body of the four recurrences
-(``tiled_check``, ``tiled_main_path``), then the crossover sweep that sets
-``ops/kernels/lstm.TILED_MIN_ROWS`` and ``TILED_WIDE_H`` (``tiled_sweep``:
-the small-B body against the large-B one, rows 1 and 6 at the cells'
-widths at B = 16-256, row 1 at H in {130, 64, 24, 16} at B in {128, 256,
-512}), and prints their numbers as JSON;
+runs only phases 1 and 2 and the large-B bodies of the four recurrences
+and the two backward chains (``tiled_check``, ``bwd_tiled_check``,
+``tiled_main_path``), then the crossover sweeps that set
+``ops/kernels/lstm.TILED_MIN_ROWS`` and ``TILED_WIDE_H``, and
+``BWD_TILED_MIN_ROWS``, ``BWD_TILED_MIN_H`` and ``BWD_TILED_MAX_H``
+(``tiled_sweep``: the small-B body against the large-B one; rows 1 and 6
+at the cells' widths at B = 16-256, row 1 at H in {130, 64, 24, 16} at B
+in {128, 256, 512}; rows 4 and 7 at the cells' widths at B = 16-256 (and
+512 for row 7), row 4 at H in {130, 64} at B in {64, 128, 256, 512}), and
+prints their numbers as JSON (about two minutes of command time);
 
     python3 chip_smoke.py --mesh4
 
@@ -326,7 +335,8 @@ SASS in both, instruction for instruction;
     python3 chip_smoke.py --ab DIR
 
 is a measurement only: it times and traces row 2 per forward of both models
-(the model's delta stage, its yardstick and the DeltaLayer's backward), and
+(the model's delta stage, its yardstick and the DeltaLayer's backward) and
+rows 4 and 7 at B = 8 and 10 (event clock and traced), and
 times on the host clock and traces the serve and train paths of both
 models, with the package in DIR (another checkout, for example an earlier
 commit unpacked by ``git archive``), and prints one JSON line.  Two trees
@@ -694,9 +704,9 @@ def phase_sass():
     print(json.dumps({"sass": report}))
     bf16 = {k: v for k, v in report.items() if "bfloat16" in k}
     f32 = {k: v for k, v in report.items() if k.endswith("float>")}
-    # float32: 24 small-B instantiations and the large-B body's four
-    if len(bf16) != 24 or len(f32) != 28:
-        raise AssertionError(f"expected 24 bf16 and 28 float32 chain instantiations in the "
+    # float32: 24 small-B instantiations and the large-B bodies' six
+    if len(bf16) != 24 or len(f32) != 30:
+        raise AssertionError(f"expected 24 bf16 and 30 float32 chain instantiations in the "
                              f"SASS, found {sorted(report)}")
     if not all(v["hmma"] > 0 for v in bf16.values()) or any(v["hmma"] for v in f32.values()):
         raise AssertionError(f"the bf16 instantiations must run their product on the tensor "
@@ -710,11 +720,11 @@ def phase_sass():
 
 def sass_against(other):
     """Build csrc/lstm_fwd.cu and csrc/lstm_bwd.cu of this checkout and of
-    the checkout ``other`` with the same flags and hold the float32
-    instantiations of the chain kernels to the same SASS, instruction for
-    instruction (``--sass DIR``; a kernel is named by its template
-    arguments alone, so one whose parameter list grew keeps its name).
-    Returns {instantiation: identical}."""
+    the checkout ``other`` with the same flags and hold every chain kernel
+    instantiation that ``other`` has, float32 and bf16, to the same SASS,
+    instruction for instruction (``--sass DIR``; a kernel is named by its
+    template arguments alone, so one whose parameter list grew keeps its
+    name).  Returns {instantiation: identical}."""
     import tempfile
 
     from ip_avsr_torch.ops.kernels import _build
@@ -738,12 +748,11 @@ def sass_against(other):
             this = chain_kernels(procs[("this", name)][0])
             them = chain_kernels(procs[("other", name)][0])
             for fn, (code, _) in them.items():
-                if fn.endswith("float>"):
-                    same[fn] = this.get(fn, (None,))[0] == code
+                same[fn] = this.get(fn, (None,))[0] == code
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    print(f"float32 chain kernels with SASS identical to {other}'s: {sum(same.values())} of "
-          f"{len(same)}")
+    print(f"chain kernels with SASS identical to {other}'s: {sum(same.values())} of "
+          f"{len(same)}; differing: {sorted(fn for fn, ok in same.items() if not ok)}")
     return same
 
 
@@ -995,12 +1004,129 @@ def fwd_sweep(dev):
 # row -> (H, batches) of its checks, the cells' batch last
 TILED_CASES = {"lstm_fwd": (500, (64, 257, 256)), "lstm_fwd_train": (500, (64, 257, 256)),
                "lstm_peep_fwd": (250, (250, 512)), "lstm_peep_fwd_train": (250, (250, 512))}
-# the crossover sweep, small-B body against large-B body: (row, H, batches);
+# the large-B body of rows 4 and 7 (ops/kernels/lstm.bwd_tiled_plan): row ->
+# (H, batches) of its checks, the cells' batch last; B = 600 runs in row
+# chunks (3 of 200 rows at H = 500, 2 of 300 at H = 250)
+BWD_TILED_CASES = {"lstm_bwd": (500, (64, 600, 256)), "lstm_peep_bwd": (250, (250, 600, 512))}
+# the crossover sweeps, small-B body against large-B body: (row, H, batches);
 # rows 1 and 6 at the cells' widths, row 1 at the small widths of the
-# synthetic configurations and the tests
+# synthetic configurations and the tests (ops/kernels/lstm.TILED_MIN_ROWS);
+# rows 4 and 7 at the cells' widths and row 4 at two small ones
+# (BWD_TILED_MIN_ROWS, BWD_TILED_MIN_H)
 TILED_SWEEP = (("lstm_fwd", 500, (16, 32, 64, 96, 128, 256)),
                ("lstm_peep_fwd_train", 250, (16, 32, 64, 96, 128, 256)),
                *(("lstm_fwd", H, (128, 256, 512)) for H in (130, 64, 24, 16)))
+BWD_TILED_SWEEP = (("lstm_bwd", 500, (16, 32, 64, 96, 128, 192, 256)),
+                   ("lstm_peep_bwd", 250, (16, 32, 64, 96, 128, 192, 256, 512)),
+                   *(("lstm_bwd", H, (64, 128, 256, 512)) for H in (130, 64)))
+
+
+def bwd_chain_inputs(B, T, H, peep, gen, dev, mask=None):
+    """Inputs of a backward chain at (B, T, H) from the plain training
+    recurrence on the card: ``(g_out, gates_pre, cells, cells_prev, mask,
+    w_hid)`` and the peephole vectors (empty without ``peep``), nonzero
+    initial states, a ragged ``mask`` unless one is given."""
+    import torch
+
+    from ip_avsr_torch.ops.kernels import lstm as kl
+
+    fwd = kl.lstm_peep_recurrence_train_plain if peep else kl.lstm_recurrence_train_plain
+    w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev)
+    vecs = tuple((torch.randn(H, generator=gen) * 0.5).to(dev) for _ in range(3 * peep))
+    c0 = torch.randn(B, H, generator=gen).to(dev)
+    h0 = (torch.randn(B, H, generator=gen) * 0.5).to(dev)
+    x_proj = torch.randn(B, T, 4 * H, generator=gen).to(dev)
+    mask = ragged_mask(B, T, gen, dev) if mask is None else mask
+    _, cells, gates = fwd(x_proj, w_hid, mask, c0, h0, *vecs)
+    cells_prev = torch.cat([c0[:, None], cells[:, :-1]], dim=1)
+    g = torch.randn(B, T, H, generator=gen).to(dev)
+    return (g, gates, cells, cells_prev, mask, w_hid), vecs
+
+
+def bwd_tiled_check(dev, name):
+    """Row ``name`` (a key of :data:`BWD_TILED_CASES`) in the large-B body
+    against its plain version at its shapes: nonzero initial states, ragged
+    masks with a fully padded row and a length-1 row, T in {1, 29}, both
+    directions, clip 5 with x1 and x100 upstream and clip 0, nonzero
+    peephole vectors.  Each call runs through the wrapper where the
+    dispatch takes the large-B body (which must count it in
+    ``.launches_tiled``), forced through ``_run_bwd`` below the threshold,
+    and again into NaN-filled outputs, which must come out bit-equal, the
+    peephole gradients included (a value the kernel did not write, or read
+    stale, shows; two calls, the same bits).  At the cells' batch, the
+    traced time a call and per step beside the small-B body's on the event
+    clock.  Returns the largest absolute error and {"traced_ms",
+    "us_per_step", "ms", "small_ms", "bound_ms", "B", "H"}."""
+    import torch
+
+    from ip_avsr_torch.ops.kernels import lstm as kl
+
+    H, batches = BWD_TILED_CASES[name]
+    peep = "peep" in name
+    label = LSTM_WRAPPERS[name]
+    wrapper = getattr(kl, label)
+    plain = getattr(kl, label + "_plain")
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator().manual_seed(SEED + 17 + len(name))
+    err = 0.0
+    for B in batches:
+        auto = isinstance(kl.bwd_plan(B, H, sm_count), kl.TiledPlan)
+        print(f"{name} B={B} H={H}: large-B plan {kl.bwd_tiled_plan(B, H, sm_count)}; the "
+              f"dispatch takes it: {auto}")
+        for T in (1, T_FRAMES):
+            mask = ragged_mask(B, T, gen, "cpu")
+            mask[-1] = 0.0  # a fully padded row
+            mask[1] = 0.0   # a length-1 row
+            mask[1, 0] = 1.0
+            for backwards in (False, True):
+                ms_ = (mask.flip(1) if backwards else mask).contiguous().to(dev)
+                bargs, vecs = bwd_chain_inputs(B, T, H, peep, gen, dev, ms_)
+                for scale, clip in ((1.0, 5.0), (100.0, 5.0), (1.0, 0.0)):
+                    args = ((bargs[0] * scale).contiguous(), *bargs[1:])
+                    before = (wrapper.launches, wrapper.launches_tiled)
+                    if auto:
+                        got = wrapper(*args, *vecs, clip)
+                        if (wrapper.launches - before[0],
+                                wrapper.launches_tiled - before[1]) != (1, 1):
+                            raise AssertionError(f"{name} B={B}: the call was not counted once "
+                                                 f"in .launches and .launches_tiled")
+                    else:
+                        got = kl._run_bwd(label, args, clip, vecs, tiled=True)
+                    ref = plain(*args, *vecs, clip)
+                    nan = [torch.full_like(g, float("nan")) for g in got[:3]]
+                    again = kl._run_bwd(label, args, clip, vecs, outs=nan, tiled=True)
+                    same = all(torch.equal(a, b) for a, b in zip(again, got))
+                    errs = [max_err(a, r) for a, r in zip(got, ref)]
+                    rel = max(r for _, r in errs)
+                    clipped = (ref[0].abs() == clip).float().mean().item() if clip else 0.0
+                    print(f"{name} large-B B={B} H={H} T={T} backwards={backwards} "
+                          f"g x{scale:g} clip={clip:g}: max_abs_err="
+                          f"{max(a for a, _ in errs):.3e}, relative {rel:.3e}, clipped share "
+                          f"{clipped:.4f}; again into NaN-filled outputs: bit-equal {same}")
+                    if not (same and len(got) == len(ref) == 3 + 3 * peep
+                            and rel <= LSTM_BWD_TOL):
+                        raise AssertionError(
+                            f"{name} large-B body disagrees with its plain version: {rel}")
+                    if clip and scale > 1 and T > 1 and not clipped > 0.01:
+                        raise AssertionError(f"the clip did not bite: share {clipped}")
+                    if scale == 1.0 and clip:
+                        err = max(err, max(a for a, _ in errs))
+    # the cells' batch: traced, and against the small-B body in turns
+    B = batches[-1]
+    bargs, vecs = bwd_chain_inputs(B, T_FRAMES, H, peep, gen, dev)
+    traced_ms = trace_chain(lambda: wrapper(*bargs, *vecs, 5.0), f"{name} large-B B={B} H={H}",
+                            name, T_FRAMES + 1)
+    times = compare_units(lambda tiled: (lambda: kl._run_bwd(label, bargs, 5.0, vecs,
+                                                             tiled=tiled)),
+                          (False, True), f"{name} B={B} H={H} (units: large-B body True/False)")
+    b_ms, _ = bound(*lstm_bwd_cost(B, T_FRAMES, H, peep=peep)[:2])
+    numbers = dict(B=B, H=H, traced_ms=traced_ms, us_per_step=traced_ms * 1e3 / T_FRAMES,
+                   ms=statistics.mean(times[True]), small_ms=statistics.mean(times[False]),
+                   bound_ms=b_ms)
+    print(f"{name} large-B B={B} H={H}: traced {traced_ms:.4f} ms a call, "
+          f"{numbers['us_per_step']:.3f} us a step; bound {b_ms:.5f} ms "
+          f"({b_ms / traced_ms:.1%} of it); small-B body {numbers['small_ms']:.4f} ms")
+    return err, numbers
 
 
 def tiled_check(dev, name):
@@ -1093,31 +1219,41 @@ def tiled_check(dev, name):
     return err, numbers
 
 
-def tiled_sweep(dev):
-    """The crossover that sets ``ops/kernels/lstm.TILED_MIN_ROWS`` and
-    ``TILED_WIDE_H``: each (row, H, batches) of :data:`TILED_SWEEP`, the
-    small-B body against the large-B one in turns (a, b, b, a) on the event
-    clock.  Returns {"<row> H=<H>": {B: (small ms, large ms)}}."""
+def tiled_sweep(dev, cases):
+    """The crossovers that set ``ops/kernels/lstm.TILED_MIN_ROWS`` and
+    ``TILED_WIDE_H`` (:data:`TILED_SWEEP`), and ``BWD_TILED_MIN_ROWS`` and
+    ``BWD_TILED_MIN_H`` (:data:`BWD_TILED_SWEEP`): each (row, H, batches) of
+    ``cases``, the small-B body against the large-B one in turns (a, b, b,
+    a) on the event clock.  Returns {"<row> H=<H>": {B: (small ms, large
+    ms)}}."""
     import torch
 
     from ip_avsr_torch.ops.kernels import lstm as kl
 
     gen = torch.Generator().manual_seed(SEED + 14)
     out = {}
-    for name, H, batches in TILED_SWEEP:
+    for name, H, batches in cases:
         train, peep = name.endswith("train"), "peep" in name
         w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev)
         vecs = tuple((torch.randn(H, generator=gen) * 0.5).to(dev) for _ in range(3 * peep))
         key = f"{name} H={H}"
         out[key] = {}
         for B in batches:
-            x_proj = torch.randn(B, T_FRAMES, 4 * H, generator=gen).to(dev)
-            mask = ragged_mask(B, T_FRAMES, gen, dev)
-            c0 = torch.zeros(B, H, device=dev)
-            args = (x_proj, w_hid, mask, c0, c0)
-            times = compare_units(
-                lambda tiled: (lambda: kl._run_fwd(name, args, train, peep=vecs, tiled=tiled)),
-                (False, True), f"sweep {name} B={B} H={H} (units: large-B body True/False)")
+            if name.endswith("bwd"):
+                bargs, bvecs = bwd_chain_inputs(B, T_FRAMES, H, peep, gen, dev)
+
+                def make(tiled):
+                    return lambda: kl._run_bwd(name, bargs, 5.0, bvecs, tiled=tiled)
+            else:
+                x_proj = torch.randn(B, T_FRAMES, 4 * H, generator=gen).to(dev)
+                mask = ragged_mask(B, T_FRAMES, gen, dev)
+                c0 = torch.zeros(B, H, device=dev)
+                args = (x_proj, w_hid, mask, c0, c0)
+
+                def make(tiled):
+                    return lambda: kl._run_fwd(name, args, train, peep=vecs, tiled=tiled)
+            times = compare_units(make, (False, True),
+                                  f"sweep {name} B={B} H={H} (units: large-B body True/False)")
             out[key][B] = (statistics.mean(times[False]), statistics.mean(times[True]))
     print(json.dumps({"tiled_sweep": out}))
     return out
@@ -1125,15 +1261,15 @@ def tiled_sweep(dev):
 
 def tiled_main_path(dev):
     """``.launches_tiled`` on the main path: the flagship's scoring forward
-    (``make_trimodal_server``, row 1) and a ``Trainer.train_step`` (row 3),
-    the 4-stream model's forward (``make_server``, row 5) and train step
-    (row 6), each at the cells' batch (256, and 512 for the 4-stream step)
-    and at the reference batch (8 scoring, 10 training), with every forward
-    row's ``.launches`` and ``.launches_tiled`` set to 0 before each call.
-    At the cells' batch every launch of the path's row must take the large-B
-    body (the two counts equal and nonzero), at the reference batch none,
-    and no other forward row may launch.  Returns {row: {B: [launches,
-    launches_tiled]}}."""
+    (``make_trimodal_server``, row 1) and a ``Trainer.train_step`` (rows 3
+    and 4), the 4-stream model's forward (``make_server``, row 5) and train
+    step (rows 6 and 7), each at the cells' batch (256, and 512 for the
+    4-stream step) and at the reference batch (8 scoring, 10 training),
+    with every f32 LSTM row's ``.launches`` and ``.launches_tiled`` set to 0
+    before each call.  At the cells' batch every launch of the path's rows
+    must take the large-B body (the two counts equal and nonzero), at the
+    reference batch none, and no other LSTM row may launch.  Returns {row:
+    {B: [launches, launches_tiled]}}."""
     import numpy as np
     import torch
 
@@ -1142,9 +1278,9 @@ def tiled_main_path(dev):
     from ip_avsr_torch.serve import make_server, make_trimodal_server
     from ip_avsr_torch.train.trainer import Trainer, TrainOptions
 
-    wrappers = {row: getattr(kl, LSTM_WRAPPERS[row]) for row in TILED_CASES}
+    wrappers = {row: getattr(kl, fn) for row, fn in LSTM_WRAPPERS.items()}
     cfg4, training4 = oulu_4stream()
-    out = {row: {} for row in TILED_CASES}
+    out = {row: {} for row in LSTM_WRAPPERS}
     for cfg, lr, peep, train_b in ((flagship(), 1e-4, False, 256),
                                    (cfg4, training4.learning_rate, True, 512)):
         params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 15), cfg,
@@ -1170,25 +1306,30 @@ def tiled_main_path(dev):
             streams, mask, y = stream_batch(cfg, B, SEED + 16, dev)
             return trainer.train_step(params, opt_state, streams, y, mask, gen, lr)
 
-        serve_row, train_row = (("lstm_peep_fwd", "lstm_peep_fwd_train") if peep
-                                else ("lstm_fwd", "lstm_fwd_train"))
-        for row, call, batches in ((serve_row, score, (256, 8)),
-                                   (train_row, step, (train_b, TRAIN_B))):
+        p = "peep_" if peep else ""
+        for rows, call, batches in (((f"lstm_{p}fwd",), score, (256, 8)),
+                                    ((f"lstm_{p}fwd_train", f"lstm_{p}bwd"), step,
+                                     (train_b, TRAIN_B))):
             for B in batches:
                 for fn in wrappers.values():
                     fn.launches = fn.launches_tiled = 0
                 call(B)
                 torch.cuda.synchronize()
                 counts = {r: [fn.launches, fn.launches_tiled] for r, fn in wrappers.items()}
-                out[row][B] = counts[row]
-                n, tiled = counts[row]
-                print(f"main path {row} B={B}: {LSTM_WRAPPERS[row]}.launches = {n}, "
-                      f".launches_tiled = {tiled}")
-                others = {r: c for r, c in counts.items() if r != row and c != [0, 0]}
-                if not (n and tiled == (n if B >= kl.TILED_MIN_ROWS else 0)) or others:
-                    raise AssertionError(f"main path {row} B={B}: launches {counts}, expected "
-                                         f"every launch of {row} in the large-B body at "
-                                         f"B >= {kl.TILED_MIN_ROWS} and none below")
+                for row in rows:
+                    out[row][B] = counts[row]
+                    n, tiled = counts[row]
+                    print(f"main path {row} B={B}: {LSTM_WRAPPERS[row]}.launches = {n}, "
+                          f".launches_tiled = {tiled}")
+                    if not (n and tiled == (n if B > TRAIN_B else 0)):
+                        raise AssertionError(f"main path {row} B={B}: launches {counts}, "
+                                             f"expected every launch of {row} in the large-B "
+                                             f"body at B = {B} > {TRAIN_B} and none at "
+                                             f"B <= {TRAIN_B}")
+                others = {r: c for r, c in counts.items() if r not in rows and c != [0, 0]}
+                if others:
+                    raise AssertionError(f"main path {rows} B={B}: other rows launched: "
+                                         f"{others}")
     return out
 
 
@@ -1280,8 +1421,9 @@ def phase_lstm_train(dev):
                              library_ms=lib_bwd, traced_ms=bwd_traced),
         }
     tiled_err, numbers = tiled_check(dev, "lstm_fwd_train")
-    rows["large_b"] = {"lstm_fwd_train": numbers}
-    return max(fwd_err, tiled_err), bwd_err, rows
+    tiled_bwd_err, bwd_numbers = bwd_tiled_check(dev, "lstm_bwd")
+    rows["large_b"] = {"lstm_fwd_train": numbers, "lstm_bwd": bwd_numbers}
+    return max(fwd_err, tiled_err), max(bwd_err, tiled_bwd_err), rows
 
 
 def bwd_sweep(dev, peep):
@@ -1763,7 +1905,9 @@ def phase_lstm_peep(dev):
     tiled_err, rows["large_b"]["lstm_peep_fwd"] = tiled_check(dev, "lstm_peep_fwd")
     tiled_train_err, rows["large_b"]["lstm_peep_fwd_train"] = tiled_check(
         dev, "lstm_peep_fwd_train")
-    return max(fwd_err, tiled_err), max(train_err, tiled_train_err), bwd_err, rows
+    tiled_bwd_err, rows["large_b"]["lstm_peep_bwd"] = bwd_tiled_check(dev, "lstm_peep_bwd")
+    return (max(fwd_err, tiled_err), max(train_err, tiled_train_err),
+            max(bwd_err, tiled_bwd_err), rows)
 
 
 def phase_chunks(dev):
@@ -1771,15 +1915,15 @@ def phase_chunks(dev):
     batch, each chunked call held against its plain version (relative to
     each output's max abs) and timed on the event clock: rows 1 and 3 at
     B = 6000 and rows 3 and 4 at B = 2100 (H = 500, T = 29) through their
-    wrappers (the recurrences there take the large-B body, whose row groups
-    fit 256 rows a launch beside H = 500's unit groups: 24 and 9 chunks);
-    rows 1 and 3 again at B = 6000 in the small-B body, forced, whose carries
-    overflow one block's shared memory beside W_hid there (the cap of 5982
-    rows gives 2 chunks; row 4's cap of 2077 gives B = 2100 its 2), as they
-    do wherever the large-B plan does not fit (H above 512, or too few SMs)
-    and B is large enough; then all six persistent rows at
+    wrappers (all four take the large-B body there, whose row groups fit 256
+    rows a launch beside H = 500's unit groups: 24 and 9 chunks); rows 1 and
+    3 again at B = 6000 and row 4 at B = 2100 in the small-B body, forced,
+    whose carries overflow one block's shared memory beside W_hid there (the
+    cap of 5982 rows gives 2 chunks; row 4's cap of 2077 gives B = 2100 its
+    2), as they do wherever the large-B plan does not fit (H above 512, or
+    too few SMs) and B is large enough; then all six persistent rows at
     B = 64 in 3 chunks of 21, 21 and 22 rows (H = 500, or 250 with
-    peepholes); the recurrences also into NaN-filled outputs."""
+    peepholes); every call also into NaN-filled outputs."""
     import torch
 
     from ip_avsr_torch.ops.kernels import lstm as kl
@@ -1820,6 +1964,7 @@ def phase_chunks(dev):
             ("lstm_fwd", 6000, 500, None, None), ("lstm_fwd_train", 6000, 500, None, None),
             ("lstm_fwd_train", 2100, 500, None, None), ("lstm_bwd", 2100, 500, None, None),
             ("lstm_fwd", 6000, 500, None, False), ("lstm_fwd_train", 6000, 500, None, False),
+            ("lstm_bwd", 2100, 500, None, False),
             *((n, 64, 250 if "peep" in n else 500, 3, None) for n in (*fwd_rows, *bwd_rows))):
         label = (f"{name} B={B} H={H}" + (f" forced into {chunks} chunks" if chunks else "")
                  + (" in the small-B body" if tiled is False else ""))
@@ -1856,14 +2001,22 @@ def phase_chunks(dev):
             bargs = (g, gates, cells, cells_prev, mask, w_hid)
 
             def call():
-                if chunks is None:
+                if chunks is None and tiled is None:
                     return chain(*bargs, *vecs, 5.0)
                 return kl._run_bwd(name.replace("bwd", "bwd_chain"), bargs, 5.0, vecs,
-                                   chunks=chunks)
+                                   chunks=chunks, tiled=tiled)
 
             got = call()
+            nan = [torch.full_like(g, float("nan")) for g in got[:3]]
+            again = kl._run_bwd(name.replace("bwd", "bwd_chain"), bargs, 5.0, vecs,
+                                chunks=chunks, outs=nan, tiled=tiled)
+            if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                raise AssertionError(f"{label}: NaN-filled outputs not bit-equal")
             ms = cuda_ms(call, iters=3, warmup=1)
-            plan = kl.bwd_launch_plan(B, H, sm_count, chunks=chunks)
+            plan = kl.bwd_plan(B, H, sm_count, chunks=chunks, tiled=tiled)
+            if tiled is False and plan.chunks < 2:
+                raise AssertionError(f"{label}: expected the small-B body's row chunks, got "
+                                     f"{plan}")
             hold(label, got, plain(*bargs, *vecs, 5.0), LSTM_BWD_TOL, ms, plan)
 
 
@@ -2645,13 +2798,14 @@ def delta_ab(dev):
 
 
 def ab_run(dev):
-    """``--ab``: row 2 per forward of both models (:func:`delta_ab`), then
-    the 4-stream serve (B = 10) and train (B = 10) paths and the flagship's
-    (serve B = 1 and 8, train B = 10) of whichever package is first on the
-    path, through the entry points every version of the port has: each
-    path's median on the host clock, then its trace (device time, kernels,
-    host launch calls, row 2's launches and device time).  Returns the
-    numbers."""
+    """``--ab``: row 2 per forward of both models (:func:`delta_ab`), rows 4
+    and 7 at B = 8 and 10 (H = 500 and 250) through their wrappers (back to
+    back on the event clock, traced, and a call on the host clock), then the 4-stream serve (B = 10) and train (B =
+    10) paths and the flagship's (serve B = 1 and 8, train B = 10) of
+    whichever package is first on the path, through the entry points every
+    version of the port has: each path's median on the host clock, then its
+    trace (device time, kernels, host launch calls, row 2's launches and
+    device time).  Returns the numbers."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -2663,6 +2817,23 @@ def ab_run(dev):
 
     out = {"package": os.path.dirname(os.path.abspath(ip_avsr_torch.__file__))}
     out.update(delta_ab(dev))
+    from ip_avsr_torch.ops.kernels import lstm as kl
+
+    gen = torch.Generator().manual_seed(SEED + 18)
+    for name, H in (("lstm_bwd", 500), ("lstm_peep_bwd", 250)):
+        chain = getattr(kl, LSTM_WRAPPERS[name])
+        for B in (8, TRAIN_B):
+            bargs, vecs = bwd_chain_inputs(B, T_FRAMES, H, "peep" in name, gen, dev)
+
+            def call():
+                return chain(*bargs, *vecs, 5.0)
+
+            ms = queued_ms(call)
+            traced_ms = trace_chain(call, f"{name} B={B} H={H}", name, T_FRAMES + 1)
+            host_ms = host_median_ms(call)
+            print(f"{name} B={B} H={H}: {ms:.4f} ms a call back to back (event clock), "
+                  f"traced {traced_ms:.4f}, host clock {host_ms:.4f}")
+            out[f"{name} B={B}"] = dict(ms=ms, traced_ms=traced_ms, host_ms=host_ms)
     cfg, training = oulu_4stream()
     params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 6), cfg, device=dev)
     server = make_server(params, cfg, device=dev)
@@ -6788,12 +6959,13 @@ def main() -> int:
         print(json.dumps({"bf16": bf16_numbers, "bf16_rows": bf16_rows}))
         return 0
     if tiled_only:
-        # the large-B body alone: its four rows against their plain versions,
-        # timed at the cells' batches, its counter on the main path, and the
-        # crossover sweep
+        # the large-B bodies alone: their six rows against their plain
+        # versions, timed at the cells' batches, their counters on the main
+        # path, and the crossover sweeps
         numbers = {name: tiled_check(dev, name)[1] for name in TILED_CASES}
+        numbers.update({name: bwd_tiled_check(dev, name)[1] for name in BWD_TILED_CASES})
         print(json.dumps({"large_b": numbers, "main_path": tiled_main_path(dev),
-                          "sweep": tiled_sweep(dev)}))
+                          "sweep": tiled_sweep(dev, TILED_SWEEP + BWD_TILED_SWEEP)}))
         return 0
     delta_err, delta_rows = phase_delta(dev)
     lstm_err, lstm_rows = phase_lstm(dev)
@@ -6933,9 +7105,9 @@ def main() -> int:
             "scale_launches": scale_launches[name],
             "scale4_launches": scale4_launches and scale4_launches[name],
             "oracle_launches": oracle_launches[name]})
-    # rows 1, 3, 5 and 6: the large-B body at the cells' batches, and each
-    # row's launches and large-B launches on its main path at the cells' and
-    # the reference batch
+    # rows 1 and 3-7: the large-B body at the cells' batches, and each row's
+    # launches and large-B launches on its main path at the cells' and the
+    # reference batch
     large_b = {"lstm_fwd": lstm_rows["large_b"], **train_rows["large_b"],
                **peep_rows["large_b"]}
     for row in kernels:

@@ -136,8 +136,56 @@
 //   number of times (T): no thread leaves early.
 // [converge] the warp shuffles of the product's reduction follow a column
 //   loop whose trip count is the same for every lane.
-// Large B: every block reads B x 4H values of dgates each step (f32, or
-// their bf16 copy), which grows linearly with B.
+//
+// Large B, float32 W_hid (tiled_chain, the kernel's explicit specializations
+// at U = kTiledUnits = 16; the wrapper takes it at the batches and widths
+// ops/kernels/lstm.py::bwd_plan names).  In the small-B body every block
+// reads all B rows of dgates_{t+1} each step: B x 4H f32, 2.05 MB at B = 256,
+// H = 500, by each of 125 blocks, about 256 MB of L2 reads a step.  The
+// large-B body does the same f32 FMAs on the CUDA cores (no TF32: the
+// configurations state f32) in a layout that reads a quarter of that:
+// - Blocks split by rows as well as units: ceil(H / 16) unit groups on x by
+//   row groups of 64 rows on y (gridDim.y, passed by the wrapper; a launch
+//   takes as many as fit beside the unit groups on the card's SMs, a larger
+//   batch runs in row chunks: ops/kernels/lstm.py::bwd_tiled_plan).  A block
+//   owns all four gate columns of its 16 units, so the gate math and the
+//   carries stay local, and reads only its row group's rows of dgates_{t+1}:
+//   64 MB of L2 a step at B = 256, H = 500.  Still one grid.sync() a step.
+// - W resident, k-major: the block's 16 rows of W_hid as 4H (padded to
+//   whole chunks, zero rows) k rows of 16 floats, 128 KB at H = 500, loaded
+//   once per call.
+// - dgates_{t+1} staged through shared memory: the row group's rows in
+//   chunks of kTiledK = 128 values of k, each row padded to 132 floats, two
+//   buffers, chunk c + 1's loads issued before chunk c is multiplied.
+//   [stale] the loads are float4 __ldcg into registers (L2 only; a row of 4H
+//   floats is 16-byte aligned), then stored to shared memory.  Each unit
+//   group starts at its own chunk (blockIdx.x modulo the chunks) and takes
+//   the others in turn, so that the blocks of a row group do not all read
+//   the same lines at once.  (Measured slower on an H100: a three-stage
+//   cp.async.cg pipeline, 4%, and 1-D bulk copies (TMA), one a row, 2.1x.)
+// - A register-tiled product: thread (kq, tu, tr) holds an 8 x 8 tile of
+//   sums, rows tr + 8 i by units 8 tu .. + 7, over slice kq of every chunk
+//   (16 slices of 8 k).  Per 4 k it reads 8 float4 of dgates (a quarter warp:
+//   8 neighbouring rows, 528 bytes apart, in 8 distinct bank groups) and 8
+//   float4 of W (a quarter warp: one address) for 256 FMAs, one byte of
+//   shared memory a FMA, which is the SM's rate for both (4 x 4 and 8 x 4
+//   tiles, 0.5 and 0.375 a FMA, measured 11% and 6% slower).  The slices'
+//   partial sums meet in shared memory, over the chunk buffers, and are
+//   added in slice order; within a slice k runs in the block's fixed chunk
+//   order, so two calls give the same bits.
+// - The gate stage: thread tid owns rows tid / 16 + 16 i (i < 4) of unit
+//   tid % 16, its carries (dc, the pass-through and the three dw sums) in
+//   registers for the whole call, with the small-B body's math.  The
+//   peephole dw: at step 0 each block sums its rows' partials in row order
+//   into a (row groups, 3, H) buffer (the wrapper's scratch), and after the
+//   last grid.sync() the blocks of row group 0 add the row groups' sums in
+//   row-group order into dw: no atomics, the same bits every call.
+// Bound of a step: a block's 64 x 16 sums over K = 4H are 2.05 M FMAs at
+// H = 500, 16k clocks of an SM's 128 FMAs a clock (and as many of shared
+// memory), at B = 256 on 128 of the card's 132 SMs; and 512 KB of L2 reads
+// a block.  Shared memory (dynamic): W ceil(4H / 128) * 128 rows of 16
+// floats, two chunks of 64 rows x 132 floats: 198,656 B at H = 500, 133,120
+// at H = 250 (ops/kernels/lstm.py::bwd_tiled_smem_bytes); H up to 640.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -591,12 +639,390 @@ lstm_bwd_chain_kernel(const float* __restrict__ g_out, const float* __restrict__
   }
 }
 
+// The large-B body (header): float32 W_hid, kTiledUnits units by kTiledRows
+// rows a block.  For the product, thread (kq, tu, tr) sums rows tr +
+// kTiledRT i (i < kTiledTR) by units kTiledTU tu .. + kTiledTU - 1 over
+// slice kq of every staged chunk of kTiledK values of k (kTiledSplit
+// slices); for the gate stage, thread tid owns rows tid / 16 + 16 i (i <
+// kTiledPairs) of unit tid % 16.
+constexpr int kTiledUnits = 16;
+constexpr int kTiledRows = 64;
+constexpr int kTiledK = 128;
+constexpr int kTiledKPad = kTiledK + 4;
+constexpr int kTiledTR = 8;
+constexpr int kTiledTU = 8;
+constexpr int kTiledRT = kTiledRows / kTiledTR;   // row tiles
+constexpr int kTiledUT = kTiledUnits / kTiledTU;  // unit tiles
+constexpr int kTiledSplit = kThreads / (kTiledRT * kTiledUT);
+constexpr int kTiledSlice = kTiledK / kTiledSplit;  // k of a chunk in one slice
+constexpr int kTiledPairs = kTiledRows * kTiledUnits / kThreads;
+// float4 of a chunk each thread stages: rows tid / (kTiledK / 4) +
+// kStageRowStep * l (l < kTiledStage) at float4 column tid % (kTiledK / 4)
+constexpr int kTiledStage = kTiledRows * kTiledK / 4 / kThreads;
+constexpr int kStageRowStep = kThreads / (kTiledK / 4);
+static_assert(kTiledSplit * kTiledRT * kTiledUT == kThreads && kTiledSlice * kTiledSplit == kTiledK,
+              "one product thread per k slice and tile");
+static_assert(kTiledRT % 8 == 0 && kTiledTU % 4 == 0 && kTiledSlice % 4 == 0,
+              "a quarter warp on 8 neighbouring rows, units and k in groups of 4");
+static_assert(kThreads / kTiledUnits * kTiledPairs == kTiledRows,
+              "the gate stage's pairs: 16 rows apart");
+static_assert(kThreads % (kTiledK / 4) == 0, "a chunk is staged in whole rows");
+static_assert(kTiledSplit * kTiledRows * kTiledUnits <= 2 * kTiledRows * kTiledKPad &&
+                  3 * kTiledRows * kTiledUnits <= 2 * kTiledRows * kTiledKPad,
+              "the slices' partial sums and the peephole sums fit the chunk buffers");
+// k rows of the block's W share: 4H padded to whole chunks (zero rows)
+__host__ __device__ constexpr int tiled_k_rows(int H) {
+  return (4 * H + kTiledK - 1) / kTiledK * kTiledK;
+}
+// W share and two staged chunks of dgates_{t+1}, whose space the k slices'
+// partial sums take once the last chunk is multiplied
+__host__ __device__ constexpr size_t tiled_smem_bytes(int H) {
+  return (static_cast<size_t>(tiled_k_rows(H)) * kTiledUnits +
+          static_cast<size_t>(2) * kTiledRows * kTiledKPad) *
+         sizeof(float);
+}
+
+__device__ __forceinline__ void fma4(float* acc, float a, const float4& w) {
+  acc[0] = fmaf(a, w.x, acc[0]);
+  acc[1] = fmaf(a, w.y, acc[1]);
+  acc[2] = fmaf(a, w.z, acc[2]);
+  acc[3] = fmaf(a, w.w, acc[3]);
+}
+
+// The step's product in the large-B body: red[kq, r, u] = sum over slice kq
+// of every chunk of k of dg[r, k] * W_hid[j0 + u, k], for the block's rows r
+// and units u.  dg points at the row group's first row of dgates_{t+1},
+// rows row_stride apart, rows_live of them below B; w_t (k-major, 16 floats
+// a k) and the two chunk buffers dg_s are the block's shared memory, and
+// red is dg_s itself, written once the last chunk is multiplied.  Ends with
+// a __syncthreads, so red is visible to the whole block.
+__device__ __forceinline__ void tiled_product(const float* dg, size_t row_stride, int rows_live,
+                                              int H4, const float* w_t, float* dg_s) {
+  const int tid = threadIdx.x;
+  // a quarter warp (one phase of a 16-byte shared-memory read) holds 8
+  // neighbouring tr of one tu and kq: its dgates reads fall in 8 distinct
+  // bank groups (rows 528 bytes apart), its W reads are one address
+  const int tr = tid % kTiledRT;
+  const int tu = tid / kTiledRT % kTiledUT;
+  const int kq = tid / (kTiledRT * kTiledUT);
+  const int sc = tid % (kTiledK / 4);
+  const int sr = tid / (kTiledK / 4);
+  const int n_chunks = (H4 + kTiledK - 1) / kTiledK;
+  float4 sv[kTiledStage];
+  // the thread's float4 of chunk c into registers; rows past B and k past
+  // 4H (a float4 lies wholly inside or outside, 4H being a multiple of 4)
+  // are 0.  [stale] dgates is written in this launch: L2 only.
+  const auto load = [&](int c) {
+    const int k = c * kTiledK + 4 * sc;
+#pragma unroll
+    for (int l = 0; l < kTiledStage; ++l) {
+      const int r = sr + kStageRowStep * l;
+      sv[l] = r < rows_live && k < H4
+                  ? __ldcg(reinterpret_cast<const float4*>(dg + r * row_stride + k))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  const auto store = [&](float* buf) {
+#pragma unroll
+    for (int l = 0; l < kTiledStage; ++l) {
+      *reinterpret_cast<float4*>(buf + (sr + kStageRowStep * l) * kTiledKPad + 4 * sc) = sv[l];
+    }
+  };
+  // each unit group starts at its own chunk and takes the others in turn, so
+  // that the blocks of a row group do not all read the same lines at once;
+  // the order is fixed by the block, so two calls sum alike
+  const int c0 = blockIdx.x % n_chunks;
+  load(c0);
+  store(dg_s);
+  __syncthreads();
+  float acc[kTiledTR][kTiledTU];
+#pragma unroll
+  for (int i = 0; i < kTiledTR; ++i) {
+#pragma unroll
+    for (int v = 0; v < kTiledTU; ++v) acc[i][v] = 0.f;
+  }
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    // chunk cc is multiplied while the next one is in flight
+    const int cc = (c0 + ch) % n_chunks;
+    const bool more = ch + 1 < n_chunks;
+    if (more) load((c0 + ch + 1) % n_chunks);
+    const float* a = dg_s + (ch % 2) * kTiledRows * kTiledKPad + tr * kTiledKPad + kq * kTiledSlice;
+    const float* w = w_t + static_cast<size_t>(cc * kTiledK + kq * kTiledSlice) * kTiledUnits +
+                     kTiledTU * tu;
+#pragma unroll
+    for (int g = 0; g < kTiledSlice / 4; ++g) {
+      float4 av[kTiledTR];
+#pragma unroll
+      for (int i = 0; i < kTiledTR; ++i) {
+        av[i] = *reinterpret_cast<const float4*>(a + kTiledRT * i * kTiledKPad + 4 * g);
+      }
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        float4 wv[kTiledTU / 4];
+#pragma unroll
+        for (int h = 0; h < kTiledTU / 4; ++h) {
+          wv[h] = *reinterpret_cast<const float4*>(w + (4 * g + d) * kTiledUnits + 4 * h);
+        }
+#pragma unroll
+        for (int i = 0; i < kTiledTR; ++i) {
+          const float x = d == 0 ? av[i].x : d == 1 ? av[i].y : d == 2 ? av[i].z : av[i].w;
+#pragma unroll
+          for (int h = 0; h < kTiledTU / 4; ++h) fma4(acc[i] + 4 * h, x, wv[h]);
+        }
+      }
+    }
+    // the other buffer was last read before the previous __syncthreads
+    if (more) store(dg_s + ((ch + 1) % 2) * kTiledRows * kTiledKPad);
+    __syncthreads();
+  }
+  // the slices' partial sums, red[kq, row, unit], over the chunk buffers
+  // (their last reads ended at the loop's last __syncthreads)
+  float* red = dg_s;
+#pragma unroll
+  for (int i = 0; i < kTiledTR; ++i) {
+#pragma unroll
+    for (int h = 0; h < kTiledTU / 4; ++h) {
+      *reinterpret_cast<float4*>(
+          red + (static_cast<size_t>(kq) * kTiledRows + tr + kTiledRT * i) * kTiledUnits +
+          kTiledTU * tu + 4 * h) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    }
+  }
+  __syncthreads();
+}
+
+// dh_next of the gate-stage thread's pair (row r, unit u): the slices'
+// partial sums in slice order, whatever the schedule.
+__device__ __forceinline__ float tiled_sum(const float* red, int r, int u) {
+  float s = 0.f;
+#pragma unroll
+  for (int p = 0; p < kTiledSplit; ++p) s += red[(p * kTiledRows + r) * kTiledUnits + u];
+  return s;
+}
+
+// The whole chain in the large-B body; arguments as the kernel's (without
+// Peephole the w_c*, dw and dw_part are unused).  Block (blockIdx.x,
+// blockIdx.y) owns units j0 = 16 blockIdx.x .. + 15 and rows rb0 = 64
+// blockIdx.y .. + 63.  With Peephole, dw_part (gridDim.y, 3, H) receives
+// each row group's dw, summed over its rows in order; after the last
+// grid.sync() the row groups' sums are added in row-group order into dw.
+template <bool Peephole>
+__device__ __forceinline__ void tiled_chain(
+    const float* __restrict__ g_out, const float* __restrict__ gates_pre,
+    const float* __restrict__ cells, const float* __restrict__ cells_prev,
+    const float* __restrict__ mask, const float* __restrict__ w_hid,
+    const float* __restrict__ w_ci, const float* __restrict__ w_cf,
+    const float* __restrict__ w_co, float* dgates, float* __restrict__ dcell0,
+    float* __restrict__ dhid0, float* __restrict__ dw, float clip, int B, int T, int H,
+    float* dw_part) {  // [stale] written and read in the launch
+  constexpr int U = kTiledUnits;
+  constexpr int P = kTiledPairs;
+  extern __shared__ float4 smem4[];
+  const int KW = tiled_k_rows(H);
+  const int H4 = 4 * H;
+  float* w_t = reinterpret_cast<float*>(smem4);     // (KW, 16): w_t[k, u] = W_hid[j0 + u, k]
+  float* dg_s = w_t + static_cast<size_t>(KW) * U;  // (2, kTiledRows, kTiledKPad)
+  const float* red = dg_s;  // (kTiledSplit, kTiledRows, 16) after a product
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * U;
+  const int rb0 = blockIdx.y * kTiledRows;
+  const size_t row_stride = static_cast<size_t>(T) * H4;
+  const int rows_live = B - rb0;
+  // gate-stage thread: unit gu, rows gr + 16 i of the row group
+  const int gu = tid % U;
+  const int gr = tid / U;
+  const int j = j0 + gu;
+
+  // w_t, once per call: item i is unit (i / 8) % 16 at k = i % 8 + 8 (i /
+  // 128), so that 8 neighbouring threads read 32 contiguous bytes of one W
+  // row.  [ragged] dead units and k past 4H are 0.
+  constexpr int kLoadW = 16;
+  const int n_w = KW * U;
+  for (int i0 = 0; i0 < n_w; i0 += kLoadW * kThreads) {
+    float v[kLoadW];
+#pragma unroll
+    for (int l = 0; l < kLoadW; ++l) {
+      const int i = i0 + l * kThreads + tid;
+      const int u = i / 8 % U;
+      const int k = i % 8 + 8 * (i / (8 * U));
+      v[l] = i < n_w && k < H4 && j0 + u < H
+                 ? __ldg(w_hid + static_cast<size_t>(j0 + u) * H4 + k)
+                 : 0.f;
+    }
+#pragma unroll
+    for (int l = 0; l < kLoadW; ++l) {
+      const int i = i0 + l * kThreads + tid;
+      if (i < n_w) w_t[(i % 8 + 8 * (i / (8 * U))) * U + i / 8 % U] = v[l];
+    }
+  }
+  // the carries of the thread's pairs, in registers for the whole call;
+  // [ragged] [uniform] dead pairs are masked, no thread returns
+  bool live[P];
+  float dc[P], pass[P], dws[P][3];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    live[i] = gr + 16 * i < rows_live && j < H;
+    dc[i] = pass[i] = 0.f;
+    dws[i][0] = dws[i][1] = dws[i][2] = 0.f;
+  }
+  float p_i = 0.f, p_f = 0.f, p_o = 0.f;
+  if constexpr (Peephole) {
+    if (j < H) {
+      p_i = __ldg(w_ci + j);
+      p_f = __ldg(w_cf + j);
+      p_o = __ldg(w_co + j);
+    }
+  }
+  __syncthreads();
+
+  cg::grid_group grid = cg::this_grid();
+  for (int t = T - 1; t >= 0; --t) {
+    const bool has_next = t + 1 < T;
+    // the step's read-only inputs first, so that they overlap the product
+    float z[P][4], go[P], c_t[P], c_p[P], m[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const size_t bt = static_cast<size_t>(rb0 + gr + 16 * i) * T + t;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        z[i][q] = live[i] ? __ldg(gates_pre + bt * H4 + static_cast<size_t>(q) * H + j) : 0.f;
+      }
+      go[i] = live[i] ? __ldg(g_out + bt * H + j) : 0.f;
+      c_t[i] = live[i] ? __ldg(cells + bt * H + j) : 0.f;
+      c_p[i] = live[i] ? __ldg(cells_prev + bt * H + j) : 0.f;
+      m[i] = live[i] ? __ldg(mask + bt) : 0.f;
+    }
+    if (has_next) {
+      tiled_product(dgates + static_cast<size_t>(rb0) * row_stride + (t + 1) * H4, row_stride,
+                    rows_live, H4, w_t, dg_s);
+    }
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      if (!live[i]) continue;
+      const int r = gr + 16 * i;
+      // the small-B body's gate math (header), written out again: one
+      // function shared by both bodies changed the small-B code (SASS)
+      const float dh = (has_next ? tiled_sum(red, r, gu) : 0.f) + pass[i];
+      const float dh_total = go[i] + dh;
+      const float dh_c = m[i] * dh_total;
+      float dc_c = m[i] * dc[i];
+      float z_i = z[i][0], z_f = z[i][1], z_o = z[i][3];
+      if constexpr (Peephole) {
+        // o from the post-mask cell, as the JAX backward recomputes it
+        z_i += c_p[i] * p_i;
+        z_f += c_p[i] * p_f;
+        z_o += c_t[i] * p_o;
+      }
+      const float ig = sigm(z_i);
+      const float f = sigm(z_f);
+      const float g = tanhf(z[i][2]);
+      const float o = sigm(z_o);
+      const float tc = tanhf(c_t[i]);
+      const float do_pre = dh_c * tc * o * (1.0f - o);
+      dc_c = dc_c + dh_c * o * (1.0f - tc * tc);
+      if constexpr (Peephole) dc_c += do_pre * p_o;
+      float dgate[4] = {dc_c * g * ig * (1.0f - ig), dc_c * c_p[i] * f * (1.0f - f),
+                        dc_c * ig * (1.0f - g * g), do_pre};
+      float dc_prev = dc_c * f + (1.0f - m[i]) * dc[i];
+      if constexpr (Peephole) {
+        // the peephole routes take the cotangents before the clip
+        dc_prev += dgate[0] * p_i + dgate[1] * p_f;
+        dws[i][0] += dgate[0] * c_p[i];
+        dws[i][1] += dgate[1] * c_p[i];
+        dws[i][2] += do_pre * c_t[i];
+      }
+      if (clip != 0.f) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dgate[k] = fminf(fmaxf(dgate[k], -clip), clip);
+      }
+      float* dp = dgates + (static_cast<size_t>(rb0 + r) * T + t) * H4 + j;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dp[static_cast<size_t>(k) * H] = dgate[k];
+      dc[i] = dc_prev;
+      pass[i] = (1.0f - m[i]) * dh_total;
+    }
+    if constexpr (Peephole) {
+      if (t == 0) {
+        // the row group's dw, summed over its rows in order, over dg_s once
+        // every thread has read its dh_next there
+        __syncthreads();
+        float* part = dg_s;  // (3, kTiledRows, 16)
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            part[(k * kTiledRows + gr + 16 * i) * U + gu] = live[i] ? dws[i][k] : 0.f;
+          }
+        }
+        __syncthreads();
+        if (tid < 3 * U && j0 + tid % U < H) {
+          const int k = tid / U;
+          float s = 0.f;
+          for (int r = 0; r < kTiledRows; ++r) s += part[(k * kTiledRows + r) * U + tid % U];
+          dw_part[(static_cast<size_t>(blockIdx.y) * 3 + k) * H + j0 + tid % U] = s;
+        }
+      }
+    }
+    // [order] [uniform] every block's dgates[:, t] (and at t = 0 its dw
+    // sums) before any block's next product; it also orders this step's
+    // reads of red and dg_s before the next step's writes
+    grid.sync();
+  }
+
+  // dh after step 0: one more product, then the block's outputs
+  tiled_product(dgates + static_cast<size_t>(rb0) * row_stride, row_stride, rows_live, H4, w_t,
+                dg_s);
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    if (!live[i]) continue;
+    const int r = gr + 16 * i;
+    const size_t e = static_cast<size_t>(rb0 + r) * H + j;
+    dhid0[e] = tiled_sum(red, r, gu) + pass[i];
+    dcell0[e] = dc[i];
+  }
+  if constexpr (Peephole) {
+    // dw[k, j]: the row groups' sums in row-group order
+    if (blockIdx.y == 0 && tid < 3 * U && j0 + tid % U < H) {
+      const int k = tid / U;
+      float s = 0.f;
+      for (int y = 0; y < static_cast<int>(gridDim.y); ++y) {
+        s += __ldcg(dw_part + (static_cast<size_t>(y) * 3 + k) * H + j0 + tid % U);
+      }
+      dw[static_cast<size_t>(k) * H + j0 + tid % U] = s;
+    }
+  }
+}
+
+// The large-B body's two instantiations: explicit specializations of the
+// kernel at kTiledUnits units and a float32 W, so that a trace names them
+// as it names every other (lstm_bwd_chain_kernel<Peephole, 16, float>),
+// while the body above, the small-B one, is never instantiated at that
+// width.  The last argument, unused in f32 by the small-B body, carries the
+// peephole rows' per-row-group dw sums (float, gridDim.y x 3 x H).
+#define LSTM_BWD_TILED(P)                                                                       \
+  template <>                                                                                  \
+  __global__ void __launch_bounds__(kThreads) lstm_bwd_chain_kernel<P, kTiledUnits, float>(    \
+      const float* __restrict__ g_out, const float* __restrict__ gates_pre,                    \
+      const float* __restrict__ cells, const float* __restrict__ cells_prev,                   \
+      const float* __restrict__ mask, const float* __restrict__ w_hid,                         \
+      const float* __restrict__ w_ci, const float* __restrict__ w_cf,                          \
+      const float* __restrict__ w_co, float* dgates, float* __restrict__ dcell0,               \
+      float* __restrict__ dhid0, float* __restrict__ dw, float clip, int B, int T, int H,      \
+      unsigned short* dg16) {                                                                  \
+    tiled_chain<P>(g_out, gates_pre, cells, cells_prev, mask, w_hid, w_ci, w_cf, w_co, dgates, \
+                   dcell0, dhid0, dw, clip, B, T, H, reinterpret_cast<float*>(dg16));         \
+  }
+LSTM_BWD_TILED(false)
+LSTM_BWD_TILED(true)
+#undef LSTM_BWD_TILED
+
 template <typename WT>
 size_t smem_bytes(int B, int H, int U) {
   if constexpr (sizeof(WT) == 2) {
     return static_cast<size_t>(32) * U * mma_ksteps(H) +
            (static_cast<size_t>(6) * B * U + mma_red_floats(U)) * sizeof(float);
   }
+  if (U == kTiledUnits) return tiled_smem_bytes(H);
   return static_cast<size_t>(4) * U * H * sizeof(float) +
          (static_cast<size_t>(6) * B * U + kWarps * kPairs) * sizeof(float);
 }
@@ -606,15 +1032,17 @@ cudaError_t launch(const float* g_out, const float* gates_pre, const float* cell
                    const float* cells_prev, const float* mask, const WT* w_hid,
                    const float* w_ci, const float* w_cf, const float* w_co, float* dgates,
                    float* dcell0, float* dhid0, float* dw, float clip, int B, int T, int H,
-                   unsigned short* dg16, size_t smem, cudaStream_t stream) {
+                   int row_groups, unsigned short* dg16, size_t smem, cudaStream_t stream) {
   const auto kernel = lstm_bwd_chain_kernel<Peephole, U, WT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   void* args[] = {&g_out, &gates_pre, &cells, &cells_prev, &mask, &w_hid, &w_ci, &w_cf, &w_co,
                   &dgates, &dcell0, &dhid0, &dw, &clip, &B, &T, &H, &dg16};
+  // the large-B body's row groups on y (1 for the small-B body)
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                     dim3((H + U - 1) / U), dim3(kThreads), args, smem, stream);
+                                     dim3((H + U - 1) / U, row_groups), dim3(kThreads), args,
+                                     smem, stream);
 }
 
 // Runs the whole chain of one instantiation on `stream`; see the entry
@@ -623,8 +1051,18 @@ template <bool Peephole, typename WT>
 int run_chain_w(const void* g_out, const void* gates_pre, const void* cells,
                 const void* cells_prev, const void* mask, const void* w_hid, void* dgates,
                 void* dcell0, void* dhid0, void* const* peep, void* scratch, float clip, int B,
-                int T, int H, int units, size_t smem, void* stream) {
+                int T, int H, int units, int row_groups, size_t smem, void* stream) {
   if (smem < smem_bytes<WT>(B, H, units)) return static_cast<int>(cudaErrorInvalidValue);
+  // the large-B body: float32 W, row groups that cover B, float4 reads of
+  // dgates (its rows are 16H bytes apart) and, with peepholes, its dw sums
+  const bool tiled = units == kTiledUnits;
+  if (tiled ? sizeof(WT) != 4 || row_groups < 1 || row_groups * kTiledRows < B ||
+                  (Peephole && scratch == nullptr)
+            : row_groups != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tiled && (reinterpret_cast<size_t>(dgates) % 16 != 0 ||
+                reinterpret_cast<size_t>(scratch) % 4 != 0))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   // the bf16 layout reads W_hid two values at a time and needs its operand
   // buffer, read 8 bytes at a time
   if (sizeof(WT) == 2 && (reinterpret_cast<size_t>(w_hid) % 4 != 0 ||
@@ -642,7 +1080,7 @@ int run_chain_w(const void* g_out, const void* gates_pre, const void* cells,
     return launcher(f(g_out), f(gates_pre), f(cells), f(cells_prev), f(mask),
                     static_cast<const WT*>(w_hid), p[0],
                     p[1], p[2], static_cast<float*>(dgates), static_cast<float*>(dcell0),
-                    static_cast<float*>(dhid0), dw, clip, B, T, H,
+                    static_cast<float*>(dhid0), dw, clip, B, T, H, row_groups,
                     static_cast<unsigned short*>(scratch), smem,
                     static_cast<cudaStream_t>(stream));
   };
@@ -652,6 +1090,14 @@ int run_chain_w(const void* g_out, const void* gates_pre, const void* cells,
     case 2: err = go(launch<Peephole, 2, WT>); break;
     case 4: err = go(launch<Peephole, 4, WT>); break;
     case 8: err = go(launch<Peephole, 8, WT>); break;
+    case kTiledUnits:
+      // the large-B body: float32 W only (checked above)
+      if constexpr (sizeof(WT) == 4) {
+        err = go(launch<Peephole, kTiledUnits, WT>);
+      } else {
+        err = cudaErrorInvalidValue;
+      }
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -662,36 +1108,41 @@ template <bool Peephole>
 int run_chain(const void* g_out, const void* gates_pre, const void* cells,
               const void* cells_prev, const void* mask, const void* w_hid, void* dgates,
               void* dcell0, void* dhid0, void* const* peep, void* scratch, float clip,
-              int w_bf16, int B, int T, int H, int units, size_t smem, void* stream) {
+              int w_bf16, int B, int T, int H, int units, int row_groups, size_t smem,
+              void* stream) {
   return w_bf16 ? run_chain_w<Peephole, __nv_bfloat16>(g_out, gates_pre, cells, cells_prev,
                                                         mask, w_hid, dgates, dcell0, dhid0,
                                                         peep, scratch, clip, B, T, H, units,
-                                                        smem, stream)
+                                                        row_groups, smem, stream)
                 : run_chain_w<Peephole, float>(g_out, gates_pre, cells, cells_prev, mask, w_hid,
-                                               dgates, dcell0, dhid0, peep, nullptr, clip, B, T,
-                                               H, units, smem, stream);
+                                               dgates, dcell0, dhid0, peep, scratch, clip, B, T,
+                                               H, units, row_groups, smem, stream);
 }
 
 }  // namespace
 
 // Runs the whole chain on `stream` in one cooperative launch of ceil(H /
-// units) blocks, units in {1, 2, 4, 8}, with `smem` bytes of dynamic shared
-// memory (at least smem_bytes<W>(B, H, units): f32 16 units H + 24 B units
-// + 1024; bf16 32 units ceil(4H / 16) + 24 B units + 512 units).  w_hid
-// is (H, 4H) bf16 when w_bf16 is not 0, else f32; every other tensor is f32.
-// Writes dgates (B, T, 4H), dcell0 and dhid0 (B, H).  With a bf16 w_hid,
-// scratch is 2 B 4H bf16 values of device memory, 8-byte aligned, for the
-// product's operand (the header's dg16; its contents need no setting);
-// ignored (may be null) with an f32 w_hid.  Returns the first CUDA error (0
-// on success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be
-// co-resident).
+// units) blocks, units in {1, 2, 4, 8} (row_groups 1), or with an f32 w_hid
+// 16 (the large-B body, ceil(H / 16) x row_groups blocks, row_groups at
+// least ceil(B / 64)), with `smem` bytes of dynamic shared memory (at least
+// smem_bytes<W>(B, H, units): f32 16 units H + 24 B units + 1024, at 16
+// units tiled_smem_bytes(H); bf16 32 units ceil(4H / 16) + 24 B units + 512
+// units).  w_hid is (H, 4H) bf16 when w_bf16 is not 0, else f32; every other
+// tensor is f32.  Writes dgates (B, T, 4H), dcell0 and dhid0 (B, H).  With
+// a bf16 w_hid, scratch is 2 B 4H bf16 values of device memory, 8-byte
+// aligned, for the product's operand (the header's dg16; its contents need
+// no setting); with an f32 w_hid it is unused (may be null) but for the
+// peephole chain's large-B body, which takes row_groups x 3 x H floats
+// there.  Returns the first CUDA error (0 on success;
+// cudaErrorCooperativeLaunchTooLarge when the grid cannot be co-resident).
 extern "C" int lstm_bwd_chain(const void* g_out, const void* gates_pre, const void* cells,
                               const void* cells_prev, const void* mask, const void* w_hid,
                               void* dgates, void* dcell0, void* dhid0, void* scratch, float clip,
-                              int w_bf16, int B, int T, int H, int units, size_t smem,
-                              void* stream) {
+                              int w_bf16, int B, int T, int H, int units, int row_groups,
+                              size_t smem, void* stream) {
   return run_chain<false>(g_out, gates_pre, cells, cells_prev, mask, w_hid, dgates, dcell0,
-                          dhid0, nullptr, scratch, clip, w_bf16, B, T, H, units, smem, stream);
+                          dhid0, nullptr, scratch, clip, w_bf16, B, T, H, units, row_groups,
+                          smem, stream);
 }
 
 // The peephole chain: as lstm_bwd_chain, with the (H,) peephole vectors
@@ -702,11 +1153,12 @@ extern "C" int lstm_bwd_peep_chain(const void* g_out, const void* gates_pre, con
                                    const void* w_hid, const void* w_ci, const void* w_cf,
                                    const void* w_co, void* dgates, void* dcell0, void* dhid0,
                                    void* dw, void* scratch, float clip, int w_bf16, int B, int T,
-                                   int H, int units, size_t smem, void* stream) {
+                                   int H, int units, int row_groups, size_t smem, void* stream) {
   void* peep[4] = {const_cast<void*>(w_ci), const_cast<void*>(w_cf), const_cast<void*>(w_co),
                    dw};
   return run_chain<true>(g_out, gates_pre, cells, cells_prev, mask, w_hid, dgates, dcell0,
-                         dhid0, peep, scratch, clip, w_bf16, B, T, H, units, smem, stream);
+                         dhid0, peep, scratch, clip, w_bf16, B, T, H, units, row_groups, smem,
+                         stream);
 }
 
 extern "C" const char* lstm_bwd_error_string(int code) {

@@ -25,11 +25,13 @@ an exchange of state across the card; the kernels partition the hidden units
 across blocks so the gate math stays local.  All six run as one persistent
 cooperative launch per call, with each block's share of W_hid in shared
 memory and a grid barrier between steps (:func:`fwd_launch_plan`,
-:func:`bwd_launch_plan`; see the sources' headers).  The recurrences with a
-float32 W_hid have a second body for large batches, whose blocks split the
-rows as well as the hidden units (:func:`fwd_tiled_plan`); :func:`fwd_plan`
-picks the body from W_hid's dtype and B.  A batch that does not fit one
-launch runs as near-equal row chunks, one launch each (:func:`map_chunks`).
+:func:`bwd_launch_plan`; see the sources' headers).  With a float32 W_hid
+the recurrences and the backward chains have a second body for large
+batches, whose blocks split the rows as well as the hidden units
+(:func:`fwd_tiled_plan`, :func:`bwd_tiled_plan`); :func:`fwd_plan` and
+:func:`bwd_plan` pick the body from W_hid's dtype, B and H.  A batch that
+does not fit one launch runs as near-equal row chunks, one launch each
+(:func:`map_chunks`).
 The ``*_plain`` functions are their plain versions.  The four inference wrappers call operators
 ``ip_avsr::<name>`` (``torch.library``: the plain version on the
 CPU, the launch on CUDA, a fake for tracing), so ``torch.export`` records
@@ -49,8 +51,8 @@ once, by the block that computes it, into a scratch buffer of two steps
 that the wrapper allocates (:func:`_run_fwd`, :func:`_run_bwd`).  Every
 other tensor, and every output, stays float32.  A wrapper counts a launch
 of its float32 instantiation in ``.launches`` and of its bf16 one in
-``.launches_bf16``; the four recurrences also count the calls that took the
-large-B body in ``.launches_tiled``.
+``.launches_bf16``, and the calls that took the large-B body also in
+``.launches_tiled``.
 """
 
 from __future__ import annotations
@@ -377,8 +379,9 @@ def fwd_launch_plan(B: int, H: int, sm_count: int, units=None, chunks=None,
 
 
 class TiledPlan(NamedTuple):
-    """Launch plan of the recurrence's large-B body (csrc/lstm_fwd.cu,
-    ``tiled_chain``): ``units`` (:data:`TILED_UNITS`) hidden units per block
+    """Launch plan of a large-B body (the recurrence's or the backward
+    chain's, ``tiled_chain`` in csrc/lstm_fwd.cu and csrc/lstm_bwd.cu):
+    ``units`` (:data:`TILED_UNITS`) hidden units per block
     on ``grid`` unit groups, ``smem_bytes`` of dynamic shared memory per
     block, the live units of the last unit group, and the batch cut into
     ``chunks`` launches of at most ``rows`` rows each (:func:`chunk_spans`).
@@ -423,6 +426,25 @@ def fwd_tiled_smem_bytes(H: int) -> int:
                 + TILED_SPLIT * TILED_ROWS * cols)
 
 
+def _tiled_plan(name, B, H, sm_count, chunks, smem) -> TiledPlan:
+    """A large-B body's unit groups and row chunks (see :func:`fwd_tiled_plan`)
+    for blocks of ``smem`` bytes of shared memory."""
+    grid = -(-H // TILED_UNITS)
+    if grid > sm_count or smem > _build.SMEM_LIMIT:
+        raise ValueError(f"{name}: H={H} needs {grid} blocks of {smem} bytes of shared "
+                         f"memory, above the {sm_count} SMs or the {_build.SMEM_LIMIT} bytes "
+                         f"a block may use")
+    cap = sm_count // grid * TILED_ROWS
+    need = max(1, -(-B // cap))
+    if chunks is None:
+        chunks = need
+    elif not need <= chunks <= max(B, 1):
+        raise ValueError(f"{name}: B={B}, H={H} runs in {need} to {max(B, 1)} chunks of at "
+                         f"most {cap} rows, not {chunks}")
+    return TiledPlan(TILED_UNITS, grid, smem, H - (grid - 1) * TILED_UNITS, -(-B // chunks),
+                     chunks)
+
+
 def fwd_tiled_plan(B: int, H: int, sm_count: int, chunks=None) -> TiledPlan:
     """Unit groups, row groups, shared memory and row chunks of the
     recurrence's large-B body (float32 W_hid, all four instantiations) at
@@ -434,21 +456,7 @@ def fwd_tiled_plan(B: int, H: int, sm_count: int, chunks=None) -> TiledPlan:
     most B).  Raises ``ValueError`` when the unit groups alone exceed the
     SMs or a block's W_hid share does not fit ``_build.SMEM_LIMIT`` (H above
     512)."""
-    grid = -(-H // TILED_UNITS)
-    smem = fwd_tiled_smem_bytes(H)
-    if grid > sm_count or smem > _build.SMEM_LIMIT:
-        raise ValueError(f"large-B recurrence: H={H} needs {grid} blocks of {smem} bytes of "
-                         f"shared memory, above the {sm_count} SMs or the "
-                         f"{_build.SMEM_LIMIT} bytes a block may use")
-    cap = sm_count // grid * TILED_ROWS
-    need = max(1, -(-B // cap))
-    if chunks is None:
-        chunks = need
-    elif not need <= chunks <= max(B, 1):
-        raise ValueError(f"large-B recurrence: B={B}, H={H} runs in {need} to {max(B, 1)} "
-                         f"chunks of at most {cap} rows, not {chunks}")
-    return TiledPlan(TILED_UNITS, grid, smem, H - (grid - 1) * TILED_UNITS, -(-B // chunks),
-                     chunks)
+    return _tiled_plan("large-B recurrence", B, H, sm_count, chunks, fwd_tiled_smem_bytes(H))
 
 
 def fwd_plan(B: int, H: int, sm_count: int, w_dtype=torch.float32, units=None, chunks=None,
@@ -525,6 +533,62 @@ def bwd_launch_plan(B: int, H: int, sm_count: int, units=None, chunks=None,
                        carry_floats=6)
 
 
+# the backward chain's large-B body (csrc/lstm_bwd.cu, ``tiled_chain``): the
+# recurrence's 16 units by 64 rows a block; W_hid's 16 rows resident
+# k-major, dgates_{t+1} staged in chunks of 128 values of k, each row padded
+# to 132 floats, two chunks at a time
+BWD_TILED_K = 128
+BWD_TILED_K_PAD = BWD_TILED_K + 4
+# where the backward chain takes its large-B body: from BWD_TILED_MIN_ROWS
+# rows at the widths swept, H from BWD_TILED_MIN_H to BWD_TILED_MAX_H, where
+# it overtook the small-B body on an H100 (chip_smoke.BWD_TILED_SWEEP: at
+# B = 128 it won or tied at H = 64, 130, 250 and 500, at B = 96 it lost);
+# at other widths, not measured, the small-B body at every B
+BWD_TILED_MIN_ROWS = 128
+BWD_TILED_MIN_H = 64
+BWD_TILED_MAX_H = 500
+
+
+def bwd_tiled_smem_bytes(H: int) -> int:
+    """Bytes of a backward large-B block's shared memory: its 16 rows of
+    W_hid as 4H k rows of 16 floats, padded with zero rows to whole chunks,
+    and the staged chunks of dgates_{t+1}, whose space the k slices' partial
+    sums take after the last chunk (csrc/lstm_bwd.cu::tiled_smem_bytes)."""
+    return 4 * (-(-4 * H // BWD_TILED_K) * BWD_TILED_K * TILED_UNITS
+                + 2 * TILED_ROWS * BWD_TILED_K_PAD)
+
+
+def bwd_tiled_plan(B: int, H: int, sm_count: int, chunks=None) -> TiledPlan:
+    """Unit groups, row groups, shared memory and row chunks of the backward
+    chain's large-B body (float32 W_hid, with or without peepholes), as
+    :func:`fwd_tiled_plan` makes the recurrence's.  Raises ``ValueError``
+    when the unit groups alone exceed the SMs or a block's W_hid share does
+    not fit ``_build.SMEM_LIMIT`` (H above 640)."""
+    return _tiled_plan("large-B backward chain", B, H, sm_count, chunks,
+                       bwd_tiled_smem_bytes(H))
+
+
+def bwd_plan(B: int, H: int, sm_count: int, w_dtype=torch.float32, units=None, chunks=None,
+             tiled=None):
+    """The plan :func:`_run_bwd` launches, the one place a backward chain's
+    body is chosen: :func:`bwd_tiled_plan` for a float32 W_hid at B at least
+    :data:`BWD_TILED_MIN_ROWS` and H from :data:`BWD_TILED_MIN_H` to
+    :data:`BWD_TILED_MAX_H` where its unit groups fit the card (a bf16 W_hid
+    keeps its tensor-core body at every B), else :func:`bwd_launch_plan`
+    (``units`` and ``chunks`` as there; forcing ``units`` means the small-B
+    body).  ``tiled`` True or False forces the body, for measurement."""
+    if tiled is None:
+        tiled = (units is None and w_dtype == torch.float32 and B >= BWD_TILED_MIN_ROWS
+                 and BWD_TILED_MIN_H <= H <= BWD_TILED_MAX_H
+                 and -(-H // TILED_UNITS) <= sm_count)
+    if tiled:
+        if w_dtype != torch.float32 or units not in (None, TILED_UNITS):
+            raise ValueError(f"large-B backward chain: float32 W_hid at {TILED_UNITS} units a "
+                             f"block only, not {w_dtype} at {units}")
+        return bwd_tiled_plan(B, H, sm_count, chunks)
+    return bwd_launch_plan(B, H, sm_count, units, chunks, w_dtype)
+
+
 def bwd_w_bytes(units: int, H: int, w_dtype=torch.float32) -> int:
     """Bytes of a backward-chain block's W_hid rows in shared memory:
     float32, units rows of 4H floats; bfloat16, the tensor cores' fragment
@@ -567,8 +631,8 @@ def _sm_count(index: int) -> int:
 @functools.cache
 def _bwd_lib():
     lib = _build.load("lstm_bwd")
-    # clip, w_bf16, B, T, H, units, smem, stream
-    tail = [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_size_t, ctypes.c_void_p]
+    # clip, w_bf16, B, T, H, units, row_groups, smem, stream
+    tail = [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_size_t, ctypes.c_void_p]
     # ..., dgates, dcell0, dhid0[, dw], scratch, then the tail
     lib.lstm_bwd_chain.argtypes = [ctypes.c_void_p] * 10 + tail
     lib.lstm_bwd_chain.restype = ctypes.c_int
@@ -606,6 +670,18 @@ def _peep_shapes(peep, H):
     return {name: (v, (H,)) for name, v in zip(("w_ci", "w_cf", "w_co"), peep)}
 
 
+def _outputs(name, args, w_hid, outs, shapes) -> list:
+    """Fresh float32 output tensors of ``shapes`` on the inputs' device, or
+    ``outs`` (given for measurement) checked against them."""
+    if outs is None:
+        return [torch.empty(s, dtype=torch.float32, device=args[0].device) for s in shapes]
+    if len(outs) != len(shapes):
+        raise ValueError(f"{name}: expected {len(shapes)} output tensors, got {len(outs)}")
+    _check_cuda(name, (*args, *outs), {f"out {i}": (o, s)
+                                       for i, (o, s) in enumerate(zip(outs, shapes))}, w_hid)
+    return list(outs)
+
+
 def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, state=False,
              tiled=None, counter=None):
     """Check the inputs and launch csrc/lstm_fwd.cu's inference entry point
@@ -632,16 +708,9 @@ def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, sta
         **_peep_shapes(peep, H)}, w_hid)
     dev = x_proj.device
     plan = fwd_plan(B, H, _sm_count(dev.index), w_hid.dtype, units, chunks, tiled)
-    shapes = ([(B, T, H), (B, T, H), (B, T, 4 * H)] if train
-              else [(B, T, H), (B, H)] if state else [(B, T, H)])
-    if outs is None:
-        outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
-    elif len(outs) != len(shapes):
-        raise ValueError(f"{name}: expected {len(shapes)} output tensors, got {len(outs)}")
-    else:
-        _check_cuda(name, (*args, *outs), {f"out {i}": (o, s)
-                                           for i, (o, s) in enumerate(zip(outs, shapes))},
-                    w_hid)
+    outs = _outputs(name, args, w_hid, outs,
+                    [(B, T, H), (B, T, H), (B, T, 4 * H)] if train
+                    else [(B, T, H), (B, H)] if state else [(B, T, H)])
     lib = _lib()
     if peep:
         entry = lib.lstm_fwd_peep_train_forward if train else lib.lstm_fwd_peep_forward
@@ -681,8 +750,8 @@ def _on_cpu(args) -> bool:
 def _count(counter, w_hid, tiled=False) -> None:
     """One launch of ``counter``'s row: its float32 instantiation counts in
     ``counter.launches``, its bf16 one (a bf16 W_hid) in
-    ``counter.launches_bf16``; a recurrence call that took the large-B body
-    (``tiled``) also counts in ``counter.launches_tiled``."""
+    ``counter.launches_bf16``; a call that took the large-B body (``tiled``)
+    also counts in ``counter.launches_tiled``."""
     if w_hid.dtype == torch.bfloat16:
         counter.launches_bf16 += 1
     else:
@@ -837,13 +906,20 @@ lstm_peep_recurrence_train.launches_bf16 = 0
 lstm_peep_recurrence_train.launches_tiled = 0
 
 
-def _run_bwd(name, args, clip, peep=(), units=None, chunks=None):
+def _run_bwd(name, args, clip, peep=(), units=None, chunks=None, outs=None, tiled=None,
+             counter=None):
     """Check the inputs and launch csrc/lstm_bwd.cu's chain, one cooperative
-    launch per row chunk planned by :func:`bwd_launch_plan` (``units`` and
-    ``chunks`` force its units per block and row chunks, for measurement):
-    returns ``(dgates, dcell0, dhid0)``, and with ``peep`` also the three
-    (H,) peephole gradients, which the kernel reduces over a chunk's rows
-    itself; the chunks' partial sums are added in chunk order."""
+    launch per row chunk planned by :func:`bwd_plan` (the large-B body or
+    the small-B one, chosen from W_hid's dtype, B and H): returns ``(dgates,
+    dcell0, dhid0)``, and with ``peep`` also the three (H,) peephole
+    gradients, which the kernel reduces over a chunk's rows itself; the
+    chunks' partial sums are added in chunk order.  ``counter``, when given,
+    counts the call (:func:`_count`).  For measurement, ``units`` and
+    ``chunks`` force the plan's units per block and row chunks, ``tiled``
+    forces the body, and ``outs`` gives dgates, dcell0 and dhid0 to write
+    (contiguous float32 of the output shapes, for example NaN-filled, so a
+    value the kernel does not write shows; the chunks' peephole gradients
+    then start NaN-filled too)."""
     g_out, gates_pre, cells, cells_prev, mask, w_hid = args
     if cells.dim() != 3:
         raise ValueError(f"{name}: cells must be (B, T, H), got {tuple(cells.shape)}")
@@ -853,43 +929,55 @@ def _run_bwd(name, args, clip, peep=(), units=None, chunks=None):
         "cells_prev": (cells_prev, (B, T, H)), "mask": (mask, (B, T)),
         "w_hid": (w_hid, (H, 4 * H)), **_peep_shapes(peep, H)}, w_hid)
     dev = cells.device
-    plan = bwd_launch_plan(B, H, _sm_count(dev.index), units, chunks, w_hid.dtype)
+    plan = bwd_plan(B, H, _sm_count(dev.index), w_hid.dtype, units, chunks, tiled)
+    large = isinstance(plan, TiledPlan)
+    nan_dw = outs is not None
+    outs = _outputs(name, args, w_hid, outs, [(B, T, 4 * H), (B, H), (B, H)])
     lib = _bwd_lib()
-    dgates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
-    dcell0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    dhid0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     w_bf16 = int(w_hid.dtype == torch.bfloat16)
-    # the bf16 product's operand: the clipped dgates of the last two steps
-    # rounded to bf16, (2, rows, 4H), reused by the chunks in turn on the
-    # stream (held here until the launches are queued)
-    operand = (torch.empty(2 * plan.rows * 4 * H, dtype=torch.bfloat16, device=dev)
-               if w_bf16 else None)
-    scratch = None if operand is None else operand.data_ptr()
+    # the large-B body's row groups on the grid's y, sized for the largest
+    # chunk (a row group past a smaller chunk's rows only idles)
+    row_groups = -(-plan.rows // TILED_ROWS) if large else 1
+    # the scratch the chunks use in turn on the stream (held here until the
+    # launches are queued): for a bf16 W the product's operand, the clipped
+    # dgates of the last two steps rounded to bf16, (2, rows, 4H); for the
+    # peephole large-B body each row group's dw sums, (row_groups, 3, H)
+    if w_bf16:
+        scratch = torch.empty(2 * plan.rows * 4 * H, dtype=torch.bfloat16, device=dev)
+    elif large and peep:
+        scratch = torch.empty((row_groups, 3, H), dtype=torch.float32, device=dev)
+    else:
+        scratch = None
+    scratch_ptr = None if scratch is None else scratch.data_ptr()
 
     def launch(*views):
         ptrs = [a.data_ptr() for a in views]
-        tail = (clip, w_bf16, views[0].shape[0], T, H, plan.units, plan.smem_bytes, stream)
+        tail = (clip, w_bf16, views[0].shape[0], T, H, plan.units, row_groups, plan.smem_bytes,
+                stream)
         if peep:
-            dw = torch.empty((3, H), dtype=torch.float32, device=dev)
+            dw = (torch.full((3, H), float("nan"), dtype=torch.float32, device=dev) if nan_dw
+                  else torch.empty((3, H), dtype=torch.float32, device=dev))
             code = lib.lstm_bwd_peep_chain(*ptrs[:5], w_hid.data_ptr(),
                                            *(v.data_ptr() for v in peep), *ptrs[5:],
-                                           dw.data_ptr(), scratch, *tail)
+                                           dw.data_ptr(), scratch_ptr, *tail)
         else:
             dw = None
-            code = lib.lstm_bwd_chain(*ptrs[:5], w_hid.data_ptr(), *ptrs[5:], scratch, *tail)
+            code = lib.lstm_bwd_chain(*ptrs[:5], w_hid.data_ptr(), *ptrs[5:], scratch_ptr,
+                                      *tail)
         _build.check(lib, "lstm_bwd", code)
         return dw
 
     with torch.cuda.device(dev):  # the launch's device, as in _run_fwd
-        dws = map_chunks(launch, plan.chunks, g_out, gates_pre, cells, cells_prev, mask,
-                         dgates, dcell0, dhid0)
+        dws = map_chunks(launch, plan.chunks, g_out, gates_pre, cells, cells_prev, mask, *outs)
+    if counter is not None:
+        _count(counter, w_hid, large)
     if not peep:
-        return dgates, dcell0, dhid0
+        return tuple(outs)
     dw = dws[0]
     for part in dws[1:]:
         dw = dw + part
-    return (dgates, dcell0, dhid0, *dw)
+    return (*outs, *dw)
 
 
 def _check_clip(name, clip) -> float:
@@ -906,18 +994,18 @@ def lstm_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, clip):
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (one
     cooperative launch per row chunk, the call counted once in
-    ``lstm_bwd_chain.launches``) or raise."""
+    ``lstm_bwd_chain.launches``, and in ``.launches_tiled`` when it took the
+    large-B body) or raise."""
     args = (g_out, gates_pre, cells, cells_prev, mask, w_hid)
     clip = _check_clip("lstm_bwd_chain", clip)
     if _on_cpu(args):
         return lstm_bwd_chain_plain(*args, clip)
-    out = _run_bwd("lstm_bwd_chain", args, clip)
-    _count(lstm_bwd_chain, w_hid)
-    return out
+    return _run_bwd("lstm_bwd_chain", args, clip, counter=lstm_bwd_chain)
 
 
 lstm_bwd_chain.launches = 0
 lstm_bwd_chain.launches_bf16 = 0
+lstm_bwd_chain.launches_tiled = 0
 
 
 def lstm_peep_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, w_ci, w_cf, w_co,
@@ -929,16 +1017,16 @@ def lstm_peep_bwd_chain(g_out, gates_pre, cells, cells_prev, mask, w_hid, w_ci, 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
     peephole instantiation (one cooperative launch per row chunk, which also
     reduces the peephole gradients over the chunk's rows; the call counted
-    once in ``lstm_peep_bwd_chain.launches``) or raise."""
+    once in ``lstm_peep_bwd_chain.launches``, and in ``.launches_tiled``
+    when it took the large-B body) or raise."""
     args = (g_out, gates_pre, cells, cells_prev, mask, w_hid)
     peep = (w_ci, w_cf, w_co)
     clip = _check_clip("lstm_peep_bwd_chain", clip)
     if _on_cpu((*args, *peep)):
         return lstm_peep_bwd_chain_plain(*args, *peep, clip)
-    out = _run_bwd("lstm_peep_bwd_chain", args, clip, peep)
-    _count(lstm_peep_bwd_chain, w_hid)
-    return out
+    return _run_bwd("lstm_peep_bwd_chain", args, clip, peep, counter=lstm_peep_bwd_chain)
 
 
 lstm_peep_bwd_chain.launches = 0
 lstm_peep_bwd_chain.launches_bf16 = 0
+lstm_peep_bwd_chain.launches_tiled = 0
