@@ -35,9 +35,10 @@ Phases, each fatal on failure:
    (exactly one launch per call and no other device work, its device time
    per call and per step), timed against cuDNN, and at two units-per-block
    settings in turns; the four recurrences' large-B body (``tiled_check``,
-   rows 1 and 3 at H = 500, B in {64, 257, 256}, rows 5 and 6 at H = 250,
-   B in {250, 512}, T in {1, 29}, both directions, nonzero states, into
-   NaN-filled outputs, traced at the cells' batch beside the small-B body)
+   rows 1 and 3 at H = 500, B in {64, 128, 600, 256}, rows 5 and 6 at H =
+   250, B in {250, 512}, T in {1, 29}, both directions, nonzero states, into
+   NaN-filled outputs, at H = 500 also from an unaligned hid0, traced at the
+   cells' batch beside the small-B body)
    and the backward chains' (``bwd_tiled_check``, row 4 at H = 500, B in
    {64, 600, 256}, row 7 at H = 250, B in {250, 600, 512}, as the
    recurrences' plus clip 5 with x1 and x100 upstream and clip 0, the
@@ -309,14 +310,17 @@ prints their numbers as JSON (about three minutes);
 
     python3 chip_smoke.py --tiled
 
-runs only phases 1 and 2 and the large-B bodies of the four recurrences
-and the two backward chains (``tiled_check``, ``bwd_tiled_check``,
-``tiled_main_path``), then the crossover sweeps that set
-``ops/kernels/lstm.TILED_MIN_ROWS`` and ``TILED_WIDE_H``, and
+runs only phases 1 and 2, ptxas's registers and spill bytes of the four
+large-B recurrences (``tiled_ptxas``, which fails on a spill), the
+large-B bodies of the four recurrences (also at other widths, both forms:
+``TILED_WIDTHS``) and the two backward chains (``tiled_check``,
+``bwd_tiled_check``, ``tiled_main_path``), then the crossover sweeps that
+set ``ops/kernels/lstm.TILED_RESIDENT_MIN_ROWS``, ``TILED_MIN_ROWS`` and
+``TILED_WIDE_H``, and
 ``BWD_TILED_MIN_ROWS``, ``BWD_TILED_MIN_H`` and ``BWD_TILED_MAX_H``
 (``tiled_sweep``: the small-B body against the large-B one; rows 1 and 6
-at the cells' widths at B = 16-256, row 1 at H in {130, 64, 24, 16} at B
-in {128, 256, 512}; rows 4 and 7 at the cells' widths at B = 16-256 (and
+at the cells' widths and row 1 at H in {130, 64}, B in {64, 96, 128,
+256}; rows 4 and 7 at the cells' widths at B = 16-256 (and
 512 for row 7), row 4 at H in {130, 64} at B in {64, 128, 256, 512}), and
 prints their numbers as JSON (about two minutes of command time);
 
@@ -690,6 +694,56 @@ def chain_kernels(lib_path):
     return {name: (ins, regs.get(name)) for name, ins in code.items()}
 
 
+def ptxas_report(log):
+    """{instantiation: (registers, spill store bytes, spill load bytes)} of
+    the chain kernels in the messages of ``nvcc -Xptxas -v``."""
+    regs, spills, name = {}, {}, None
+    for line in log.splitlines():
+        m = (re.search(r"Compiling entry function '(\S+)'", line)
+             or re.search(r"Function properties for (\S+)", line))
+        if m:
+            name = chain_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills[name] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+    return {n: (r, *spills.get(n, (None, None))) for n, r in regs.items()}
+
+
+def tiled_ptxas():
+    """ptxas's registers and spill bytes of the recurrence's large-B body,
+    its four instantiations lstm_fwd_chain_kernel<E, P, 16, float>, from a
+    fresh build of csrc/lstm_fwd.cu with the package's flags.  Raises unless
+    all four are there and none spills (W_hid's share lives in registers).
+    Returns {instantiation: [registers, spill stores, spill loads]}."""
+    import tempfile
+
+    from ip_avsr_torch.ops.kernels import _build
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_ptxas_")
+    try:
+        proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                               os.path.join(out, "lstm_fwd.so"),
+                               os.path.join(ROOT, "ip_avsr_torch", "csrc", "lstm_fwd.cu")],
+                              capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"lstm_fwd.cu did not build:\n{proc.stdout}{proc.stderr}")
+    report = ptxas_report(proc.stdout + proc.stderr)
+    tiled = {n: list(v) for n, v in report.items() if re.search(r"<\w+, \w+, 16, float>$", n)}
+    for n, (regs, stores, loads) in sorted(tiled.items()):
+        print(f"ptxas, {n}: {regs} registers, {stores} bytes spill stores, {loads} bytes "
+              f"spill loads")
+    if len(tiled) != 4 or any(v[1] != 0 or v[2] != 0 for v in tiled.values()):
+        raise AssertionError(f"the large-B recurrence's four instantiations must build "
+                             f"without spills: {tiled}")
+    return tiled
+
+
 def phase_sass():
     """Registers per thread and tensor-core instructions (HMMA) of every
     instantiation of the two chain kernels in the built libraries.  Raises
@@ -1001,21 +1055,30 @@ def fwd_sweep(dev):
 
 
 # the large-B body of rows 1, 3, 5 and 6 (ops/kernels/lstm.fwd_tiled_plan):
-# row -> (H, batches) of its checks, the cells' batch last
-TILED_CASES = {"lstm_fwd": (500, (64, 257, 256)), "lstm_fwd_train": (500, (64, 257, 256)),
+# row -> (H, batches) of its checks, the cells' batch last; B = 600 runs in
+# row chunks (3 of 200 rows at H = 500)
+TILED_CASES = {"lstm_fwd": (500, (64, 128, 600, 256)),
+               "lstm_fwd_train": (500, (64, 128, 600, 256)),
                "lstm_peep_fwd": (250, (250, 512)), "lstm_peep_fwd_train": (250, (250, 512))}
+# the same body at other widths, each of the four instantiations in each
+# form (ops/kernels/lstm.tiled_resident): staged at H = 130, 64 and 498, W_hid
+# in registers at 388 and 512 (short and full k slices): (row, H, batches)
+TILED_WIDTHS = (("lstm_fwd", 130, (256,)), ("lstm_peep_fwd_train", 130, (256,)),
+                ("lstm_fwd_train", 64, (256,)), ("lstm_peep_fwd", 64, (256,)),
+                ("lstm_fwd", 498, (256,)), ("lstm_peep_fwd_train", 388, (256,)),
+                ("lstm_peep_fwd", 512, (130,)), ("lstm_fwd_train", 388, (130,)))
 # the large-B body of rows 4 and 7 (ops/kernels/lstm.bwd_tiled_plan): row ->
 # (H, batches) of its checks, the cells' batch last; B = 600 runs in row
 # chunks (3 of 200 rows at H = 500, 2 of 300 at H = 250)
 BWD_TILED_CASES = {"lstm_bwd": (500, (64, 600, 256)), "lstm_peep_bwd": (250, (250, 600, 512))}
 # the crossover sweeps, small-B body against large-B body: (row, H, batches);
 # rows 1 and 6 at the cells' widths, row 1 at the small widths of the
-# synthetic configurations and the tests (ops/kernels/lstm.TILED_MIN_ROWS);
-# rows 4 and 7 at the cells' widths and row 4 at two small ones
-# (BWD_TILED_MIN_ROWS, BWD_TILED_MIN_H)
-TILED_SWEEP = (("lstm_fwd", 500, (16, 32, 64, 96, 128, 256)),
-               ("lstm_peep_fwd_train", 250, (16, 32, 64, 96, 128, 256)),
-               *(("lstm_fwd", H, (128, 256, 512)) for H in (130, 64, 24, 16)))
+# synthetic configurations and the tests (ops/kernels/lstm.
+# TILED_RESIDENT_MIN_ROWS, TILED_MIN_ROWS, TILED_WIDE_H); rows 4 and 7 at the cells' widths and row 4 at two small
+# ones (BWD_TILED_MIN_ROWS, BWD_TILED_MIN_H)
+TILED_SWEEP = (("lstm_fwd", 500, (64, 96, 128, 256)),
+               ("lstm_peep_fwd_train", 250, (64, 96, 128, 256)),
+               *(("lstm_fwd", H, (64, 96, 128, 256)) for H in (130, 64)))
 BWD_TILED_SWEEP = (("lstm_bwd", 500, (16, 32, 64, 96, 128, 192, 256)),
                    ("lstm_peep_bwd", 250, (16, 32, 64, 96, 128, 192, 256, 512)),
                    *(("lstm_bwd", H, (64, 128, 256, 512)) for H in (130, 64)))
@@ -1129,25 +1192,27 @@ def bwd_tiled_check(dev, name):
     return err, numbers
 
 
-def tiled_check(dev, name):
-    """Row ``name`` (a key of :data:`TILED_CASES`) in the large-B body
-    against its plain version at its shapes: nonzero initial states, ragged
-    masks with a fully padded row and a length-1 row, T in {1, 29}, both
-    directions, nonzero peephole vectors; rows 1 and 5 also with their final
-    cell (``state``), rows 3 and 6 with their residuals.  Each call runs
-    through the wrapper where the dispatch takes the large-B body (which must
-    count it in ``.launches_tiled``), forced through ``_run_fwd`` below the
-    threshold, and again into NaN-filled outputs, which must come out
-    bit-equal (a value the kernel did not write, or read stale, shows; two
-    calls, the same bits).
-    At the cells' batch, the traced time a call and per step beside the
+def tiled_check(dev, name, H=None, batches=None):
+    """Row ``name`` in the large-B body against its plain version at width
+    ``H`` and ``batches`` (by default its entry in :data:`TILED_CASES`):
+    nonzero initial states, ragged masks with a fully padded row and a
+    length-1 row, T in {1, 29}, both directions, nonzero peephole vectors;
+    rows 1 and 5 also with their final cell (``state``), rows 3 and 6 with
+    their residuals.  Each call runs through the wrapper where the dispatch
+    takes the large-B body (which must count it in ``.launches_tiled``),
+    forced through ``_run_fwd`` below the threshold, and again into
+    NaN-filled outputs, which must come out bit-equal (a value the kernel
+    did not write, or read stale, shows; two calls, the same bits); where
+    W_hid is resident (``tiled_resident``), once more from a hid0 4 bytes
+    off a float4 boundary, the same bits.  At the cells' batch, the traced time a call and per step beside the
     small-B body's on the event clock.  Returns the largest absolute error
     and {"traced_ms", "us_per_step", "ms", "small_ms", "bound_ms", "B", "H"}."""
     import torch
 
     from ip_avsr_torch.ops.kernels import lstm as kl
 
-    H, batches = TILED_CASES[name]
+    if H is None:
+        H, batches = TILED_CASES[name]
     train, peep = name.endswith("train"), "peep" in name
     wrapper = getattr(kl, name.replace("fwd", "recurrence"))
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1198,6 +1263,17 @@ def tiled_check(dev, name):
                         raise AssertionError(
                             f"{name} large-B body disagrees with its plain version: {rel}")
                     err = max(err, max(errs))
+                    if kl.tiled_resident(H) and T > 1 and not backwards and not state:
+                        # hid0 4 bytes off a float4 boundary: the wrapper hands
+                        # the resident body an aligned copy, the same bits
+                        off = torch.empty(B * H + 1, device=dev)[1:].view(B, H).copy_(h0)
+                        moved = kl._run_fwd(name, (x_proj, w_hid, ms_, c0, off), train,
+                                            peep=vecs, state=state, tiled=True)
+                        moved = moved if train or state else (moved,)
+                        if not all(torch.equal(a, b) for a, b in zip(moved, got)):
+                            raise AssertionError(f"{name} B={B}: an unaligned hid0 changed "
+                                                 f"the resident body's outputs")
+                        print(f"{name} large-B B={B} H={H}: unaligned hid0, the same bits")
     # the cells' batch: traced, and against the small-B body in turns
     B = batches[-1]
     x_proj = torch.randn(B, T_FRAMES, 4 * H, generator=gen).to(dev)
@@ -6962,9 +7038,12 @@ def main() -> int:
         # the large-B bodies alone: their six rows against their plain
         # versions, timed at the cells' batches, their counters on the main
         # path, and the crossover sweeps
+        ptxas = tiled_ptxas()
         numbers = {name: tiled_check(dev, name)[1] for name in TILED_CASES}
+        numbers.update({f"{name} H={H}": tiled_check(dev, name, H, batches)[1]
+                        for name, H, batches in TILED_WIDTHS})
         numbers.update({name: bwd_tiled_check(dev, name)[1] for name in BWD_TILED_CASES})
-        print(json.dumps({"large_b": numbers, "main_path": tiled_main_path(dev),
+        print(json.dumps({"ptxas": ptxas, "large_b": numbers, "main_path": tiled_main_path(dev),
                           "sweep": tiled_sweep(dev, TILED_SWEEP + BWD_TILED_SWEEP)}))
         return 0
     delta_err, delta_rows = phase_delta(dev)

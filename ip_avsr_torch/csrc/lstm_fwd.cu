@@ -180,44 +180,81 @@
 // rows of h_{t-1} each step, in rounds of 8 R rows (16 at U = 4), each an
 // unhidden L2 round trip, a shuffle transpose and a __syncthreads: 16 rounds,
 // 55 us a step at B = 256, H = 500.  The large-B body does the same f32 FMAs
-// on the CUDA cores (no TF32: the configurations state f32) in a layout that
-// reads less and overlaps its loads:
+// on the CUDA cores (no TF32: the configurations state f32) in one of two
+// forms, which share the grid, the gate stage and the barrier:
 // - Blocks split by rows as well as units: ceil(H / 16) unit groups on x by
 //   row groups of 64 rows on y (gridDim.y; a launch takes as many as fit
 //   beside the unit groups on the card's SMs, a larger batch runs in row
 //   chunks: ops/kernels/lstm.py::fwd_tiled_plan).  A block owns all four
 //   gates of its 16 units, so the gate math and the carries stay local, and
 //   reads only its row group's rows of h_{t-1}: 16 MB of L2 a step at B =
-//   256, H = 500, against 64 MB.  Still one grid.sync() a step.
+//   256, H = 500.  One grid.sync() a step.
+// - The gate stage: thread tid owns rows tid / 16 + 16 i (i < 4) of unit
+//   tid % 16.
+// Resident (resident_chain, at the widths tiled_resident takes: H a multiple
+// of 4 from 388 to 512), W_hid in registers for the whole call, the
+// persistent-RNN layout:
+// - Warp w holds the k slice w KW .. w KW + KW - 1 (KW = 4 ceil(H / 32), 64
+//   at H = 500), its quarter q = lane / 8 the groups of 4 k 4 i + q (i < 4)
+//   of the slice, and lane l the gate columns of units 2 (l % 8) and + 1
+//   (columns unit-major, 4 u + gate): 4 x 4 x 8 = 128 weights a thread, an
+//   array that only compile-time indices touch.  Shared memory serves only
+//   h_{t-1}, as broadcasts: a float4 read has one address a quarter warp
+//   and feeds a lane 4 k x 8 columns, 32 FMAs.  (With 2 columns a lane and
+//   no k split, 8 FMAs a read, the product measured bound by shared memory:
+//   a broadcast float4 read costs one wavefront a quarter warp.)
+// - The quarters' sums of a column meet in two shuffle levels, (q0 + q2) +
+//   (q1 + q3) in every lane that holds it (a + b = b + a), transposed so
+//   that a lane keeps 2 columns; the warps' partial sums go to shared memory
+//   and the gate stage adds the 8 of each (row, column) in warp order; each
+//   quarter takes its k in order, so two calls give the same bits.
+// - h_{t-1} staged per warp: each warp copies its own k slice of its row
+//   group's rows into its own 64 rows of shared memory, in float4 pieces
+//   (H a multiple of 4 and the entry points check the alignment of hid0 and
+//   out), kTiledChunkRows rows at a time, chunk c + 1's loads in flight
+//   while chunk c is multiplied; a row of h is overwritten by the warp's
+//   partial sums of that row once every lane has read it, so the warps meet
+//   only at the step's __syncthreads.  [stale] h is written in this launch:
+//   __ldcg into registers (L2 only), then shared stores.  Each unit group
+//   starts at its own chunk and takes the others in turn, so that the
+//   blocks of a row group do not all read the same lines at once; a row's
+//   sums do not depend on the chunk order.  Chunks wholly past B are
+//   skipped.
+// - The gate stage's x_proj and mask of step t + 1 are copied to shared
+//   memory by cp.async.ca (read-only for the whole launch) during step t,
+//   and its carries live in shared memory, so that neither holds registers
+//   across the product.
+// Bound of a step: a block's 64 x 64 sums over K = 8 KW are 2.1 M FMAs at H
+// = 500, 16.4 k clocks of an SM's 128 FMAs a clock; a warp issues 32 FMAs a
+// shared-memory read and 2 x 4 shuffles a row of 128 FMAs, so the product
+// is bound by FMA issue.  At B = 256 every block does them (128 of the
+// card's 132 SMs).  Registers: 128 of W, 255 in all, no spill.  Shared
+// memory (dynamic), whatever H: the warps' rows of h and partial sums 8 x 64
+// x 64 floats, the gate inputs of two steps and the carries 256 threads x 48
+// floats: 180,224 B (ops/kernels/lstm.py::fwd_tiled_smem_bytes).
+// Staged (staged_chain, every other width up to 512; at H = 250, 130 and 64
+// it measured faster than the resident layout, whose fixed cost a step does
+// not shrink with H):
 // - h_{t-1} staged through shared memory: the row group's rows in chunks of
-//   kTiledK = 64 values of k, two buffers, chunk c + 1's loads issued before
-//   chunk c is multiplied.  [stale] h is written in this launch, so the
-//   loads are __ldcg into registers (L2 only), then stored to shared memory:
-//   cp.async.cg copies only 16 bytes and the rows of h are 8-byte aligned at
-//   H = 250 or 130, cp.async.ca goes through L1, and TMA needs 16-byte row
-//   strides; the register route needs no proxy fence either, as its shared
-//   stores are generic.  Each unit group starts at its own chunk (blockIdx.x
-//   modulo the chunks) and takes the others in turn, so that the blocks of a
-//   row group do not all read the same lines at once.
+//   kStagedK = 64 values of k, two buffers, chunk c + 1's loads issued
+//   before chunk c is multiplied.  [stale] h is written in this launch, so
+//   the loads are __ldcg into registers (L2 only), then stored to shared
+//   memory: cp.async.cg copies only 16 bytes and the rows of h are 8-byte
+//   aligned at H = 250 or 130, cp.async.ca goes through L1, and TMA needs
+//   16-byte row strides; the register route needs no proxy fence either, as
+//   its shared stores are generic.  Each unit group starts at its own chunk
+//   (blockIdx.x modulo the chunks) and takes the others in turn.
 // - A register-tiled product: thread (kq, tr, tc) holds an 8 x 8 tile of
 //   sums, rows tr + 8 i by the four gates of units tc and tc + 8 (W's columns
 //   unit-major, 4 u + gate), over slice kq of every chunk (4 slices of 16 k).
 //   Per k it reads 8 values of h and 8 of W from shared memory as float4 (a
 //   quarter warp reads one h address and 128 contiguous bytes of W: no bank
-//   conflict), 4 FMAs a value read, which is what shared memory's 32 values
-//   a clock needs to keep up with 128 FMAs a clock.  The slices' partial sums
-//   meet in shared memory and are added in slice order; within a slice k
-//   runs in the block's fixed chunk order, so two calls give the same bits.
-// - The gate stage: thread tid owns rows tid / 16 + 16 i (i < 4) of unit
-//   tid % 16, its carries in registers for the whole call.
-// Bound of a step: a block's 64 x 64 sums over K = H padded to 64 are 2.1 M
-// FMAs at H = 500, 16.4 k clocks of an SM's 128 FMAs a clock, and as many
-// clocks of shared-memory reads; at B = 256 every block does them (128 of
-// the card's 132 SMs), so a call is bound by the FMAs whatever B up to the
-// launch's rows.  Shared memory (dynamic): W ceil(H / 64) * 64 rows of 64
-// floats (zero past H), two chunks of 64 rows x 68 floats, the slices'
-// partial sums 4 x 64 x 64 floats: 231,424 B at H = 500, 165,888 at H = 250
-// (ops/kernels/lstm.py::fwd_tiled_smem_bytes); H up to 512.
+//   conflict).  The slices' partial sums meet in shared memory and are added
+//   in slice order; within a slice k runs in the block's fixed chunk order,
+//   so two calls give the same bits.  The carries stay in registers.
+// - Shared memory (dynamic): W ceil(H / 64) * 64 rows of 64 floats (zero past
+//   H), two chunks of 64 rows x 68 floats, the slices' partial sums 4 x 64 x
+//   64 floats: 165,888 B at H = 250, 231,424 at H = 512.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -420,37 +457,377 @@ __device__ __forceinline__ void transpose_level(float (&v)[kPairs], int lane) {
 }
 
 // The large-B body (header): float32 W_hid, kTiledUnits units by kTiledRows
-// rows a block.  For the product, thread (kq, tr, tc) sums rows tr + 8 i (i
-// < kTiledTileRows) by the gate columns of units tc and tc + 8 over slice kq
-// of every staged chunk of kTiledK values of k (kTiledSplit slices); for the
-// gate stage, thread tid owns rows tid / 16 + 16 i (i < kTiledGateRows) of
-// unit tid % 16.
+// rows a block; for the gate stage, thread tid owns rows tid / 16 + 16 i (i
+// < kTiledGateRows) of unit tid % 16.  In the resident body's product, warp
+// w holds W_hid's k slice w KW .. + KW - 1 (KW <= kTiledSliceK), quarter q =
+// lane / 8 of it the groups of 4 k 4 i + q (i < kTiledGroups) and lane l the
+// kTiledLaneCols gate columns of group l % 8, over the row group's rows in
+// chunks of kTiledChunkRows, kTiledPassRows rows at a time.
 constexpr int kTiledUnits = 16;
 constexpr int kTiledRows = 64;
 constexpr int kTiledCols = 4 * kTiledUnits;
-constexpr int kTiledSplit = 4;
-constexpr int kTiledTileRows = 8;
-constexpr int kTiledK = 64;
-constexpr int kTiledKPad = kTiledK + 4;
+constexpr int kTiledMaxH = 512;
+constexpr int kTiledSliceK = kTiledMaxH / kWarps;
+constexpr int kTiledLaneCols = kTiledCols / 8;
+constexpr int kTiledGroups = kTiledSliceK / 16;
+constexpr int kTiledPassRows = 4;
+constexpr int kTiledChunkRows = 8;
 constexpr int kTiledGateRows = kTiledRows * kTiledUnits / kChainThreads;
-// values of a chunk each thread stages: rows r0 + kStageRowStep * l (l <
-// kTiledStage) at the thread's column tid % kTiledK
-constexpr int kTiledStage = kTiledRows * kTiledK / kChainThreads;
-constexpr int kStageRowStep = kChainThreads / kTiledK;
-static_assert(kTiledSplit * (kTiledRows / kTiledTileRows) * (kTiledCols / 8) == kChainThreads,
+// a gate-stage thread's values in shared memory: x_proj's 4 gates and the
+// mask of each of its rows, for two steps, and its cell and hidden carries
+constexpr int kTiledStepIn = 5 * kTiledGateRows;
+constexpr int kTiledGateIn = 2 * kTiledStepIn + 2 * kTiledGateRows;
+static_assert(kTiledLaneCols == 8 && kTiledGroups * 16 == kTiledSliceK &&
+                  32 % (kTiledSliceK / 4) == 0,
+              "a lane holds two units' gate columns; the quarters take whole groups of 4 k; "
+              "a warp's float4 pieces cover whole rows");
+// k of a warp's slice at width H: the slices cover H in whole groups of 4
+__host__ __device__ constexpr int tiled_slice_k(int H) {
+  return (H + 4 * kWarps - 1) / (4 * kWarps) * 4;
+}
+// the widths the resident body takes: those whose k slices fill every
+// quarter warp's kTiledGroups groups of 4 k (H above 384), in whole float4
+// pieces of h
+__host__ __device__ constexpr bool tiled_resident(int H) {
+  return H > kTiledMaxH * 3 / 4 && H <= kTiledMaxH && H % 4 == 0;
+}
+// the warps' rows of h_{t-1} and then partial sums, the gate inputs and
+// carries
+__host__ __device__ constexpr size_t resident_smem_bytes() {
+  return (static_cast<size_t>(kWarps) * kTiledRows * kTiledCols +
+          static_cast<size_t>(kTiledGateIn) * kChainThreads) *
+         sizeof(float);
+}
+
+// One float of read-only global memory into shared memory, asynchronously
+// (cp.async.ca, 4 bytes); cp.async.wait_group makes it visible to the thread.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  const unsigned int d = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// The warp's k slice of one chunk of kTiledChunkRows rows (row0 ..) moves
+// to shared memory through registers in float4 pieces: piece m of the
+// lane, v[4 m .. 4 m + 3], is q = lane + 32 m of the chunk's rows of
+// kTiledSliceK / 4 pieces, so that neighbouring lanes read neighbouring
+// pieces.  h's rows are 16-byte aligned (H a multiple of 4, checked by the
+// entry points).
+constexpr int kTiledStage = kTiledChunkRows * kTiledSliceK / 32;  // floats a lane
+constexpr int kTiledPieces = kTiledSliceK / 4;                     // of a row
+
+// Loads the pieces: zero at a row at or past B, at slice k at or past KW, or
+// at k at or past H (a piece is wholly one or the other: KW and H are
+// multiples of 4).  [stale] h is written in this launch: L2 only.
+__device__ __forceinline__ void tiled_stage_load(const float* h, size_t h_stride, int row0,
+                                                 int B, int k0, int KW, int H, int lane,
+                                                 float (&v)[kTiledStage]) {
+#pragma unroll
+  for (int m = 0; m < kTiledStage / 4; ++m) {
+    const int q = lane + 32 * m;
+    const int r = q / kTiledPieces;
+    const int kk = q % kTiledPieces * 4;
+    const float* src = h + (row0 + r) * h_stride + k0 + kk;
+    const float4 x = row0 + r < B && kk < KW && k0 + kk < H
+                         ? __ldcg(reinterpret_cast<const float4*>(src))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[4 * m] = x.x;
+    v[4 * m + 1] = x.y;
+    v[4 * m + 2] = x.z;
+    v[4 * m + 3] = x.w;
+  }
+}
+
+// Stores the pieces into the chunk's rows of buf (rows of kTiledSliceK).
+__device__ __forceinline__ void tiled_stage_store(float* buf, int lane,
+                                                  const float (&v)[kTiledStage]) {
+#pragma unroll
+  for (int m = 0; m < kTiledStage / 4; ++m) {
+    const int q = lane + 32 * m;
+    *reinterpret_cast<float4*>(buf + q / kTiledPieces * kTiledSliceK + q % kTiledPieces * 4) =
+        make_float4(v[4 * m], v[4 * m + 1], v[4 * m + 2], v[4 * m + 3]);
+  }
+}
+
+// The whole recurrence in the resident large-B body (tiled_resident(H));
+// arguments as the kernel's (cell_last may be null; without Peephole the w_c*
+// are unused; without EmitResiduals cells and gates are).  Block (blockIdx.x,
+// blockIdx.y) owns units j0 = kTiledUnits blockIdx.x .. + kTiledUnits - 1 and
+// rows rb0 = kTiledRows blockIdx.y .. + kTiledRows - 1.
+template <bool EmitResiduals, bool Peephole>
+__device__ __forceinline__ void resident_chain(
+    const float* __restrict__ x_proj, const float* __restrict__ w_hid,
+    const float* __restrict__ mask, const float* __restrict__ cell0,
+    const float* __restrict__ hid0, float* out, float* __restrict__ cells,
+    float* __restrict__ gates, float* __restrict__ cell_last, const float* __restrict__ w_ci,
+    const float* __restrict__ w_cf, const float* __restrict__ w_co, int B, int T, int H) {
+  constexpr int U = kTiledUnits;
+  constexpr int C = kTiledCols;
+  constexpr int G = kTiledGroups;
+  constexpr int CR = kTiledChunkRows;
+  constexpr int SK = kTiledSliceK;
+  constexpr int GR = kTiledGateRows;
+  extern __shared__ float4 smem4[];
+  // (kWarps, kTiledRows, C): warp w's rows of h_{t-1} (its k slice), each
+  // overwritten by the warp's partial sums (column 4 u + gate) once read
+  float* red = reinterpret_cast<float*>(smem4);
+  float* gin = red + kWarps * kTiledRows * C;  // (kTiledGateIn, kChainThreads)
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int j0 = blockIdx.x * U;
+  const int rb0 = blockIdx.y * kTiledRows;
+  const size_t H4 = static_cast<size_t>(4) * H;
+  // product thread: k slice k0 .. k0 + KW - 1 of the warp, its groups of 4
+  // k 4 i + wq of the quarter, the 8 gate columns of units 2 wc, 2 wc + 1
+  const int KW = tiled_slice_k(H);
+  const int k0 = warp * KW;
+  const int wq = lane / 8;
+  const int wc = lane % 8;
+  // gate-stage thread: unit gu, rows gr + 16 i
+  const int gu = tid % U;
+  const int gr = tid / U;
+  const int j = j0 + gu;
+
+  // the thread's W_hid share, once per call: w[i][d][c] = W_hid[k, gate * H
+  // + unit] for k = k0 + 4 (4 i + wq) + d, column 8 wc + c = 4 (unit - j0) +
+  // gate; [ragged] dead units, k past the slice and k past H are 0
+  float w[G][4][kTiledLaneCols];
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const int kk = 4 * (4 * i + wq) + d;
+      const bool k_live = kk < KW && k0 + kk < H;
+#pragma unroll
+      for (int c = 0; c < kTiledLaneCols; ++c) {
+        const int u = j0 + 2 * wc + c / 4;
+        w[i][d][c] = k_live && u < H
+                         ? __ldg(w_hid + (k0 + kk) * H4 + static_cast<size_t>(c % 4) * H + u)
+                         : 0.f;
+      }
+    }
+  }
+  // the carries of the gate-stage thread's (row, unit) pairs, in shared
+  // memory for the whole call (carry[i] the cell, carry[GR + i] the hidden
+  // state), each read and written by this thread only; [ragged] [uniform]
+  // dead pairs are masked, no thread returns
+  float* carry = gin + 2 * kTiledStepIn * kChainThreads + tid;
+  bool live[GR];
+#pragma unroll
+  for (int i = 0; i < GR; ++i) {
+    const int b = rb0 + gr + kChainThreads / U * i;
+    live[i] = b < B && j < H;
+    const size_t e = static_cast<size_t>(b) * H + j;
+    carry[i * kChainThreads] = live[i] ? __ldg(cell0 + e) : 0.f;
+    carry[(GR + i) * kChainThreads] = live[i] ? __ldg(hid0 + e) : 0.f;
+  }
+  float p_i = 0.f, p_f = 0.f, p_o = 0.f;
+  if constexpr (Peephole) {
+    if (j < H) {
+      p_i = __ldg(w_ci + j);
+      p_f = __ldg(w_cf + j);
+      p_o = __ldg(w_co + j);
+    }
+  }
+
+  cg::grid_group grid = cg::this_grid();
+  // the row group's chunks that hold a row below B; each unit group starts
+  // at its own
+  const int n_rc = min(kTiledRows / CR, (B - rb0 + CR - 1) / CR);
+  const int c_first = blockIdx.x % n_rc;
+  float* wrows = red + warp * kTiledRows * SK;
+  static_assert(kTiledSliceK == kTiledCols, "a row of h's slice and of partial sums alike");
+  // a step's gate inputs: x_proj's gates of the thread's rows at
+  // gin[(t % 2) kTiledStepIn + 4 i + q], the mask at + 4 GR + i, copied
+  // one step ahead, one cp.async group a step
+  const auto fetch_inputs = [&](int s) {
+    if (s < T) {
+      float* dst = gin + (s % 2) * kTiledStepIn * kChainThreads + tid;
+#pragma unroll
+      for (int i = 0; i < GR; ++i) {
+        const int b = rb0 + gr + kChainThreads / U * i;
+        if (b < B && j < H) {  // live[i]
+          const size_t bt = static_cast<size_t>(b) * T + s;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            cp_async_f32(dst + (4 * i + q) * kChainThreads,
+                         x_proj + bt * H4 + static_cast<size_t>(q) * H + j);
+          }
+          cp_async_f32(dst + (4 * GR + i) * kChainThreads, mask + bt);
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  fetch_inputs(0);
+  for (int t = 0; t < T; ++t) {
+    const float* h = t == 0 ? hid0 : out + static_cast<size_t>(t - 1) * H;
+    const size_t h_stride = t == 0 ? static_cast<size_t>(H) : static_cast<size_t>(T) * H;
+    float v[kTiledStage];
+    tiled_stage_load(h, h_stride, rb0 + c_first * CR, B, k0, KW, H, lane, v);
+    // the next step's inputs queue behind this step's first loads of h; the
+    // buffer they fill was last read before the previous grid.sync()
+    fetch_inputs(t + 1);
+    // into rows whose partial sums the previous step's gate stage read
+    tiled_stage_store(wrows + c_first * CR * SK, lane, v);
+    __syncwarp();
+    for (int ch = 0; ch < n_rc; ++ch) {
+      // chunk cc is multiplied while the next one, cn, is in flight
+      const int cc = (c_first + ch) % n_rc;
+      const int cn = (c_first + ch + 1) % n_rc;
+      const bool more = ch + 1 < n_rc;
+      if (more) tiled_stage_load(h, h_stride, rb0 + cn * CR, B, k0, KW, H, lane, v);
+      const float* buf = wrows + cc * CR * SK;
+#pragma unroll
+      for (int r0 = 0; r0 < CR; r0 += kTiledPassRows) {
+        float acc[kTiledPassRows][kTiledLaneCols];
+#pragma unroll
+        for (int r = 0; r < kTiledPassRows; ++r) {
+#pragma unroll
+          for (int c = 0; c < kTiledLaneCols; ++c) acc[r][c] = 0.f;
+        }
+        // the quarter's groups of 4 k, in order; past KW and H both
+        // operands are 0
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          float4 hv[kTiledPassRows];
+#pragma unroll
+          for (int r = 0; r < kTiledPassRows; ++r) {
+            // one address a quarter warp: a broadcast
+            hv[r] = *reinterpret_cast<const float4*>(buf + (r0 + r) * SK + 4 * (4 * i + wq));
+          }
+#pragma unroll
+          for (int d = 0; d < 4; ++d) {
+#pragma unroll
+            for (int r = 0; r < kTiledPassRows; ++r) {
+              const float hk = d == 0 ? hv[r].x : d == 1 ? hv[r].y : d == 2 ? hv[r].z : hv[r].w;
+#pragma unroll
+              for (int c = 0; c < kTiledLaneCols; ++c) {
+                acc[r][c] = fmaf(hk, w[i][d][c], acc[r][c]);
+              }
+            }
+          }
+        }
+        // the four quarters' sums of each column, (q0 + q2) + (q1 + q3) in
+        // every lane (a + b = b + a), transposed so that lane l keeps
+        // columns 8 wc + 2 wq and + 1; then the warp's partial sums,
+        // red[warp, row, column]
+#pragma unroll
+        for (int r = 0; r < kTiledPassRows; ++r) {
+          const bool hi16 = lane & 16;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float send = hi16 ? acc[r][c] : acc[r][c + 4];
+            const float keep = hi16 ? acc[r][c + 4] : acc[r][c];
+            acc[r][c] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+          }
+          const bool hi8 = lane & 8;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float send = hi8 ? acc[r][c] : acc[r][c + 2];
+            const float keep = hi8 ? acc[r][c + 2] : acc[r][c];
+            acc[r][c] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+          }
+          // over the row's h, which every lane has read: its shuffles came
+          // after its reads
+          *reinterpret_cast<float2*>(wrows + (cc * CR + r0 + r) * C + kTiledLaneCols * wc +
+                                     2 * wq) = make_float2(acc[r][0], acc[r][1]);
+        }
+      }
+      // into rows whose partial sums the previous step's gate stage read
+      if (more) tiled_stage_store(wrows + cn * CR * SK, lane, v);
+      __syncwarp();
+    }
+    // this step's inputs arrived; the next step's may be in flight
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+
+    const float* xin = gin + (t % 2) * kTiledStepIn * kChainThreads + tid;
+#pragma unroll
+    for (int i = 0; i < GR; ++i) {
+      if (live[i]) {
+        const int r = gr + kChainThreads / U * i;
+        // the warps' slices in order, whatever the schedule
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int p = 0; p < kWarps; ++p) {
+          const float4 pv =
+              *reinterpret_cast<const float4*>(red + (p * kTiledRows + r) * C + 4 * gu);
+          s[0] += pv.x;
+          s[1] += pv.y;
+          s[2] += pv.z;
+          s[3] += pv.w;
+        }
+        float gate[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gate[q] = xin[(4 * i + q) * kChainThreads] + s[q];
+        float& c = carry[i * kChainThreads];
+        float& hp = carry[(GR + i) * kChainThreads];
+        float c_out, h_out;
+        cell_update<Peephole>(gate, c, hp, xin[(4 * GR + i) * kChainThreads], p_i, p_f, p_o,
+                              c_out, h_out);
+        c = c_out;
+        hp = h_out;
+        const size_t e = (static_cast<size_t>(rb0 + r) * T + t) * H + j;
+        out[e] = h_out;  // [carry] every row, padded or not
+        if constexpr (EmitResiduals) {
+          // gate[] holds the pre-activations before any peephole term
+          cells[e] = c_out;
+          float* gp = gates + (static_cast<size_t>(rb0 + r) * T + t) * H4 + j;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gp[static_cast<size_t>(q) * H] = gate[q];
+        }
+      }
+    }
+    // [order] [uniform] every block's out[:, t] before any block's next
+    // product; it also orders this step's reads of the partial sums and
+    // the gate inputs before the next step's writes
+    grid.sync();
+  }
+  if (cell_last != nullptr) {
+#pragma unroll
+    for (int i = 0; i < GR; ++i) {
+      if (live[i]) {
+        cell_last[static_cast<size_t>(rb0 + gr + kChainThreads / U * i) * H + j] =
+            carry[i * kChainThreads];
+      }
+    }
+  }
+}
+
+// The staged large-B body (header): float32 W_hid, kTiledUnits units by
+// kTiledRows rows a block.  For the product, thread (kq, tr, tc) sums rows
+// tr + 8 i (i < kStagedTileRows) by the gate columns of units tc and tc + 8
+// over slice kq of every staged chunk of kStagedK values of k (kStagedSplit
+// slices); for the gate stage, thread tid owns rows tid / 16 + 16 i (i <
+// kTiledGateRows) of unit tid % 16.
+constexpr int kStagedSplit = 4;
+constexpr int kStagedTileRows = 8;
+constexpr int kStagedK = 64;
+constexpr int kStagedKPad = kStagedK + 4;
+// values of a chunk each thread stages: rows r0 + kStagedRowStep * l (l <
+// kStagedStage) at the thread's column tid % kStagedK
+constexpr int kStagedStage = kTiledRows * kStagedK / kChainThreads;
+constexpr int kStagedRowStep = kChainThreads / kStagedK;
+static_assert(kStagedSplit * (kTiledRows / kStagedTileRows) * (kTiledCols / 8) == kChainThreads,
               "one product thread per k slice and 8 x 8 tile");
-static_assert(kChainThreads % kTiledK == 0 && kTiledK % (4 * kTiledSplit) == 0,
+static_assert(kChainThreads % kStagedK == 0 && kStagedK % (4 * kStagedSplit) == 0,
               "a chunk is staged in whole rows and cut into slices of whole groups of 4 k");
 // k rows of the block's W share: H padded to whole chunks (zero rows)
-__host__ __device__ constexpr int tiled_k_rows(int H) {
-  return (H + kTiledK - 1) / kTiledK * kTiledK;
+__host__ __device__ constexpr int staged_k_rows(int H) {
+  return (H + kStagedK - 1) / kStagedK * kStagedK;
 }
-// W share, two staged chunks of h_{t-1}, the k slices' partial sums
-__host__ __device__ constexpr size_t tiled_smem_bytes(int H) {
-  return (static_cast<size_t>(tiled_k_rows(H)) * kTiledCols +
-          static_cast<size_t>(2) * kTiledRows * kTiledKPad +
-          static_cast<size_t>(kTiledSplit) * kTiledRows * kTiledCols) *
+// W share, two staged chunks of h_{t-1}, the k slices' partial sums; H up
+// to 512
+__host__ __device__ constexpr size_t staged_smem_bytes(int H) {
+  return (static_cast<size_t>(staged_k_rows(H)) * kTiledCols +
+          static_cast<size_t>(2) * kTiledRows * kStagedKPad +
+          static_cast<size_t>(kStagedSplit) * kTiledRows * kTiledCols) *
          sizeof(float);
+}
+// shared memory of the large-B body at width H
+__host__ __device__ constexpr size_t tiled_smem_bytes(int H) {
+  return tiled_resident(H) ? resident_smem_bytes() : staged_smem_bytes(H);
 }
 
 __device__ __forceinline__ void fma4(float* acc, float h, const float4& w) {
@@ -464,22 +841,22 @@ __device__ __forceinline__ void fma4(float* acc, float h, const float4& w) {
 // hr points at the thread's column of its first row, rows row_step apart,
 // rows_live of them below B, and a column at or past h_live is past H; zero
 // there.  [stale] h is written in this launch: L2 only.
-__device__ __forceinline__ void tiled_stage_load(const float* hr, size_t row_step, int rows_live,
-                                                 int k, int h_live, float (&v)[kTiledStage]) {
+__device__ __forceinline__ void staged_load(const float* hr, size_t row_step, int rows_live,
+                                                 int k, int h_live, float (&v)[kStagedStage]) {
   const bool k_live = k < h_live;
 #pragma unroll
-  for (int l = 0; l < kTiledStage; ++l) {
+  for (int l = 0; l < kStagedStage; ++l) {
     v[l] = l < rows_live && k_live ? __ldcg(hr + l * row_step + k) : 0.f;
   }
 }
 
-// The thread's staged values into a chunk buffer (kTiledRows, kTiledKPad):
+// The thread's staged values into a chunk buffer (kTiledRows, kStagedKPad):
 // neighbouring threads on neighbouring columns.
-__device__ __forceinline__ void tiled_stage_store(float* buf, const float (&v)[kTiledStage]) {
+__device__ __forceinline__ void staged_store(float* buf, const float (&v)[kStagedStage]) {
   const int tid = threadIdx.x;
-  float* p = buf + tid / kTiledK * kTiledKPad + tid % kTiledK;
+  float* p = buf + tid / kStagedK * kStagedKPad + tid % kStagedK;
 #pragma unroll
-  for (int l = 0; l < kTiledStage; ++l) p[l * kStageRowStep * kTiledKPad] = v[l];
+  for (int l = 0; l < kStagedStage; ++l) p[l * kStagedRowStep * kStagedKPad] = v[l];
 }
 
 // The whole recurrence in the large-B body; arguments as the kernel's
@@ -488,7 +865,7 @@ __device__ __forceinline__ void tiled_stage_store(float* buf, const float (&v)[k
 // units j0 = kTiledUnits blockIdx.x .. + kTiledUnits - 1 and rows rb0 =
 // kTiledRows blockIdx.y .. + kTiledRows - 1.
 template <bool EmitResiduals, bool Peephole>
-__device__ __forceinline__ void tiled_chain(
+__device__ __forceinline__ void staged_chain(
     const float* __restrict__ x_proj, const float* __restrict__ w_hid,
     const float* __restrict__ mask, const float* __restrict__ cell0,
     const float* __restrict__ hid0, float* out, float* __restrict__ cells,
@@ -496,14 +873,14 @@ __device__ __forceinline__ void tiled_chain(
     const float* __restrict__ w_cf, const float* __restrict__ w_co, int B, int T, int H) {
   constexpr int U = kTiledUnits;
   constexpr int C = kTiledCols;
-  constexpr int TR = kTiledTileRows;
+  constexpr int TR = kStagedTileRows;
   constexpr int GR = kTiledGateRows;
-  constexpr int KS = kTiledK / kTiledSplit;  // k of a chunk in one slice
+  constexpr int KS = kStagedK / kStagedSplit;  // k of a chunk in one slice
   extern __shared__ float4 smem4[];
-  const int KH = tiled_k_rows(H);
+  const int KH = staged_k_rows(H);
   float* w_s = reinterpret_cast<float*>(smem4);  // (KH, C), row k: unit u's gates at 4 u
-  float* h_s = w_s + static_cast<size_t>(KH) * C;  // (2, kTiledRows, kTiledKPad)
-  float* red = h_s + 2 * kTiledRows * kTiledKPad;  // (kTiledSplit, kTiledRows, C)
+  float* h_s = w_s + static_cast<size_t>(KH) * C;  // (2, kTiledRows, kStagedKPad)
+  float* red = h_s + 2 * kTiledRows * kStagedKPad;  // (kStagedSplit, kTiledRows, C)
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
@@ -567,7 +944,7 @@ __device__ __forceinline__ void tiled_chain(
   __syncthreads();
 
   cg::grid_group grid = cg::this_grid();
-  const int n_chunks = (H + kTiledK - 1) / kTiledK;
+  const int n_chunks = (H + kStagedK - 1) / kStagedK;
   for (int t = 0; t < T; ++t) {
     const float* h = t == 0 ? hid0 : out + static_cast<size_t>(t - 1) * H;
     const size_t h_stride = t == 0 ? static_cast<size_t>(H) : static_cast<size_t>(T) * H;
@@ -583,20 +960,20 @@ __device__ __forceinline__ void tiled_chain(
       }
       m[i] = live[i] ? __ldg(mask + bt) : 0.f;
     }
-    // the thread's staged rows rb0 + tid / kTiledK + kStageRowStep * l, at
-    // column tid % kTiledK of each chunk
-    const int r0 = rb0 + tid / kTiledK;
-    const float* hr = h + r0 * h_stride + tid % kTiledK;
-    const size_t row_step = kStageRowStep * h_stride;
-    const int rows_live = (B - r0 + kStageRowStep - 1) / kStageRowStep;
-    const int h_live = H - tid % kTiledK;
+    // the thread's staged rows rb0 + tid / kStagedK + kStagedRowStep * l, at
+    // column tid % kStagedK of each chunk
+    const int r0 = rb0 + tid / kStagedK;
+    const float* hr = h + r0 * h_stride + tid % kStagedK;
+    const size_t row_step = kStagedRowStep * h_stride;
+    const int rows_live = (B - r0 + kStagedRowStep - 1) / kStagedRowStep;
+    const int h_live = H - tid % kStagedK;
     // each unit group starts at its own chunk and takes the others in turn,
     // so that the blocks of a row group do not all read the same lines of h
     // at once; the order is fixed by the block, so two calls sum alike
     const int c0 = blockIdx.x % n_chunks;
-    float sv[kTiledStage];
-    tiled_stage_load(hr, row_step, rows_live, c0 * kTiledK, h_live, sv);
-    tiled_stage_store(h_s, sv);
+    float sv[kStagedStage];
+    staged_load(hr, row_step, rows_live, c0 * kStagedK, h_live, sv);
+    staged_store(h_s, sv);
     __syncthreads();
     // acc[i][0..3]: row tr + 8 i, unit tc; acc[i][4..7]: unit tc + 8
     float acc[TR][8];
@@ -610,15 +987,15 @@ __device__ __forceinline__ void tiled_chain(
       const int cc = (c0 + ch) % n_chunks;
       const int cn = (c0 + ch + 1) % n_chunks;
       const bool more = ch + 1 < n_chunks;
-      if (more) tiled_stage_load(hr, row_step, rows_live, cn * kTiledK, h_live, sv);
+      if (more) staged_load(hr, row_step, rows_live, cn * kStagedK, h_live, sv);
       // the slice's groups of 4 k, each group's h fragments read while the
       // previous group is multiplied; past H both operands are zero
-      const float* hrow = h_s + (ch % 2) * kTiledRows * kTiledKPad + tr * kTiledKPad + kq * KS;
-      const float* wrow = w_s + static_cast<size_t>(cc * kTiledK + kq * KS) * C + 4 * tc;
+      const float* hrow = h_s + (ch % 2) * kTiledRows * kStagedKPad + tr * kStagedKPad + kq * KS;
+      const float* wrow = w_s + static_cast<size_t>(cc * kStagedK + kq * KS) * C + 4 * tc;
       float4 hv[2][TR];
 #pragma unroll
       for (int i = 0; i < TR; ++i) {
-        hv[0][i] = *reinterpret_cast<const float4*>(hrow + 8 * i * kTiledKPad);
+        hv[0][i] = *reinterpret_cast<const float4*>(hrow + 8 * i * kStagedKPad);
       }
 #pragma unroll
       for (int g = 0; g < KS / 4; ++g) {
@@ -626,7 +1003,7 @@ __device__ __forceinline__ void tiled_chain(
 #pragma unroll
           for (int i = 0; i < TR; ++i) {
             hv[(g + 1) % 2][i] =
-                *reinterpret_cast<const float4*>(hrow + 8 * i * kTiledKPad + 4 * (g + 1));
+                *reinterpret_cast<const float4*>(hrow + 8 * i * kStagedKPad + 4 * (g + 1));
           }
         }
 #pragma unroll
@@ -644,7 +1021,7 @@ __device__ __forceinline__ void tiled_chain(
         }
       }
       // the other buffer was last read before the previous __syncthreads
-      if (more) tiled_stage_store(h_s + ((ch + 1) % 2) * kTiledRows * kTiledKPad, sv);
+      if (more) staged_store(h_s + ((ch + 1) % 2) * kTiledRows * kStagedKPad, sv);
       __syncthreads();
     }
     // the slices' partial sums, red[kq, row, col]
@@ -664,7 +1041,7 @@ __device__ __forceinline__ void tiled_chain(
         // the slices in order, whatever the schedule
         float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int p = 0; p < kTiledSplit; ++p) {
+        for (int p = 0; p < kStagedSplit; ++p) {
           const float4 v = *reinterpret_cast<const float4*>(
               red + (static_cast<size_t>(p) * kTiledRows + r) * C + 4 * gu);
           s[0] += v.x;
@@ -702,6 +1079,25 @@ __device__ __forceinline__ void tiled_chain(
         cell_last[static_cast<size_t>(rb0 + gr + kChainThreads / U * i) * H + j] = c[i];
       }
     }
+  }
+}
+
+// The large-B body: the resident one where W_hid's share fills the registers
+// (tiled_resident(H)), else the staged one.  [uniform] the same choice in
+// every block.
+template <bool EmitResiduals, bool Peephole>
+__device__ __forceinline__ void tiled_chain(
+    const float* __restrict__ x_proj, const float* __restrict__ w_hid,
+    const float* __restrict__ mask, const float* __restrict__ cell0,
+    const float* __restrict__ hid0, float* out, float* __restrict__ cells,
+    float* __restrict__ gates, float* __restrict__ cell_last, const float* __restrict__ w_ci,
+    const float* __restrict__ w_cf, const float* __restrict__ w_co, int B, int T, int H) {
+  if (tiled_resident(H)) {
+    resident_chain<EmitResiduals, Peephole>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates,
+                                            cell_last, w_ci, w_cf, w_co, B, T, H);
+  } else {
+    staged_chain<EmitResiduals, Peephole>(x_proj, w_hid, mask, cell0, hid0, out, cells, gates,
+                                          cell_last, w_ci, w_cf, w_co, B, T, H);
   }
 }
 
@@ -1049,6 +1445,10 @@ int run_chain_w(const void* x_proj, const void* w_hid, const void* mask, const v
                 const void* const* peep, void* scratch, int B, int T, int H, int units,
                 size_t smem, void* stream) {
   if (smem < chain_smem_bytes<WT>(B, H, units)) return static_cast<int>(cudaErrorInvalidValue);
+  // the resident large-B body reads h_{t-1} (hid0, then out) in float4 pieces
+  if (sizeof(WT) == 4 && units == kTiledUnits && tiled_resident(H) &&
+      (reinterpret_cast<size_t>(hid0) | reinterpret_cast<size_t>(out)) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   // the bf16 product reads its operand buffer 8 bytes at a time
   if (sizeof(WT) == 2 && (scratch == nullptr || reinterpret_cast<size_t>(scratch) % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1113,7 +1513,8 @@ int run_chain(const void* x_proj, const void* w_hid, const void* mask, const voi
 // the product's operand (the header's h16; its contents need no setting);
 // ignored (may be null) with an f32 w_hid.  Returns the first CUDA error (0
 // on success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be
-// co-resident).
+// co-resident; cudaErrorMisalignedAddress when the resident large-B body,
+// tiled_resident(H) at 16 units, gets a hid0 or out off 16 bytes).
 extern "C" int lstm_fwd_forward(const void* x_proj, const void* w_hid, const void* mask,
                                 const void* cell0, const void* hid0, void* out, void* cell_last,
                                 void* scratch, int w_bf16, int B, int T, int H, int units,

@@ -397,31 +397,68 @@ class TiledPlan(NamedTuple):
     chunks: int
 
 
-# the large-B body: 16 hidden units by 64 rows a block; h_{t-1} staged
-# through shared memory in chunks of 64 values of k, each row padded to 68
-# floats, two chunks at a time; each chunk's k cut into 4 slices, whose
-# partial sums meet in shared memory
+# the large-B body: 16 hidden units by 64 rows a block, in one of two forms
+# (csrc/lstm_fwd.cu).  The staged one keeps the block's W_hid columns in
+# shared memory, h_{t-1} staged in chunks of TILED_K values of k, each row
+# padded to TILED_K_PAD floats, two chunks at a time, each chunk's k cut into
+# TILED_SPLIT slices whose partial sums meet in shared memory.  The resident
+# one (tiled_resident(H)) keeps them in registers: warp w of TILED_WARPS holds
+# W_hid's k slice of tiled_slice_k(H) values, a quarter of it and 8 gate
+# columns a lane, over its rows of h_{t-1} staged in chunks of
+# TILED_CHUNK_ROWS; shared memory holds the warps' rows of h_{t-1} and
+# partial sums, the gate inputs of two steps (x_proj's 4 gates and the mask
+# of each of a thread's 4 rows) and the carries, TILED_GATE_IN floats a
+# thread
 TILED_UNITS = 16
 TILED_ROWS = 64
 TILED_K = 64
 TILED_K_PAD = TILED_K + 4
 TILED_SPLIT = 4
+TILED_WARPS = 8
+TILED_MAX_H = 512
+TILED_SLICE_K = TILED_MAX_H // TILED_WARPS
+TILED_CHUNK_ROWS = 8
+TILED_GATE_IN = 12 * TILED_ROWS * TILED_UNITS // 256
 # the smallest batch that takes the large-B body, by width: where it
-# overtook the small-B body on an H100 (chip_smoke.tiled_sweep).  From
-# H = TILED_WIDE_H, TILED_MIN_ROWS (row 1 at H = 500 about B = 100, row 6
-# at H = 250 B = 128); below, twice that (at H = 16-130 it tied or lost at
-# B = 128, by up to 37% at H = 130, and won from B = 256).  Both are above
-# every round of the small-B body (64 rows at 1 unit a block)
+# overtook the small-B body on an H100 (chip_smoke.tiled_sweep).  At the
+# resident widths TILED_RESIDENT_MIN_ROWS (row 1 at H = 500: lost at B = 64,
+# won from B = 96); else from H = TILED_WIDE_H, TILED_MIN_ROWS (row 6 at
+# H = 250 won at B = 128, lost at 96); below, twice that (at H = 64 and 130
+# it tied or lost at B = 128 and won at B = 256).  All are above every round
+# of the small-B body (64 rows at 1 unit a block)
+TILED_RESIDENT_MIN_ROWS = 96
 TILED_MIN_ROWS = 128
 TILED_WIDE_H = 250
 
 
+def tiled_slice_k(H: int) -> int:
+    """k of one warp's slice of W_hid in the resident large-B body: H over the
+    8 warps in whole groups of 4 (csrc/lstm_fwd.cu::tiled_slice_k)."""
+    return -(-H // (4 * TILED_WARPS)) * 4
+
+
+def tiled_resident(H: int) -> bool:
+    """Whether the recurrence's large-B body keeps W_hid in registers at width
+    ``H``: where the 8 warps' k slices fill every lane's 128 registers of it
+    (H above 384, up to 512) in whole float4 pieces of h (H a multiple of 4)
+    (csrc/lstm_fwd.cu::tiled_resident).  Elsewhere the staged body runs; at
+    H = 250, 130 and 64 it measured faster on an H100 (chip_smoke.py's
+    ``--tiled``, the resident layout's fixed cost a step)."""
+    return 3 * TILED_MAX_H // 4 < H <= TILED_MAX_H and H % 4 == 0
+
+
 def fwd_tiled_smem_bytes(H: int) -> int:
-    """Bytes of a large-B block's shared memory: its 16 units' W_hid columns
-    as H rows of 64 floats, padded with zero rows to whole chunks, two
-    staged chunks of h_{t-1}, and the k slices' partial sums of the block's
-    64 rows by 64 gate columns (csrc/lstm_fwd.cu::tiled_smem_bytes)."""
+    """Bytes of a large-B block's shared memory (csrc/lstm_fwd.cu::
+    tiled_smem_bytes).  Resident: the 8 warps' rows of h_{t-1} (each warp's
+    k slice, 64 rows by 64 floats), which the warps' partial sums of the
+    block's 64 gate columns overwrite, and the 256 threads' gate inputs and
+    carries, the same at every width.  Staged: its 16 units' W_hid columns as
+    H rows of 64 floats, padded with zero rows to whole chunks, two staged
+    chunks of h_{t-1}, and the k slices' partial sums of the block's 64 rows
+    by 64 gate columns."""
     cols = 4 * TILED_UNITS
+    if tiled_resident(H):
+        return 4 * (TILED_WARPS * TILED_ROWS * cols + TILED_GATE_IN * 256)
     return 4 * (-(-H // TILED_K) * TILED_K * cols + 2 * TILED_ROWS * TILED_K_PAD
                 + TILED_SPLIT * TILED_ROWS * cols)
 
@@ -463,13 +500,16 @@ def fwd_plan(B: int, H: int, sm_count: int, w_dtype=torch.float32, units=None, c
              tiled=None):
     """The plan :func:`_run_fwd` launches, the one place a recurrence's body
     is chosen: :func:`fwd_tiled_plan` for a float32 W_hid at B at least
-    :data:`TILED_MIN_ROWS` (twice that below H = :data:`TILED_WIDE_H`) where
+    :data:`TILED_RESIDENT_MIN_ROWS` at the widths :func:`tiled_resident`
+    takes, else :data:`TILED_MIN_ROWS` (twice that below H =
+    :data:`TILED_WIDE_H`), where
     its unit groups fit the card (a bf16 W_hid keeps its tensor-core body at
     every B), else :func:`fwd_launch_plan`
     (``units`` and ``chunks`` as there; forcing ``units`` means the small-B
     body).  ``tiled`` True or False forces the body, for measurement."""
     if tiled is None:
-        min_rows = TILED_MIN_ROWS * (1 if H >= TILED_WIDE_H else 2)
+        min_rows = (TILED_RESIDENT_MIN_ROWS if tiled_resident(H)
+                    else TILED_MIN_ROWS * (1 if H >= TILED_WIDE_H else 2))
         tiled = (units is None and w_dtype == torch.float32 and B >= min_rows
                  and -(-H // TILED_UNITS) <= sm_count
                  and fwd_tiled_smem_bytes(H) <= _build.SMEM_LIMIT)
@@ -708,6 +748,9 @@ def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, sta
         **_peep_shapes(peep, H)}, w_hid)
     dev = x_proj.device
     plan = fwd_plan(B, H, _sm_count(dev.index), w_hid.dtype, units, chunks, tiled)
+    if isinstance(plan, TiledPlan) and tiled_resident(H) and hid0.data_ptr() % 16:
+        # the resident body reads h_{t-1} in float4 pieces: hid0 too
+        hid0 = hid0.clone()
     outs = _outputs(name, args, w_hid, outs,
                     [(B, T, H), (B, T, H), (B, T, 4 * H)] if train
                     else [(B, T, H), (B, H)] if state else [(B, T, H)])

@@ -5,12 +5,16 @@ half of csrc/lstm_fwd.cu's large-B body (``tiled_chain``): unit groups by
 row groups of one cooperative launch, shared memory and row chunks.  The
 card only sees the shapes the smoke run gives it, so the plan is held here to
 its invariants at H in {130, 250, 500, 1000} and B in {17, 64, 250, 256,
-257, 512}: every block resident, shared memory within the limit, and every
-(row, unit) of the batch owned by exactly one thread of one block, as the
-kernel's index arithmetic (mirrored below) assigns them.  ``fwd_plan`` is
+257, 512}: every block resident, shared memory within the limit, every
+(row, unit) of the batch owned by exactly one thread of one block, and
+every product of a step summed once, in one fixed order, as the kernel's
+index arithmetic (mirrored below) assigns them, in both forms of the body:
+the resident one (W_hid in 128 registers a thread, ``tiled_resident``: H
+from 388 to 512 in steps of 4) and the staged one (every other width).  ``fwd_plan`` is
 the one place that picks the body: the large-B one for a float32 W_hid at B
->= ``TILED_MIN_ROWS`` (twice that below H = ``TILED_WIDE_H``), the small-B
-one (``fwd_launch_plan``, unchanged) everywhere else.
+>= ``TILED_MIN_ROWS`` (``TILED_RESIDENT_MIN_ROWS`` at the resident widths,
+twice ``TILED_MIN_ROWS`` below H = ``TILED_WIDE_H``), the small-B one
+(``fwd_launch_plan``, unchanged) everywhere else.
 """
 
 import numpy as np
@@ -61,10 +65,16 @@ def test_fwd_tiled_plan(H, B):
     assert 1 <= plan.last_units <= 16
     # every block of a launch co-resident, one a SM
     assert plan.grid * -(-plan.rows // klstm.TILED_ROWS) <= SMS
-    # W_hid's 64 columns as whole chunks of 64 k, two staged chunks of 64
-    # rows padded to 68 floats, four slices' partial sums of 64 x 64
-    k_rows = -(-H // 64) * 64
-    assert plan.smem_bytes == 4 * (64 * k_rows + 2 * 64 * 68 + 4 * 64 * 64)
+    if klstm.tiled_resident(H):
+        # W_hid in registers: the 8 warps' rows of h, which their partial
+        # sums overwrite, 64 rows x 64 floats each, and 256 threads' 48 gate
+        # inputs and carries, the same at every width
+        assert plan.smem_bytes == 4 * (8 * 64 * 64 + 48 * 256) == 180224
+    else:
+        # W_hid's 64 columns as whole chunks of 64 k, two staged chunks of 64
+        # rows padded to 68 floats, four slices' partial sums of 64 x 64
+        k_rows = -(-H // 64) * 64
+        assert plan.smem_bytes == 4 * (64 * k_rows + 2 * 64 * 68 + 4 * 64 * 64)
     assert plan.smem_bytes <= _build.SMEM_LIMIT
     # the fewest near-equal chunks that the row groups allow
     cap = SMS // plan.grid * klstm.TILED_ROWS
@@ -73,9 +83,49 @@ def test_fwd_tiled_plan(H, B):
     assert count.min() == count.max() == 1
 
 
-@pytest.mark.parametrize("H", [130, 250, 500])
-def test_tiled_product_covers_every_sum_once(H):
-    """The product's threads: (kq, tr, tc) = (warp / 2, lane / 8 + 4 (warp
+def test_tiled_resident_widths():
+    """The resident body takes exactly the widths whose warp slices fill all
+    four groups of 4 k of every quarter warp, 385 to 512, in whole float4
+    pieces; every other width up to 512 keeps the staged body."""
+    resident = [H for H in range(1, 600) if klstm.tiled_resident(H)]
+    assert resident == list(range(388, 513, 4))
+    assert all(48 < klstm.tiled_slice_k(H) <= 64 for H in resident)
+    assert not klstm.tiled_resident(250) and klstm.tiled_resident(500)
+
+
+def _product_terms(H, rows):
+    """The products of a resident block's step, by the kernel's arithmetic:
+    warp w holds k slice w KW .. + KW - 1 (KW = ``tiled_slice_k(H)``), lane l
+    of it the groups of 4 k 4 i + l / 8 (i < 4) and the 8 gate columns
+    8 (l % 8) .. + 7, for every row of the row group's chunks of 8 that hold
+    a row below ``rows``; a product is live at slice k < KW and k < H.
+    Returns count[row, column, k] over the live terms and, for each (row,
+    column), the k in the order the sums take them: the gate stage adds the
+    8 warps' partial sums in warp order, each of them ((q0 + q2) + (q1 +
+    q3)) over the warp's quarters, each quarter's groups in order."""
+    KW = klstm.tiled_slice_k(H)
+    cols = 4 * klstm.TILED_UNITS
+    count = np.zeros((klstm.TILED_ROWS, cols, H), dtype=np.int64)
+    n_rc = min(klstm.TILED_ROWS // klstm.TILED_CHUNK_ROWS, -(-rows // klstm.TILED_CHUNK_ROWS))
+    lane = np.arange(32)
+    order = []
+    for w in range(klstm.TILED_WARPS):
+        quarters = []
+        for q in range(4):
+            ks = [w * KW + 4 * (4 * i + q) + d for i in range(4) for d in range(4)
+                  if 4 * (4 * i + q) + d < KW and w * KW + 4 * (4 * i + q) + d < H]
+            quarters.append(ks)
+            lanes = lane[lane // 8 == q]
+            for c in range(klstm.TILED_CHUNK_ROWS * n_rc):
+                for cc in range(8):
+                    for k in ks:
+                        np.add.at(count, (c, 8 * (lanes % 8) + cc, k), 1)
+        order.append(((quarters[0], quarters[2]), (quarters[1], quarters[3])))
+    return count, order
+
+
+def _staged_product_covers_every_sum_once(H):
+    """The staged body's threads: (kq, tr, tc) = (warp / 2, lane / 8 + 4 (warp
     % 2), lane % 8) sums rows tr + 8 i (i < 8) by columns 4 tc .. + 3 and 32
     + 4 tc .. + 3 (units tc and tc + 8) over slice kq of a chunk; together
     they cover each (row, column, slice) of a block once, and the staging
@@ -103,6 +153,75 @@ def test_tiled_product_covers_every_sum_once(H):
         assert sorted(order) == list(range(n_chunks))
 
 
+
+
+@pytest.mark.parametrize("H", [130, 250, 498, 388, 400, 500, 512])
+def test_tiled_product_covers_every_sum_once(H):
+    """Every (row, gate column, k < H) product of a block's step is summed
+    exactly once, in the form the width takes.  Resident: by one lane of one
+    warp, the staging lanes copying each (row, k) of a warp's slice of a
+    chunk once, in float4 pieces.  Staged: see
+    :func:`_staged_product_covers_every_sum_once`."""
+    if not klstm.tiled_resident(H):
+        _staged_product_covers_every_sum_once(H)
+        return
+    count, _ = _product_terms(H, klstm.TILED_ROWS)
+    assert count.min() == count.max() == 1
+    pieces = klstm.TILED_SLICE_K // 4
+    stage = np.zeros((klstm.TILED_CHUNK_ROWS, klstm.TILED_SLICE_K), dtype=np.int64)
+    for m in range(klstm.TILED_CHUNK_ROWS * pieces // 32):
+        q = np.arange(32) + 32 * m
+        for d in range(4):
+            np.add.at(stage, (q // pieces, q % pieces * 4 + d), 1)
+    assert stage.min() == stage.max() == 1
+
+
+@pytest.mark.parametrize("H,rows", [(500, 1), (500, 17), (400, 40), (512, 64)])
+def test_tiled_product_skips_only_dead_chunks(H, rows):
+    """A row group with fewer than 64 rows below B multiplies only the chunks
+    of 8 that hold one, every live row's products once; each unit group
+    starts at its own chunk and takes every one in turn."""
+    count, _ = _product_terms(H, rows)
+    assert (count[:rows] == 1).all()
+    n_rc = -(-rows // klstm.TILED_CHUNK_ROWS)
+    assert (count[n_rc * klstm.TILED_CHUNK_ROWS:] == 0).all()
+    for bx in range(-(-H // 16)):
+        order = [(bx % n_rc + ch) % n_rc for ch in range(n_rc)]
+        assert sorted(order) == list(range(n_rc))
+
+
+@pytest.mark.parametrize("H", [388, 500, 512])
+def test_tiled_partials_meet_in_one_order(H):
+    """The sum of every (row, column) takes its k < H in one fixed order,
+    whatever the schedule or the chunk order: each quarter its own k in
+    ascending order, the four quarters as (q0 + q2) + (q1 + q3) (the two
+    shuffle levels; a + b = b + a, so every lane that holds the column sums
+    alike), the 8 warps' partials in warp order by the gate stage.  Two
+    calls give the same bits."""
+    _, order = _product_terms(H, klstm.TILED_ROWS)
+    assert len(order) == klstm.TILED_WARPS
+    flat = [k for warp in order for pair in warp for quarter in pair for k in quarter]
+    assert sorted(flat) == list(range(H))
+    for warp in order:
+        for pair in warp:
+            for quarter in pair:
+                assert quarter == sorted(quarter)
+
+
+def test_tiled_w_register_share():
+    """A resident thread holds W_hid's 4 groups x 4 k x 8 columns, 128
+    registers, at every resident width: the quarters' groups cover the warp's
+    slice of up to 64 k, and the 8 slices cover H."""
+    for H in range(1, klstm.TILED_MAX_H + 1):
+        if not klstm.tiled_resident(H):
+            continue
+        KW = klstm.tiled_slice_k(H)
+        assert KW % 4 == 0 and klstm.TILED_WARPS * KW >= H > klstm.TILED_WARPS * (KW - 4)
+        assert 4 * 4 * 4 * 4 >= KW  # 4 quarters x 4 groups x 4 k
+        assert 4 * 4 * 8 == 128
+    assert klstm.tiled_slice_k(500) == 64
+
+
 def test_fwd_tiled_plan_forced_chunks():
     plan = klstm.fwd_tiled_plan(256, 500, SMS, chunks=3)
     assert (plan.chunks, plan.rows) == (3, 86)
@@ -126,7 +245,11 @@ DISPATCH = [
     ((1, 500, torch.float32), False),
     ((10, 500, torch.float32), False),
     ((64, 500, torch.float32), False),
-    ((127, 500, torch.float32), False),
+    # at the resident widths from B = 96
+    ((95, 500, torch.float32), False),
+    ((96, 500, torch.float32), True),
+    ((127, 500, torch.float32), True),
+    ((127, 498, torch.float32), False),
     ((128, 500, torch.float32), True),
     ((256, 500, torch.float32), True),
     ((512, 250, torch.float32), True),
@@ -147,12 +270,13 @@ DISPATCH = [
 
 @pytest.mark.parametrize("args,tiled", DISPATCH, ids=[str(a) for a, _ in DISPATCH])
 def test_fwd_plan_dispatch(args, tiled):
-    """The large-B body only for a float32 W_hid at B >= TILED_MIN_ROWS (twice
-    that below H = TILED_WIDE_H) and a width whose plan fits; below, and for
-    every bf16 W_hid, the small-B plan exactly as ``fwd_launch_plan`` makes
-    it."""
+    """The large-B body only for a float32 W_hid at B >= TILED_MIN_ROWS
+    (TILED_RESIDENT_MIN_ROWS at the resident widths, twice TILED_MIN_ROWS
+    below H = TILED_WIDE_H) and a width whose plan fits; below, and for every
+    bf16 W_hid, the small-B plan exactly as ``fwd_launch_plan`` makes it."""
     B, H, w_dtype = args
-    assert (klstm.TILED_MIN_ROWS, klstm.TILED_WIDE_H) == (128, 250)
+    assert (klstm.TILED_RESIDENT_MIN_ROWS, klstm.TILED_MIN_ROWS,
+            klstm.TILED_WIDE_H) == (96, 128, 250)
     plan = klstm.fwd_plan(B, H, SMS, w_dtype)
     assert isinstance(plan, klstm.TiledPlan) == tiled
     if tiled:
