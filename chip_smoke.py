@@ -1007,8 +1007,7 @@ def fwd_sweep(dev):
             plan = kl.fwd_plan(B, H, sm_count)
             print(f"lstm_fwd plan B={B} H={H} on {sm_count} SMs: U={plan.units} hidden units per "
                   f"block, grid {plan.grid}"
-                  + (f" x {-(-plan.rows // kl.TILED_ROWS)} row groups (large-B body)"
-                     if isinstance(plan, kl.TiledPlan) else "")
+                  + (f" x {plan.row_groups} row groups (large-B body)" if plan.tiled else "")
                   + f", {plan.smem_bytes} B of shared memory, last block "
                   f"U={plan.last_units} live, {plan.chunks} chunk(s) of <= {plan.rows} rows")
             w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev)
@@ -1054,7 +1053,7 @@ def fwd_sweep(dev):
     return err
 
 
-# the large-B body of rows 1, 3, 5 and 6 (ops/kernels/lstm.fwd_tiled_plan):
+# the large-B body of rows 1, 3, 5 and 6 (ops/kernels/lstm.fwd_plan):
 # row -> (H, batches) of its checks, the cells' batch last; B = 600 runs in
 # row chunks (3 of 200 rows at H = 500)
 TILED_CASES = {"lstm_fwd": (500, (64, 128, 600, 256)),
@@ -1067,7 +1066,7 @@ TILED_WIDTHS = (("lstm_fwd", 130, (256,)), ("lstm_peep_fwd_train", 130, (256,)),
                 ("lstm_fwd_train", 64, (256,)), ("lstm_peep_fwd", 64, (256,)),
                 ("lstm_fwd", 498, (256,)), ("lstm_peep_fwd_train", 388, (256,)),
                 ("lstm_peep_fwd", 512, (130,)), ("lstm_fwd_train", 388, (130,)))
-# the large-B body of rows 4 and 7 (ops/kernels/lstm.bwd_tiled_plan): row ->
+# the large-B body of rows 4 and 7 (ops/kernels/lstm.bwd_plan): row ->
 # (H, batches) of its checks, the cells' batch last; B = 600 runs in row
 # chunks (3 of 200 rows at H = 500, 2 of 300 at H = 250)
 BWD_TILED_CASES = {"lstm_bwd": (500, (64, 600, 256)), "lstm_peep_bwd": (250, (250, 600, 512))}
@@ -1133,8 +1132,8 @@ def bwd_tiled_check(dev, name):
     gen = torch.Generator().manual_seed(SEED + 17 + len(name))
     err = 0.0
     for B in batches:
-        auto = isinstance(kl.bwd_plan(B, H, sm_count), kl.TiledPlan)
-        print(f"{name} B={B} H={H}: large-B plan {kl.bwd_tiled_plan(B, H, sm_count)}; the "
+        auto = kl.bwd_plan(B, H, sm_count).tiled
+        print(f"{name} B={B} H={H}: large-B plan {kl.bwd_plan(B, H, sm_count, tiled=True)}; the "
               f"dispatch takes it: {auto}")
         for T in (1, T_FRAMES):
             mask = ragged_mask(B, T, gen, "cpu")
@@ -1220,8 +1219,8 @@ def tiled_check(dev, name, H=None, batches=None):
     err = 0.0
     for B in batches:
         # below the dispatch's threshold the body is forced, past the wrapper
-        auto = isinstance(kl.fwd_plan(B, H, sm_count), kl.TiledPlan)
-        print(f"{name} B={B} H={H}: large-B plan {kl.fwd_tiled_plan(B, H, sm_count)}; the "
+        auto = kl.fwd_plan(B, H, sm_count).tiled
+        print(f"{name} B={B} H={H}: large-B plan {kl.fwd_plan(B, H, sm_count, tiled=True)}; the "
               f"dispatch takes it: {auto}")
         w_hid = (torch.randn(H, 4 * H, generator=gen) / H ** 0.5).to(dev)
         c0 = torch.randn(B, H, generator=gen).to(dev)

@@ -27,11 +27,11 @@ cooperative launch per call, with each block's share of W_hid in shared
 memory and a grid barrier between steps (:func:`fwd_launch_plan`,
 :func:`bwd_launch_plan`; see the sources' headers).  With a float32 W_hid
 the recurrences and the backward chains have a second body for large
-batches, whose blocks split the rows as well as the hidden units
-(:func:`fwd_tiled_plan`, :func:`bwd_tiled_plan`); :func:`fwd_plan` and
-:func:`bwd_plan` pick the body from W_hid's dtype, B and H.  A batch that
-does not fit one launch runs as near-equal row chunks, one launch each
-(:func:`map_chunks`).
+batches, whose blocks split the rows as well as the hidden units.
+:func:`fwd_plan` and :func:`bwd_plan` are the one place a direction's body
+is chosen, from W_hid's dtype, B and H; each returns a :class:`LaunchPlan`
+whose ``tiled`` says which.  A batch that does not fit one launch runs as
+near-equal row chunks, one launch each (:func:`map_chunks`).
 The ``*_plain`` functions are their plain versions.  The four inference wrappers call operators
 ``ip_avsr::<name>`` (``torch.library``: the plain version on the
 CPU, the launch on CUDA, a fake for tracing), so ``torch.export`` records
@@ -300,20 +300,26 @@ def _lib():
     return lib
 
 
-class ChainPlan(NamedTuple):
+class LaunchPlan(NamedTuple):
     """Launch plan of a persistent chain kernel (csrc/lstm_fwd.cu's
-    recurrence, csrc/lstm_bwd.cu's backward chain): ``units`` hidden units
-    per block, ``grid`` blocks, ``smem_bytes`` of dynamic shared memory per
-    block, the live units of the last block, and the batch cut into
-    ``chunks`` launches of at most ``rows`` rows each (:func:`chunk_spans`),
-    for which ``smem_bytes`` is sized."""
+    recurrence, csrc/lstm_bwd.cu's backward chain).  ``tiled``: the large-B
+    body (``tiled_chain``, whose blocks split the rows as well as the hidden
+    units), else the small-B one.  ``units`` hidden units per block on
+    ``grid`` unit groups, ``smem_bytes`` of dynamic shared memory per block,
+    the live units of the last unit group, and the batch cut into ``chunks``
+    launches of at most ``rows`` rows each (:func:`chunk_spans`), for which
+    ``smem_bytes`` and ``row_groups`` are sized: the large-B body's
+    ceil(rows / :data:`TILED_ROWS`) row groups on the grid's y (a row group
+    past a smaller chunk's rows only idles), 1 for the small-B body."""
 
+    tiled: bool
     units: int
     grid: int
     smem_bytes: int
     last_units: int
     rows: int
     chunks: int
+    row_groups: int
 
 
 # the kernels' instantiations (units per block); the float32 products'
@@ -326,7 +332,7 @@ MMA_TILE = 16
 MMA_UNITS = 8
 
 
-def _chain_plan(name, B, H, sm_count, units, chunks, fixed_bytes, carry_floats) -> ChainPlan:
+def _chain_plan(name, B, H, sm_count, units, chunks, fixed_bytes, carry_floats) -> LaunchPlan:
     """The cooperative launch needs every block resident at once, one block
     per SM, so ``units`` is the smallest of :data:`CHAIN_UNITS` whose grid
     ``ceil(H / units)`` fits ``sm_count`` (or the one given, which must
@@ -360,41 +366,24 @@ def _chain_plan(name, B, H, sm_count, units, chunks, fixed_bytes, carry_floats) 
         raise ValueError(f"{name}: B={B}, H={H} runs in {need} to {max(B, 1)} chunks "
                          f"of at most {cap} rows, not {chunks}")
     rows = -(-B // chunks)
-    return ChainPlan(units, grid, fixed + per_row * rows, H - (grid - 1) * units, rows, chunks)
+    return LaunchPlan(False, units, grid, fixed + per_row * rows, H - (grid - 1) * units, rows,
+                      chunks, 1)
 
 
 def fwd_launch_plan(B: int, H: int, sm_count: int, units=None, chunks=None,
-                    w_dtype=torch.float32) -> ChainPlan:
-    """Units per block, grid, shared memory and row chunks of the recurrence
-    (all four instantiations, with W_hid of ``w_dtype``) at batch ``B`` and
-    width ``H`` on a card with ``sm_count`` SMs: the block's 4 * units
-    columns of W_hid (:func:`fwd_w_bytes`), the warps' partial sums
-    (:func:`fwd_red_bytes`) and two carries per row and unit (cell and
-    hidden state); see :func:`_chain_plan`.  A bf16 W_hid takes fewer bytes
-    in the tensor cores' fragment order and more for the partial tiles, so
-    one launch holds 6496 rows at H = 500 where float32 holds 5982."""
+                    w_dtype=torch.float32) -> LaunchPlan:
+    """Units per block, grid, shared memory and row chunks of the
+    recurrence's small-B body (all four instantiations, with W_hid of
+    ``w_dtype``) at batch ``B`` and width ``H`` on a card with ``sm_count``
+    SMs: the block's 4 * units columns of W_hid (:func:`fwd_w_bytes`), the
+    warps' partial sums (:func:`fwd_red_bytes`) and two carries per row and
+    unit (cell and hidden state); see :func:`_chain_plan`.  A bf16 W_hid
+    takes fewer bytes in the tensor cores' fragment order and more for the
+    partial tiles, so one launch holds 6496 rows at H = 500 where float32
+    holds 5982."""
     return _chain_plan("recurrence", B, H, sm_count, units, chunks,
                        lambda u: fwd_w_bytes(u, H, w_dtype) + fwd_red_bytes(u, w_dtype),
                        carry_floats=2)
-
-
-class TiledPlan(NamedTuple):
-    """Launch plan of a large-B body (the recurrence's or the backward
-    chain's, ``tiled_chain`` in csrc/lstm_fwd.cu and csrc/lstm_bwd.cu):
-    ``units`` (:data:`TILED_UNITS`) hidden units per block
-    on ``grid`` unit groups, ``smem_bytes`` of dynamic shared memory per
-    block, the live units of the last unit group, and the batch cut into
-    ``chunks`` launches of at most ``rows`` rows each (:func:`chunk_spans`).
-    The launch adds ceil(rows / :data:`TILED_ROWS`) row groups on the
-    grid's y; the plan sizes the chunks so that they fit beside the unit
-    groups."""
-
-    units: int
-    grid: int
-    smem_bytes: int
-    last_units: int
-    rows: int
-    chunks: int
 
 
 # the large-B body: 16 hidden units by 64 rows a block, in one of two forms
@@ -463,9 +452,21 @@ def fwd_tiled_smem_bytes(H: int) -> int:
                 + TILED_SPLIT * TILED_ROWS * cols)
 
 
-def _tiled_plan(name, B, H, sm_count, chunks, smem) -> TiledPlan:
-    """A large-B body's unit groups and row chunks (see :func:`fwd_tiled_plan`)
-    for blocks of ``smem`` bytes of shared memory."""
+def _tiled_plan(name, B, H, sm_count, w_dtype, units, chunks, smem) -> LaunchPlan:
+    """A large-B body's unit groups, row groups and row chunks at batch
+    ``B`` and width ``H`` on a card with ``sm_count`` SMs, for blocks of
+    ``smem`` bytes of shared memory.  Every block must be resident at once,
+    so a launch takes as many row groups of :data:`TILED_ROWS` as fit beside
+    the ceil(H / 16) unit groups, and B runs in the fewest near-equal chunks
+    of at most that many rows (or in ``chunks``, for measurement, which must
+    be at least that many and at most B).  Raises ``ValueError`` for a W_hid
+    of ``w_dtype`` other than float32 or ``units`` other than None or
+    :data:`TILED_UNITS` (the body has no such instantiation), and when the
+    unit groups alone exceed the SMs or a block does not fit
+    ``_build.SMEM_LIMIT``."""
+    if w_dtype != torch.float32 or units not in (None, TILED_UNITS):
+        raise ValueError(f"{name}: float32 W_hid at {TILED_UNITS} units a block only, not "
+                         f"{w_dtype} at {units}")
     grid = -(-H // TILED_UNITS)
     if grid > sm_count or smem > _build.SMEM_LIMIT:
         raise ValueError(f"{name}: H={H} needs {grid} blocks of {smem} bytes of shared "
@@ -478,35 +479,26 @@ def _tiled_plan(name, B, H, sm_count, chunks, smem) -> TiledPlan:
     elif not need <= chunks <= max(B, 1):
         raise ValueError(f"{name}: B={B}, H={H} runs in {need} to {max(B, 1)} chunks of at "
                          f"most {cap} rows, not {chunks}")
-    return TiledPlan(TILED_UNITS, grid, smem, H - (grid - 1) * TILED_UNITS, -(-B // chunks),
-                     chunks)
-
-
-def fwd_tiled_plan(B: int, H: int, sm_count: int, chunks=None) -> TiledPlan:
-    """Unit groups, row groups, shared memory and row chunks of the
-    recurrence's large-B body (float32 W_hid, all four instantiations) at
-    batch ``B`` and width ``H`` on a card with ``sm_count`` SMs.  Every
-    block must be resident at once, so a launch takes as many row groups of
-    :data:`TILED_ROWS` as fit beside the ceil(H / 16) unit groups, and B
-    runs in the fewest near-equal chunks of at most that many rows (or in
-    ``chunks``, for measurement, which must be at least that many and at
-    most B).  Raises ``ValueError`` when the unit groups alone exceed the
-    SMs or a block's W_hid share does not fit ``_build.SMEM_LIMIT`` (H above
-    512)."""
-    return _tiled_plan("large-B recurrence", B, H, sm_count, chunks, fwd_tiled_smem_bytes(H))
+    rows = -(-B // chunks)
+    return LaunchPlan(True, TILED_UNITS, grid, smem, H - (grid - 1) * TILED_UNITS, rows, chunks,
+                      -(-rows // TILED_ROWS))
 
 
 def fwd_plan(B: int, H: int, sm_count: int, w_dtype=torch.float32, units=None, chunks=None,
-             tiled=None):
+             tiled=None) -> LaunchPlan:
     """The plan :func:`_run_fwd` launches, the one place a recurrence's body
-    is chosen: :func:`fwd_tiled_plan` for a float32 W_hid at B at least
+    is chosen.  The large-B body (float32 W_hid, all four instantiations;
+    its shared memory :func:`fwd_tiled_smem_bytes`, its row groups and
+    chunks :func:`_tiled_plan`) at B at least
     :data:`TILED_RESIDENT_MIN_ROWS` at the widths :func:`tiled_resident`
     takes, else :data:`TILED_MIN_ROWS` (twice that below H =
-    :data:`TILED_WIDE_H`), where
-    its unit groups fit the card (a bf16 W_hid keeps its tensor-core body at
-    every B), else :func:`fwd_launch_plan`
-    (``units`` and ``chunks`` as there; forcing ``units`` means the small-B
-    body).  ``tiled`` True or False forces the body, for measurement."""
+    :data:`TILED_WIDE_H`), where its unit groups fit the card and its blocks
+    the shared memory (H up to 512); a bf16 W_hid keeps its tensor-core body
+    at every B.  Else :func:`fwd_launch_plan` (``units`` and ``chunks`` as
+    there; forcing ``units`` means the small-B body).  ``tiled`` True or
+    False forces the body, for measurement; forced, the large-B body raises
+    ``ValueError`` for a bf16 W_hid, other units, or a width that does not
+    fit."""
     if tiled is None:
         min_rows = (TILED_RESIDENT_MIN_ROWS if tiled_resident(H)
                     else TILED_MIN_ROWS * (1 if H >= TILED_WIDE_H else 2))
@@ -514,10 +506,8 @@ def fwd_plan(B: int, H: int, sm_count: int, w_dtype=torch.float32, units=None, c
                  and -(-H // TILED_UNITS) <= sm_count
                  and fwd_tiled_smem_bytes(H) <= _build.SMEM_LIMIT)
     if tiled:
-        if w_dtype != torch.float32 or units not in (None, TILED_UNITS):
-            raise ValueError(f"large-B recurrence: float32 W_hid at {TILED_UNITS} units a "
-                             f"block only, not {w_dtype} at {units}")
-        return fwd_tiled_plan(B, H, sm_count, chunks)
+        return _tiled_plan("large-B recurrence", B, H, sm_count, w_dtype, units, chunks,
+                           fwd_tiled_smem_bytes(H))
     return fwd_launch_plan(B, H, sm_count, units, chunks, w_dtype)
 
 
@@ -555,13 +545,13 @@ def fwd_red_bytes(units: int, w_dtype=torch.float32) -> int:
 
 
 def bwd_launch_plan(B: int, H: int, sm_count: int, units=None, chunks=None,
-                    w_dtype=torch.float32) -> ChainPlan:
+                    w_dtype=torch.float32) -> LaunchPlan:
     """Units per block, grid, shared memory and row chunks of the backward
-    chain at batch ``B`` and width ``H`` on a card with ``sm_count`` SMs:
-    the block's units rows of W_hid (:func:`bwd_w_bytes`), the warps'
-    partial sums (:func:`bwd_red_bytes`) and six carries per row and unit
-    (dh_next, dc, the pass-through and three peephole partials); see
-    :func:`_chain_plan`.  A bf16 W_hid takes :data:`MMA_UNITS` units per
+    chain's small-B body at batch ``B`` and width ``H`` on a card with
+    ``sm_count`` SMs: the block's units rows of W_hid (:func:`bwd_w_bytes`),
+    the warps' partial sums (:func:`bwd_red_bytes`) and six carries per row
+    and unit (dh_next, dc, the pass-through and three peephole partials);
+    see :func:`_chain_plan`.  A bf16 W_hid takes :data:`MMA_UNITS` units per
     block where that grid fits, the units that fill the tensor-core tile's
     8 columns (each block's product costs the same at 2 to 8 units, so
     fewer blocks take less time); one launch then holds 1022 rows at H =
@@ -598,34 +588,26 @@ def bwd_tiled_smem_bytes(H: int) -> int:
                 + 2 * TILED_ROWS * BWD_TILED_K_PAD)
 
 
-def bwd_tiled_plan(B: int, H: int, sm_count: int, chunks=None) -> TiledPlan:
-    """Unit groups, row groups, shared memory and row chunks of the backward
-    chain's large-B body (float32 W_hid, with or without peepholes), as
-    :func:`fwd_tiled_plan` makes the recurrence's.  Raises ``ValueError``
-    when the unit groups alone exceed the SMs or a block's W_hid share does
-    not fit ``_build.SMEM_LIMIT`` (H above 640)."""
-    return _tiled_plan("large-B backward chain", B, H, sm_count, chunks,
-                       bwd_tiled_smem_bytes(H))
-
-
 def bwd_plan(B: int, H: int, sm_count: int, w_dtype=torch.float32, units=None, chunks=None,
-             tiled=None):
+             tiled=None) -> LaunchPlan:
     """The plan :func:`_run_bwd` launches, the one place a backward chain's
-    body is chosen: :func:`bwd_tiled_plan` for a float32 W_hid at B at least
+    body is chosen.  The large-B body (float32 W_hid, with or without
+    peepholes; its shared memory :func:`bwd_tiled_smem_bytes`, its row
+    groups and chunks :func:`_tiled_plan`) at B at least
     :data:`BWD_TILED_MIN_ROWS` and H from :data:`BWD_TILED_MIN_H` to
-    :data:`BWD_TILED_MAX_H` where its unit groups fit the card (a bf16 W_hid
-    keeps its tensor-core body at every B), else :func:`bwd_launch_plan`
+    :data:`BWD_TILED_MAX_H` where its unit groups fit the card; a bf16 W_hid
+    keeps its tensor-core body at every B.  Else :func:`bwd_launch_plan`
     (``units`` and ``chunks`` as there; forcing ``units`` means the small-B
-    body).  ``tiled`` True or False forces the body, for measurement."""
+    body).  ``tiled`` True or False forces the body, for measurement;
+    forced, the large-B body raises ``ValueError`` for a bf16 W_hid, other
+    units, or a width whose blocks do not fit (H above 640)."""
     if tiled is None:
         tiled = (units is None and w_dtype == torch.float32 and B >= BWD_TILED_MIN_ROWS
                  and BWD_TILED_MIN_H <= H <= BWD_TILED_MAX_H
                  and -(-H // TILED_UNITS) <= sm_count)
     if tiled:
-        if w_dtype != torch.float32 or units not in (None, TILED_UNITS):
-            raise ValueError(f"large-B backward chain: float32 W_hid at {TILED_UNITS} units a "
-                             f"block only, not {w_dtype} at {units}")
-        return bwd_tiled_plan(B, H, sm_count, chunks)
+        return _tiled_plan("large-B backward chain", B, H, sm_count, w_dtype, units, chunks,
+                           bwd_tiled_smem_bytes(H))
     return bwd_launch_plan(B, H, sm_count, units, chunks, w_dtype)
 
 
@@ -748,7 +730,7 @@ def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, sta
         **_peep_shapes(peep, H)}, w_hid)
     dev = x_proj.device
     plan = fwd_plan(B, H, _sm_count(dev.index), w_hid.dtype, units, chunks, tiled)
-    if isinstance(plan, TiledPlan) and tiled_resident(H) and hid0.data_ptr() % 16:
+    if plan.tiled and tiled_resident(H) and hid0.data_ptr() % 16:
         # the resident body reads h_{t-1} in float4 pieces: hid0 too
         hid0 = hid0.clone()
     outs = _outputs(name, args, w_hid, outs,
@@ -782,7 +764,7 @@ def _run_fwd(name, args, train, peep=(), units=None, chunks=None, outs=None, sta
     with torch.cuda.device(dev):
         map_chunks(launch, plan.chunks, x_proj, mask, cell0, hid0, *outs)
     if counter is not None:
-        _count(counter, w_hid, isinstance(plan, TiledPlan))
+        _count(counter, w_hid, plan.tiled)
     return tuple(outs) if train or state else outs[0]
 
 
@@ -973,31 +955,27 @@ def _run_bwd(name, args, clip, peep=(), units=None, chunks=None, outs=None, tile
         "w_hid": (w_hid, (H, 4 * H)), **_peep_shapes(peep, H)}, w_hid)
     dev = cells.device
     plan = bwd_plan(B, H, _sm_count(dev.index), w_hid.dtype, units, chunks, tiled)
-    large = isinstance(plan, TiledPlan)
     nan_dw = outs is not None
     outs = _outputs(name, args, w_hid, outs, [(B, T, 4 * H), (B, H), (B, H)])
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     w_bf16 = int(w_hid.dtype == torch.bfloat16)
-    # the large-B body's row groups on the grid's y, sized for the largest
-    # chunk (a row group past a smaller chunk's rows only idles)
-    row_groups = -(-plan.rows // TILED_ROWS) if large else 1
     # the scratch the chunks use in turn on the stream (held here until the
     # launches are queued): for a bf16 W the product's operand, the clipped
     # dgates of the last two steps rounded to bf16, (2, rows, 4H); for the
     # peephole large-B body each row group's dw sums, (row_groups, 3, H)
     if w_bf16:
         scratch = torch.empty(2 * plan.rows * 4 * H, dtype=torch.bfloat16, device=dev)
-    elif large and peep:
-        scratch = torch.empty((row_groups, 3, H), dtype=torch.float32, device=dev)
+    elif plan.tiled and peep:
+        scratch = torch.empty((plan.row_groups, 3, H), dtype=torch.float32, device=dev)
     else:
         scratch = None
     scratch_ptr = None if scratch is None else scratch.data_ptr()
 
     def launch(*views):
         ptrs = [a.data_ptr() for a in views]
-        tail = (clip, w_bf16, views[0].shape[0], T, H, plan.units, row_groups, plan.smem_bytes,
-                stream)
+        tail = (clip, w_bf16, views[0].shape[0], T, H, plan.units, plan.row_groups,
+                plan.smem_bytes, stream)
         if peep:
             dw = (torch.full((3, H), float("nan"), dtype=torch.float32, device=dev) if nan_dw
                   else torch.empty((3, H), dtype=torch.float32, device=dev))
@@ -1014,7 +992,7 @@ def _run_bwd(name, args, clip, peep=(), units=None, chunks=None, outs=None, tile
     with torch.cuda.device(dev):  # the launch's device, as in _run_fwd
         dws = map_chunks(launch, plan.chunks, g_out, gates_pre, cells, cells_prev, mask, *outs)
     if counter is not None:
-        _count(counter, w_hid, large)
+        _count(counter, w_hid, plan.tiled)
     if not peep:
         return tuple(outs)
     dw = dws[0]

@@ -34,7 +34,7 @@ no residuals.  With one, :class:`_LSTMCore` runs
 gates) and, in its backward, the reverse-time chain ``lstm_bwd_chain``
 followed by the batched weight and input gradients as ``torch.matmul`` over
 all (B, T) rows.  Peephole layers take the ``lstm_peep_*`` twins of those
-kernels, through :class:`_LSTMCorePeep`.  Each kernel wrapper runs its CUDA
+kernels, through the same Function.  Each kernel wrapper runs its CUDA
 kernel on the card and its plain loop on the CPU, so the CPU takes the same
 Function.
 
@@ -282,72 +282,43 @@ def _load_residuals(ctx, x, w_in, w_hid, b, hid0, stacks):
 
 class _LSTMCore(torch.autograd.Function):
     """The training core: counterpart of ``_lstm_core_fwd`` /
-    ``_lstm_core_bwd`` (ip_avsr_tpu/ops/lstm.py:375-588), non-peephole,
-    with their residual levers ``remat`` and ``residual_dtype`` and the
-    products' operand dtype ``mm`` (None or bfloat16: the kernels then take
-    a bf16 W_hid, rows 3 and 4's bf16 instantiations)."""
+    ``_lstm_core_bwd`` (ip_avsr_tpu/ops/lstm.py:375-588) and, with the three
+    (H,) peephole vectors as ``peep``, of ``_lstm_core_peep_fwd`` /
+    ``_lstm_core_peep_bwd`` (:629-832), with their residual levers
+    ``remat`` and ``residual_dtype`` and the products' operand dtype ``mm``
+    (None or bfloat16: the kernels then take a bf16 W_hid, their bf16
+    instantiations).  The forward saves the gates before any peephole term
+    (or, under ``remat``, nothing of them: the rebuild needs only x and
+    hids_prev); the peephole backward chain recomputes the peephole terms
+    from the saved cells and also returns the three peephole gradients."""
 
     @staticmethod
     def forward(ctx, w_in, w_hid, b, cell_init, hid_init, x, mask, backwards, clip,
-                return_state, remat, residual_dtype, mm):
+                return_state, remat, residual_dtype, mm, *peep):
         w_hid = _w_mm(w_hid, mm)
+        peep = tuple(v.contiguous() for v in peep)
         x, mask, x_proj, cell0, hid0 = _prep(w_in, b, cell_init, hid_init, x, mask,
                                              backwards, mm)
-        hids, cells, gates_pre = lstm_recurrence_train(x_proj, w_hid, mask, cell0, hid0)
+        recurrence = lstm_peep_recurrence_train if peep else lstm_recurrence_train
+        hids, cells, gates_pre = recurrence(x_proj, w_hid, mask, cell0, hid0, *peep)
         stacks = _save_residuals(ctx, hids, cells, gates_pre, remat, residual_dtype)
-        ctx.save_for_backward(w_in, w_hid, b, x, mask, cell0, hid0, *stacks)
+        ctx.save_for_backward(w_in, w_hid, b, x, mask, cell0, hid0, *peep, *stacks)
         ctx.backwards, ctx.clip, ctx.per_row = backwards, clip, cell_init.shape[0] != 1
-        ctx.mm = mm
+        ctx.mm, ctx.n_peep = mm, len(peep)
         return _outputs(ctx, hids, cells, return_state)
 
     @staticmethod
     def backward(ctx, g_out, *g_state):
-        w_in, w_hid, b, x, mask, cell0, hid0, *stacks = ctx.saved_tensors
+        w_in, w_hid, b, x, mask, cell0, hid0, *rest = ctx.saved_tensors
+        peep, stacks = rest[:ctx.n_peep], rest[ctx.n_peep:]
         hids, cells, gates_pre = _load_residuals(ctx, x, w_in, w_hid, b, hid0, stacks)
         chain = _chain_inputs(ctx, g_out, g_state, hids, gates_pre, cells, cell0, mask)
-        dgates, dcell0, dhid0 = lstm_bwd_chain(*chain, w_hid, ctx.clip)
+        bwd_chain = lstm_peep_bwd_chain if peep else lstm_bwd_chain
+        dgates, dcell0, dhid0, *dpeep = bwd_chain(*chain, w_hid, *peep, ctx.clip)
         grads = _batched_grads(ctx.needs_input_grad[:6], w_in, x, hids, hid0,
                                dgates[:, :hids.shape[1]], dcell0, dhid0, ctx.backwards,
                                ctx.per_row, ctx.mm)
-        return (*grads, None, None, None, None, None, None, None)
-
-
-class _LSTMCorePeep(torch.autograd.Function):
-    """The peephole training core: counterpart of ``_lstm_core_peep_fwd`` /
-    ``_lstm_core_peep_bwd`` (ip_avsr_tpu/ops/lstm.py:629-832).  The forward
-    saves the pre-peephole gates (or, under ``remat``, nothing of them: the
-    rebuild needs only x and hids_prev); the backward chain recomputes the
-    peephole terms from the saved cells and also returns the three (H,)
-    peephole gradients."""
-
-    @staticmethod
-    def forward(ctx, w_in, w_hid, b, cell_init, hid_init, w_ci, w_cf, w_co, x, mask,
-                backwards, clip, return_state, remat, residual_dtype, mm):
-        w_hid = _w_mm(w_hid, mm)
-        peep = tuple(v.contiguous() for v in (w_ci, w_cf, w_co))
-        x, mask, x_proj, cell0, hid0 = _prep(w_in, b, cell_init, hid_init, x, mask,
-                                             backwards, mm)
-        hids, cells, gates_pre = lstm_peep_recurrence_train(x_proj, w_hid, mask, cell0, hid0,
-                                                            *peep)
-        stacks = _save_residuals(ctx, hids, cells, gates_pre, remat, residual_dtype)
-        ctx.save_for_backward(w_in, w_hid, b, *peep, x, mask, cell0, hid0, *stacks)
-        ctx.backwards, ctx.clip, ctx.per_row = backwards, clip, cell_init.shape[0] != 1
-        ctx.mm = mm
-        return _outputs(ctx, hids, cells, return_state)
-
-    @staticmethod
-    def backward(ctx, g_out, *g_state):
-        w_in, w_hid, b, w_ci, w_cf, w_co, x, mask, cell0, hid0, *stacks = ctx.saved_tensors
-        hids, cells, gates_pre = _load_residuals(ctx, x, w_in, w_hid, b, hid0, stacks)
-        chain = _chain_inputs(ctx, g_out, g_state, hids, gates_pre, cells, cell0, mask)
-        dgates, dcell0, dhid0, dw_ci, dw_cf, dw_co = lstm_peep_bwd_chain(
-            *chain, w_hid, w_ci, w_cf, w_co, ctx.clip)
-        need = ctx.needs_input_grad
-        dw_in, dw_hid, db, dcell_init, dhid_init, dx = _batched_grads(
-            (*need[:5], need[8]), w_in, x, hids, hid0, dgates[:, :hids.shape[1]], dcell0,
-            dhid0, ctx.backwards, ctx.per_row, ctx.mm)
-        return (dw_in, dw_hid, db, dcell_init, dhid_init, dw_ci, dw_cf, dw_co, dx,
-                None, None, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None, None, *dpeep)
 
 
 def _residual_dtype(residual_dtype) -> Optional[torch.dtype]:
@@ -373,11 +344,11 @@ def lstm_forward(params: dict, x: torch.Tensor,
 
     Parameters with the three peephole vectors run the peephole recurrence.
     When autograd is on and ``x``, a parameter or the initial state requires
-    a gradient, the call goes through :class:`_LSTMCore` (or
-    :class:`_LSTMCorePeep`), whose backward clips the gate pre-activation
-    gradients to +-``grad_clipping`` (0 or None: no clip).  Otherwise it
-    runs the inference recurrence, which stores no residuals (as
-    ``_lstm_core_primal_impl`` and ``_lstm_core_peep_primal_impl`` do).
+    a gradient, the call goes through :class:`_LSTMCore`, whose backward
+    clips the gate pre-activation gradients to +-``grad_clipping`` (0 or
+    None: no clip).  Otherwise it runs the inference recurrence, which
+    stores no residuals (as ``_lstm_core_primal_impl`` and
+    ``_lstm_core_peep_primal_impl`` do).
 
     ``initial_state`` ((B, H) cell, (B, H) hid) replaces the learned
     ``cell_init``/``hid_init`` broadcast, and ``return_state=True`` makes
@@ -432,22 +403,19 @@ def lstm_forward(params: dict, x: torch.Tensor,
     tensors = [params["w_in"], params["w_hid"], params["b"], cell0, hid0]
     peep = [params[k] for k in _PEEPHOLE_KEYS] if _PEEPHOLE_KEYS[0] in params else []
     if torch.is_grad_enabled() and any(t.requires_grad for t in (*tensors, *peep, x)):
-        core = _LSTMCorePeep if peep else _LSTMCore
-        res = core.apply(*tensors, *peep, x, mask, bool(backwards),
-                         float(grad_clipping or 0.0), bool(return_state), bool(remat),
-                         residual_dtype, mm)
+        res = _LSTMCore.apply(*tensors, x, mask, bool(backwards), float(grad_clipping or 0.0),
+                              bool(return_state), bool(remat), residual_dtype, mm, *peep)
     else:
         _, mask, x_proj, cell0, hid0 = _prep(params["w_in"], params["b"], cell0, hid0, x,
                                              mask, backwards, mm)
-        w_hid = _w_mm(params["w_hid"], mm)
-        peep = [v.contiguous() for v in peep]
-        if return_state:
-            state_fn = lstm_peep_recurrence_state if peep else lstm_recurrence_state
-            res = state_fn(x_proj, w_hid, mask, cell0, hid0, *peep)
-        else:
-            fn = lstm_peep_recurrence if peep else lstm_recurrence
-            out = fn(x_proj, w_hid, mask, cell0, hid0, *peep)
-            res = torch.flip(out, dims=(1,)) if backwards else out
+        # the inference row by (peepholes, return_state), looked up at the
+        # call: parallel/_multiprocess_worker.counted_on_cpu replaces these names
+        recurrence = ((lstm_peep_recurrence_state if peep else lstm_recurrence_state)
+                      if return_state else (lstm_peep_recurrence if peep else lstm_recurrence))
+        res = recurrence(x_proj, _w_mm(params["w_hid"], mm), mask, cell0, hid0,
+                         *(v.contiguous() for v in peep))
+        if backwards:  # never with return_state
+            res = torch.flip(res, dims=(1,))
     if not return_state:
         return res
     out, cell_T = res

@@ -1,20 +1,29 @@
-"""The recurrence's large-B plan and the dispatch between its two bodies.
+"""The large-B plans of both directions and the dispatch between the bodies.
 
-``fwd_tiled_plan`` (ip_avsr_torch/ops/kernels/lstm.py) is the pure-Python
-half of csrc/lstm_fwd.cu's large-B body (``tiled_chain``): unit groups by
-row groups of one cooperative launch, shared memory and row chunks.  The
-card only sees the shapes the smoke run gives it, so the plan is held here to
-its invariants at H in {130, 250, 500, 1000} and B in {17, 64, 250, 256,
-257, 512}: every block resident, shared memory within the limit, every
-(row, unit) of the batch owned by exactly one thread of one block, and
-every product of a step summed once, in one fixed order, as the kernel's
-index arithmetic (mirrored below) assigns them, in both forms of the body:
-the resident one (W_hid in 128 registers a thread, ``tiled_resident``: H
-from 388 to 512 in steps of 4) and the staged one (every other width).  ``fwd_plan`` is
-the one place that picks the body: the large-B one for a float32 W_hid at B
->= ``TILED_MIN_ROWS`` (``TILED_RESIDENT_MIN_ROWS`` at the resident widths,
-twice ``TILED_MIN_ROWS`` below H = ``TILED_WIDE_H``), the small-B one
-(``fwd_launch_plan``, unchanged) everywhere else.
+``fwd_plan`` and ``bwd_plan`` (ip_avsr_torch/ops/kernels/lstm.py) are the
+one place a recurrence's or a backward chain's body is chosen, and the
+pure-Python half of csrc/lstm_fwd.cu's and csrc/lstm_bwd.cu's large-B body
+(``tiled_chain``): unit groups by row groups of one cooperative launch,
+shared memory and row chunks, in one ``LaunchPlan`` whose ``tiled`` names
+the body.  The card only sees the shapes the smoke run gives it, so the
+plans are held here to their invariants at H in {130, 250, 500, 1000}
+(forward) and {130, 250, 500, 640, 641} (backward) and B from 17 to 600:
+every block resident, shared memory within the limit, one launch a call at
+the benchmark cells' shapes (the count the harness multiplies by), and
+every (row, unit) of the batch owned by exactly one thread of one block, as
+the kernels' index arithmetic (mirrored below) assigns them.  The large-B
+body is taken for a float32 W_hid only: the recurrence's from B >=
+``TILED_MIN_ROWS`` (``TILED_RESIDENT_MIN_ROWS`` at the resident widths,
+twice ``TILED_MIN_ROWS`` below H = ``TILED_WIDE_H``), the backward chain's
+from B >= ``BWD_TILED_MIN_ROWS`` at H from ``BWD_TILED_MIN_H`` to
+``BWD_TILED_MAX_H``; the small-B body (``fwd_launch_plan``,
+``bwd_launch_plan``) everywhere else.
+
+The forward large-B body's own arithmetic is held here too, in both of its
+forms: the resident one (W_hid in 128 registers a thread,
+``tiled_resident``: H from 388 to 512 in steps of 4) and the staged one
+(every other width), every product of a step summed once, in one fixed
+order.  The backward body's is in test_torch_lstm_bwd_tiled_plan.py.
 """
 
 import numpy as np
@@ -27,22 +36,30 @@ from ip_avsr_torch.ops.kernels import lstm as klstm
 torch.set_num_threads(1)
 SMS = 132
 THREADS = 256
-SHAPES = [(H, B) for H in (130, 250, 500, 1000) for B in (17, 64, 250, 256, 257, 512)]
+DIRECTIONS = ("fwd", "bwd")
+PLAN = {"fwd": klstm.fwd_plan, "bwd": klstm.bwd_plan}
+SMALL = {"fwd": klstm.fwd_launch_plan, "bwd": klstm.bwd_launch_plan}
+NAME = {"fwd": "large-B recurrence", "bwd": "large-B backward chain"}
+SHAPES = ([("fwd", H, B) for H in (130, 250, 500, 1000) for B in (17, 64, 250, 256, 257, 512)]
+          + [("bwd", H, B) for H in (130, 250, 500, 640, 641)
+             for B in (17, 64, 256, 257, 512, 600)])
 
 
 def _owners(plan, B, H):
     """How many gate-stage threads own each (row, unit) of the batch, by the
-    kernel's arithmetic: chunk (b0, b1) of ``chunk_spans``, block (bx, by),
-    thread tid owns unit bx * 16 + tid % 16 and rows by * 64 + tid / 16 +
-    16 i (i < 4) of the chunk, where both are live (unit < H, row < the
-    chunk's rows)."""
+    kernels' arithmetic: chunk (b0, b1) of ``chunk_spans``, block (bx, by)
+    for by below ``plan.row_groups`` (the backward chain's launch takes
+    them; the recurrence's takes ceil(chunk rows / 64), no more, and a row
+    group past a chunk's rows owns nothing), thread tid owns unit bx * 16 +
+    tid % 16 and rows by * 64 + tid / 16 + 16 i (i < 4) of the chunk, where
+    both are live (unit < H, row < the chunk's rows)."""
     count = np.zeros((B, H), dtype=np.int64)
     tid = np.arange(THREADS)
     gate_rows = klstm.TILED_ROWS * klstm.TILED_UNITS // THREADS
     for b0, b1 in klstm.chunk_spans(B, plan.chunks):
+        assert plan.row_groups * klstm.TILED_ROWS >= b1 - b0
         for bx in range(plan.grid):
-            # the launch's row groups: grid.y = ceil(chunk rows / 64)
-            for by in range(-(-(b1 - b0) // klstm.TILED_ROWS)):
+            for by in range(plan.row_groups):
                 j = bx * klstm.TILED_UNITS + tid % klstm.TILED_UNITS
                 for i in range(gate_rows):
                     r = by * klstm.TILED_ROWS + tid // klstm.TILED_UNITS + 16 * i
@@ -51,36 +68,262 @@ def _owners(plan, B, H):
     return count
 
 
-@pytest.mark.parametrize("H,B", SHAPES, ids=[f"H{H}-B{B}" for H, B in SHAPES])
-def test_fwd_tiled_plan(H, B):
-    if H > 512:
+def _smem(direction, H):
+    """A large-B block's shared memory, from the kernels' layouts.  Forward,
+    resident: the 8 warps' rows of h, which their partial sums overwrite, 64
+    rows x 64 floats each, and 256 threads' 48 gate inputs and carries, the
+    same at every width; staged: W_hid's 64 columns as whole chunks of 64 k,
+    two staged chunks of 64 rows padded to 68 floats, four slices' partial
+    sums of 64 x 64.  Backward: W_hid's 16 rows as 4H k rows of 16 floats,
+    padded to chunks of 128, and two staged chunks of 64 rows of 132
+    floats."""
+    if direction == "bwd":
+        return 4 * (-(-4 * H // 128) * 128 * 16 + 2 * 64 * 132)
+    if klstm.tiled_resident(H):
+        return 4 * (8 * 64 * 64 + 48 * 256)
+    return 4 * (64 * -(-H // 64) * 64 + 2 * 64 * 68 + 4 * 64 * 64)
+
+
+@pytest.mark.parametrize("direction,H,B", SHAPES, ids=[f"{d}-H{H}-B{B}" for d, H, B in SHAPES])
+def test_tiled_plan(direction, H, B):
+    smem = _smem(direction, H)
+    if smem > _build.SMEM_LIMIT:
         # 16 units' W_hid share no longer fits beside the staged chunks
-        with pytest.raises(ValueError, match=f"large-B recurrence: H={H}"):
-            klstm.fwd_tiled_plan(B, H, SMS)
-        assert klstm.fwd_plan(B, H, SMS) == klstm.fwd_launch_plan(B, H, SMS)
+        # (forward H > 512, backward H > 640)
+        with pytest.raises(ValueError, match=f"{NAME[direction]}: H={H}"):
+            PLAN[direction](B, H, SMS, tiled=True)
+        assert PLAN[direction](B, H, SMS) == SMALL[direction](B, H, SMS)
         return
-    plan = klstm.fwd_tiled_plan(B, H, SMS)
+    plan = PLAN[direction](B, H, SMS, tiled=True)
+    assert plan.tiled
     assert plan.units == klstm.TILED_UNITS == 16
     assert plan.grid == -(-H // 16) and plan.last_units == H - 16 * (plan.grid - 1)
     assert 1 <= plan.last_units <= 16
-    # every block of a launch co-resident, one a SM
-    assert plan.grid * -(-plan.rows // klstm.TILED_ROWS) <= SMS
-    if klstm.tiled_resident(H):
-        # W_hid in registers: the 8 warps' rows of h, which their partial
-        # sums overwrite, 64 rows x 64 floats each, and 256 threads' 48 gate
-        # inputs and carries, the same at every width
-        assert plan.smem_bytes == 4 * (8 * 64 * 64 + 48 * 256) == 180224
-    else:
-        # W_hid's 64 columns as whole chunks of 64 k, two staged chunks of 64
-        # rows padded to 68 floats, four slices' partial sums of 64 x 64
-        k_rows = -(-H // 64) * 64
-        assert plan.smem_bytes == 4 * (64 * k_rows + 2 * 64 * 68 + 4 * 64 * 64)
-    assert plan.smem_bytes <= _build.SMEM_LIMIT
+    # the fewest row groups that hold a chunk, every block of a launch
+    # co-resident, one a SM
+    assert (plan.row_groups - 1) * klstm.TILED_ROWS < plan.rows <= (
+        plan.row_groups * klstm.TILED_ROWS)
+    assert plan.grid * plan.row_groups <= SMS
+    assert plan.smem_bytes == smem <= _build.SMEM_LIMIT
+    if direction == "fwd" and klstm.tiled_resident(H):
+        assert smem == 180224
+    if direction == "bwd":
+        assert smem == klstm.bwd_tiled_smem_bytes(H)
     # the fewest near-equal chunks that the row groups allow
     cap = SMS // plan.grid * klstm.TILED_ROWS
     assert plan.chunks == -(-B // cap) and plan.rows == -(-B // plan.chunks) <= cap
     count = _owners(plan, B, H)
     assert count.min() == count.max() == 1
+
+
+# the cells' shapes: (plan, B, H) -> body, grid, row groups, chunks, shared
+# memory; the small-B plan the harness counts launches by beside them
+CELLS = [
+    ("fwd_plan", 256, 500, True, 32, 4, 1, 180224),
+    ("bwd_plan", 256, 500, True, 32, 4, 1, 198656),
+    ("fwd_plan", 512, 250, True, 16, 8, 1, 165888),
+    ("bwd_plan", 512, 250, True, 16, 8, 1, 133120),
+    ("fwd_launch_plan", 256, 500, False, 125, 1, 1, 49216),
+]
+
+
+@pytest.mark.parametrize("fn,B,H,tiled,grid,row_groups,chunks,smem", CELLS,
+                         ids=[f"{c[0]}-B{c[1]}-H{c[2]}" for c in CELLS])
+def test_tiled_plan_at_the_cells(fn, B, H, tiled, grid, row_groups, chunks, smem):
+    plan = getattr(klstm, fn)(B, H, SMS)
+    assert (plan.tiled, plan.grid, plan.row_groups, plan.chunks, plan.smem_bytes) == (
+        tiled, grid, row_groups, chunks, smem)
+    assert plan.grid * plan.row_groups <= SMS and smem <= _build.SMEM_LIMIT
+    if tiled:
+        assert plan.grid * plan.row_groups == 128
+
+
+@pytest.mark.parametrize("direction", DIRECTIONS)
+def test_plans_of_the_two_bodies_differ(direction):
+    """A plan names its body: a small-B plan with a large-B plan's geometry
+    is not that plan, so a test's equality shows which body was chosen."""
+    plan = PLAN[direction](256, 500, SMS)
+    assert plan.tiled and plan != plan._replace(tiled=False)
+    assert PLAN[direction](256, 500, SMS, tiled=False) == SMALL[direction](256, 500, SMS)
+
+
+@pytest.mark.parametrize("direction", DIRECTIONS)
+def test_crossover_is_the_swept_one(direction):
+    if direction == "fwd":
+        assert (klstm.TILED_RESIDENT_MIN_ROWS, klstm.TILED_MIN_ROWS,
+                klstm.TILED_WIDE_H) == (96, 128, 250)
+    else:
+        assert (klstm.BWD_TILED_MIN_ROWS, klstm.BWD_TILED_MIN_H, klstm.BWD_TILED_MAX_H) == (
+            128, 64, 500)
+
+
+# (B, H, w_dtype) -> whether the dispatch takes the large-B body: each side
+# of every crossover, never for a bf16 W_hid or a width that does not fit
+DISPATCH = {
+    "fwd": [
+        ((1, 500, torch.float32), False),
+        ((10, 500, torch.float32), False),
+        ((64, 500, torch.float32), False),
+        # at the resident widths from B = 96
+        ((95, 500, torch.float32), False),
+        ((96, 500, torch.float32), True),
+        ((127, 500, torch.float32), True),
+        ((127, 498, torch.float32), False),
+        ((128, 500, torch.float32), True),
+        ((256, 500, torch.float32), True),
+        ((512, 250, torch.float32), True),
+        ((6000, 500, torch.float32), True),
+        ((256, 500, torch.bfloat16), False),
+        ((512, 250, torch.bfloat16), False),
+        ((256, 1000, torch.float32), False),
+        # below H = 250 from B = 256 only
+        ((128, 250, torch.float32), True),
+        ((255, 249, torch.float32), False),
+        ((256, 249, torch.float32), True),
+        ((128, 130, torch.float32), False),
+        ((256, 130, torch.float32), True),
+        ((255, 16, torch.float32), False),
+        ((512, 16, torch.float32), True),
+    ],
+    "bwd": [
+        ((1, 500, torch.float32), False),
+        ((10, 500, torch.float32), False),
+        ((klstm.BWD_TILED_MIN_ROWS - 1, 500, torch.float32), False),
+        ((klstm.BWD_TILED_MIN_ROWS, 500, torch.float32), True),
+        ((256, 500, torch.float32), True),
+        ((klstm.BWD_TILED_MIN_ROWS - 1, 250, torch.float32), False),
+        ((klstm.BWD_TILED_MIN_ROWS, 250, torch.float32), True),
+        ((512, 250, torch.float32), True),
+        ((klstm.BWD_TILED_MIN_ROWS - 1, klstm.BWD_TILED_MIN_H, torch.float32), False),
+        ((klstm.BWD_TILED_MIN_ROWS, klstm.BWD_TILED_MIN_H, torch.float32), True),
+        ((512, klstm.BWD_TILED_MIN_H - 1, torch.float32), False),
+        ((512, 16, torch.float32), False),
+        ((128, 130, torch.float32), True),
+        ((127, 130, torch.float32), False),
+        ((512, klstm.BWD_TILED_MAX_H + 1, torch.float32), False),
+        ((512, 640, torch.float32), False),
+        ((2100, 500, torch.float32), True),
+        ((256, 500, torch.bfloat16), False),
+        ((512, 250, torch.bfloat16), False),
+        ((512, 641, torch.float32), False),
+    ],
+}
+DISPATCH_CASES = [(d, args, tiled) for d in DIRECTIONS for args, tiled in DISPATCH[d]]
+
+
+@pytest.mark.parametrize("direction,args,tiled", DISPATCH_CASES,
+                         ids=[f"{d}-{a}" for d, a, _ in DISPATCH_CASES])
+def test_plan_dispatch(direction, args, tiled):
+    """The large-B body only where its crossover and its width allow, as
+    forcing it makes it; else, and for every bf16 W_hid, the small-B plan
+    exactly as ``fwd_launch_plan`` or ``bwd_launch_plan`` makes it."""
+    B, H, w_dtype = args
+    plan = PLAN[direction](B, H, SMS, w_dtype)
+    assert plan.tiled == tiled
+    if tiled:
+        assert plan == PLAN[direction](B, H, SMS, tiled=True)
+    else:
+        assert plan == SMALL[direction](B, H, SMS, w_dtype=w_dtype)
+        assert plan.row_groups == 1
+
+
+@pytest.mark.parametrize("direction,small_chunks", [("fwd", 1), ("bwd", 2)])
+def test_plan_forcing(direction, small_chunks):
+    # units force the small-B body at any B; tiled forces either body
+    plan = PLAN[direction]
+    assert plan(256, 500, SMS, units=8) == SMALL[direction](256, 500, SMS, 8)
+    assert plan(256, 500, SMS, tiled=False) == SMALL[direction](256, 500, SMS)
+    assert plan(2100, 500, SMS, tiled=False).chunks == small_chunks
+    forced = plan(16, 500, SMS, tiled=True)
+    assert forced.tiled and (forced.rows, forced.chunks, forced.row_groups) == (16, 1, 1)
+    two = plan(256, 500, SMS, chunks=2)
+    assert two.tiled and (two.rows, two.chunks, two.row_groups) == (128, 2, 2)
+
+
+@pytest.mark.parametrize("direction", DIRECTIONS)
+@pytest.mark.parametrize("dtype,units", [(torch.bfloat16, None), (torch.float32, 4),
+                                         (torch.bfloat16, 16)])
+def test_plan_refuses_other_instantiations(direction, dtype, units):
+    with pytest.raises(ValueError, match="float32 W_hid at 16 units a block only"):
+        PLAN[direction](256, 500, SMS, dtype, units=units, tiled=True)
+
+
+@pytest.mark.parametrize("direction", DIRECTIONS)
+def test_tiled_plan_forced_chunks(direction):
+    plan = PLAN[direction](256, 500, SMS, chunks=3)
+    assert plan.tiled and (plan.chunks, plan.rows, plan.row_groups) == (3, 86, 2)
+    with pytest.raises(ValueError, match="runs in 2 to 512 chunks"):
+        PLAN[direction](512, 500, SMS, chunks=1)
+    with pytest.raises(ValueError, match="runs in 1 to 17 chunks"):
+        PLAN[direction](17, 500, SMS, chunks=18, tiled=True)
+
+
+@pytest.mark.parametrize("direction", DIRECTIONS)
+def test_tiled_plan_needs_the_sms(direction):
+    # 32 unit groups at H = 500 cannot be resident on 16 SMs
+    with pytest.raises(ValueError, match=f"{NAME[direction]}: H=500 needs 32 blocks"):
+        PLAN[direction](256, 500, 16, tiled=True)
+    # so the dispatch leaves it to the small-B plan, which does not fit either
+    small = "recurrence" if direction == "fwd" else "backward chain"
+    with pytest.raises(ValueError, match=f"{small}: H=500 needs more than 8 hidden units"):
+        PLAN[direction](256, 500, 16)
+
+
+@pytest.mark.parametrize("direction", DIRECTIONS)
+@pytest.mark.parametrize("B,H", [(256, 500), (512, 250)])
+def test_cells_run_one_launch_a_call(direction, B, H):
+    """The harness counts a row's launches as ``fwd_launch_plan(B, H,
+    sm).chunks`` or ``bwd_launch_plan``'s (avsr_bench/harness/drive._chunks):
+    at the benchmark cells' shapes the large-B plan that runs there must
+    launch exactly that often, once a call, so the launches counted per call
+    match the launches a trace records."""
+    assert PLAN[direction](B, H, SMS).chunks == SMALL[direction](B, H, SMS).chunks == 1
+
+
+@pytest.mark.parametrize("direction", DIRECTIONS)
+@pytest.mark.parametrize("B,H,chunks,rows", [
+    (600, 500, 3, 200),   # 256 rows a launch at H = 500
+    (257, 500, 2, 129),
+    (600, 250, 2, 300),   # 512 at H = 250
+    (2100, 500, 9, 234),
+])
+def test_tiled_plan_chunks(direction, B, H, chunks, rows):
+    """Rows above one launch's row groups run as near-equal row chunks, each
+    a pointer offset, as the small-B plan's do."""
+    plan = PLAN[direction](B, H, SMS)
+    assert plan.tiled and (plan.chunks, plan.rows) == (chunks, rows)
+    count = _owners(plan, B, H)
+    assert count.min() == count.max() == 1
+
+
+class _Counter:
+    launches = launches_bf16 = launches_tiled = 0
+
+
+@pytest.mark.parametrize("dtype,tiled,expected", [
+    (torch.float32, False, (1, 0, 0)),
+    (torch.float32, True, (1, 0, 1)),
+    (torch.bfloat16, False, (0, 1, 0)),
+])
+def test_count(dtype, tiled, expected):
+    counter = _Counter()
+    klstm._count(counter, torch.zeros(1, dtype=dtype), tiled)
+    assert (counter.launches, counter.launches_bf16, counter.launches_tiled) == expected
+
+
+@pytest.mark.parametrize("name", ["lstm_recurrence", "lstm_recurrence_train",
+                                  "lstm_peep_recurrence", "lstm_peep_recurrence_train",
+                                  "lstm_bwd_chain", "lstm_peep_bwd_chain"])
+def test_rows_count_large_b_launches(name):
+    counter = getattr(klstm, name)
+    assert isinstance(counter.launches_tiled, int)
+    before = (counter.launches, counter.launches_bf16, counter.launches_tiled)
+    try:
+        klstm._count(counter, torch.zeros(1), True)
+        assert (counter.launches, counter.launches_bf16, counter.launches_tiled) == (
+            before[0] + 1, before[1], before[2] + 1)
+    finally:
+        counter.launches, counter.launches_bf16, counter.launches_tiled = before
 
 
 def test_tiled_resident_widths():
@@ -153,8 +396,6 @@ def _staged_product_covers_every_sum_once(H):
         assert sorted(order) == list(range(n_chunks))
 
 
-
-
 @pytest.mark.parametrize("H", [130, 250, 498, 388, 400, 500, 512])
 def test_tiled_product_covers_every_sum_once(H):
     """Every (row, gate column, k < H) product of a block's step is summed
@@ -220,107 +461,3 @@ def test_tiled_w_register_share():
         assert 4 * 4 * 4 * 4 >= KW  # 4 quarters x 4 groups x 4 k
         assert 4 * 4 * 8 == 128
     assert klstm.tiled_slice_k(500) == 64
-
-
-def test_fwd_tiled_plan_forced_chunks():
-    plan = klstm.fwd_tiled_plan(256, 500, SMS, chunks=3)
-    assert (plan.chunks, plan.rows) == (3, 86)
-    with pytest.raises(ValueError, match="runs in 2 to 512 chunks"):
-        klstm.fwd_tiled_plan(512, 500, SMS, chunks=1)
-    with pytest.raises(ValueError, match="runs in 1 to 17 chunks"):
-        klstm.fwd_tiled_plan(17, 500, SMS, chunks=18)
-
-
-def test_fwd_tiled_plan_needs_the_sms():
-    # 32 unit groups at H = 500 cannot be resident on 16 SMs
-    with pytest.raises(ValueError, match="H=500 needs 32 blocks"):
-        klstm.fwd_tiled_plan(256, 500, 16)
-    # so the dispatch leaves it to the small-B plan, which does not fit either
-    with pytest.raises(ValueError, match="recurrence: H=500 needs more than 8 hidden units"):
-        klstm.fwd_plan(256, 500, 16)
-
-
-# (B, H, w_dtype) -> the body fwd_plan picks
-DISPATCH = [
-    ((1, 500, torch.float32), False),
-    ((10, 500, torch.float32), False),
-    ((64, 500, torch.float32), False),
-    # at the resident widths from B = 96
-    ((95, 500, torch.float32), False),
-    ((96, 500, torch.float32), True),
-    ((127, 500, torch.float32), True),
-    ((127, 498, torch.float32), False),
-    ((128, 500, torch.float32), True),
-    ((256, 500, torch.float32), True),
-    ((512, 250, torch.float32), True),
-    ((6000, 500, torch.float32), True),
-    ((256, 500, torch.bfloat16), False),
-    ((512, 250, torch.bfloat16), False),
-    ((256, 1000, torch.float32), False),
-    # below H = 250 from B = 256 only
-    ((128, 250, torch.float32), True),
-    ((255, 249, torch.float32), False),
-    ((256, 249, torch.float32), True),
-    ((128, 130, torch.float32), False),
-    ((256, 130, torch.float32), True),
-    ((255, 16, torch.float32), False),
-    ((512, 16, torch.float32), True),
-]
-
-
-@pytest.mark.parametrize("args,tiled", DISPATCH, ids=[str(a) for a, _ in DISPATCH])
-def test_fwd_plan_dispatch(args, tiled):
-    """The large-B body only for a float32 W_hid at B >= TILED_MIN_ROWS
-    (TILED_RESIDENT_MIN_ROWS at the resident widths, twice TILED_MIN_ROWS
-    below H = TILED_WIDE_H) and a width whose plan fits; below, and for every
-    bf16 W_hid, the small-B plan exactly as ``fwd_launch_plan`` makes it."""
-    B, H, w_dtype = args
-    assert (klstm.TILED_RESIDENT_MIN_ROWS, klstm.TILED_MIN_ROWS,
-            klstm.TILED_WIDE_H) == (96, 128, 250)
-    plan = klstm.fwd_plan(B, H, SMS, w_dtype)
-    assert isinstance(plan, klstm.TiledPlan) == tiled
-    if tiled:
-        assert plan == klstm.fwd_tiled_plan(B, H, SMS)
-    else:
-        assert plan == klstm.fwd_launch_plan(B, H, SMS, w_dtype=w_dtype)
-
-
-def test_fwd_plan_forcing():
-    # units force the small-B body at any B; tiled forces either body
-    assert klstm.fwd_plan(256, 500, SMS, units=8) == klstm.fwd_launch_plan(256, 500, SMS, 8)
-    assert klstm.fwd_plan(256, 500, SMS, tiled=False) == klstm.fwd_launch_plan(256, 500, SMS)
-    assert klstm.fwd_plan(16, 500, SMS, tiled=True) == klstm.fwd_tiled_plan(16, 500, SMS)
-    assert klstm.fwd_plan(256, 500, SMS, chunks=2) == klstm.fwd_tiled_plan(256, 500, SMS, 2)
-    with pytest.raises(ValueError, match="float32 W_hid at 16 units a block only"):
-        klstm.fwd_plan(256, 500, SMS, torch.bfloat16, tiled=True)
-    with pytest.raises(ValueError, match="float32 W_hid at 16 units a block only"):
-        klstm.fwd_plan(256, 500, SMS, units=4, tiled=True)
-
-
-@pytest.mark.parametrize("B,H", [(256, 500), (512, 250)])
-def test_cells_run_one_launch_a_call(B, H):
-    """At the benchmark cells' shapes both plans run one launch a call, so
-    the launches counted per call match the launches a trace records."""
-    assert klstm.fwd_plan(B, H, SMS).chunks == 1
-    assert klstm.fwd_launch_plan(B, H, SMS).chunks == 1
-
-
-class _Counter:
-    launches = launches_bf16 = launches_tiled = 0
-
-
-@pytest.mark.parametrize("dtype,tiled,expected", [
-    (torch.float32, False, (1, 0, 0)),
-    (torch.float32, True, (1, 0, 1)),
-    (torch.bfloat16, False, (0, 1, 0)),
-])
-def test_count(dtype, tiled, expected):
-    counter = _Counter()
-    klstm._count(counter, torch.zeros(1, dtype=dtype), tiled)
-    assert (counter.launches, counter.launches_bf16, counter.launches_tiled) == expected
-
-
-@pytest.mark.parametrize("name", ["lstm_recurrence", "lstm_recurrence_train",
-                                  "lstm_peep_recurrence", "lstm_peep_recurrence_train"])
-def test_forward_rows_count_large_b_launches(name):
-    assert isinstance(getattr(klstm, name).launches_tiled, int)
