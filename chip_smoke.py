@@ -61,7 +61,8 @@ Phases, each fatal on failure:
 6. train the same model at B = 10, T = 29 through
    ``train.trainer.make_train_step``: three steps with its own dropout rates
    (loss, gradients and parameters finite; 5 training-recurrence, 5
-   backward-chain, 1 delta and no other launches per step), then at dropout
+   backward-chain, 1 delta and no other launches per step, and 1 launch of
+   the Adam kernel), then at dropout
    0 the card against the port's CPU path on the same parameters and batch
    (loss, every gradient, updated parameters), the step median on the host
    clock, and a torch.profiler trace of three steps (device time by kernel,
@@ -79,14 +80,15 @@ Phases, each fatal on failure:
    calls per request);
 8. train it three steps at the ini's batch size and learning rate (6
    peephole training recurrences, 6 peephole backward chains, 1 delta, no
-   other launch per step), hold the card's step against the CPU path, time
+   other launch per step, and 1 launch of the Adam kernel), hold the card's step against the CPU path, time
    and trace it (1 delta launch and 6 of each peephole chain kernel per
    step, none of the others); then ``tiled_main_path``: both models' forward
    and ``Trainer.train_step`` at the cells' batch (256, 512 for the
    4-stream step) and at B = 8 or 10, each f32 LSTM row's ``.launches`` and
-   ``.launches_tiled`` zeroed before each call: every launch of the
-   forward's row, and of the step's two rows, in the large-B body at the
-   cells' batch, none at the small one;
+   ``.launches_tiled`` and ``adam_update.launches`` zeroed before each
+   call: every launch of the forward's row, and of the step's two rows, in
+   the large-B body at the cells' batch, none at the small one; one Adam
+   launch a train step, none a forward;
 9. rows 1 and 5 with their final-cell output (``phase_lstm_state``, run
    after the chunk checks of 3.): H = 500 at B = 1 and 8, H = 250 at B = 1
    and 10, 3 forced row chunks at B = 64, T in {1, 2, 29, 32}, nonzero
@@ -283,6 +285,16 @@ Phases, each fatal on failure:
    time per forward (the "reference CPU" figure) beside the CPU model; then
    ``blstm_forward(grad_clipping=0)`` at the flagship aggregator's shape
    (rows 3 and 4 with clip 0) against the CPU path;
+21b. the multi-tensor Adam kernel (``phase_adam``, run right after
+   ``tiled_main_path``) at both training cells' parameter trees (43 and 70
+   leaves, seeded as the benchmark's ``inputs.make_weights``): ``adam`` and
+   ``adam_vlr`` over 5 steps of seeded gradients, p, m, v and t bit-equal
+   to the plain version (the eager tree_maps) on the card, one launch an
+   update a table; the kernel's time (20 launches, CUDA events) at the
+   wrapper's block size (with ``--adam`` at several) beside its bound (7 x
+   4 bytes a value), the whole
+   update and the plain version (the card's clock and the host's), and
+   ``torch.optim.Adam(fused=True)`` as a yardstick of time;
 22. print the fit's numbers, the kernels line (each row's launches in the
    fits and per fit epoch, beside its serve or train path's count; rows 1
    and 5 also their launches in the streaming sessions and the state
@@ -298,7 +310,9 @@ Phases, each fatal on failure:
    bound, the small-B body's time, and ``main_path_launches``, the main
    path's [launches, launches_tiled] by batch from ``tiled_main_path``);
    every LSTM row with its instantiation's registers per thread and HMMA
-   count), then ``{"ok": true, "device": ...}`` last.
+   count; the Adam kernel's row, ``phase_adam``'s numbers with
+   ``main_path_launches``, the Trainer step's Adam launches by model and
+   batch from ``tiled_main_path``), then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a CUDA device or without the package beside it.
 
@@ -323,6 +337,12 @@ at the cells' widths and row 1 at H in {130, 64}, B in {64, 96, 128,
 256}; rows 4 and 7 at the cells' widths at B = 16-256 (and
 512 for row 7), row 4 at H in {130, 64} at B in {64, 128, 256, 512}), and
 prints their numbers as JSON (about two minutes of command time);
+
+    python3 chip_smoke.py --adam
+
+runs only phases 1, 2 and ``phase_adam`` (the multi-tensor Adam kernel at
+both training cells' trees, 21b. below, timed also at each of
+``ADAM_CHUNKS`` values a block) and prints its numbers as JSON;
 
     python3 chip_smoke.py --mesh4
 
@@ -592,6 +612,25 @@ def expect_launches(got, **nonzero):
     expected = {name: nonzero.get(name, 0) for name in KERNEL_COUNTERS}
     if got != expected:
         raise AssertionError(f"kernel launches {got}, expected {expected}")
+
+
+def reset_adam_launches():
+    from ip_avsr_torch.ops.kernels import adam as kadam
+
+    kadam.adam_update.launches = 0
+
+
+def expect_adam_launches(params, steps, label):
+    """Raise unless the Adam kernel's ``adam_update.launches`` reads one
+    launch a table of ``params``'s tree for each of ``steps`` optimizer
+    steps since :func:`reset_adam_launches`."""
+    from ip_avsr_torch.ops.kernels import adam as kadam
+
+    got = kadam.adam_update.launches
+    want = steps * -(-len(kadam._leaves(params)) // kadam.CAPACITY)
+    print(f"{label}: adam_update.launches = {got} over {steps} steps")
+    if got != want:
+        raise AssertionError(f"{label}: adam_update.launches = {got}, expected {want}")
 
 
 def max_err(got, ref):
@@ -1340,15 +1379,19 @@ def tiled_main_path(dev):
     and 4), the 4-stream model's forward (``make_server``, row 5) and train
     step (rows 6 and 7), each at the cells' batch (256, and 512 for the
     4-stream step) and at the reference batch (8 scoring, 10 training),
-    with every f32 LSTM row's ``.launches`` and ``.launches_tiled`` set to 0
-    before each call.  At the cells' batch every launch of the path's rows
-    must take the large-B body (the two counts equal and nonzero), at the
-    reference batch none, and no other LSTM row may launch.  Returns {row:
-    {B: [launches, launches_tiled]}}."""
+    with every f32 LSTM row's ``.launches`` and ``.launches_tiled`` and the
+    Adam kernel's ``adam_update.launches`` set to 0 before each call.  At
+    the cells' batch every launch of the path's rows must take the large-B
+    body (the two counts equal and nonzero), at the reference batch none,
+    and no other LSTM row may launch; each train step must launch the Adam
+    kernel once a table of its tree (one table at both trees), a scoring
+    call never.  Returns {row: {B: [launches, launches_tiled]}}, and under
+    ``"adam"`` {model: {B: Adam launches of the train step}}."""
     import numpy as np
     import torch
 
     from ip_avsr_torch.models import adenet
+    from ip_avsr_torch.ops.kernels import adam as kadam
     from ip_avsr_torch.ops.kernels import lstm as kl
     from ip_avsr_torch.serve import make_server, make_trimodal_server
     from ip_avsr_torch.train.trainer import Trainer, TrainOptions
@@ -1356,10 +1399,13 @@ def tiled_main_path(dev):
     wrappers = {row: getattr(kl, fn) for row, fn in LSTM_WRAPPERS.items()}
     cfg4, training4 = oulu_4stream()
     out = {row: {} for row in LSTM_WRAPPERS}
+    out["adam"] = {}
     for cfg, lr, peep, train_b in ((flagship(), 1e-4, False, 256),
                                    (cfg4, training4.learning_rate, True, 512)):
         params = adenet.init_adenet_params(torch.Generator().manual_seed(SEED + 15), cfg,
                                            device=dev)
+        model = "4-stream" if peep else "flagship"
+        tables = -(-len(kadam._leaves(params)) // kadam.CAPACITY)
         trainer = Trainer(cfg, TrainOptions(learning_rate=lr, optimizer="adam",
                                             log_fn=lambda _: None), device=dev)
         opt_state = trainer.optimizer.init(params)
@@ -1388,9 +1434,18 @@ def tiled_main_path(dev):
             for B in batches:
                 for fn in wrappers.values():
                     fn.launches = fn.launches_tiled = 0
+                kadam.adam_update.launches = 0
                 call(B)
                 torch.cuda.synchronize()
                 counts = {r: [fn.launches, fn.launches_tiled] for r, fn in wrappers.items()}
+                adam = kadam.adam_update.launches
+                want = tables if call is step else 0
+                print(f"main path {model} {call.__name__} B={B}: adam_update.launches = {adam}")
+                if adam != want:
+                    raise AssertionError(f"main path {model} {call.__name__} B={B}: "
+                                         f"adam_update.launches = {adam}, expected {want}")
+                if call is step:
+                    out["adam"].setdefault(model, {})[B] = adam
                 for row in rows:
                     out[row][B] = counts[row]
                     n, tiled = counts[row]
@@ -1787,6 +1842,7 @@ def phase_train(dev):
     torch.cuda.synchronize()
 
     reset_launches()
+    reset_adam_launches()
     p, st = params, state
     losses = []
     n_steps = 3
@@ -1799,6 +1855,7 @@ def phase_train(dev):
           f"{[round(float(v), 6) for v in losses]}, launches {launches}")
     expect_launches(launches, lstm_fwd_train=5 * n_steps, lstm_bwd=5 * n_steps,
                     delta=n_steps)
+    expect_adam_launches(params, n_steps, "train")
     # m is a positive mix of every step's gradients: finite m, finite grads
     finite = []
     tree_map(lambda t: finite.append(bool(torch.isfinite(t).all())), (p, st["m"], st["v"]))
@@ -2679,6 +2736,7 @@ def phase_train_4stream(dev):
     torch.cuda.synchronize()
 
     reset_launches()
+    reset_adam_launches()
     p, st = params, state
     losses = []
     n_steps = 3
@@ -2691,6 +2749,7 @@ def phase_train_4stream(dev):
           f"{[round(float(v), 6) for v in losses]}, launches {launches}")
     expect_launches(launches, lstm_peep_fwd_train=6 * n_steps, lstm_peep_bwd=6 * n_steps,
                     delta=n_steps)
+    expect_adam_launches(params, n_steps, "4-stream train")
     finite = []
     tree_map(lambda t: finite.append(bool(torch.isfinite(t).all())), (p, st["m"], st["v"]))
     if not (all(finite) and all(torch.isfinite(v) for v in losses)):
@@ -4742,6 +4801,151 @@ def phase_oracle(dev, trees):
     numbers["host"] = dict(cpu=cpu_model(), cores=os.cpu_count(), card=card)
     print(f"oracle: launches over the phase {totals}")
     return totals, numbers
+
+
+# phase_adam: the multi-tensor Adam kernel (csrc/adam.cu) at the benchmark
+# cells' parameter trees, seeded as the benchmark seeds them
+ADAM_CONFIGS = ("adenet_v3-oulu-trimodal", "adenet-oulu-4stream")
+ADAM_STEPS = 5
+# adam_vlr's rates by path prefix over a base rate, for both trees
+ADAM_LR_MAP = ({"aggregator": 3e-4, "output": 1e-3}, 1e-4)
+# block sizes (values a block) timed beside the wrapper's CHUNK with --adam
+ADAM_CHUNKS = (512, 1024, 2048, 4096, 16384)
+
+
+def adam_tree(name, dev):
+    """``(model config, parameter tree)`` of the benchmark configuration
+    ``name``, seeded as ``avsr_bench/harness/inputs.make_weights``."""
+    from avsr_bench.harness import inputs
+
+    with open(os.path.join(ROOT, "avsr_bench", "configs", f"{name}.json")) as f:
+        model = json.load(f)["model"]
+    return model, inputs.make_weights(model, SEED, dev)
+
+
+def adam_grads(params, step, dev):
+    """A seeded gradient tree: standard normal leaves scaled by 1e-k, k
+    cycling over 0-3 leaf by leaf (the trees' gradients span such ranges)."""
+    import torch
+    from ip_avsr_torch.ops.kernels.adam import _leaves, _rebuild
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100 + step)
+    return _rebuild(params, [torch.randn(p.shape, generator=gen, device=dev) * 10.0 ** -(i % 4)
+                             for i, p in enumerate(_leaves(params))])
+
+
+def adam_differs(got, want):
+    """(leaves that differ, values that differ, max abs difference) of two
+    trees."""
+    import torch
+    from ip_avsr_torch.ops.kernels.adam import _leaves
+
+    bad = [(a, b) for a, b in zip(_leaves(got), _leaves(want)) if not torch.equal(a, b)]
+    return (len(bad), sum(int((a != b).sum()) for a, b in bad),
+            max([(a - b).abs().max().item() for a, b in bad], default=0.0))
+
+
+def phase_adam(dev, chunks=None):
+    """The multi-tensor Adam kernel at both benchmark cells' trees: p, m, v
+    and t bit-equal to the plain version (``ops/kernels/adam.plain``, the
+    eager tree_maps) over 5 steps for ``adam`` and ``adam_vlr``, one launch
+    an update a table; the kernel's time (20 launches, the card's clock
+    with the stream held busy) beside its bound, at the wrapper's
+    ``CHUNK`` values a block and at each of ``chunks`` besides; the whole
+    update
+    (``apply``: the step scalar's chain, the outputs, the table, the
+    launch) and the plain version on the card's clock with the stream held
+    busy (``queued_ms``) and on the host's; ``torch.optim.Adam(fused=True)``
+    on the same tree as a yardstick of time only (its eps is added
+    elsewhere than Lasagne's: the port never calls it)."""
+    import torch
+    from ip_avsr_torch.ops.kernels import adam as kadam
+    from ip_avsr_torch.train import optimizers as opt_lib
+
+    out = {"capacity": kadam.CAPACITY, "chunk": kadam.CHUNK}
+    for name in ADAM_CONFIGS:
+        _, params = adam_tree(name, dev)
+        leaves = kadam._leaves(params)
+        n = sum(t.numel() for t in leaves)
+        rates, base = ADAM_LR_MAP
+        lr_map = opt_lib.generate_lr_map(params, rates, base)
+        tables = -(-len(leaves) // kadam.CAPACITY)
+        row = {"leaves": len(leaves), "values": n}
+        for kind in ("adam", "adam_vlr"):
+            opt = opt_lib.adam(1e-4) if kind == "adam" else opt_lib.adam_vlr(lr_map, base_lr=base)
+            state = opt.init(params)
+            p, ref_p, ref_m, ref_v, ref_t = params, params, state["m"], state["v"], state["t"]
+            for step in range(ADAM_STEPS):
+                g = adam_grads(params, step, dev)
+                lr = 1e-4 * 0.9 ** step
+                kadam.adam_update.launches = 0
+                p, state = opt.apply(p, g, state, learning_rate=lr)
+                if kadam.adam_update.launches != tables:
+                    raise AssertionError(f"adam {name} {kind}: {kadam.adam_update.launches} "
+                                         f"launches an update, expected {tables}")
+                ref_t = ref_t + 1.0
+                scale = lr if kind == "adam" else lr / base
+                s = scale * torch.sqrt(1.0 - 0.999 ** ref_t) / (1.0 - 0.9 ** ref_t)
+                ref_p, ref_m, ref_v = kadam.plain(ref_p, g, ref_m, ref_v, s, 0.9, 0.999, 1e-8,
+                                                  None if kind == "adam" else lr_map)
+                for label, got, want in (("p", p, ref_p), ("m", state["m"], ref_m),
+                                         ("v", state["v"], ref_v), ("t", state["t"], ref_t)):
+                    leaves_off, values_off, worst = adam_differs(got, want)
+                    if leaves_off:
+                        raise AssertionError(
+                            f"adam {name} {kind} step {step}: {label} differs from the plain "
+                            f"version in {leaves_off} leaves, {values_off} values, max abs "
+                            f"{worst:.3e}")
+            row[f"{kind}_bit_equal_steps"] = ADAM_STEPS
+        # the kernel alone: the wrapper's launches (outputs, table, launch)
+        # with the stream held busy, so the card's clock reads the kernel
+        opt = opt_lib.adam(1e-4)
+        state = opt.init(params)
+        g = adam_grads(params, 0, dev)
+        a_t = torch.full((), 1e-4, dtype=torch.float32, device=dev)
+        groups = [leaves] + [kadam._leaves(t) for t in (g, state["m"], state["v"])]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def kernel(chunk):
+            return lambda: kadam._launch(groups, a_t, [1.0] * len(leaves), 0.9, 0.999, 1e-8,
+                                         stream, chunk=chunk)
+
+        by_chunk = {chunk: queued_ms(kernel(chunk))
+                    for chunk in sorted({kadam.CHUNK, *(chunks or ())})}
+        bound_ms, bound_by = bound(28 * n, 9 * n)
+        row.update(kernel_ms_by_chunk=by_chunk, kernel_ms=by_chunk[kadam.CHUNK])
+        row.update(bound_ms=bound_ms, bound_by=bound_by,
+                   bound_share=bound_ms / row["kernel_ms"])
+        # the whole update, and the plain version, on the card's clock and
+        # the host's
+        apply = lambda: opt.apply(params, g, state, learning_rate=1e-4)  # noqa: E731
+
+        def plain():
+            t = state["t"] + 1.0
+            s = 1e-4 * torch.sqrt(1.0 - 0.999 ** t) / (1.0 - 0.9 ** t)
+            kadam.plain(params, g, state["m"], state["v"], s, 0.9, 0.999, 1e-8)
+
+        row.update(apply_ms=queued_ms(apply), apply_host_ms=host_median_ms(apply),
+                   plain_ms=queued_ms(plain), plain_host_ms=host_median_ms(plain))
+        # the library's fused Adam, in place on its own copies
+        ps = [t.clone().requires_grad_(True) for t in leaves]
+        for t, grad in zip(ps, kadam._leaves(g)):
+            t.grad = grad.clone()
+        library = torch.optim.Adam(ps, lr=1e-4, eps=1e-8, fused=True)
+        row["library_ms"] = queued_ms(library.step)
+        row["library_host_ms"] = host_median_ms(library.step)
+        del ps, library
+        out[name] = row
+        print(f"adam {name}: {len(leaves)} leaves, {n} values, {tables} launch(es) an update, "
+              f"bit-equal over {ADAM_STEPS} steps (adam, adam_vlr); kernel "
+              f"{row['kernel_ms']:.4f} ms against a bound of {bound_ms:.4f} ({bound_by}, "
+              f"{100 * row['bound_share']:.1f}%); by chunk {row['kernel_ms_by_chunk']}; "
+              f"apply {row['apply_ms']:.4f} ms card, {row['apply_host_ms']:.4f} host; plain "
+              f"{row['plain_ms']:.4f} card, {row['plain_host_ms']:.4f} host; "
+              f"torch.optim.Adam(fused=True) {row['library_ms']:.4f} card, "
+              f"{row['library_host_ms']:.4f} host")
+    torch.cuda.synchronize()
+    return out
 
 
 # phase_residuals: the LSTM residual levers on a train step.  Per LSTM layer
@@ -6992,10 +7196,11 @@ def main() -> int:
     bf16_only = sys.argv[1:] == ["--bf16"]
     mesh4_only = sys.argv[1:] == ["--mesh4"]
     tiled_only = sys.argv[1:] == ["--tiled"]
+    adam_only = sys.argv[1:] == ["--adam"]
     if len(sys.argv) > 1 and ab is None and sass_dir is None and not (
-            bf16_only or mesh4_only or tiled_only):
-        print(f"usage: {sys.argv[0]} [--ab DIR | --sass DIR | --bf16 | --mesh4 | --tiled]",
-              file=sys.stderr)
+            bf16_only or mesh4_only or tiled_only or adam_only):
+        print(f"usage: {sys.argv[0]} [--ab DIR | --sass DIR | --bf16 | --mesh4 | --tiled | "
+              f"--adam]", file=sys.stderr)
         return 2
     if mesh4_only and torch.cuda.device_count() < SCALE4_RANKS:
         print(f"chip_smoke --mesh4: phase_scale4 needs {SCALE4_RANKS} cards, this host has "
@@ -7017,6 +7222,12 @@ def main() -> int:
     dev = torch.device("cuda")
     if ab:
         print(json.dumps({"ab": ab_run(dev)}))
+        return 0
+    if adam_only:
+        print(json.dumps({"adam": phase_adam(dev, ADAM_CHUNKS)}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
         return 0
     if mesh4_only:
         scale4_launches, scale4_numbers = phase_scale4(dev)
@@ -7065,6 +7276,7 @@ def main() -> int:
     launches4, _ = phase_serve_4stream(dev, trees)
     train_launches4, _ = phase_train_4stream(dev)
     main_path = tiled_main_path(dev)
+    adam = phase_adam(dev)
     # the bf16 paths beside the f32 ones: on this card torch.profiler has
     # lost every device record of a cooperative launch when traced after
     # phase_tools, so the phase that traces them runs here
@@ -7197,6 +7409,11 @@ def main() -> int:
     for row in kernels:
         if row["name"] != "delta":
             row.update(sass[row_instance(row["name"])])
+    # the multi-tensor Adam kernel at both training cells' trees
+    # with the Trainer step's launches on the main path at the cells' and the
+    # reference batch (tiled_main_path)
+    kernels.append({"name": "adam", "route": "cuda", "source": "ip_avsr_torch/csrc/adam.cu",
+                    "replaces": None, **adam, "main_path_launches": main_path["adam"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,10 @@ optional ``learning_rate=`` override per call (the trainer's decay
 schedule).  The state trees are the JAX package's (``{"m", "v", "t"}``,
 ``{"accu", "delta_accu"}``, ``{"velocity"}``), so a JAX optimizer state
 carries across through ``bridge.params_from_jax``.  Updates return new
-tensors and leave their inputs as they were.
+tensors and leave their inputs as they were.  Both Adams update every leaf
+through ``ops/kernels/adam.adam_update``: on the card one multi-tensor
+kernel launch for the whole tree, on the CPU its plain version, three
+``tree_map``s of eager operations.
 
 * ``adam``: lasagne.updates.adam, the standard bias-corrected Adam;
 * ``adam_vlr``: Adam with a per-parameter learning-rate tree
@@ -25,6 +28,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ip_avsr_torch.device import tree_map
+from ip_avsr_torch.ops.kernels import adam as adam_kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,10 +56,8 @@ def adam(learning_rate=1e-4, beta1=0.9, beta2=0.999, epsilon=1e-8) -> Optimizer:
     def apply(params, grads, state, learning_rate=learning_rate):
         t = state["t"] + 1.0
         a_t = learning_rate * torch.sqrt(1.0 - beta2 ** t) / (1.0 - beta1 ** t)
-        m = tree_map(lambda m, g: beta1 * m + (1.0 - beta1) * g, state["m"], grads)
-        v = tree_map(lambda v, g: beta2 * v + (1.0 - beta2) * g * g, state["v"], grads)
-        new = tree_map(lambda p, m, v: p - a_t * m / (torch.sqrt(v) + epsilon),
-                       params, m, v)
+        new, m, v = adam_kernel.adam_update(params, grads, state["m"], state["v"], a_t,
+                                            beta1, beta2, epsilon)
         return new, {"m": m, "v": v, "t": t}
 
     return Optimizer(init, apply)
@@ -123,10 +125,8 @@ def adam_vlr(lr_map, beta1=0.9, beta2=0.999, epsilon=1e-8, base_lr=None) -> Opti
         scale = learning_rate / base_lr if learning_rate is not None and base_lr else 1.0
         t = state["t"] + 1.0
         corr = scale * torch.sqrt(1.0 - beta2 ** t) / (1.0 - beta1 ** t)
-        m = tree_map(lambda m, g: beta1 * m + (1.0 - beta1) * g, state["m"], grads)
-        v = tree_map(lambda v, g: beta2 * v + (1.0 - beta2) * g * g, state["v"], grads)
-        new = tree_map(lambda p, m, v, lr: p - (lr * corr) * m / (torch.sqrt(v) + epsilon),
-                       params, m, v, lr_map)
+        new, m, v = adam_kernel.adam_update(params, grads, state["m"], state["v"], corr,
+                                            beta1, beta2, epsilon, lr_map)
         return new, {"m": m, "v": v, "t": t}
 
     return Optimizer(init, apply)
