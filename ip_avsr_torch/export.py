@@ -70,17 +70,32 @@ PLATFORMS = ("cpu", "cuda")
 
 
 def config_to_dict(config) -> dict:
-    """JSON-able dict of an :class:`AdeNetConfig` (tuples become lists)."""
-    return dataclasses.asdict(config)
+    """JSON-able dict of an :class:`AdeNetConfig` (tuples become lists).
+    The fields the JAX package's dataclasses lack (``adenet.PORT_FIELDS``:
+    a conv front end's, ``agg_merge``) are written only where they differ
+    from their defaults, so a config the JAX package can express gives the
+    JAX package's dict."""
+    from ip_avsr_torch.models import adenet
+
+    def strip(d, obj):
+        for f in dataclasses.fields(obj):
+            if f.name in adenet.PORT_FIELDS and getattr(obj, f.name) == f.default:
+                del d[f.name]
+        return d
+
+    d = strip(dataclasses.asdict(config), config)
+    d["streams"] = [strip(s, spec) for s, spec in zip(d["streams"], config.streams)]
+    return d
 
 
 def config_from_dict(d: dict):
     from ip_avsr_torch.models import adenet
 
-    streams = [adenet.StreamSpec(**{**s, "encoder_shapes":
-                                    tuple(s["encoder_shapes"]) if s.get("encoder_shapes") else None,
-                                    "encoder_nonlinearities":
-                                    tuple(s["encoder_nonlinearities"]) if s.get("encoder_nonlinearities") else None})
+    def tuples(s, *keys):
+        return {**s, **{k: tuple(s[k]) if s.get(k) else None for k in keys if k in s}}
+
+    streams = [adenet.StreamSpec(**tuples(s, "encoder_shapes", "encoder_nonlinearities",
+                                          "frontend_widths"))
                for s in d["streams"]]
     rest = {k: v for k, v in d.items() if k != "streams"}
     if rest.get("agg_sizes") is not None:

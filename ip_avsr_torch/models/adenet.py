@@ -3,12 +3,21 @@
 Mirrors ip_avsr_tpu/models/adenet.py: per stream, (B, T, D) -> optional dense
 encoder on (B*T, D) frames -> optional batch norm -> optional DeltaLayer
 (dim x3) -> optional stream LSTM; then fusion {sum | adasum | concat}; then
-an aggregator of (bi)directional LSTM layers whose halves are summed; then a
-per-timestep softmax ("per_step") or a last-timestep classifier
-("last_step").  The streaming head (``check_streamable``,
-``streaming_init_state``, ``head_forward_streaming``) advances a
-forward-only head chunk by chunk, every recurrence carrying (cell, hid) in
-and out of a state dict.
+an aggregator of (bi)directional LSTM layers whose halves are summed (or,
+with ``agg_merge="concat"``, concatenated); then a per-timestep softmax
+("per_step") or a last-timestep classifier ("last_step").
+
+Beyond the JAX package, a stream with ``frontend="resnet"`` takes (B, T, H,
+W) uint8 frames through the 3-D convolution stem and residual trunk of
+``models/resnet.py`` in place of a dense encoder (the span
+``model.frontend``); its running batch-norm statistics live in
+``streams/<name>/frontend_state``.  Such a stream runs on one device in
+float32: a mesh or ``matmul_dtype="bfloat16"`` raises
+``NotImplementedError`` (``check_supported``).
+
+The streaming head (``check_streamable``, ``streaming_init_state``,
+``head_forward_streaming``) advances a forward-only head chunk by chunk,
+every recurrence carrying (cell, hid) in and out of a state dict.
 
 ``StreamSpec`` and ``AdeNetConfig`` carry the JAX dataclasses' fields, field
 for field.  Batch norm (``use_batchnorm``) keeps its running statistics in
@@ -45,6 +54,7 @@ import torch
 
 from ip_avsr_torch.device import resolve_device, tree_to
 from ip_avsr_torch.models import encoder as encoder_mod
+from ip_avsr_torch.models import resnet as resnet_mod
 from ip_avsr_torch.ops import fusion as fusion_ops
 from ip_avsr_torch.ops import initializers as inits
 from ip_avsr_torch.ops import lstm as lstm_ops
@@ -66,8 +76,15 @@ class StreamSpec:
     dropout: float = 0.0
     use_lstm: bool = True
     lstm_size: Optional[int] = None
+    # "resnet": (B, T, H, W) frames (input_dim = H * W pixels) through
+    # models/resnet.py, its stages at ``frontend_widths`` channels; None:
+    # (B, T, input_dim) features
+    frontend: Optional[str] = None
+    frontend_widths: Sequence[int] = (64, 128, 256, 512)
 
     def encoded_dim(self) -> int:
+        if self.frontend:
+            return int(self.frontend_widths[-1])
         d = self.encoder_shapes[-1] if self.encoder_shapes else self.input_dim
         return int(d)
 
@@ -87,6 +104,9 @@ class AdeNetConfig:
     agg_size: Optional[int] = None
     agg_sizes: Optional[Sequence[int]] = None
     agg_dropout: float = 0.0
+    # how a bidirectional layer's halves meet: "sum" (the reference's) or
+    # "concat" (the next layer and the classifier read 2H)
+    agg_merge: str = "sum"
     output_mode: str = "per_step"
     use_peepholes: bool = False
     w_init: str = "glorot"
@@ -114,22 +134,53 @@ class AdeNetConfig:
             return [int(s) for s in self.agg_sizes]
         return [int(self.agg_size or self.lstm_size)] * self.agg_layers
 
+    def agg_out_dim(self, size: int) -> int:
+        """The width an aggregator layer of ``size`` units hands on."""
+        return 2 * size if self.agg_bidirectional and self.agg_merge == "concat" else size
+
     def classifier_in_dim(self) -> int:
         sizes = self.aggregator_sizes()
-        return sizes[-1] if sizes else self.fused_dim()
+        return self.agg_out_dim(sizes[-1]) if sizes else self.fused_dim()
 
 
-def check_supported(config: AdeNetConfig) -> None:
+# the fields of StreamSpec and AdeNetConfig that the JAX package's lack
+PORT_FIELDS = ("frontend", "frontend_widths", "agg_merge")
+FRONTENDS = (None, "resnet")
+AGG_MERGES = ("sum", "concat")
+
+
+def check_supported(config: AdeNetConfig, mesh=None) -> None:
     """Raise ``NotImplementedError`` for the config values the port does
     not cover, naming the ROADMAP item: a ``matmul_dtype`` other than
     None, float32 and bfloat16, the only operand types the LSTM kernels
-    are instantiated for (``ops/lstm.matmul_dtype_of``)."""
+    are instantiated for (``ops/lstm.matmul_dtype_of``); a conv front end
+    on a ``mesh`` (its batch norm is not synced over ranks) or under
+    ``matmul_dtype="bfloat16"`` (its convolutions run in float32).  An
+    unknown front end or merge, or a conv stream with a dense encoder,
+    raises ``ValueError``."""
     try:
         lstm_ops.matmul_dtype_of(config.matmul_dtype)
     except ValueError as e:
         raise NotImplementedError(
             f"not ported: matmul_dtype={config.matmul_dtype!r} (Queue 2 item 4 ported "
             "float32 and bfloat16 operands, the LSTM kernels' instantiations)") from e
+    if config.agg_merge not in AGG_MERGES:
+        raise ValueError(f"agg_merge must be one of {AGG_MERGES}, got {config.agg_merge!r}")
+    for spec in config.streams:
+        if spec.frontend not in FRONTENDS:
+            raise ValueError(f"stream {spec.name}: unknown frontend {spec.frontend!r}")
+        if not spec.frontend:
+            continue
+        if spec.encoder_shapes:
+            raise ValueError(f"stream {spec.name}: a conv front end takes no dense encoder")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"not ported: the conv front end of stream {spec.name} on a mesh (ROADMAP "
+                "Queue 6 item 5: batch norm synced across ranks)")
+        if lstm_ops.matmul_dtype_of(config.matmul_dtype) is not None:
+            raise NotImplementedError(
+                f"not ported: the conv front end of stream {spec.name} under matmul_dtype="
+                f"{config.matmul_dtype!r} (ROADMAP Queue 6 item 6: a bf16 front end)")
 
 
 def init_adenet_params(generator: torch.Generator, config: AdeNetConfig,
@@ -156,6 +207,9 @@ def init_adenet_params(generator: torch.Generator, config: AdeNetConfig,
             else:
                 sp["encoder"] = encoder_mod.init_encoder_params(
                     generator, spec.input_dim, spec.encoder_shapes, w_init)
+        if spec.frontend:
+            sp["frontend"], sp["frontend_state"] = resnet_mod.init_resnet_params(
+                generator, spec.frontend_widths)
         if spec.use_batchnorm:
             sp["bn"], sp["bn_state"] = norm_ops.init_batch_norm(spec.encoded_dim())
         if spec.use_lstm:
@@ -182,7 +236,7 @@ def init_adenet_params(generator: torch.Generator, config: AdeNetConfig,
         else:
             params["aggregator"].append({"fwd": lstm_ops.init_lstm_params(
                 generator, in_dim, agg, w_init, config.use_peepholes)})
-        in_dim = agg
+        in_dim = config.agg_out_dim(agg)
     params["output"] = {
         "w": w_init(generator, (config.classifier_in_dim(), config.output_classes)),
         "b": torch.zeros(config.output_classes),
@@ -233,13 +287,14 @@ def adenet_forward(params: dict, config: AdeNetConfig, inputs, mask: torch.Tenso
     from ``generator`` (default: a generator on the inputs' device seeded
     with 0, as the JAX package defaults to ``PRNGKey(0)``) and normalizes
     batch-norm streams with the batch's statistics.  ``return_aux=True``
-    returns ``(out, {"bn_state": {stream name: new running statistics}})``,
+    returns ``(out, {"bn_state": {stream name: new running statistics},
+    "frontend_state": {conv stream name: its front end's new state}})``,
     detached, for the trainer to merge into the parameters.  On a mesh:
     ``bn_axis`` (a dim of ``mesh``, default the 1-D ``data`` mesh, or a
     tuple of dims) syncs batch norm's training statistics over its ranks,
     ``model_axis`` names the dim the encoders' columns are split over, and
     ``block`` places these rows in the whole batch for dropout."""
-    check_supported(config)
+    check_supported(config, mesh)
     if train and generator is None:
         generator = torch.Generator(device=inputs[0].device).manual_seed(0)
     with spans.span("model.streams"):
@@ -254,21 +309,26 @@ def adenet_forward(params: dict, config: AdeNetConfig, inputs, mask: torch.Tenso
 def stream_prefix(params, config: AdeNetConfig, inputs, window=None, train=False,
                   generator=None, return_aux=False, bn_axis=None, delta_fn=None, mesh=None,
                   model_axis=None, block: Optional[Block] = None):
-    """The frame-parallel part: per stream, encoder -> batch norm -> delta ->
-    dropout.  The encoders (each followed by its stream's batch norm) run
-    first, then one grouped delta over every stream with ``use_delta`` (one
-    kernel launch on CUDA), or ``delta_fn(x)`` per such stream when given,
-    then dropout per stream in stream order.  Returns the features, and
+    """The frame-parallel part: per stream, encoder (or conv front end)
+    -> batch norm -> delta -> dropout.  The encoders and front ends (each
+    followed by its stream's batch norm) run first, then one grouped delta
+    over every stream with ``use_delta`` (one kernel launch on CUDA), or
+    ``delta_fn(x)`` per such stream when given, then dropout per stream in
+    stream order.  Returns the features, and
     with ``return_aux`` also the batch-norm aux of :func:`adenet_forward`;
     ``bn_axis``, ``mesh``, ``model_axis`` and ``block`` as there."""
     window = config.window if window is None else window
     B, T = inputs[0].shape[0], inputs[0].shape[1]
     model_group = None if model_axis is None else mesh.group(model_axis)
-    aux = {"bn_state": {}}
+    aux = {"bn_state": {}, "frontend_state": {}}
     feats = []
     for i, spec in enumerate(config.streams):
         sp = params["streams"][spec.name]
         x = inputs[i]
+        if spec.frontend:
+            with spans.span("model.frontend", count=B * T):
+                x, aux["frontend_state"][spec.name] = resnet_mod.resnet_forward(
+                    sp["frontend"], sp["frontend_state"], x, train)
         if spec.encoder_shapes:
             enc = encoder_mod.encoder_forward(sp["encoder"], x.reshape(B * T, spec.input_dim),
                                               spec.encoder_nonlinearities,
@@ -295,8 +355,9 @@ def stream_prefix(params, config: AdeNetConfig, inputs, window=None, train=False
 def head_forward(params, config: AdeNetConfig, stream_feats, mask, train=False,
                  generator=None, block: Optional[Block] = None) -> torch.Tensor:
     """The recurrent part: per-stream LSTMs -> fusion -> aggregator
-    (B)LSTM stack (dropout before each layer, cut to ``block`` when given)
-    -> classifier head.
+    (B)LSTM stack (dropout before each layer, cut to ``block`` when given;
+    a BLSTM layer's halves summed or concatenated, ``agg_merge``) ->
+    classifier head.
 
     With ``fuse_scans`` the stream LSTMs run as one group and each BLSTM
     layer's two halves as one group, where ``can_group_lstms`` allows it.
@@ -338,9 +399,9 @@ def head_forward(params, config: AdeNetConfig, stream_feats, mask, train=False,
             if fuse_ok and lstm_ops.can_group_lstms([lp["fwd"], lp["bwd"]]):
                 f, bwd = lstm_ops.lstm_forward_grouped([lp["fwd"], lp["bwd"]], [agg, agg],
                                                        mask, [False, True], matmul_dtype=mm)
-                agg = f + bwd
             else:
-                agg = run_lstm(lp["fwd"], agg) + run_lstm(lp["bwd"], agg, backwards=True)
+                f, bwd = run_lstm(lp["fwd"], agg), run_lstm(lp["bwd"], agg, backwards=True)
+            agg = torch.cat([f, bwd], dim=-1) if config.agg_merge == "concat" else f + bwd
         else:
             agg = run_lstm(lp["fwd"], agg)
 

@@ -11,7 +11,8 @@ encoder, feature concat into a two-layer BLSTM stack), ``adenet_v2``,
 adaptive sum), the raw + diff ``adenet_v6``; and the generic N-stream
 ``adenet_nstream`` (peephole LSTMs by default; ``configs/oulu_4stream.ini``
 builds it).  ``models/avnet.avnet_config`` builds the audio-visual
-network.
+network.  Beyond the JAX package, ``resnet_blstm`` builds the ResNet-34 +
+BLSTM word lipreader on uint8 frames.
 """
 
 from __future__ import annotations
@@ -320,4 +321,22 @@ def adenet_nstream(
         window=window, fusiontype=fusiontype, agg_layers=1,
         agg_bidirectional=use_blstm,
         output_mode="per_step", w_init=w_init, use_peepholes=use_peepholes,
+    )
+
+
+def resnet_blstm(output_classes=500, lstm_size=256, image_shape=(112, 112),
+                 frontend_widths=(64, 128, 256, 512)) -> AdeNetConfig:
+    """The word lipreader of Stafylakis & Tzimiropoulos (arXiv:1703.04105,
+    section 3): (B, T, H, W) uint8 mouth-ROI frames through the 3-D stem and
+    a residual trunk (``models/resnet.py``; ResNet-34 at the defaults), a
+    two-layer BLSTM whose halves are concatenated, so both layers and the
+    classifier read 2 * ``lstm_size``, and a per-frame softmax.  The LSTMs
+    are the port's Lasagne cells (learned initial state, gate gradients
+    clipped to +-5), where the paper's are Torch's."""
+    H, W = (int(v) for v in image_shape)
+    stream = StreamSpec(input_dim=H * W, name="video", use_delta=False, use_lstm=False,
+                        frontend="resnet", frontend_widths=tuple(frontend_widths))
+    return AdeNetConfig(
+        streams=[stream], output_classes=output_classes, lstm_size=lstm_size,
+        agg_layers=2, agg_bidirectional=True, agg_merge="concat", output_mode="per_step",
     )

@@ -186,9 +186,10 @@ def make_server(params: dict, config: adenet.AdeNetConfig, vote: bool = True,
     """Returns ``serve(streams, mask) -> scores`` for preprocessed streams on
     ``device`` (default ``cuda``): a :class:`Server`.
 
-    ``streams[i]`` is (B, T, D_i) and ``mask`` (B, T), tensors or arrays.
-    Scores are (B, C); a per-step head with ``vote=False`` returns its
-    (B, T, C) probabilities.
+    ``streams[i]`` is (B, T, D_i) and ``mask`` (B, T), tensors or arrays;
+    a conv front end's stream is (B, T, H, W) frames, uint8 or float, cast
+    to float32 on ``device`` by the front end.  Scores are (B, C); a
+    per-step head with ``vote=False`` returns its (B, T, C) probabilities.
 
     ``mesh`` (``parallel/mesh.make_mesh()``; every rank of its group calls
     the server with the same request) splits the request's rows over the
@@ -198,9 +199,11 @@ def make_server(params: dict, config: adenet.AdeNetConfig, vote: bool = True,
     so the scores equal one device's.  The batch must divide by the mesh
     size (pad rows with a zero mask)."""
     device = resolve_device(device)
+    adenet.check_supported(config, mesh)
     if mesh is not None:
         params = mesh_lib.replicate(mesh, tree_to(params, device))
     program = Server(params, config, vote).to(device)
+    frames = [bool(spec.frontend) for spec in config.streams]
     rows = None if mesh is None else mesh_lib.batch_sharding(mesh, mesh.axis_names[0])
 
     @torch.inference_mode()
@@ -210,7 +213,8 @@ def make_server(params: dict, config: adenet.AdeNetConfig, vote: bool = True,
                 raise ValueError(f"batch {streams[0].shape[0]} must be divisible by the mesh "
                                  f"size {mesh.size} (pad rows with a zero mask)")
             streams, mask = [rows.local(s) for s in streams], rows.local(mask)
-        streams = [torch.as_tensor(s, device=device).to(torch.float32) for s in streams]
+        streams = [torch.as_tensor(s, device=device) for s in streams]
+        streams = [s if raw else s.to(torch.float32) for s, raw in zip(streams, frames)]
         mask = torch.as_tensor(mask, device=device).to(torch.float32)
         out = program(streams, mask)
         if rows is None:

@@ -19,10 +19,11 @@ runners/4stream.py and oulu/trimodal_with_val.py):
   * optional NaN recovery, NaN checks, a torch.profiler trace, and
     checkpoint/resume of the whole train state;
   * batch-norm streams keep their running statistics in the parameter tree
-    (``streams/<name>/bn_state``): they get zero gradients, so every
-    optimizer state keeps the JAX package's structure, and a training
-    step's moved statistics are merged after the update, as the JAX
-    trainer merges them; evaluation, checkpoints, the best-parameter
+    (``streams/<name>/bn_state``, and a conv front end's, one pair for each
+    of its batch norms, ``streams/<name>/frontend_state``): they get zero
+    gradients, so every optimizer state keeps the JAX package's structure,
+    and a training step's moved statistics are merged after the update, as
+    the JAX trainer merges them; evaluation, checkpoints, the best-parameter
     snapshot and NaN recovery carry them with the rest of the tree.
 
 Dropout draws from a ``torch.Generator`` on the trainer's device, seeded
@@ -144,9 +145,12 @@ def loss_and_grads(params, cfg, streams, y, mask, generator=None, parts=False,
 def merge_bn_state(params, aux):
     """Write the moved batch-norm running statistics of a training
     forward's ``aux`` into ``params`` (after the optimizer's update, as
-    the JAX trainer merges them) and return ``params``."""
-    for name, new_bn in aux["bn_state"].items():
-        params["streams"][name]["bn_state"] = new_bn
+    the JAX trainer merges them) and return ``params``: a stream's batch
+    norm (``bn_state``) and a conv front end's tree of them
+    (``frontend_state``)."""
+    for key in ("bn_state", "frontend_state"):
+        for name, new_state in aux.get(key, {}).items():
+            params["streams"][name][key] = new_state
     return params
 
 
@@ -342,6 +346,7 @@ class Trainer:
                 raise ValueError(
                     f"grad_accum_steps={options.grad_accum_steps} must divide "
                     f"batchsize={options.batchsize}")
+        adenet.check_supported(config, self.mesh)
         self.device = resolve_device(device)
         if options.optimizer == "adam_vlr":
             # needs the parameter tree for its rate map: built in fit
@@ -374,7 +379,7 @@ class Trainer:
 
     @property
     def _has_bn(self):
-        return any(s.use_batchnorm for s in self.config.streams)
+        return any(s.use_batchnorm or s.frontend for s in self.config.streams)
 
     @property
     def _sp_active(self) -> bool:

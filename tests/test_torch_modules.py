@@ -24,6 +24,7 @@ from ip_avsr_tpu.models import adenet as jadenet, encoder as jencoder, zoo as jz
 from ip_avsr_tpu.ops import (dct as jdct, fusion as jfusion, nonlinearities as jnl,
                              pipeline as jpipe, voting as jvoting)
 from ip_avsr_torch import bridge, device as tdevice
+from tests.torch_trainer_lib import jax_fields
 from ip_avsr_torch.models import adenet as tadenet, encoder as tencoder, zoo as tzoo
 from ip_avsr_torch.ops import (dct as tdct, fusion as tfusion, initializers as tinit,
                                nonlinearities as tnl, pipeline as tpipe, voting as tvoting)
@@ -170,12 +171,19 @@ def test_masked_vote_matches_jax():
 def test_config_fields_match_jax():
     for port, ref in ((tadenet.StreamSpec, jadenet.StreamSpec),
                       (tadenet.AdeNetConfig, jadenet.AdeNetConfig)):
-        assert ([(f.name, f.default) for f in dataclasses.fields(port)]
+        assert ([(f.name, f.default) for f in dataclasses.fields(port)
+                 if f.name not in tadenet.PORT_FIELDS]
                 == [(f.name, f.default) for f in dataclasses.fields(ref)])
+    # the port's own fields are those PORT_FIELDS names, and no other
+    assert {f.name for c in (tadenet.StreamSpec, tadenet.AdeNetConfig)
+            for f in dataclasses.fields(c)} - {f.name for c in (jadenet.StreamSpec,
+                                                              jadenet.AdeNetConfig)
+                                               for f in dataclasses.fields(c)} == set(
+        tadenet.PORT_FIELDS)
     # the flagship config round-trips through the JAX exporter's dict form
     port = tzoo.adenet_v3(1144, 90, 1144)
     ref = jzoo.adenet_v3(1144, 90, 1144)
-    assert dataclasses.asdict(port) == jexport.config_to_dict(ref)
+    assert jax_fields(port) == jexport.config_to_dict(ref)
     assert port.fused_dim() == ref.fused_dim()
     assert port.classifier_in_dim() == ref.classifier_in_dim()
 

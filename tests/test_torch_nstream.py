@@ -33,6 +33,7 @@ from ip_avsr_tpu.train import config as jconfig, optimizers as jopt
 from ip_avsr_torch import bridge, serve as tserve
 from ip_avsr_torch.models import adenet as tadenet, zoo as tzoo
 from ip_avsr_torch.train import config as tconfig, trainer as ttrainer
+from tests.torch_trainer_lib import jax_fields
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,7 +68,7 @@ def test_build_model_config_matches_jax(name):
         assert as_dict(got) == as_dict(ref), parse
     ref = jconfig.build_model_config(jconfig.parse_streams(jcp), jconfig.parse_classifier(jcp))
     got = tconfig.build_model_config(tconfig.parse_streams(tcp), tconfig.parse_classifier(tcp))
-    assert dataclasses.asdict(got) == jexport.config_to_dict(ref)
+    assert jax_fields(got) == jexport.config_to_dict(ref)
     assert got.fused_dim() == ref.fused_dim()
     tadenet.check_supported(got)
 
@@ -93,7 +94,7 @@ def test_config_helpers_match_jax():
                                              jconfig.ClassifierConfig(**clf))
             got = tconfig.build_model_config([tconfig.StreamConfig(**stream)],
                                              tconfig.ClassifierConfig(**clf))
-            assert dataclasses.asdict(got) == jexport.config_to_dict(ref)
+            assert jax_fields(got) == jexport.config_to_dict(ref)
 
 
 def _oulu_configs():

@@ -293,7 +293,8 @@ def test_trainer_modules_import_neither_jax_nor_the_jax_package():
         "ip_avsr_torch.data.landmarking, ip_avsr_torch.cli.confusion_visualizer, "
         "ip_avsr_torch.cli.parity_check, ip_avsr_torch.cli.prepare_data, "
         "ip_avsr_torch.cli.landmark, ip_avsr_torch.cli.playvid, "
-        "ip_avsr_torch.reference_impl\n"
+        "ip_avsr_torch.reference_impl, ip_avsr_torch.models.resnet, "
+        "ip_avsr_torch.reference_lipread\n"
         "import sys\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m.startswith('ip_avsr_tpu')]\n"
@@ -312,6 +313,20 @@ def test_trainer_modules_import_neither_jax_nor_the_jax_package():
         "spec.loader.exec_module(mod)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('ip_avsr_torch', 'ip_avsr_tpu', 'jax', 'jaxlib', 'torch')]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    # the lipreader's plain reference, loaded from its file alone, imports
+    # no module of the port (torch alone)
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location('lipread_ref', "
+        "'ip_avsr_torch/reference_lipread.py')\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('ip_avsr_torch', 'ip_avsr_tpu', 'jax', 'jaxlib')]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=120)

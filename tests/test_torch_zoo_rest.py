@@ -21,7 +21,7 @@ from ip_avsr_tpu.models import adenet as jadenet
 from ip_avsr_torch import bridge
 from ip_avsr_torch.models import adenet as tadenet
 from tests import zoo_cases
-from tests.torch_trainer_lib import zoo_case as port_case
+from tests.torch_trainer_lib import jax_fields, zoo_case as port_case
 
 torch.set_num_threads(1)
 FWD_TOL = 2e-5
@@ -34,7 +34,7 @@ NEW = ["deltanet", "baseline_end2end", "adenet_v1", "adenet_v1_1", "adenet_v2_2"
 def test_builder_matches_jax_field_for_field(name):
     got, ref = port_case(name), zoo_cases.ZOO_CASES[name]()
     assert isinstance(got, tadenet.AdeNetConfig)
-    assert dataclasses.asdict(got) == jexport.config_to_dict(ref)
+    assert jax_fields(got) == jexport.config_to_dict(ref)
     assert got.fused_dim() == ref.fused_dim()
     assert got.classifier_in_dim() == ref.classifier_in_dim()
     tadenet.check_supported(got)

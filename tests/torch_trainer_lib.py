@@ -186,3 +186,20 @@ def zoo_case(name):
         return zoo_cases.ZOO_CASES[name]()
     finally:
         zoo_cases.zoo, zoo_cases.avnet, zoo_cases.adenet = held
+
+
+def jax_fields(config) -> dict:
+    """``dataclasses.asdict`` of a port ``AdeNetConfig`` in the JAX
+    package's fields: each field the JAX package's lack
+    (``adenet.PORT_FIELDS``) is checked to hold its default and dropped."""
+    from ip_avsr_torch.models.adenet import PORT_FIELDS
+
+    def strip(d, cls):
+        for f in dataclasses.fields(cls):
+            if f.name in PORT_FIELDS:
+                assert d.pop(f.name) == f.default, (cls.__name__, f.name)
+        return d
+
+    out = strip(dataclasses.asdict(config), type(config))
+    out["streams"] = [strip(s, type(spec)) for s, spec in zip(out["streams"], config.streams)]
+    return out
